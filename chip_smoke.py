@@ -4,21 +4,34 @@
     python3 chip_smoke.py
 
 1. prints the card and its power limit;
-2. builds the three CUDA kernels from ``vo_slam_test_tpu_torch/csrc`` with nvcc
+2. builds the CUDA kernels from ``vo_slam_test_tpu_torch/csrc`` with nvcc
    (sm_90a, one nvcc per source, all started together);
 3. holds each kernel against its plain PyTorch version on the card at the
-   main path's shapes (FAST on a frame's [8,480,640] pyramid, IC angle +
-   rBRIEF on its 1024 selected keypoints, Hamming top-2 at 1024x1024 on a real
-   frame pair and on a seeded instance with ties and empty rows) and times
-   both with CUDA events;
-4. drives the main path: the port's FusedTracker over the synthetic 640x480
-   sequence (30 frames, 1000 features, 8 levels: the fr1 extraction
-   settings, as ``run_slam --synthetic`` uses) and checks 30/30 tracked frames,
-   ATE < 1 cm, that every kernel's launch count rose, and that no plain
-   version saw a CUDA tensor;
-5. prints one ``{"kernels": [...]}`` line and, last, the ``{"ok": true, ...}``
-   line. Any failed check raises: the exit code is then non-zero and no result
-   line is printed. Without a CUDA device it exits 1 at once.
+   main paths' shapes and times both with CUDA events:
+   - FAST on a frame's [8,480,640] pyramid, IC angle + rBRIEF on its 1024
+     keypoints, Hamming top-2 at 1024x1024 on a real frame pair and on a
+     seeded instance with ties and empty rows;
+   - top-2 at 4096x1024 (the local-map search), chi2 top-2 at 4096x1024
+     (fuse into a keyframe), neighbour-batched chi2 top-2 at 16x1024x1024
+     (fuse into the neighbours) and the epipolar top-1 at 1024x1024
+     (triangulation), each on an instance captured from the SlamSystem path
+     and on a seeded instance with ties, empty rows and a stereo/mono mix.
+     Every output must be equal;
+4. main path 1: the port's FusedTracker over the synthetic corner sequence
+   (30 frames, 1000 features, 8 levels: the fr1 extraction settings, as
+   ``run_slam --synthetic`` uses): 30/30 tracked frames, ATE < 1 cm, every
+   kernel of the path launched;
+5. main path 2: the port's SlamSystem (tracking against the local map, the
+   keyframe policy and the local-mapping chain, interruptBA forced) over the
+   first 40 frames of the 240-frame room orbit at 640x480 with the default
+   MapCaps: 40/40 tracked frames, >= 5 keyframe events, ATE < 1 cm, the
+   chi2 and neighbour-batched kernels launched once per keyframe event, the
+   epipolar kernel once per neighbour past the baseline gate, and a second
+   run giving identical map tensors;
+6. prints one ``{"kernels": [...]}`` line and, last, the ``{"ok": true, ...}``
+   line. No plain version may see a CUDA tensor on either main path. Any
+   failed check raises: the exit code is then non-zero and no result line is
+   printed. Without a CUDA device it exits 1 at once.
 """
 
 from __future__ import annotations
@@ -32,15 +45,30 @@ import warnings
 import numpy as np
 import torch
 
-# published H100 SXM peaks (dense): HBM bandwidth and scalar f32 rate
+# published H100 SXM peaks (dense): HBM bandwidth and the f32 rate, an FMA
+# counted as two operations
 HBM_BYTES_PER_S = 3.35e12
-F32_OPS_PER_S = 67e12
+F32_FLOPS = 67e12
+# instruction rates by class, from the f32 rate and compute capability 9.0's
+# per-SM throughput table (CUDA C++ Programming Guide, "Arithmetic
+# Instructions"): 128 lanes per SM per clock for f32 add/mul/FMA, 64 for
+# 32-bit integer add, compare/min/max (f32 too) and logic, 16 for popc; four
+# schedulers issue at most 128 lanes' instructions per SM per clock in all
+FMA_PER_S = F32_FLOPS / 2
+OP_RATES = {"f32": FMA_PER_S, "alu": FMA_PER_S / 2, "popc": FMA_PER_S / 8}
+DISPATCH_PER_S = FMA_PER_S
+TOP2_OUTS = ("best_i", "best_d", "second_i", "second_d")
+SLICE_FRAMES = 40
 
 
-def bound_ms(n_bytes: float, n_ops: float):
+def bound_ms(n_bytes: float, ops: dict):
     """Least time for the work: the larger of bytes over the memory rate and
-    operations over the f32 rate (32-bit integer work counted at that rate)."""
-    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, n_ops / F32_OPS_PER_S
+    the operations' time. ``ops`` counts instructions by class (OP_RATES);
+    the classes run on separate pipes, so their time is the largest of each
+    class over its rate and of all of them over the dispatch rate."""
+    t_bytes = n_bytes / HBM_BYTES_PER_S
+    t_ops = max([n / OP_RATES[k] for k, n in ops.items()]
+                + [sum(ops.values()) / DISPATCH_PER_S])
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -84,17 +112,28 @@ def time_eager_ms(fn, iters=10) -> float:
     return start.elapsed_time(end) / iters
 
 
-def random_top2_instance(rng, M, N, device):
-    """Seeded instance with clustered windows, duplicated target descriptors
-    (distance ties) and 16 rows with nothing allowed."""
+def _tensors(arrs, device):
+    return [torch.as_tensor(np.ascontiguousarray(x)).to(device) for x in arrs]
+
+
+def _descriptors(rng, M, N):
+    """Random source and target descriptors; every third target repeats its
+    neighbour's, so distances tie."""
     a = rng.integers(0, 2**32, size=(M, 8), dtype=np.uint32)
     b = rng.integers(0, 2**32, size=(N, 8), dtype=np.uint32)
     b[1::3] = b[0::3][: len(b[1::3])]
+    return a.view(np.int32), b.view(np.int32)
+
+
+def random_top2_instance(rng, M, N, device):
+    """Seeded instance with clustered windows, duplicated target descriptors
+    (distance ties) and 16 rows with nothing allowed."""
+    a, b = _descriptors(rng, M, N)
     row_ok = rng.random(M) < 0.85
     row_ok[:16] = False
     lo = rng.integers(-1, 4, M).astype(np.int32)
-    arrs = [
-        a.view(np.int32), b.view(np.int32),
+    return _tensors([
+        a, b,
         rng.uniform(0, 640, M).astype(np.float32), rng.uniform(0, 480, M).astype(np.float32),
         rng.uniform(0.5, 120, M).astype(np.float32), rng.uniform(-10, 640, M).astype(np.float32),
         rng.uniform(5, 120, M).astype(np.float32), lo,
@@ -102,8 +141,331 @@ def random_top2_instance(rng, M, N, device):
         rng.uniform(0, 640, N).astype(np.float32), rng.uniform(0, 480, N).astype(np.float32),
         np.where(rng.random(N) < 0.4, -1.0, rng.uniform(0, 640, N)).astype(np.float32),
         rng.integers(0, 8, N).astype(np.int32), rng.random(N) < 0.9,
-    ]
-    return [torch.as_tensor(np.ascontiguousarray(x)).to(device) for x in arrs]
+    ], device)
+
+
+def random_chi2_instance(rng, M, N, device):
+    """Seeded chi2-mode instance, shaped like fuse's: each source row is
+    projected within a few pixels of a target keypoint at the target's
+    octave band, so the chi2 bound decides many pairs; half the targets are
+    stereo; ties and 16 empty rows -> the 15 arguments and ``col_isig2``."""
+    a, b = _descriptors(rng, M, N)
+    cu = rng.uniform(0, 640, N).astype(np.float32)
+    cv = rng.uniform(0, 480, N).astype(np.float32)
+    c_oct = rng.integers(0, 8, N).astype(np.int32)
+    cur = np.where(rng.random(N) < 0.5, -1.0, cu - rng.uniform(5, 60, N)).astype(np.float32)
+    pick = rng.integers(0, N, M)
+    ru = (cu[pick] + rng.normal(0, 2.0, M)).astype(np.float32)
+    rv = (cv[pick] + rng.normal(0, 2.0, M)).astype(np.float32)
+    rur = np.where(cur[pick] >= 0, cur[pick] + rng.normal(0, 2.0, M),
+                   ru - rng.uniform(5, 60, M)).astype(np.float32)
+    pred = (c_oct[pick] + rng.integers(0, 2, M)).astype(np.int32)
+    row_ok = rng.random(M) < 0.9
+    row_ok[:16] = False
+    return _tensors([
+        a, b, ru, rv, (3.0 * 1.2 ** pred).astype(np.float32), rur, np.zeros(M, np.float32),
+        pred - 1, pred, row_ok, cu, cv, cur, c_oct, rng.random(N) < 0.95,
+        (1.0 / (1.2 ** c_oct) ** 2).astype(np.float32),
+    ], device)
+
+
+def random_nb_instance(rng, B, M, N, device):
+    """B seeded chi2 instances sharing one source set, as
+    ``fuse_curr_into_neighbors`` passes it (a stride-0 ``expand``)."""
+    insts = [random_chi2_instance(rng, M, N, device) for _ in range(B)]
+    args = [torch.stack(x) for x in zip(*insts)]
+    args[0] = insts[0][0][None].expand(B, M, 8)
+    return args
+
+
+def random_epi_instance(rng, M, N, device):
+    """Seeded epipolar instance: each source row's line passes near a target
+    keypoint, line scales span three decades, a quarter of the rows and
+    targets have unknown featVec groups, a mono/epipole-flag mix, ties and 16
+    empty rows -> the 13 arguments of ``masked_top1_epi``."""
+    a, b = _descriptors(rng, M, N)
+    cu = rng.uniform(0, 640, N).astype(np.float32)
+    cv = rng.uniform(0, 480, N).astype(np.float32)
+    c_oct = rng.integers(0, 8, N)
+    pick = rng.integers(0, N, M)
+    ang = rng.uniform(0, np.pi, M)
+    s = 10.0 ** rng.uniform(-3, 0, M)
+    lx, ly = (s * np.cos(ang)).astype(np.float32), (s * np.sin(ang)).astype(np.float32)
+    lz = (-(lx * cu[pick] + ly * cv[pick]) + s * rng.normal(0, 3.0, M)).astype(np.float32)
+    row_l = np.stack([lx, ly, lz], 1).astype(np.float32)
+    den = (lx * lx + ly * ly).astype(np.float32)
+    row_ok = rng.random(M) < 0.9
+    row_ok[:16] = False
+    return _tensors([
+        a, b, row_l, den,
+        np.where(rng.random(M) < 0.25, -1, rng.integers(0, 4, M)).astype(np.int32),
+        row_ok, rng.random(M) < 0.5, cu, cv,
+        (3.84 * (1.2 ** c_oct) ** 2).astype(np.float32),
+        np.where(rng.random(N) < 0.25, -1, rng.integers(0, 4, N)).astype(np.int32),
+        rng.random(N) < 0.95, rng.random(N) < 0.3,
+    ], device)
+
+
+def check_equal(label, got, want, names):
+    """Every output equal -> max |kernel - plain| (0)."""
+    err = 0.0
+    for g, w, what in zip(got, want, names):
+        err = max(err, float((g - w).abs().max()))
+        if not torch.equal(g, w):
+            raise AssertionError(f"{label}: kernel differs from the plain version on {what}")
+    return err
+
+
+# instructions per allowed pair: 8 XOR, 7 adds, the packed key (shift, or)
+# and the top-2 compares (2) on the ALU, 8 popc; the top-1 search has 1 compare
+TOP2_PAIR_OPS = {"alu": 19, "popc": 8}
+TOP1_PAIR_OPS = {"alu": 18, "popc": 8}
+
+
+def _count(ops: dict, n: int, into: dict) -> None:
+    for k, v in ops.items():
+        into[k] = into.get(k, 0) + v * n
+
+
+def top2_bound(args, col_isig2=None, chi2=False):
+    """Bound of one top-2 launch from this run's inputs ([M,...] for one
+    search, [B,M,...] for the batched form). Only live rows (row_ok) and
+    live columns (col_ok) cost more than their flag: the kernel skips the
+    rest. Bytes: row_ok and col_ok for every row and column; the descriptor
+    (32) and gate parameters (28) of each live row, a source set shared by
+    the neighbours (stride 0) once; the descriptor and parameters of each
+    live column (32 + 16, + 4 for col_isig2); the four outputs (16 per row).
+    Operations on each live pair (live rows x live columns of the same
+    search): the window, octave and stereo gate, 3 f32 and 7 ALU; in chi2
+    mode 6 f32 (+3 for a stereo column) and 6 ALU. Then TOP2_PAIR_OPS on each
+    allowed pair. -> (ms, bound_by, counts)."""
+    from vo_slam_test_tpu_torch.ops import match_pallas
+
+    batched = args[0].dim() == 3
+    x = [t if batched else t[None] for t in args]
+    isig = None if col_isig2 is None else (col_isig2 if batched else col_isig2[None])
+    B, M, N = x[0].shape[0], x[0].shape[1], x[1].shape[1]
+    row_ok, col_ok = x[9], x[14]
+    live_r = row_ok.sum(1, dtype=torch.int64)
+    live_c = col_ok.sum(1, dtype=torch.int64)
+    src_rows = int(row_ok.any(0).sum()) if batched and args[0].stride(0) == 0 else int(live_r.sum())
+    n_bytes = (B * (M + N) + src_rows * 32 + int(live_r.sum()) * 28
+               + int(live_c.sum()) * (48 + (4 if chi2 else 0)) + B * M * 16)
+    live_pairs = int((live_r * live_c).sum())
+    ops = {}
+    if chi2:
+        stereo_c = (col_ok & (x[12] >= 0)).sum(1, dtype=torch.int64)
+        _count({"f32": 6, "alu": 6}, live_pairs, ops)
+        _count({"f32": 3}, int((live_r * stereo_c).sum()), ops)
+    else:
+        _count({"f32": 3, "alu": 7}, live_pairs, ops)
+    allowed = sum(int(match_pallas.allowed_mask(
+        *[t[b] for t in x[2:15]], None if isig is None else isig[b], chi2).sum())
+        for b in range(B))
+    _count(TOP2_PAIR_OPS, allowed, ops)
+    ms, by = bound_ms(n_bytes, ops)
+    return ms, by, dict(live_rows=int(live_r.sum()), live_cols=int(live_c.sum()),
+                        live_pairs=live_pairs, allowed_pairs=allowed)
+
+
+def epi_bound(args):
+    """Bound of one epipolar top-1 launch from this run's inputs. Bytes:
+    row_ok and col_ok for every row and column; per live row the descriptor,
+    line, den, group and mono flag (53); per live column the descriptor, u,
+    v, thr, group and epipole flag (49); two outputs (8 per row). Operations
+    on each live pair: the line value and the two products, 6 f32; the
+    compare, the group escape and the mono/epipole rejection, 5 ALU. Then
+    TOP1_PAIR_OPS on each allowed pair. -> (ms, bound_by, counts)."""
+    from vo_slam_test_tpu_torch.ops import match_pallas
+
+    M, N = args[0].shape[0], args[1].shape[0]
+    live_r, live_c = int(args[5].sum()), int(args[11].sum())
+    allowed = int(match_pallas.epi_allowed_mask(*args[2:]).sum())
+    ops = {}
+    _count({"f32": 6, "alu": 5}, live_r * live_c, ops)
+    _count(TOP1_PAIR_OPS, allowed, ops)
+    ms, by = bound_ms(M + N + live_r * 53 + live_c * 49 + M * 8, ops)
+    return ms, by, dict(live_rows=live_r, live_cols=live_c, live_pairs=live_r * live_c,
+                        allowed_pairs=allowed)
+
+
+class PlainGuard:
+    """Wraps plain versions; records any call that gets a CUDA tensor."""
+
+    def __init__(self, targets):
+        self.targets = targets
+        self.cuda_calls = []
+        self.saved = []
+
+    def __enter__(self):
+        for mod, attr in self.targets:
+            fn = getattr(mod, attr)
+            self.saved.append((mod, attr, fn))
+
+            def guarded(*args, _fn=fn, _attr=attr, **kw):
+                if any(isinstance(a, torch.Tensor) and a.is_cuda for a in args):
+                    self.cuda_calls.append(_attr)
+                return _fn(*args, **kw)
+            setattr(mod, attr, guarded)
+        return self
+
+    def __exit__(self, *exc):
+        for mod, attr, fn in self.saved:
+            setattr(mod, attr, fn)
+        self.saved = []
+
+
+def capture_instances(match_cuda, system, cfg, frames):
+    """Drive the SlamSystem path over ``frames`` and keep a copy of the
+    arguments of the local-map top-2 (M=4096), chi2 top-2,
+    neighbour-batched and epipolar call whose search found the most rows
+    with an allowed pair."""
+    got, score = {}, {}
+    names = ("masked_top2", "masked_top2_nb", "masked_top1_epi")
+    orig = {n: getattr(match_cuda, n) for n in names}
+
+    def recorder(name):
+        def wrapped(*args, **kw):
+            key = {"masked_top2_nb": "top2_nb", "masked_top1_epi": "top1_epi"}.get(name)
+            if name == "masked_top2":
+                key = "top2_chi2" if kw.get("chi2_gate") else (
+                    "top2_m4096" if kw.get("kernel") is match_cuda.KERNEL_LOCAL else None)
+            out = orig[name](*args, **kw)
+            if key is not None:
+                n_rows = int((out[1] < (1 << 20)).sum())
+                if n_rows >= score.get(key, -1):
+                    score[key] = n_rows
+                    got[key] = ([a.clone() for a in args],
+                                {k: v.clone() if isinstance(v, torch.Tensor) else v
+                                 for k, v in kw.items() if k != "kernel"})
+            return out
+        return wrapped
+
+    for n in names:
+        setattr(match_cuda, n, recorder(n))
+    try:
+        s = system.SlamSystem(cfg)
+        s._force_interrupt_ba = True
+        for f in frames:
+            s.track(*f)
+        torch.cuda.synchronize()
+    finally:
+        for n, fn in orig.items():
+            setattr(match_cuda, n, fn)
+    missing = {"top2_m4096", "top2_chi2", "top2_nb", "top1_epi"} - set(got)
+    if missing:
+        raise AssertionError(f"the capture run launched no {sorted(missing)}")
+    # the batched search shares one source set across neighbours: time it as
+    # the path passes it (stride 0)
+    args, kw = got["top2_nb"]
+    args[0] = args[0][0][None].expand_as(args[0])
+    return got
+
+
+def n_baseline_neighbours(m, kf_id, cam) -> int:
+    """The triangulation's neighbour count past the baseline gate
+    (localMapping.cpp:136, 172-174), computed apart from the port's code."""
+    w_row = m.covis[kf_id] * m.kf_valid.to(torch.int32)
+    order = torch.argsort(-w_row, stable=True)[:10]
+    nb = torch.where(w_row[order] > 0, order, -1)
+    ow1 = torch.linalg.inv(m.kf_pose[kf_id])[:3, 3]
+    ow2 = torch.linalg.inv(m.kf_pose[nb.clamp(min=0)])[:, :3, 3]
+    return int(((nb >= 0) & (torch.linalg.norm(ow2 - ow1, dim=-1) > cam.b)).sum())
+
+
+def run_slice(system, triangulate, cfg, frames, timed: bool, profile_frames=()):
+    """One SlamSystem run over ``frames`` with interruptBA forced. timed:
+    CUDA events per frame and around each keyframe's mapping step, host syncs
+    per frame (sync debug mode). Otherwise: the epipolar searches the path
+    should launch, counted apart, and a torch.profiler window over
+    ``profile_frames``."""
+    s = system.SlamSystem(cfg)
+    s._force_interrupt_ba = True
+    rec = dict(frame_ms=[], wall_ms=[], syncs=[], sync_sites={}, map_events=[], epi_expected=0,
+               profile=None)
+    orig_bg, orig_tri = system.background_step, triangulate.create_new_map_points
+    cur = [0]
+
+    def timed_bg(m, did_kf, kf_id, *a, **k):
+        if not did_kf:
+            return orig_bg(m, did_kf, kf_id, *a, **k)
+        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        e0.record()
+        out = orig_bg(m, did_kf, kf_id, *a, **k)
+        e1.record()
+        rec["map_events"].append((cur[0], e0, e1))
+        return out
+
+    def counted_tri(m, kf_id, caps, cam, *a, **k):
+        rec["epi_expected"] += n_baseline_neighbours(m, kf_id, cam)
+        return orig_tri(m, kf_id, caps, cam, *a, **k)
+
+    if timed:
+        system.background_step = timed_bg
+    else:
+        triangulate.create_new_map_points = counted_tri
+    prof = None
+    try:
+        for i, (gray, depth, ts) in enumerate(frames):
+            cur[0] = i
+            if not timed:
+                if profile_frames and i == profile_frames[0]:
+                    from torch.profiler import ProfilerActivity, profile
+
+                    torch.cuda.synchronize()
+                    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+                    prof.__enter__()
+                    t_prof = time.perf_counter()
+                s.track(gray, depth, ts)
+                if prof is not None and i == profile_frames[-1]:
+                    torch.cuda.synchronize()
+                    wall = (time.perf_counter() - t_prof) * 1e3 / len(profile_frames)
+                    prof.__exit__(None, None, None)
+                    rec["profile"] = (prof, wall)
+                    prof = None
+                continue
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            t0 = time.perf_counter()
+            start.record()
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                torch.cuda.set_sync_debug_mode("warn")
+                s.track(gray, depth, ts)
+                torch.cuda.set_sync_debug_mode("default")
+            end.record()
+            torch.cuda.synchronize()
+            rec["wall_ms"].append((time.perf_counter() - t0) * 1e3)
+            rec["frame_ms"].append(start.elapsed_time(end))
+            sync_ws = [w for w in caught if "synchroniz" in str(w.message)]
+            rec["syncs"].append(len(sync_ws))
+            for w in sync_ws:
+                site = f"{w.filename.split('vo_slam_test_tpu_torch/')[-1]}:{w.lineno}"
+                rec["sync_sites"][site] = rec["sync_sites"].get(site, 0) + 1
+        torch.cuda.synchronize()
+    finally:
+        system.background_step, triangulate.create_new_map_points = orig_bg, orig_tri
+        if prof is not None:
+            prof.__exit__(None, None, None)
+    rec["map_ms"] = {i: e0.elapsed_time(e1) for i, e0, e1 in rec["map_events"]}
+    return s, rec
+
+
+def device_profile(prof, n_frames, wall_ms):
+    """Device busy ms per frame, kernels per frame and the top kernels from
+    the CUDA kernel events of a profiler window."""
+    by_kernel = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            by_kernel.setdefault(e.name, [0.0, 0])
+            by_kernel[e.name][0] += e.time_range.elapsed_us() / 1e3 / n_frames
+            by_kernel[e.name][1] += 1
+    busy = sum(v[0] for v in by_kernel.values())
+    n_launch = sum(v[1] for v in by_kernel.values()) / n_frames
+    print(f"profile of {n_frames} frames: wall {wall_ms:.3f} ms/frame (profiler on), device busy "
+          f"{busy:.3f} ms/frame in {n_launch:.0f} kernels/frame, idle share {1 - busy / wall_ms:.3f}")
+    for k, (ms, cnt) in sorted(by_kernel.items(), key=lambda kv: -kv[1][0])[:12]:
+        print(f"  {ms:8.3f} ms/frame {cnt / n_frames:6.0f}/frame  {k[:90]}")
+    return busy, n_launch
 
 
 def main() -> int:
@@ -113,12 +475,14 @@ def main() -> int:
 
     from vo_slam_test_tpu_torch.config import SlamConfig
     from vo_slam_test_tpu_torch.datasets import SyntheticRGBD, ate_rmse
+    from vo_slam_test_tpu_torch.datasets.synthetic import room_orbit_trajectory
     from vo_slam_test_tpu_torch.frontend.extractor import extract_fused, select_keypoints
     from vo_slam_test_tpu_torch.ops import (
         _build, brief, fast, fast_cuda, match_cuda, match_pallas, orb_cuda, orientation, pattern)
     from vo_slam_test_tpu_torch.ops.pyramid import build_pyramid, interior
     from vo_slam_test_tpu_torch.matching import matcher
-    from vo_slam_test_tpu_torch.pipeline import tracking
+    from vo_slam_test_tpu_torch.pipeline import system, tracking
+    from vo_slam_test_tpu_torch.slam_map import triangulate
 
     dev = torch.device("cuda")
     name = torch.cuda.get_device_name(0)
@@ -127,6 +491,7 @@ def main() -> int:
         capture_output=True, text=True, timeout=60, check=True).stdout.strip().splitlines()[0]
     print(f"device: {name}; torch {torch.__version__} cuda {torch.version.cuda}")
     print(smi)
+    t_start = time.perf_counter()
 
     # -- build ------------------------------------------------------------
     t0 = time.perf_counter()
@@ -137,8 +502,14 @@ def main() -> int:
         for line in v["log"].splitlines():
             if "registers" in line or "spill" in line:
                 print(f"  {k}.cu: {line.strip()}")
+    all_kernels = {"fast": fast_cuda.KERNEL, "orb": orb_cuda.KERNEL, "top2": match_cuda.KERNEL,
+                   "top2_m4096": match_cuda.KERNEL_LOCAL, "top2_chi2": match_cuda.KERNEL_CHI2,
+                   "top2_nb": match_cuda.KERNEL_NB, "top1_epi": match_cuda.KERNEL_EPI}
+    plains = [(fast, "fast_score"), (orientation, "ic_angle"), (brief, "compute_descriptors"),
+              (match_pallas, "masked_top2_plain"), (match_pallas, "masked_top2_nb_plain"),
+              (match_pallas, "masked_top1_epi_plain")]
 
-    # -- data: the main path's sequence -------------------------------------
+    # -- data: the first main path's sequence -------------------------------
     t0 = time.perf_counter()
     seq = SyntheticRGBD(n_frames=30, seed=0, motion_scale=0.5)
     frames = [seq[i] for i in range(len(seq))]
@@ -162,9 +533,12 @@ def main() -> int:
         if not torch.equal(a, b):
             raise AssertionError("FAST candidates differ between kernel and plain scores")
     L, H, W = levels.shape
-    fb, fby = bound_ms(2 * L * H * W * 4, L * H * W * (16 + 2 * (4 * 16 + 15) + 2))
+    # per pixel: 16 differences (f32), 2 x (64 arc minima + 15 maxima) + 2
+    # min/max (ALU)
+    fb, fby = bound_ms(2 * L * H * W * 4, {"f32": L * H * W * 16,
+                                           "alu": L * H * W * (2 * (4 * 16 + 15) + 2)})
     kernels["fast"] = dict(
-        name="fast_score", route="cuda", source="vo_slam_test_tpu_torch/csrc/fast.cu",
+        name="fast_score", shape=f"{L}x{H}x{W}", route="cuda", source="vo_slam_test_tpu_torch/csrc/fast.cu",
         replaces="vo_slam_test_tpu/ops/fast_pallas.py:131", max_abs_err=err,
         ms=time_graph_ms(lambda: fast_cuda.fast_score(levels)),
         plain_ms=time_eager_ms(lambda: fast.fast_score(levels)),
@@ -184,16 +558,17 @@ def main() -> int:
     flips = np.unpackbits((desc ^ desc_ref).cpu().numpy().view(np.uint8), axis=1).sum(1)
     print(f"phase orb N={sel.level.shape[0]} ({n_valid} valid): max angle err {ang_err} deg, "
           f"flipped bits: max {int(flips.max())} per descriptor, {int(flips.sum())} in all")
-    if ang_err > 1e-3 or flips.max() > 2:
+    if ang_err > 1e-3 or flips.max() > 0:
         raise AssertionError("ORB kernel differs from the plain version beyond tolerance")
     N = sel.level.shape[0]
     n_disc = int(pattern.circular_patch_mask().sum())
+    # per keypoint: 2 FMAs per disc pixel (the moments), 9 per pattern pair
+    # (rotation, rounding, compare), 30 more; all counted as f32 instructions
     ob, oby = bound_ms(N * (n_disc + 512) * 4 + N * 12 + 256 * 16 + N * 36,
-                       N * (4 * n_disc + 256 * 9 + 30))
+                       {"f32": N * (2 * n_disc + 256 * 9 + 30)})
     kernels["orb"] = dict(
-        name="orb_angle_desc", route="cuda", source="vo_slam_test_tpu_torch/csrc/orb.cu",
+        name="orb_angle_desc", shape=f"N={N}", route="cuda", source="vo_slam_test_tpu_torch/csrc/orb.cu",
         replaces="vo_slam_test_tpu/ops/orb_pallas.py:137", max_abs_err=ang_err,
-        flipped_bits=int(flips.sum()),
         ms=time_graph_ms(lambda: orb_cuda.orb_angle_desc(
             pyr.raw, pyr.blur, sel.level, sel.ys, sel.xs)),
         plain_ms=time_eager_ms(lambda: brief.compute_descriptors(
@@ -203,7 +578,7 @@ def main() -> int:
     print(f"  kernel {kernels['orb']['ms']:.4f} ms, plain {kernels['orb']['plain_ms']:.4f} ms, "
           f"bound {ob:.4f} ms ({oby})")
 
-    # -- phase 3: masked Hamming top-2 --------------------------------------
+    # -- phase 3: masked Hamming top-2 at 1024x1024 ---------------------------
     depth0 = torch.as_tensor(frames[0][1]).to(dev)
     depth1 = torch.as_tensor(frames[1][1]).to(dev)
     f0 = extract_fused(gray0, depth0, cam, spec, tracker.budgets)
@@ -219,115 +594,125 @@ def main() -> int:
     for label, args in (("frame pair", real_args), ("random ties/empty rows", rand_args)):
         got = match_cuda.masked_top2(*args)
         want = match_pallas.masked_top2_plain(*args)
-        for g, w, what in zip(got, want, ("best_i", "best_d", "second_i", "second_d")):
-            top2_err = max(top2_err, float((g - w).abs().max()))
-            if not torch.equal(g, w):
-                raise AssertionError(f"top-2 kernel differs on {label}: {what}")
+        top2_err = max(top2_err, check_equal(f"top-2 on {label}", got, want, TOP2_OUTS))
         n_match = int((got[1] <= matcher.TH_HIGH).sum())
         print(f"phase top2 {label} {tuple(args[0].shape)}x{tuple(args[1].shape)}: "
               f"all four outputs equal; {n_match} rows with best <= {matcher.TH_HIGH}")
-    # operations: the gate (~12) on every pair, XOR + popcount + sum + top-2
-    # compare (~25) only on the pairs this frame pair allows
     Mr, Nr = real_args[0].shape[0], real_args[1].shape[0]
-    n_allowed = int(match_pallas.allowed_mask(*real_args[2:]).sum())
-    mb, mby = bound_ms((Mr + Nr) * 32 + Mr * 29 + Nr * 17 + Mr * 16,
-                       Mr * Nr * 12 + n_allowed * 25)
+    mb, mby, counted = top2_bound(real_args)
     kernels["top2"] = dict(
-        name="masked_top2", route="cuda", source="vo_slam_test_tpu_torch/csrc/match.cu",
+        name="masked_top2", shape=f"{Mr}x{Nr}", route="cuda", source="vo_slam_test_tpu_torch/csrc/match.cu",
         replaces="vo_slam_test_tpu/ops/match_pallas.py:121", max_abs_err=top2_err,
         ms=time_graph_ms(lambda: match_cuda.masked_top2(*real_args)),
         plain_ms=time_eager_ms(lambda: match_pallas.masked_top2_plain(*real_args)),
-        bound_ms=mb, bound_by=mby, library_ms=None)
-    print(f"  frame pair: {n_allowed} allowed pairs; kernel "
+        bound_ms=mb, bound_by=mby, library_ms=None, counted=counted)
+    print(f"  frame pair: counted {counted}; kernel "
           f"{kernels['top2']['ms']:.4f} ms, plain {kernels['top2']['plain_ms']:.4f} ms, "
-          f"bound {mb:.5f} ms ({mby})")
+          f"bound {mb:.6f} ms ({mby})")
 
-    # -- main path -----------------------------------------------------------
-    plains = [(fast, "fast_score"), (orientation, "ic_angle"), (brief, "compute_descriptors"),
-              (match_pallas, "masked_top2_plain")]
-    plain_cuda_calls = []
+    # -- data: the second main path's sequence --------------------------------
+    # the first 40 frames of the 240-frame orbit (the per-frame motion of the
+    # orbit scales with 1/n_frames: never n_frames=40)
+    t0 = time.perf_counter()
+    room = SyntheticRGBD(trajectory=room_orbit_trajectory(240, loops=1.5), scene="room", seed=7)
+    room_frames = [room[i] for i in range(SLICE_FRAMES)]
+    room_cfg = SlamConfig(camera_fx=room.fx, camera_fy=room.fy, camera_cx=room.cx,
+                          camera_cy=room.cy, camera_k1=0, camera_k2=0, camera_p1=0, camera_p2=0,
+                          camera_k3=0, camera_fps=30)
+    print(f"rendered {len(room_frames)} room-orbit frames {room_frames[0][0].shape} in "
+          f"{time.perf_counter() - t0:.1f} s")
 
-    def guard(mod, attr):
-        fn = getattr(mod, attr)
+    # -- phases 4-7: the mapping path's kernels -------------------------------
+    t0 = time.perf_counter()
+    # frames 0-12 hold keyframe events at 0, 1, 5 and 12 (JAX on the CPU);
+    # the first with keypoints left for triangulation is frame 12's
+    captured = capture_instances(match_cuda, system, room_cfg, room_frames[:13])
+    print(f"captured the slice path's kernel instances from frames 0-12 in "
+          f"{time.perf_counter() - t0:.1f} s")
+    rng = np.random.default_rng(1)
+    seeded = {
+        "top2_m4096": (random_top2_instance(rng, 4096, 1024, dev), {}),
+        "top2_chi2": (lambda x: (x[:15], dict(col_isig2=x[15], chi2_gate=True)))(
+            random_chi2_instance(rng, 4096, 1024, dev)),
+        "top2_nb": (lambda x: (x[:15], dict(col_isig2=x[15], chi2_gate=True)))(
+            random_nb_instance(rng, 16, 1024, 1024, dev)),
+        "top1_epi": (random_epi_instance(rng, 1024, 1024, dev), {}),
+    }
+    specs = {
+        "top2_m4096": ("masked_top2_m4096", match_cuda.masked_top2, match_pallas.masked_top2_plain,
+                       "vo_slam_test_tpu/ops/match_pallas.py:121", "match.cu", TOP2_OUTS),
+        "top2_chi2": ("masked_top2_chi2", match_cuda.masked_top2, match_pallas.masked_top2_plain,
+                      "vo_slam_test_tpu/ops/match_pallas.py:121", "match.cu", TOP2_OUTS),
+        "top2_nb": ("masked_top2_nb", match_cuda.masked_top2_nb,
+                    match_pallas.masked_top2_nb_plain,
+                    "vo_slam_test_tpu/ops/match_pallas.py:238", "match.cu", TOP2_OUTS),
+        "top1_epi": ("masked_top1_epi", match_cuda.masked_top1_epi,
+                     match_pallas.masked_top1_epi_plain,
+                     "vo_slam_test_tpu/ops/match_pallas.py:393", "epi.cu", ("best_i", "best_d")),
+    }
+    for key, (kname, kfn, pfn, replaces, src, outs) in specs.items():
+        err = 0.0
+        for label, (args, kw) in (("captured", captured[key]), ("seeded", seeded[key])):
+            got = kfn(*args, **kw)
+            want = pfn(*args, **kw)
+            err = max(err, check_equal(f"{kname} on the {label} instance", got, want, outs))
+            shape = "x".join(str(s) for s in args[0].shape[:-1]) + f"x{args[1].shape[-2]}"
+            print(f"phase {kname} {label} {shape}: all {len(outs)} outputs equal; "
+                  f"{int((got[1] < match_pallas.BIG).sum())} rows with an allowed pair")
+        args, kw = captured[key]
+        if key == "top1_epi":
+            kb, kby, counted = epi_bound(args)
+        else:
+            kb, kby, counted = top2_bound(args, kw.get("col_isig2"), kw.get("chi2_gate", False))
+        kernels[key] = dict(
+            name=kname, shape=shape, route="cuda", source=f"vo_slam_test_tpu_torch/csrc/{src}",
+            replaces=replaces, max_abs_err=err,
+            ms=time_graph_ms(lambda: kfn(*args, **kw)),
+            plain_ms=time_eager_ms(lambda: pfn(*args, **kw)),
+            bound_ms=kb, bound_by=kby, library_ms=None, counted=counted)
+        print(f"  captured: counted {counted}; kernel {kernels[key]['ms']:.4f} ms, "
+              f"plain {kernels[key]['plain_ms']:.4f} ms, bound {kb:.6f} ms ({kby})")
 
-        def guarded(*args, **kw):
-            if any(isinstance(a, torch.Tensor) and a.is_cuda for a in args):
-                plain_cuda_calls.append(attr)
-            return fn(*args, **kw)
-        return fn, guarded
-
-    saved = []
-    for mod, attr in plains:
-        fn, guarded = guard(mod, attr)
-        saved.append((mod, attr, fn))
-        setattr(mod, attr, guarded)
-    wrappers = {"fast": fast_cuda, "orb": orb_cuda, "top2": match_cuda}
+    # -- main path 1: FusedTracker -------------------------------------------
     tracker = tracking.FusedTracker(cfg)
-    torch.cuda.synchronize()
-    for w in wrappers.values():
-        w.KERNEL.launches = 0
-    frame_ms, wall_ms, syncs = [], [], []
-    for gray, depth, ts in frames:
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        t0 = time.perf_counter()
-        start.record()
-        with warnings.catch_warnings(record=True) as caught:
-            warnings.simplefilter("always")
-            torch.cuda.set_sync_debug_mode("warn")
-            tracker.track(gray, depth, ts)
-            torch.cuda.set_sync_debug_mode("default")
-        end.record()
+    with PlainGuard(plains) as guard:
         torch.cuda.synchronize()
-        wall_ms.append((time.perf_counter() - t0) * 1e3)
-        frame_ms.append(start.elapsed_time(end))
-        syncs.append(sum("synchroniz" in str(w.message) for w in caught))
-    launches = {k: w.KERNEL.launches for k, w in wrappers.items()}
-    for mod, attr, fn in saved:
-        setattr(mod, attr, fn)
+        for k in all_kernels.values():
+            k.reset()
+        frame_ms, wall_ms, syncs = [], [], []
+        for gray, depth, ts in frames:
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            t0 = time.perf_counter()
+            start.record()
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                torch.cuda.set_sync_debug_mode("warn")
+                tracker.track(gray, depth, ts)
+                torch.cuda.set_sync_debug_mode("default")
+            end.record()
+            torch.cuda.synchronize()
+            wall_ms.append((time.perf_counter() - t0) * 1e3)
+            frame_ms.append(start.elapsed_time(end))
+            syncs.append(sum("synchroniz" in str(w.message) for w in caught))
+        launches1 = {k: v.launches for k, v in all_kernels.items()}
     traj, stats = tracker.results()
     gt = np.stack([seq.poses[i] for i in range(len(seq))])
     ate = ate_rmse(tracker.timestamps, gt, tracker.timestamps, traj)
     n_ok = sum(s.ok for s in stats)
     steady = np.array(frame_ms[1:])
-    print(f"main path: tracked {n_ok}/{len(stats)} frames, ATE {ate * 100:.4f} cm; "
+    print(f"main path 1 (FusedTracker): tracked {n_ok}/{len(stats)} frames, ATE {ate * 100:.4f} cm; "
           f"matches/frame {[s.n_matches for s in stats]}")
     print(f"  per-frame ms (CUDA events, frames 1..29): median {np.median(steady):.3f}, "
           f"mean {steady.mean():.3f}, min {steady.min():.3f}, max {steady.max():.3f}; "
           f"frame 0 {frame_ms[0]:.3f}; host wall median {np.median(wall_ms[1:]):.3f}")
     print(f"  host syncs per frame (sync debug mode): {syncs}")
-    print(f"  kernel launches on the main path: {launches}; plain versions on CUDA: {plain_cuda_calls}")
+    print(f"  kernel launches: {launches1}; plain versions on CUDA: {guard.cuda_calls}")
     if n_ok != len(frames) or not ate < 0.01:
-        raise AssertionError(f"main path failed: {n_ok}/{len(frames)} tracked, ATE {ate} m")
-    if launches["fast"] != 30 or launches["orb"] != 30 or launches["top2"] < 29:
-        raise AssertionError(f"kernel launch counts off on the main path: {launches}")
-    if plain_cuda_calls:
-        raise AssertionError(f"plain versions ran on CUDA tensors: {plain_cuda_calls}")
-
-    # -- where a steady frame's device time goes ----------------------------
-    from torch.profiler import ProfilerActivity, profile
-
-    n_prof = 5
-    prof_tracker = tracking.FusedTracker(cfg)
-    prof_tracker.track(*frames[0])
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for gray, depth, ts in frames[1:1 + n_prof]:
-            prof_tracker.track(gray, depth, ts)
-        torch.cuda.synchronize()
-        prof_wall = (time.perf_counter() - t0) * 1e3 / n_prof
-    by_kernel = {}
-    for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            by_kernel.setdefault(e.name, [0.0, 0])
-            by_kernel[e.name][0] += e.time_range.elapsed_us() / 1e3 / n_prof
-            by_kernel[e.name][1] += 1
-    busy = sum(v[0] for v in by_kernel.values())
-    n_launch = sum(v[1] for v in by_kernel.values()) / n_prof
-    print(f"profile of {n_prof} frames: wall {prof_wall:.3f} ms/frame (profiler on), device busy "
-          f"{busy:.3f} ms/frame in {n_launch:.0f} kernels/frame, idle share {1 - busy / prof_wall:.3f}")
-    for k, (ms, cnt) in sorted(by_kernel.items(), key=lambda kv: -kv[1][0])[:12]:
-        print(f"  {ms:8.3f} ms/frame {cnt / n_prof:6.0f}/frame  {k[:90]}")
+        raise AssertionError(f"main path 1 failed: {n_ok}/{len(frames)} tracked, ATE {ate} m")
+    if launches1["fast"] != 30 or launches1["orb"] != 30 or launches1["top2"] < 29:
+        raise AssertionError(f"kernel launch counts off on main path 1: {launches1}")
+    if guard.cuda_calls:
+        raise AssertionError(f"plain versions ran on CUDA tensors: {guard.cuda_calls}")
 
     # host-side stage breakdown of one frame (synchronized around each stage)
     from vo_slam_test_tpu_torch.frontend import extractor
@@ -353,13 +738,82 @@ def main() -> int:
         parts.append(f"{label} {(time.perf_counter() - t0) * 1e3 / 5:.3f}")
     print("stage wall ms (synchronized): " + ", ".join(parts))
 
-    for k, w in wrappers.items():
-        kernels[k]["launches"] = launches[k]
-    keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
-            "bound_ms", "bound_by", "library_ms")
-    print(json.dumps({"main_path": {"frame_ms_median": float(np.median(steady)),
-                                    "ate_m": float(ate), "host_syncs": syncs, "card": smi}}))
-    print(json.dumps({"kernels": [{key: kernels[k][key] for key in keys} for k in wrappers]}))
+    # -- main path 2: SlamSystem over the room orbit -------------------------
+    with PlainGuard(plains) as guard:
+        torch.cuda.synchronize()
+        for k in all_kernels.values():
+            k.reset()
+        s1, rec1 = run_slice(system, triangulate, room_cfg, room_frames, timed=True)
+        launches2 = {k: v.launches for k, v in all_kernels.items()}
+        # second run: the determinism check, the epipolar searches the path
+        # should launch (counted apart) and a profiler window
+        s2, rec2 = run_slice(system, triangulate, room_cfg, room_frames, timed=False,
+                             profile_frames=tuple(range(10, 15)))
+    traj2, stats2, _ = s1.results()
+    gt2 = np.stack([room.poses[i] for i in range(SLICE_FRAMES)])
+    ate2 = ate_rmse(s1.timestamps, gt2, s1.timestamps, traj2)
+    n_ok2 = sum(s.ok for s in stats2)
+    kf_frames = [i for i, o in enumerate(s1._outs) if o.made_kf]
+    n_events = len(kf_frames)
+    fm = np.array(rec1["frame_ms"])
+    map_ms = rec1["map_ms"]
+    track_ms = np.array([fm[i] - map_ms.get(i, 0.0) for i in range(1, len(fm))])
+    print(f"main path 2 (SlamSystem, room orbit {SLICE_FRAMES} frames 640x480): tracked "
+          f"{n_ok2}/{len(stats2)} frames, ATE {ate2 * 100:.4f} cm; keyframe events at frames "
+          f"{kf_frames}; live keyframes {s1.n_keyframes}, points {s1.n_points}")
+    print(f"  per frame (n_features, n_matches, n_inliers): "
+          f"{[(s.n_features, s.n_matches, s.n_inliers) for s in stats2]}")
+    print(f"  per-frame ms (CUDA events, tracking + mapping): {[round(float(x), 3) for x in fm]}")
+    print(f"  frames 1..{SLICE_FRAMES - 1}: median {np.median(fm[1:]):.3f}, mean "
+          f"{fm[1:].mean():.3f}; tracking step alone median {np.median(track_ms):.3f}; "
+          f"host wall median {np.median(rec1['wall_ms'][1:]):.3f}")
+    print(f"  mapping step ms on keyframe frames: "
+          f"{ {i: round(v, 3) for i, v in map_ms.items()} }")
+    print(f"  host syncs per frame (sync debug mode): {rec1['syncs']}; over the run by the "
+          f"line that synced: {rec1['sync_sites']}")
+    print(f"  kernel launches: {launches2}; "
+          f"epipolar searches past the baseline gate (counted apart): {rec2['epi_expected']}; "
+          f"plain versions on CUDA: {guard.cuda_calls}")
+    if rec2["profile"] is not None:
+        prof, wall = rec2["profile"]
+        busy2, nl2 = device_profile(prof, 5, wall)
+    if n_ok2 != SLICE_FRAMES or n_events < 5 or not ate2 < 0.01:
+        raise AssertionError(f"main path 2 failed: {n_ok2}/{SLICE_FRAMES} tracked, "
+                             f"{n_events} keyframe events, ATE {ate2} m")
+    if (launches2["fast"] != SLICE_FRAMES or launches2["orb"] != SLICE_FRAMES
+            or launches2["top2"] < 1 or launches2["top2_m4096"] < 1
+            or launches2["top2_chi2"] != n_events
+            or launches2["top2_nb"] != n_events or launches2["top1_epi"] < 1
+            or launches2["top1_epi"] != rec2["epi_expected"]):
+        raise AssertionError(f"kernel launch counts off on main path 2: {launches2}, "
+                             f"{n_events} keyframe events, {rec2['epi_expected']} epipolar searches")
+    if guard.cuda_calls:
+        raise AssertionError(f"plain versions ran on CUDA tensors: {guard.cuda_calls}")
+    diff = [f for f in s1.map.__dataclass_fields__
+            if not torch.equal(getattr(s1.map, f), getattr(s2.map, f))]
+    if diff:
+        raise AssertionError(f"two runs of main path 2 gave different map tensors: {diff}")
+    print(f"  two runs: all {len(s1.map.__dataclass_fields__)} map tensors identical")
+
+    for k in ("fast", "orb", "top2"):
+        kernels[k]["launches"] = launches1[k]
+    for k in ("top2_m4096", "top2_chi2", "top2_nb", "top1_epi"):
+        kernels[k]["launches"] = launches2[k]
+    keys = ("name", "shape", "route", "source", "replaces", "launches", "max_abs_err", "ms",
+            "plain_ms", "bound_ms", "bound_by", "library_ms", "counted")
+    print(f"total {time.perf_counter() - t_start:.1f} s after the card query")
+    print(json.dumps({"main_path": {
+        "fused_tracker": {"frame_ms_median": float(np.median(steady)), "ate_m": float(ate),
+                          "host_syncs": syncs},
+        "slam_system": {"frame_ms_median": float(np.median(fm[1:])),
+                        "tracking_ms_median": float(np.median(track_ms)),
+                        "mapping_ms": {str(i): v for i, v in map_ms.items()},
+                        "ate_m": float(ate2), "keyframe_frames": kf_frames,
+                        "host_syncs": rec1["syncs"]},
+        "card": smi}}))
+    order = ("fast", "orb", "top2", "top2_m4096", "top2_chi2", "top2_nb", "top1_epi")
+    print(json.dumps({"kernels": [{key: kernels[k][key] for key in keys if key in kernels[k]}
+                                  for k in order]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}))
     return 0

@@ -71,7 +71,8 @@ def _twists(seed, n=64):
 
 
 LIE_CASES = ["hat", "so3_exp", "so3_log", "se3_exp", "se3_log", "se3_inverse",
-             "transform_points", "orthonormalize", "mat_to_quat", "quat_to_mat"]
+             "transform_points", "transform_point", "orthonormalize", "mat_to_quat",
+             "quat_to_mat"]
 
 
 @pytest.mark.parametrize("name", LIE_CASES)
@@ -91,6 +92,8 @@ def test_lie_matches_jax(name):
         args = (T,)
     elif name == "transform_points":
         args = (T, rng.normal(0, 2, (64, 20, 3)).astype(np.float32))
+    elif name == "transform_point":
+        args = (T, rng.normal(0, 2, (64, 3)).astype(np.float32))
     elif name == "mat_to_quat":
         args = (T[:, :3, :3],)
     else:
@@ -125,6 +128,12 @@ def test_camera_matches_jax():
     np.testing.assert_allclose(
         pc.pixel2camera(torch.as_tensor(uv), torch.as_tensor(depth)).numpy(),
         np.asarray(jc.pixel2camera(jnp.asarray(uv), jnp.asarray(depth))), **TOL)
+    np.testing.assert_array_equal(pc.K.numpy(), np.asarray(jc.K))
+    p3 = np.concatenate([rng.normal(0, 2, (200, 2)), rng.uniform(-1, 6, (200, 1))], 1)
+    p3[:3, 2] = [0.0, 1e-13, -1e-13]  # the near-zero depth guard
+    p3 = p3.astype(np.float32)
+    np.testing.assert_allclose(pc.camera2pixel(torch.as_tensor(p3)).numpy(),
+                               np.asarray(jc.camera2pixel(jnp.asarray(p3))), **TOL)
 
 
 def test_synthetic_renderer_matches_jax():

@@ -64,10 +64,14 @@ def test_popcount_and_distance_matrix():
     a[0] = 0xFFFFFFFF
     b[0] = 0
     ta, tb = torch.as_tensor(a.view(np.int32)), torch.as_tensor(b.view(np.int32))
-    np.testing.assert_array_equal(hamming.popcount_i32(ta).numpy(),
-                                  np.asarray(jhamming.popcount_u32(jnp.asarray(a))))
-    np.testing.assert_array_equal(hamming.distance_matrix(ta, tb).numpy(),
-                                  np.asarray(jhamming.distance_matrix(jnp.asarray(a), jnp.asarray(b))))
+    want = np.asarray(jhamming.distance_matrix(jnp.asarray(a), jnp.asarray(b)))
+    np.testing.assert_array_equal(hamming.distance_matrix(ta, tb).numpy(), want)
+    assert want[0, 0] == 256
+    # the batched form (refresh_points: every observer pair of each point)
+    got = hamming.distance_matrix(ta.reshape(5, 8, 8), ta.reshape(5, 8, 8)).numpy()
+    for s in range(5):
+        np.testing.assert_array_equal(got[s], np.asarray(jhamming.distance_matrix(
+            jnp.asarray(a[8 * s:8 * s + 8]), jnp.asarray(a[8 * s:8 * s + 8]))))
 
 
 @pytest.mark.parametrize("seed,stereo", [(0, True), (1, False), (2, True)])

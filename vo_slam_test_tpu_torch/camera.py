@@ -56,6 +56,23 @@ class Camera:
             any_dist=any(float(v) != 0.0 for v in dist),
         )
 
+    @property
+    def K(self) -> torch.Tensor:
+        """[3,3] intrinsic matrix."""
+        z = torch.zeros_like(self.fx)
+        o = torch.ones_like(self.fx)
+        return torch.stack([torch.stack([self.fx, z, self.cx]),
+                            torch.stack([z, self.fy, self.cy]),
+                            torch.stack([z, z, o])])
+
+    def camera2pixel(self, p3d: torch.Tensor) -> torch.Tensor:
+        """(..., 3) camera points -> (..., 2) pixels."""
+        z = p3d[..., 2]
+        safe_z = torch.where(torch.abs(z) < 1e-12, 1e-12, z)
+        u = self.fx * p3d[..., 0] / safe_z + self.cx
+        v = self.fy * p3d[..., 1] / safe_z + self.cy
+        return torch.stack([u, v], dim=-1)
+
     def pixel2camera(self, uv: torch.Tensor, depth: torch.Tensor) -> torch.Tensor:
         """(..., 2) pixels + (...,) depth -> (..., 3) camera points."""
         x = (uv[..., 0] - self.cx) * depth / self.fx

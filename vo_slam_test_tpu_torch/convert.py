@@ -1,10 +1,11 @@
 """Carry state between the JAX package and this port as numpy.
 
 The system has no learned weights; its state is the config, the camera, the
-pattern tables and the tracking state. These helpers move ``FrameFeatures``
-and ``TrackState`` across as dicts of numpy arrays with the JAX layouts
-(``desc`` as uint32 [N, 8]), so a test can start the port from the JAX
-tracker's exact state after frame k and compare frame k+1 alone.
+pattern tables, the tracking state and the map. These helpers move
+``FrameFeatures``, ``TrackState``, ``SlamTrackState`` and ``MapState`` across
+as dicts of numpy arrays with the JAX layouts (descriptors as uint32), so a
+test can start the port from the JAX system's exact state after frame k and
+compare frame k+1 alone.
 """
 
 from __future__ import annotations
@@ -16,7 +17,9 @@ import numpy as np
 import torch
 
 from .frontend.frame import FrameFeatures
+from .pipeline.system import SlamTrackState
 from .pipeline.tracking import TrackState
+from .slam_map.map_state import MapState
 
 _FEATURE_DTYPES = {
     "uv": np.float32, "uv_und": np.float32, "response": np.float32, "angle": np.float32,
@@ -61,6 +64,45 @@ def track_state_to_numpy(s: TrackState) -> Dict[str, Any]:
         "motion_valid": bool(s.motion_valid),
         "initialized": bool(s.initialized),
     }
+
+
+_DESC_FIELDS = ("kf_desc", "pt_desc")  # uint32 in the JAX map, int32 here
+
+
+def map_state_from_numpy(d: Dict[str, Any], device) -> MapState:
+    """JAX MapState fields as numpy (``kf_desc``/``pt_desc`` uint32) -> the
+    port's MapState on ``device``."""
+    kw = {}
+    for f in dataclasses.fields(MapState):
+        a = np.asarray(d[f.name])
+        if f.name in _DESC_FIELDS:
+            a = a.astype(np.uint32).view(np.int32)
+        kw[f.name] = torch.as_tensor(np.array(a)).to(device)
+    return MapState(**kw)
+
+
+def map_state_to_numpy(m: MapState) -> Dict[str, np.ndarray]:
+    out = {f.name: getattr(m, f.name).cpu().numpy() for f in dataclasses.fields(MapState)}
+    for k in _DESC_FIELDS:
+        out[k] = out[k].view(np.uint32)
+    return out
+
+
+def slam_track_state_from_numpy(d: Dict[str, Any], device) -> SlamTrackState:
+    """The JAX SlamTrackState's fields as numpy -> the port's
+    SlamTrackState (counters and host-known flags become Python values)."""
+    def dev(a, dtype):
+        return torch.as_tensor(np.array(a, dtype=dtype)).to(device)
+
+    return SlamTrackState(
+        frame_id=int(d["frame_id"]), feats=frame_features_from_numpy(d["feats"], device),
+        assign_real=dev(d["assign_real"], np.int32), assign_gen=dev(d["assign_gen"], np.int32),
+        T_cr=dev(d["T_cr"], np.float32), ref_kf=dev(d["ref_kf"], np.int32),
+        T_cl=dev(d["T_cl"], np.float32), motion_valid=dev(d["motion_valid"], np.bool_),
+        initialized=bool(d["initialized"]), lost=dev(d["lost"], np.bool_),
+        last_kf_frame=int(d["last_kf_frame"]), last_was_kf=bool(d["last_was_kf"]),
+        last_reloc_frame=int(d["last_reloc_frame"]),
+    )
 
 
 def dataclass_to_numpy(obj) -> Dict[str, Any]:

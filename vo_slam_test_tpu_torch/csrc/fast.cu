@@ -9,11 +9,11 @@
 // inside the arc, clamped at 0. Pixels are integers in [0, 255], so every
 // difference, min and max is exact in f32.
 //
-// Bound on this card: operations, with bytes close behind. Each pixel is read
-// once and one score is written (8 bytes per pixel), and it takes ~176
-// operations (16 differences, 2 x (64 arc minima + 15 maxima), 2); at the f32
-// rate the operations take slightly longer than the bytes at the memory rate,
-// so the kernel keeps both low:
+// Bound on this card: operations. Each pixel is read once and one score is
+// written (8 bytes per pixel), and it takes ~176 operations: 16 differences
+// and 160 minima and maxima (2 x (64 arc minima + 15 maxima), 2), which run at
+// the compare/min/max rate, half the f32 add rate; they take about four times
+// as long as the bytes at the memory rate. The kernel keeps both low:
 //   - a 32x16 block stages its tile plus a 3-pixel halo in shared memory, so
 //     each input pixel leaves device memory ~1.6 times (halo overhead) and the
 //     17 reads per pixel hit shared memory;

@@ -1,12 +1,11 @@
-"""Synthetic RGB-D sequence generator (port of the default "corner" scene of
-``vo_slam_test_tpu/datasets/synthetic.py``; its room scene, moving patch and
-SLAM trajectory helpers are not ported yet).
+"""Synthetic RGB-D sequence generator (port of the "corner" and "room" scenes
+and ``room_orbit_trajectory`` of ``vo_slam_test_tpu/datasets/synthetic.py``;
+its moving patch, micro texture and pan trajectory are not ported yet).
 
-A textured box corner (back wall z=3.0, floor y=0.8, right wall x=1.5)
-ray-cast through the pinhole model on the host with numpy, with exact
-ground-truth poses and depth. The random draws are the JAX renderer's, so the
-same seed gives the same textures; the trajectory is built with this
-package's ``lie.se3_exp`` on the CPU.
+Textured planes ray-cast through the pinhole model on the host with numpy,
+with exact ground-truth poses and depth. The random draws are the JAX
+renderer's, so the same seed gives the same textures; the default trajectory
+is built with this package's ``lie.se3_exp`` on the CPU.
 """
 
 from __future__ import annotations
@@ -30,11 +29,44 @@ def _make_texture(rng: np.random.Generator, size: int = 1024, n_rect: int = 900)
     return np.clip(tex, 0, 255)
 
 
+def room_orbit_trajectory(n_frames: int, loops: float = 1.0) -> np.ndarray:
+    """Camera orbit inside the "room" scene: on a circle of radius 1.2 in the
+    x-z plane, looking radially outward at the walls, so new wall area enters
+    the frustum every frame and keyframes keep coming. A vertical bob (0.08)
+    and a radial wobble (0.15) give triangulation baseline beyond pure
+    rotation. The JAX package's function with its defaults for radius, bob,
+    wobble and dwell. Returns (N,4,4) T_w_c."""
+    radius, bob, wobble = 1.2, 0.08, 0.15
+    ts = np.arange(n_frames, dtype=np.float64) / max(n_frames - 1, 1)
+    poses = np.zeros((n_frames, 4, 4), dtype=np.float32)
+    for i, t in enumerate(ts):
+        th = 2.0 * np.pi * loops * t
+        r = radius + wobble * np.sin(3.1 * th)
+        y = bob * np.sin(2.3 * th)
+        p = np.array([r * np.sin(th), y, r * np.cos(th)])
+        # camera z = outward radial, y = world y (down), x = y cross z
+        zc = np.array([np.sin(th), 0.0, np.cos(th)])
+        yc = np.array([0.0, 1.0, 0.0])
+        xc = np.cross(yc, zc)
+        T = np.eye(4, dtype=np.float32)
+        T[:3, 0], T[:3, 1], T[:3, 2], T[:3, 3] = xc, yc, zc, p
+        poses[i] = T
+    return poses
+
+
 @dataclasses.dataclass
 class SyntheticRGBD:
-    """Renders frames along a smooth trajectory inside a textured box corner.
-    The camera starts at the origin looking down +z; the per-frame motion
-    scales with motion_scale / n_frames."""
+    """Renders frames along a trajectory inside a textured scene.
+
+    scene="corner" (default): box corner (back wall z=3.0, floor y=0.8, right
+    wall x=1.5); the camera starts at the origin looking down +z and the
+    default trajectory's per-frame motion scales with motion_scale / n_frames.
+
+    scene="room": a closed 6-plane room (4 walls, floor, ceiling, each with
+    its own texture) centred on the origin, for orbits such as
+    ``room_orbit_trajectory`` that sustain keyframe creation.
+
+    ``trajectory`` ([N,4,4] T_w_c) replaces the default trajectory."""
 
     width: int = 640
     height: int = 480
@@ -45,18 +77,41 @@ class SyntheticRGBD:
     n_frames: int = 30
     seed: int = 0
     motion_scale: float = 1.0
+    trajectory: np.ndarray = None
+    scene: str = "corner"
 
     def __post_init__(self):
         rng = np.random.default_rng(self.seed)
-        # (axis, plane value, texture, texture uv axes)
-        self.planes = [
-            (2, 3.0, _make_texture(rng), (0, 1)),   # back wall z = 3
-            (1, 0.8, _make_texture(rng), (0, 2)),   # floor y = 0.8
-            (0, 1.5, _make_texture(rng), (1, 2)),   # right wall x = 1.5
-        ]
-        # walls don't extend infinitely: clip hits to the box corner
-        self.bounds = ((-3.0, 1.5 + 1e-3), (-3.0, 0.8 + 1e-3), (-1.0, 3.0 + 1e-3))
-        self.poses = self._trajectory()
+        if self.scene == "corner":
+            # (axis, plane value, texture, texture uv axes)
+            self.planes = [
+                (2, 3.0, _make_texture(rng), (0, 1)),   # back wall z = 3
+                (1, 0.8, _make_texture(rng), (0, 2)),   # floor y = 0.8
+                (0, 1.5, _make_texture(rng), (1, 2)),   # right wall x = 1.5
+            ]
+            # walls don't extend infinitely: clip hits to the box corner
+            self.bounds = ((-3.0, 1.5 + 1e-3), (-3.0, 0.8 + 1e-3), (-1.0, 3.0 + 1e-3))
+        elif self.scene == "room":
+            texs = [_make_texture(rng) for _ in range(6)]
+            hx, hz = 3.0, 3.0            # half extents of the room footprint
+            y_floor, y_ceil = 1.0, -1.5  # camera y axis points down
+            self.planes = [
+                (2, hz, texs[0], (0, 1)),       # far wall
+                (2, -hz, texs[1], (0, 1)),      # near wall
+                (0, hx, texs[2], (1, 2)),       # right wall
+                (0, -hx, texs[3], (1, 2)),      # left wall
+                (1, y_floor, texs[4], (0, 2)),  # floor
+                (1, y_ceil, texs[5], (0, 2)),   # ceiling
+            ]
+            e = 1e-3
+            self.bounds = ((-hx - e, hx + e), (y_ceil - e, y_floor + e), (-hz - e, hz + e))
+        else:
+            raise ValueError(f"unknown scene {self.scene!r}")
+        if self.trajectory is not None:
+            self.poses = np.asarray(self.trajectory, np.float32)
+            self.n_frames = self.poses.shape[0]
+        else:
+            self.poses = self._trajectory()
 
     def _trajectory(self) -> np.ndarray:
         """Smooth sinusoidal translation + small yaw/pitch. Returns (N,4,4) T_w_c."""

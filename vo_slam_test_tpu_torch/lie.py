@@ -146,6 +146,11 @@ def se3_inverse(T: torch.Tensor) -> torch.Tensor:
     return rt_to_mat(Rt, -torch.einsum("...ij,...j->...i", Rt, T[..., :3, 3]))
 
 
+def transform_point(T: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
+    """Apply (..., 4, 4) to a single point (..., 3)."""
+    return torch.einsum("...ij,...j->...i", T[..., :3, :3], p) + T[..., :3, 3]
+
+
 def transform_points(T: torch.Tensor, pts: torch.Tensor) -> torch.Tensor:
     """Apply (..., 4, 4) to points (..., N, 3) -> (..., N, 3)."""
     return torch.einsum("...ij,...nj->...ni", T[..., :3, :3], pts) + T[..., None, :3, 3]

@@ -22,7 +22,7 @@ from typing import Dict, Iterable, Sequence
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-KERNEL_SOURCES = ("fast", "orb", "match")
+KERNEL_SOURCES = ("fast", "orb", "match", "epi")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
@@ -83,12 +83,16 @@ def load(name: str) -> ctypes.CDLL:
 class Kernel:
     """One ``extern "C"`` launch function of a ``csrc`` library, with its
     launch count: ``launches`` goes up by one each time the kernel is launched
-    and nowhere else."""
+    and nowhere else. Two objects may bind one symbol: each call site then
+    keeps its own count."""
 
     def __init__(self, source: str, symbol: str, argtypes: Sequence):
         self.source = source
         self.symbol = symbol
         self.argtypes = list(argtypes)
+        self.launches = 0
+
+    def reset(self) -> None:
         self.launches = 0
 
     @functools.cached_property
