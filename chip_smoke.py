@@ -17,19 +17,28 @@
      (triangulation), each on an instance captured from the SlamSystem path
      and on a seeded instance with ties, empty rows and a stereo/mono mix.
      Every output must be equal;
+   - the local-BA kernels (LM accumulate + Schur reduction, robust cost,
+     point back-substitution) on the first LM iteration of a captured local
+     BA and on a seeded full-width instance (a stereo/mono mix, outliers past
+     the Huber threshold, empty slots), within the tolerances of
+     ``check_ba``, and two launches bit-equal;
 4. main path 1: the port's FusedTracker over the synthetic corner sequence
    (30 frames, 1000 features, 8 levels: the fr1 extraction settings, as
    ``run_slam --synthetic`` uses): 30/30 tracked frames, ATE < 1 cm, every
    kernel of the path launched;
 5. main path 2: the port's SlamSystem (tracking against the local map, the
-   keyframe policy and the local-mapping chain, interruptBA forced) over the
-   first 40 frames of the 240-frame room orbit at 640x480 with the default
-   MapCaps: 40/40 tracked frames, >= 5 keyframe events, ATE < 1 cm, the
-   chi2 and neighbour-batched kernels launched once per keyframe event, the
-   epipolar kernel once per neighbour past the baseline gate, and a second
-   run giving identical map tensors;
-6. prints one ``{"kernels": [...]}`` line and, last, the ``{"ok": true, ...}``
-   line. No plain version may see a CUDA tensor on either main path. Any
+   keyframe policy and the local-mapping chain with local BA on every
+   keyframe event) over the first 40 frames of the 240-frame room orbit at
+   640x480 with the default MapCaps: 40/40 tracked frames, >= 5 keyframe
+   events, ATE < 1 cm, the chi2 and neighbour-batched kernels launched once
+   per keyframe event, the epipolar kernel once per neighbour past the
+   baseline gate, each BA kernel once per LM iteration the solver reports,
+   and a second run giving identical map tensors;
+6. main path 3: the same frames through ``SlamSystem(chunk=8)``: the same
+   checks, with local BA skipped (and no BA launch) on the events a later
+   keyframe of the same chunk overtakes;
+7. prints one ``{"kernels": [...]}`` line and, last, the ``{"ok": true, ...}``
+   line. No plain version may see a CUDA tensor on any main path. Any
    failed check raises: the exit code is then non-zero and no result line is
    printed. Without a CUDA device it exits 1 at once.
 """
@@ -59,6 +68,12 @@ OP_RATES = {"f32": FMA_PER_S, "alu": FMA_PER_S / 2, "popc": FMA_PER_S / 8}
 DISPATCH_PER_S = FMA_PER_S
 TOP2_OUTS = ("best_i", "best_d", "second_i", "second_d")
 SLICE_FRAMES = 40
+CHUNK = 8
+# the JAX package's SlamSystem with local BA on over the same 40 frames, on
+# the CPU (tools/room_orbit_reference.py --impl jax): printed beside main path
+# 2's result, not a gate
+JAX_CPU_KF_FRAMES = [0, 1, 5, 12, 21, 22, 30, 39]
+JAX_CPU_ATE_CM = 0.7782
 
 
 def bound_ms(n_bytes: float, ops: dict):
@@ -206,6 +221,162 @@ def random_epi_instance(rng, M, N, device):
     ], device)
 
 
+def random_ba_instance(rng, WF, wk, O, L, n_live, device):
+    """Seeded local-BA instance in the layout of ``ba_accumulate``: poses
+    near the identity looking down +z, ``n_live`` points 2-6 m ahead (the
+    rest empty pads), each seen by 2..O distinct keyframe slots (valid
+    first, then empty slots), a stereo/mono mix, one observation in ten
+    moved beyond the Huber threshold, two fixed window slots and slots past
+    the window -> dict of the wrapper's arguments (the Pass-1 case: act is
+    every valid observation)."""
+    from vo_slam_test_tpu_torch import lie
+
+    fx, fy, cx, cy, bf = 517.3, 516.5, 318.6, 255.3, 40.0
+    xi = np.concatenate([rng.normal(0, 0.1, (WF, 3)), rng.normal(0, 0.05, (WF, 3))], 1)
+    poses = lie.se3_exp(torch.as_tensor(xi, dtype=torch.float32)).numpy()
+    X = np.zeros((3, L), np.float32)
+    X[:, :n_live] = rng.uniform([-2, -1.5, 2], [2, 1.5, 6], (n_live, 3)).T
+    slot = np.full((O, L), -1, np.int32)
+    n_obs = rng.integers(2, O + 1, n_live)
+    for p in range(n_live):
+        slot[:n_obs[p], p] = rng.choice(WF, n_obs[p], replace=False)
+    pc = np.einsum("sij,jl->sil", poses[:, :3, :3], X) + poses[:, :3, 3:]   # [WF,3,L]
+    s = np.maximum(slot, 0)
+    cols = np.arange(L)[None].repeat(O, 0)
+    x, y, z = pc[s, 0, cols], pc[s, 1, cols], pc[s, 2, cols]
+    u = fx * x / z + cx + rng.normal(0, 0.5, (O, L))
+    v = fy * y / z + cy + rng.normal(0, 0.5, (O, L))
+    outl = rng.random((O, L)) < 0.1
+    u = np.where(outl, u + rng.choice([-1, 1], (O, L)) * rng.uniform(10, 40, (O, L)), u)
+    ur = np.where(rng.random((O, L)) < 0.5, u - bf / z + rng.normal(0, 0.5, (O, L)), -1.0)
+    valid = slot >= 0
+    octave = rng.integers(0, 8, (O, L))
+    fixed = np.zeros(WF, bool)
+    fixed[[1, 3]] = True
+    povar = valid & (slot < wk) & ~fixed[s]
+    f32 = lambda a: np.where(valid, a, 0.0).astype(np.float32)  # noqa: E731
+    args = _tensors([poses.reshape(WF, 16).T, X, slot, f32(u), f32(v),
+                     np.where(valid, ur, -1.0).astype(np.float32), f32(1.2 ** (-2.0 * octave)),
+                     valid.astype(np.float32), povar.astype(np.float32),
+                     np.array([fx, fy, cx, cy, bf], np.float32)], device)
+    return dict(lam=torch.tensor(1e-4, dtype=torch.float32, device=device), posesT=args[0],
+                X=args[1], slot=args[2], u=args[3], v=args[4], ur=args[5], isig2=args[6],
+                act=args[7], povar=args[8], cam5=args[9], wk=wk, huber=True,
+                n_pts=torch.tensor(n_live, dtype=torch.int32, device=device))
+
+
+def ba_counts(inst):
+    """Live points, valid observations, observations by a variable window
+    slot, (point, window slot) pairs and pairs of window slots of one point
+    (what the BA kernels' work follows)."""
+    slot, povar, wk = inst["slot"], inst["povar"] > 0, inst["wk"]
+    n = int(inst["n_pts"])
+    valid = slot[:, :n] >= 0
+    win = (slot[:, :n, None] == torch.arange(wk, device=slot.device)) & povar[:, :n, None]
+    per_pt = win.any(0).sum(1)                                          # window slots per point
+    return dict(live_points=n, observations=int(valid.sum()),
+                window_observations=int(win.sum()), point_slots=int(per_pt.sum()),
+                slot_pairs=int((per_pt * per_pt).sum()))
+
+
+# f32 instructions per unit of work, counted from csrc/ba.cu: a residual with
+# its robust weight ~38; the Jacobians 108; Hll and bl 36; the Wc update of a
+# window observation 72; in the reduction, per pair of window slots of a
+# point WH and the 6x6 block 162, per (point, window slot) the right side 72
+# and, per observation of that slot, the residual and Jacobians again with
+# the 6x6 pose block and gradient (146 + 168); back-substitution 18 per
+# (point, window slot) and 12 per point
+def ba_bound(kind, inst):
+    """Bound of one BA kernel call from this run's inputs -> (ms, bound_by,
+    counts). Bytes: each input read once and each output written once, for
+    live points only (pads are neither read nor needed): X (12) and the slot
+    column (4 O) per live point, the five observation fields (and povar) per
+    valid observation, the poses; outputs Hinv and bl (48) per live point,
+    Wc rows (72) per (point, window slot), the pose blocks and the Schur
+    matrix once."""
+    c = ba_counts(inst)
+    O = inst["slot"].shape[0]
+    WF, wk = inst["posesT"].shape[1], inst["wk"]
+    pts, obs, wobs, ps, pairs = (c[k] for k in ("live_points", "observations",
+                                                 "window_observations", "point_slots",
+                                                 "slot_pairs"))
+    if kind == "acc":
+        n_bytes = (64 * WF + pts * (12 + 4 * O) + obs * 24 + pts * 48 + ps * 72
+                   + 4 * (wk * 42 + (wk * 6) ** 2 + wk * 6 + 1))
+        ops = obs * (38 + 108 + 36) + wobs * (72 + 146 + 168) + pairs * 162 + ps * 72
+    elif kind == "cost":
+        n_bytes = 64 * WF + pts * (12 + 4 * O) + obs * 20 + 4
+        ops = obs * 38
+    else:
+        n_bytes = pts * (48 + 12) + ps * 72 + wk * 24
+        ops = ps * 18 + pts * 12
+    ms, by = bound_ms(n_bytes, {"f32": ops})
+    return ms, by, c
+
+
+def check_ba(label, kind, got, inst, plain):
+    """Kernel output against the plain version on the same inputs, at the
+    JAX package's kernel-test tolerances (tests/test_local_ba.py:201-209):
+    the cost to rtol 1e-5, Hpp, bp, bl and Wc to 2e-5 x their largest
+    entry. The rest, whose f32 rounding the damped point inverse amplifies
+    (a near-singular block's inverse is rounding noise in both versions):
+    each Hinv block to 1e-5 x its condition number x its largest entry (the
+    blocks' sums differ by ~n eps in f32, which the inverse scales by the
+    condition number); S_red and rhs_red against the plain Schur contraction
+    of the kernel's own Hinv, Wc and bl, to 1e-4 of the same sums of absolute
+    values (sums of up to L terms in another order); dx_pt to
+    1e-4 of its forward error scale |Hinv| (|bl| + |Wc|^T |dx_pose|) (a sum
+    of 6 wk + 3 terms in another order: ~n eps). -> max |kernel - plain|
+    over the entries compared with the plain version directly."""
+    from vo_slam_test_tpu_torch.ops import ba_pallas
+
+    def close(name, g, w, atol, rtol=0.0):
+        err = (g - w).abs()
+        bad = ~(err <= atol + rtol * w.abs())
+        if bool(bad.any()):
+            raise AssertionError(f"{label}: {name} differs from the plain version: max |err| "
+                                 f"{float(err.max())}, {int(bad.sum())} entries out of tolerance")
+        return float(err.max()) if err.numel() else 0.0
+
+    if kind == "cost":
+        return close("cost", got, plain, 0.0, 1e-5)
+    if kind == "backsub":
+        Wc, Hinv, bl, dxp = inst
+        wk, _, L = Wc.shape
+        scale = torch.einsum("ijl,jl->il", Hinv.reshape(3, 3, L).abs(), bl.abs() + torch.einsum(
+            "wikl,wi->kl", Wc.reshape(wk, 6, 3, L).abs(), dxp.abs()))
+        return close("dx_pt", got, plain, 1e-4 * scale)
+    err = 0.0
+    names = ("Hpp", "bp", "S_red", "rhs_red", "cost", "Hinv", "bl", "Wc")
+    for name in ("Hpp", "bp", "bl", "Wc"):
+        i = names.index(name)
+        err = max(err, close(name, got[i], plain[i], 2e-5 * float(plain[i].abs().max())))
+    err = max(err, close("cost", got[4], plain[4], 0.0, 1e-5))
+    L = plain[5].shape[1]
+    cond = torch.linalg.cond(plain[5].T.reshape(L, 3, 3).double()).float()
+    err = max(err, close("Hinv", got[5], plain[5], 1e-5 * cond * plain[5].abs().amax(0)))
+    S, rhs, S_abs, rhs_abs = schur_of(got[7], got[5], got[6])
+    close("S_red", got[2], S, 1e-4 * S_abs)
+    close("rhs_red", got[3], rhs, 1e-4 * rhs_abs)
+    return err
+
+
+def schur_of(Wc, Hinv, bl):
+    """The Schur blocks S_red = sum_l (Wc_a Hinv) Wc_b^T and rhs_red =
+    sum_l (Wc_a Hinv) bl of given blocks, and the same sums of absolute
+    values: the scale of their rounding (the points' terms cancel, so the
+    sum itself is no scale)."""
+    wk, _, L = Wc.shape
+    W4 = Wc.reshape(wk, 6, 3, L)
+    WH = torch.einsum("wikl,kjl->wijl", W4, Hinv.reshape(3, 3, L))
+    WHa = torch.einsum("wikl,kjl->wijl", W4.abs(), Hinv.reshape(3, 3, L).abs())
+    n = wk * 6
+    return (torch.einsum("wikl,vmkl->wivm", WH, W4).reshape(n, n),
+            torch.einsum("wikl,kl->wi", WH, bl).reshape(n, 1),
+            torch.einsum("wikl,vmkl->wivm", WHa, W4.abs()).reshape(n, n),
+            torch.einsum("wikl,kl->wi", WHa, bl.abs()).reshape(n, 1))
+
+
 def check_equal(label, got, want, names):
     """Every output equal -> max |kernel - plain| (0)."""
     err = 0.0
@@ -315,14 +486,18 @@ class PlainGuard:
         self.saved = []
 
 
-def capture_instances(match_cuda, system, cfg, frames):
+def capture_instances(match_cuda, ba_cuda, system, cfg, frames):
     """Drive the SlamSystem path over ``frames`` and keep a copy of the
     arguments of the local-map top-2 (M=4096), chi2 top-2,
     neighbour-batched and epipolar call whose search found the most rows
-    with an allowed pair."""
+    with an allowed pair, and of the first LM iteration (accumulate,
+    back-substitution, cost) of the local BA with the most live points."""
     got, score = {}, {}
     names = ("masked_top2", "masked_top2_nb", "masked_top1_epi")
     orig = {n: getattr(match_cuda, n) for n in names}
+    ba_names = ("ba_accumulate", "ba_backsub", "ba_cost")
+    orig_ba = {n: getattr(ba_cuda, n) for n in ba_names}
+    ba_best = {"n": -1}
 
     def recorder(name):
         def wrapped(*args, **kw):
@@ -341,24 +516,48 @@ def capture_instances(match_cuda, system, cfg, frames):
             return out
         return wrapped
 
+    def ba_recorder(name):
+        def wrapped(*args, **kw):
+            keep = lambda a: a.clone() if isinstance(a, torch.Tensor) else a  # noqa: E731
+            if name == "ba_accumulate":
+                n = int(kw["n_pts"])
+                if n > ba_best["n"]:
+                    ba_best.clear()
+                    ba_best.update(n=n, acc=([keep(a) for a in args], dict(n_pts=keep(kw["n_pts"]))))
+            elif (name == "ba_backsub" and "acc" in ba_best and name not in ba_best
+                  and bool(torch.isfinite(args[3]).all())):
+                # the first back-substitution of that BA whose pose step is
+                # finite (a Cholesky of an indefinite system gives NaN)
+                ba_best[name] = ([keep(a) for a in args], {k: keep(v) for k, v in kw.items()})
+            return orig_ba[name](*args, **kw)
+        return wrapped
+
     for n in names:
         setattr(match_cuda, n, recorder(n))
+    for n in ba_names:
+        setattr(ba_cuda, n, ba_recorder(n))
     try:
         s = system.SlamSystem(cfg)
-        s._force_interrupt_ba = True
         for f in frames:
             s.track(*f)
         torch.cuda.synchronize()
     finally:
         for n, fn in orig.items():
             setattr(match_cuda, n, fn)
+        for n, fn in orig_ba.items():
+            setattr(ba_cuda, n, fn)
     missing = {"top2_m4096", "top2_chi2", "top2_nb", "top1_epi"} - set(got)
-    if missing:
-        raise AssertionError(f"the capture run launched no {sorted(missing)}")
+    if missing or "ba_backsub" not in ba_best:
+        raise AssertionError(f"the capture run launched no {sorted(missing)} or no full LM "
+                             f"iteration ({sorted(ba_best)})")
     # the batched search shares one source set across neighbours: time it as
     # the path passes it (stride 0)
     args, kw = got["top2_nb"]
     args[0] = args[0][0][None].expand_as(args[0])
+    (lam, posesT, X, slot, u, v, ur, isig2, act, povar, cam5, wk, huber), kw = ba_best["acc"]
+    got["ba"] = dict(lam=lam, posesT=posesT, X=X, slot=slot, u=u, v=v, ur=ur, isig2=isig2,
+                     act=act, povar=povar, cam5=cam5, wk=wk, huber=huber, n_pts=kw["n_pts"])
+    got["ba_backsub"] = ba_best["ba_backsub"][0][:4]
     return got
 
 
@@ -374,13 +573,13 @@ def n_baseline_neighbours(m, kf_id, cam) -> int:
 
 
 def run_slice(system, triangulate, cfg, frames, timed: bool, profile_frames=()):
-    """One SlamSystem run over ``frames`` with interruptBA forced. timed:
+    """One SlamSystem run over ``frames`` (interruptBA lowered: every
+    keyframe event runs local BA). timed:
     CUDA events per frame and around each keyframe's mapping step, host syncs
     per frame (sync debug mode). Otherwise: the epipolar searches the path
     should launch, counted apart, and a torch.profiler window over
     ``profile_frames``."""
     s = system.SlamSystem(cfg)
-    s._force_interrupt_ba = True
     rec = dict(frame_ms=[], wall_ms=[], syncs=[], sync_sites={}, map_events=[], epi_expected=0,
                profile=None)
     orig_bg, orig_tri = system.background_step, triangulate.create_new_map_points
@@ -450,6 +649,57 @@ def run_slice(system, triangulate, cfg, frames, timed: bool, profile_frames=()):
     return s, rec
 
 
+def run_chunked(system, cfg, frames, chunk):
+    """One SlamSystem(chunk=...) run over ``frames``: host wall ms of each
+    ``track`` call that completed a chunk (tracking and mapping of its
+    frames), synchronized."""
+    s = system.SlamSystem(cfg, chunk=chunk)
+    chunk_ms = []
+    for i, (gray, depth, ts) in enumerate(frames):
+        t0 = time.perf_counter()
+        s.track(gray, depth, ts)
+        if (i + 1) % chunk == 0:
+            torch.cuda.synchronize()
+            chunk_ms.append((time.perf_counter() - t0) * 1e3)
+    torch.cuda.synchronize()
+    return s, chunk_ms
+
+
+def expected_stops(made_kf, chunk):
+    """Events whose local BA a later keyframe of the same chunk overtakes
+    (the rule of ``chunk_ba_stops``, computed apart from the port)."""
+    stops = set()
+    for c0 in range(0, len(made_kf), chunk):
+        kfs = [i for i in range(c0, min(c0 + chunk, len(made_kf))) if made_kf[i]]
+        stops.update(kfs[:-1])
+    return stops
+
+
+def check_ba_launches(label, s, kf_frames, launches, stops):
+    """Every keyframe event has its LM iteration counts; stopped events ran
+    none, the others ran pass 1; each BA kernel launched once per iteration
+    run."""
+    iters = {f: (n1, n2) for f, n1, n2 in s.ba_iters}
+    n_iter = sum(n1 + n2 for n1, n2 in iters.values())
+    bad = [f for f in kf_frames if (iters.get(f) == (0, 0)) != (f in stops) or f not in iters]
+    if sorted(iters) != kf_frames or bad:
+        raise AssertionError(f"{label}: LM iterations {s.ba_iters} do not fit the keyframe "
+                             f"events {kf_frames} (stopped: {sorted(stops)})")
+    if any(launches[k] != n_iter for k in ("ba_acc", "ba_cost", "ba_backsub")):
+        raise AssertionError(f"{label}: BA kernel launches {launches} != {n_iter} LM iterations")
+    print(f"  {n_iter} LM iterations, each BA kernel launched once per iteration")
+
+
+def check_same_maps(label, s_a, s_b):
+    diff = [f for f in s_a.map.__dataclass_fields__
+            if not torch.equal(getattr(s_a.map, f), getattr(s_b.map, f))]
+    if diff or s_a.ba_iters != s_b.ba_iters:
+        raise AssertionError(f"two runs of {label} gave different map tensors {diff} or LM "
+                             f"iterations {s_a.ba_iters} / {s_b.ba_iters}")
+    print(f"  two runs: all {len(s_a.map.__dataclass_fields__)} map tensors and the LM "
+          f"iteration counts identical")
+
+
 def device_profile(prof, n_frames, wall_ms):
     """Device busy ms per frame, kernels per frame and the top kernels from
     the CUDA kernel events of a profiler window."""
@@ -478,7 +728,8 @@ def main() -> int:
     from vo_slam_test_tpu_torch.datasets.synthetic import room_orbit_trajectory
     from vo_slam_test_tpu_torch.frontend.extractor import extract_fused, select_keypoints
     from vo_slam_test_tpu_torch.ops import (
-        _build, brief, fast, fast_cuda, match_cuda, match_pallas, orb_cuda, orientation, pattern)
+        _build, ba_cuda, ba_pallas, brief, fast, fast_cuda, match_cuda, match_pallas, orb_cuda,
+        orientation, pattern)
     from vo_slam_test_tpu_torch.ops.pyramid import build_pyramid, interior
     from vo_slam_test_tpu_torch.matching import matcher
     from vo_slam_test_tpu_torch.pipeline import system, tracking
@@ -504,10 +755,14 @@ def main() -> int:
                 print(f"  {k}.cu: {line.strip()}")
     all_kernels = {"fast": fast_cuda.KERNEL, "orb": orb_cuda.KERNEL, "top2": match_cuda.KERNEL,
                    "top2_m4096": match_cuda.KERNEL_LOCAL, "top2_chi2": match_cuda.KERNEL_CHI2,
-                   "top2_nb": match_cuda.KERNEL_NB, "top1_epi": match_cuda.KERNEL_EPI}
+                   "top2_nb": match_cuda.KERNEL_NB, "top1_epi": match_cuda.KERNEL_EPI,
+                   "ba_acc": ba_cuda.KERNEL_ACC, "ba_cost": ba_cuda.KERNEL_COST,
+                   "ba_backsub": ba_cuda.KERNEL_BACKSUB}
+    ba_keys = ("ba_acc", "ba_cost", "ba_backsub")
     plains = [(fast, "fast_score"), (orientation, "ic_angle"), (brief, "compute_descriptors"),
               (match_pallas, "masked_top2_plain"), (match_pallas, "masked_top2_nb_plain"),
-              (match_pallas, "masked_top1_epi_plain")]
+              (match_pallas, "masked_top1_epi_plain"), (ba_pallas, "ba_accumulate_plain"),
+              (ba_pallas, "ba_cost_plain"), (ba_pallas, "ba_backsub_plain")]
 
     # -- data: the first main path's sequence -------------------------------
     t0 = time.perf_counter()
@@ -626,7 +881,7 @@ def main() -> int:
     t0 = time.perf_counter()
     # frames 0-12 hold keyframe events at 0, 1, 5 and 12 (JAX on the CPU);
     # the first with keypoints left for triangulation is frame 12's
-    captured = capture_instances(match_cuda, system, room_cfg, room_frames[:13])
+    captured = capture_instances(match_cuda, ba_cuda, system, room_cfg, room_frames[:13])
     print(f"captured the slice path's kernel instances from frames 0-12 in "
           f"{time.perf_counter() - t0:.1f} s")
     rng = np.random.default_rng(1)
@@ -672,6 +927,77 @@ def main() -> int:
             bound_ms=kb, bound_by=kby, library_ms=None, counted=counted)
         print(f"  captured: counted {counted}; kernel {kernels[key]['ms']:.4f} ms, "
               f"plain {kernels[key]['plain_ms']:.4f} ms, bound {kb:.6f} ms ({kby})")
+
+    # -- phases 8-10: the local-BA kernels ------------------------------------
+    # the captured instance: the first LM iteration of the frames 0-12 event
+    # with the most live points; the seeded one at the full-width sizes (WF 64,
+    # wk 24, O 12, L 8192) with 1500 live points
+    def acc_args(inst):
+        return (inst["lam"], inst["posesT"], inst["X"], inst["slot"], inst["u"], inst["v"],
+                inst["ur"], inst["isig2"], inst["act"], inst["povar"], inst["cam5"], inst["wk"],
+                inst["huber"])
+
+    def cost_args(inst):
+        return acc_args(inst)[1:9] + (inst["cam5"], inst["huber"])
+
+    ba_seeded = random_ba_instance(np.random.default_rng(2), 64, 24, 12, 8192, 1500, dev)
+    sub_rng = np.random.default_rng(3)
+    ba_insts = {}
+    for label, inst in (("captured", captured["ba"]), ("seeded", ba_seeded)):
+        acc = ba_cuda.ba_accumulate(*acc_args(inst), n_pts=inst["n_pts"])
+        dxp = (torch.as_tensor(sub_rng.normal(0, 1e-3, (inst["wk"], 6)), dtype=torch.float32)
+               .to(dev) if label == "seeded" else captured["ba_backsub"][3])
+        sub = (acc[7], acc[5], acc[6], dxp) if label == "seeded" else captured["ba_backsub"]
+        ba_insts[label] = (inst, sub)
+    ba_specs = {
+        "ba_acc": ("ba_accumulate", lambda i, s: ba_cuda.ba_accumulate(*acc_args(i), n_pts=i["n_pts"]),
+                   lambda i, s: ba_pallas.ba_accumulate_plain(*acc_args(i)), "acc",
+                   "vo_slam_test_tpu/ops/ba_pallas.py:285"),
+        "ba_cost": ("ba_cost", lambda i, s: ba_cuda.ba_cost(*cost_args(i), n_pts=i["n_pts"]),
+                    lambda i, s: ba_pallas.ba_cost_plain(*cost_args(i)), "cost",
+                    "vo_slam_test_tpu/ops/ba_pallas.py:338"),
+        "ba_backsub": ("ba_backsub", lambda i, s: ba_cuda.ba_backsub(*s, n_pts=i["n_pts"]),
+                       lambda i, s: ba_pallas.ba_backsub_plain(*s), "backsub",
+                       "vo_slam_test_tpu/ops/ba_pallas.py:365"),
+    }
+    for key, (kname, kfn, pfn, kind, replaces) in ba_specs.items():
+        err = 0.0
+        for label, (inst, sub) in ba_insts.items():
+            got, again = kfn(inst, sub), kfn(inst, sub)
+            want = pfn(inst, sub)
+            torch.cuda.synchronize()
+            outs = got if isinstance(got, tuple) else (got,)
+            if not all(torch.equal(a.view(torch.int32), b.view(torch.int32)) for a, b in
+                       zip(outs, again if isinstance(again, tuple) else (again,))):
+                raise AssertionError(f"{kname} on the {label} instance: two launches differ")
+            err = max(err, check_ba(f"{kname} on the {label} instance", kind, got,
+                                    sub if kind == "backsub" else inst, want))
+            print(f"phase {kname} {label}: within tolerance of the plain version, two launches "
+                  f"bit-equal; {ba_counts(inst)}")
+        inst, sub = ba_insts["captured"]
+        kb, kby, counted = ba_bound(kind, inst)
+        O, L = inst["slot"].shape
+        kernels[key] = dict(
+            name=kname, shape=f"WF={inst['posesT'].shape[1]} wk={inst['wk']} O={O} L={L}",
+            route="cuda", source="vo_slam_test_tpu_torch/csrc/ba.cu", replaces=replaces,
+            max_abs_err=err, ms=time_graph_ms(lambda: kfn(inst, sub)),
+            plain_ms=time_eager_ms(lambda: pfn(inst, sub)),
+            bound_ms=kb, bound_by=kby, library_ms=None, counted=counted)
+        print(f"  captured: kernel {kernels[key]['ms']:.4f} ms, plain "
+              f"{kernels[key]['plain_ms']:.4f} ms, bound {kb:.6f} ms ({kby})")
+        # device time of each launch inside the call (torch.profiler kernel events)
+        from torch.profiler import ProfilerActivity, profile
+
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(5):
+                kfn(inst, sub)
+            torch.cuda.synchronize()
+        per = {}
+        for e in prof.events():
+            if e.device_type == torch.autograd.DeviceType.CUDA:
+                per[e.name[:40]] = per.get(e.name[:40], 0.0) + e.time_range.elapsed_us() / 5e3
+        print(f"  device ms per call by kernel: { {k: round(v, 4) for k, v in per.items()} }")
 
     # -- main path 1: FusedTracker -------------------------------------------
     tracker = tracking.FusedTracker(cfg)
@@ -761,6 +1087,9 @@ def main() -> int:
     print(f"main path 2 (SlamSystem, room orbit {SLICE_FRAMES} frames 640x480): tracked "
           f"{n_ok2}/{len(stats2)} frames, ATE {ate2 * 100:.4f} cm; keyframe events at frames "
           f"{kf_frames}; live keyframes {s1.n_keyframes}, points {s1.n_points}")
+    print(f"  beside the JAX package on the CPU (tools/room_orbit_reference.py --impl jax): "
+          f"keyframes at {JAX_CPU_KF_FRAMES}, ATE {JAX_CPU_ATE_CM} cm; LM iterations per event "
+          f"(frame, pass 1, pass 2): {s1.ba_iters}")
     print(f"  per frame (n_features, n_matches, n_inliers): "
           f"{[(s.n_features, s.n_matches, s.n_inliers) for s in stats2]}")
     print(f"  per-frame ms (CUDA events, tracking + mapping): {[round(float(x), 3) for x in fm]}")
@@ -789,15 +1118,44 @@ def main() -> int:
                              f"{n_events} keyframe events, {rec2['epi_expected']} epipolar searches")
     if guard.cuda_calls:
         raise AssertionError(f"plain versions ran on CUDA tensors: {guard.cuda_calls}")
-    diff = [f for f in s1.map.__dataclass_fields__
-            if not torch.equal(getattr(s1.map, f), getattr(s2.map, f))]
-    if diff:
-        raise AssertionError(f"two runs of main path 2 gave different map tensors: {diff}")
-    print(f"  two runs: all {len(s1.map.__dataclass_fields__)} map tensors identical")
+    check_ba_launches("main path 2", s1, kf_frames, launches2, set())
+    check_same_maps("main path 2", s1, s2)
+
+    # -- main path 3: SlamSystem(chunk=8) over the same frames -----------------
+    with PlainGuard(plains) as guard3:
+        torch.cuda.synchronize()
+        for k in all_kernels.values():
+            k.reset()
+        s3, chunk_ms = run_chunked(system, room_cfg, room_frames, CHUNK)
+        launches3 = {k: v.launches for k, v in all_kernels.items()}
+        s4, chunk_ms4 = run_chunked(system, room_cfg, room_frames, CHUNK)
+    traj3, stats3, _ = s3.results()
+    ate3 = ate_rmse(s3.timestamps, gt2, s3.timestamps, traj3)
+    n_ok3 = sum(s.ok for s in stats3)
+    kf_frames3 = [i for i, o in enumerate(s3._outs) if o.made_kf]
+    stops3 = expected_stops([o.made_kf for o in s3._outs], CHUNK)
+    print(f"main path 3 (SlamSystem chunk={CHUNK}, the same {SLICE_FRAMES} frames): tracked "
+          f"{n_ok3}/{len(stats3)} frames, ATE {ate3 * 100:.4f} cm; keyframe events at frames "
+          f"{kf_frames3}, BA skipped by a later keyframe of the chunk at {sorted(stops3)}; live "
+          f"keyframes {s3.n_keyframes}, points {s3.n_points}")
+    print(f"  LM iterations per event (frame, pass 1, pass 2): {s3.ba_iters}")
+    print(f"  per-chunk wall ms (track + map {CHUNK} frames, synchronized): "
+          f"{[round(x, 3) for x in chunk_ms]}; second run {[round(x, 3) for x in chunk_ms4]}")
+    print(f"  kernel launches: {launches3}; plain versions on CUDA: {guard3.cuda_calls}")
+    if n_ok3 != SLICE_FRAMES or len(kf_frames3) < 5 or not ate3 < 0.01:
+        raise AssertionError(f"main path 3 failed: {n_ok3}/{SLICE_FRAMES} tracked, "
+                             f"{len(kf_frames3)} keyframe events, ATE {ate3} m")
+    if (launches3["top2_chi2"] != len(kf_frames3) or launches3["top2_nb"] != len(kf_frames3)
+            or launches3["fast"] != SLICE_FRAMES):
+        raise AssertionError(f"kernel launch counts off on main path 3: {launches3}")
+    if guard3.cuda_calls:
+        raise AssertionError(f"plain versions ran on CUDA tensors: {guard3.cuda_calls}")
+    check_ba_launches("main path 3", s3, kf_frames3, launches3, stops3)
+    check_same_maps("main path 3", s3, s4)
 
     for k in ("fast", "orb", "top2"):
         kernels[k]["launches"] = launches1[k]
-    for k in ("top2_m4096", "top2_chi2", "top2_nb", "top1_epi"):
+    for k in ("top2_m4096", "top2_chi2", "top2_nb", "top1_epi") + ba_keys:
         kernels[k]["launches"] = launches2[k]
     keys = ("name", "shape", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms", "counted")
@@ -809,9 +1167,12 @@ def main() -> int:
                         "tracking_ms_median": float(np.median(track_ms)),
                         "mapping_ms": {str(i): v for i, v in map_ms.items()},
                         "ate_m": float(ate2), "keyframe_frames": kf_frames,
-                        "host_syncs": rec1["syncs"]},
+                        "ba_iters": s1.ba_iters, "host_syncs": rec1["syncs"]},
+        "slam_system_chunk8": {"chunk_ms": chunk_ms, "ate_m": float(ate3),
+                               "keyframe_frames": kf_frames3, "ba_iters": s3.ba_iters,
+                               "launches": launches3},
         "card": smi}}))
-    order = ("fast", "orb", "top2", "top2_m4096", "top2_chi2", "top2_nb", "top1_epi")
+    order = ("fast", "orb", "top2", "top2_m4096", "top2_chi2", "top2_nb", "top1_epi") + ba_keys
     print(json.dumps({"kernels": [{key: kernels[k][key] for key in keys if key in kernels[k]}
                                   for k in order]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

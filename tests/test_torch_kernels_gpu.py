@@ -17,7 +17,8 @@ import torch
 from vo_slam_test_tpu_torch.config import SlamConfig
 from vo_slam_test_tpu_torch.datasets import SyntheticRGBD, ate_rmse
 from vo_slam_test_tpu_torch.frontend.extractor import select_keypoints
-from vo_slam_test_tpu_torch.ops import brief, fast, fast_cuda, match_cuda, match_pallas, orb_cuda
+from vo_slam_test_tpu_torch.ops import (ba_cuda, ba_pallas, brief, fast, fast_cuda, match_cuda,
+                                        match_pallas, orb_cuda)
 from vo_slam_test_tpu_torch.ops import orientation
 from vo_slam_test_tpu_torch.ops.pyramid import PyramidSpec, build_pyramid, interior
 from vo_slam_test_tpu_torch.datasets.synthetic import room_orbit_trajectory
@@ -25,8 +26,8 @@ from vo_slam_test_tpu_torch.pipeline.system import SlamSystem
 from vo_slam_test_tpu_torch.pipeline.tracking import FusedTracker
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-from chip_smoke import (random_chi2_instance, random_epi_instance,  # noqa: E402
-                        random_nb_instance, random_top2_instance)
+from chip_smoke import (check_ba, random_ba_instance, random_chi2_instance,  # noqa: E402
+                        random_epi_instance, random_nb_instance, random_top2_instance)
 
 pytestmark = pytest.mark.gpu
 
@@ -164,14 +165,96 @@ def test_slam_system_runs_on_card(cuda):
     assert ate_rmse(s.timestamps, gt, s.timestamps, traj) < 0.01
 
 
-def test_slam_system_without_interrupt_raises(cuda):
-    """Local BA is not ported: a keyframe event with interruptBA lowered
-    raises instead of skipping BA silently."""
-    seq = SyntheticRGBD(n_frames=2, seed=0)
+def test_slam_system_runs_local_ba_on_card(cuda):
+    """interruptBA lowered (the default): the keyframe events at frames 0, 1
+    and 5 of the room orbit run local BA, each BA kernel launching once per
+    LM iteration the solver reports."""
+    seq = SyntheticRGBD(trajectory=room_orbit_trajectory(240, loops=1.5), scene="room", seed=7)
     cfg = SlamConfig(camera_fx=seq.fx, camera_fy=seq.fy, camera_cx=seq.cx, camera_cy=seq.cy,
                      camera_k1=0, camera_k2=0, camera_p1=0, camera_p2=0, camera_k3=0)
-    with pytest.raises(NotImplementedError, match="local BA"):
-        SlamSystem(cfg).track(*seq[0])
+    s = SlamSystem(cfg)
+    kernels = (ba_cuda.KERNEL_ACC, ba_cuda.KERNEL_COST, ba_cuda.KERNEL_BACKSUB)
+    before = [k.launches for k in kernels]
+    for i in range(6):
+        s.track(*seq[i])
+    traj, stats, _ = s.results()
+    assert all(st.ok for st in stats)
+    assert [f for f, _, _ in s.ba_iters] == [i for i, o in enumerate(s._outs) if o.made_kf]
+    assert all(n1 > 0 for _, n1, _ in s.ba_iters)
+    n_iter = sum(n1 + n2 for _, n1, n2 in s.ba_iters)
+    assert [k.launches - b for k, b in zip(kernels, before)] == [n_iter] * 3
+    gt = np.stack([seq.poses[i] for i in range(6)])
+    assert ate_rmse(s.timestamps, gt, s.timestamps, traj) < 0.01
+
+
+def _ba_instance(cuda, huber):
+    inst = random_ba_instance(np.random.default_rng(11 + huber), 32, 16, 12, 4096, 900, cuda)
+    inst["huber"] = huber
+    return inst
+
+
+def _acc_args(inst):
+    return (inst["lam"], inst["posesT"], inst["X"], inst["slot"], inst["u"], inst["v"],
+            inst["ur"], inst["isig2"], inst["act"], inst["povar"], inst["cam5"], inst["wk"],
+            inst["huber"])
+
+
+@pytest.mark.parametrize("huber", [True, False])
+def test_ba_accumulate_kernel_matches_plain(cuda, huber):
+    """Tolerances: chip_smoke.check_ba (the JAX package's kernel-test
+    tolerances, tests/test_local_ba.py:201-209)."""
+    inst = _ba_instance(cuda, huber)
+    before = ba_cuda.KERNEL_ACC.launches
+    got = ba_cuda.ba_accumulate(*_acc_args(inst), n_pts=inst["n_pts"])
+    assert ba_cuda.KERNEL_ACC.launches == before + 1
+    want = ba_pallas.ba_accumulate_plain(*_acc_args(inst))
+    torch.cuda.synchronize()
+    check_ba("ba_accumulate", "acc", got, inst, want)
+    # pads (past n_pts) contribute nothing and keep zero Wc rows
+    assert (got[7][:, :, 900:] == 0).all() and (got[6][:, 900:] == 0).all()
+
+
+@pytest.mark.parametrize("huber", [True, False])
+def test_ba_cost_kernel_matches_plain(cuda, huber):
+    inst = _ba_instance(cuda, huber)
+    args = _acc_args(inst)[1:9] + (inst["cam5"], huber)
+    before = ba_cuda.KERNEL_COST.launches
+    got = ba_cuda.ba_cost(*args, n_pts=inst["n_pts"])
+    assert ba_cuda.KERNEL_COST.launches == before + 1
+    check_ba("ba_cost", "cost", got, inst, ba_pallas.ba_cost_plain(*args))
+    # the accumulate kernel's cost on the same inputs is the same sum, bit for bit
+    acc = ba_cuda.ba_accumulate(*_acc_args(inst), n_pts=inst["n_pts"])
+    torch.cuda.synchronize()
+    assert torch.equal(acc[4], got)
+
+
+def test_ba_backsub_kernel_matches_plain(cuda):
+    inst = _ba_instance(cuda, True)
+    acc = ba_cuda.ba_accumulate(*_acc_args(inst), n_pts=inst["n_pts"])
+    dxp = torch.as_tensor(np.random.default_rng(5).normal(0, 1e-3, (16, 6)),
+                          dtype=torch.float32).to(cuda)
+    sub = (acc[7], acc[5], acc[6], dxp)
+    before = ba_cuda.KERNEL_BACKSUB.launches
+    got = ba_cuda.ba_backsub(*sub, n_pts=inst["n_pts"])
+    assert ba_cuda.KERNEL_BACKSUB.launches == before + 1
+    want = ba_pallas.ba_backsub_plain(*sub)
+    torch.cuda.synchronize()
+    check_ba("ba_backsub", "backsub", got, sub, want)
+
+
+def test_ba_kernels_deterministic(cuda):
+    """Two launches on the same inputs give bit-equal outputs: no float sum
+    depends on the order blocks run in."""
+    inst = _ba_instance(cuda, True)
+    a = ba_cuda.ba_accumulate(*_acc_args(inst), n_pts=inst["n_pts"])
+    b = ba_cuda.ba_accumulate(*_acc_args(inst), n_pts=inst["n_pts"])
+    args = _acc_args(inst)[1:9] + (inst["cam5"], True)
+    c1, c2 = (ba_cuda.ba_cost(*args, n_pts=inst["n_pts"]) for _ in range(2))
+    sub = (a[7], a[5], a[6], torch.full((16, 6), 1e-3, device=cuda))
+    d1, d2 = (ba_cuda.ba_backsub(*sub, n_pts=inst["n_pts"]) for _ in range(2))
+    torch.cuda.synchronize()
+    for x, y in zip((*a, c1, d1), (*b, c2, d2)):
+        assert torch.equal(x.view(torch.int32), y.view(torch.int32))
 
 
 def test_port_modules_import_no_jax(cuda):
@@ -186,7 +269,7 @@ def test_port_modules_import_no_jax(cuda):
         importlib.import_module(m.name)
     for name in ("slam_map.map_state", "slam_map.insert", "slam_map.local_map",
                  "slam_map.culling", "slam_map.fuse", "slam_map.triangulate",
-                 "pipeline.system", "solvers.local_ba"):
+                 "pipeline.system", "solvers.local_ba", "ops.ba_cuda", "ops.ba_pallas"):
         assert pkg.__name__ + "." + name in sys.modules
     bad = [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "vo_slam_test_tpu")]
     assert not bad, bad

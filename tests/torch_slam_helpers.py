@@ -1,7 +1,8 @@
 """Shared set-up of the port's map and system parity tests
-(tests/test_torch_map.py, test_torch_mapping.py, test_torch_system.py): the
-room-orbit sequence at 320x240, its config, one JAX system run over its first
-24 frames shared by the three files, and the map comparison."""
+(tests/test_torch_map.py, test_torch_mapping.py, test_torch_system.py,
+test_torch_local_ba.py): the room-orbit sequence at 320x240, its config, the
+JAX system runs over its first 24 frames shared by those files (interruptBA
+forced, and local BA on), and the map comparison."""
 
 import fcntl
 import os
@@ -22,6 +23,7 @@ from vo_slam_test_tpu.slam_map import culling as jculling
 from vo_slam_test_tpu.slam_map import fuse as jfuse
 from vo_slam_test_tpu.slam_map import triangulate as jtri
 from vo_slam_test_tpu.slam_map.map_state import MapCaps as JMapCaps
+from vo_slam_test_tpu.solvers import local_ba as jlba
 from vo_slam_test_tpu_torch import convert
 from vo_slam_test_tpu_torch.slam_map.map_state import MapCaps
 
@@ -119,28 +121,64 @@ def _jax_room_run():
     return run
 
 
-_RUN = None
+def _jax_room_run_ba(tmp_path_factory):
+    """The JAX SlamSystem with local BA on every keyframe event (interruptBA
+    lowered, its default) over frames 0..N_FRAMES-1, as numpy: stats, traj,
+    n_keyframes, n_points as ``_jax_room_run``; and ba_step: JAX's
+    ``local_bundle_adjust_iters`` (jitted, as the mapping step runs it) on the
+    forced run's map after frame KF_FRAME's fuse (``chain[3]``) with its
+    keyframe -> (map, n1, n2)."""
+    seq = room_sequence()
+    js = JSlamSystem(JConfig(**room_kw(seq)), caps=J_CAPS)
+    run = dict(stats=[])
+    for i in range(N_FRAMES):
+        js.track(*seq[i])
+        o = jax.device_get(js._outs[-1])
+        run["stats"].append(dict(
+            n_features=int(o.n_features), n_matches=int(o.n_matches),
+            n_inliers=int(o.n_inliers), ok=bool(o.ok), made_kf=bool(o.made_kf),
+            T=np.asarray(o.T_c_w)))
+    run["traj"] = js.results()[0]
+    run["n_keyframes"], run["n_points"] = js.n_keyframes, js.n_points
+    forced = jax_room_run(tmp_path_factory)
+    step = jax.jit(jlba.local_bundle_adjust_iters, static_argnames=("caps",))
+    m, n1, n2 = step(jax_map_fresh(forced["chain"][3]), jnp.asarray(forced["kf"], jnp.int32),
+                     J_CAPS, js.camera, 1.0 / (js.scale_factors * js.scale_factors))
+    run["ba_step"] = (jax_map_host(m), int(n1), int(n2))
+    return run
 
 
-def jax_room_run(tmp_path_factory):
-    """``_jax_room_run`` once per test session: the first test file to ask
-    runs it and leaves it in the session's temp root; under pytest-xdist the
-    other workers wait on a lock there and read it."""
-    global _RUN
-    if _RUN is None:
+_RUNS = {}
+
+
+def _shared_run(tmp_path_factory, name, fn):
+    """``fn(tmp_path_factory)`` once per test session: the first test file to
+    ask runs it and leaves it in the session's temp root; under pytest-xdist
+    the other workers wait on a lock there and read it."""
+    if name not in _RUNS:
         root = tmp_path_factory.getbasetemp()
         if os.environ.get("PYTEST_XDIST_WORKER"):
             root = root.parent  # shared by the session's workers
-        path = root / "jax_room_run.pkl"
-        with open(root / "jax_room_run.lock", "w") as lock:
+        path = root / f"{name}.pkl"
+        with open(root / f"{name}.lock", "w") as lock:
             fcntl.flock(lock, fcntl.LOCK_EX)
             if path.exists():
-                _RUN = pickle.loads(path.read_bytes())
+                _RUNS[name] = pickle.loads(path.read_bytes())
             else:
-                _RUN = _jax_room_run()
-                path.with_suffix(".tmp").write_bytes(pickle.dumps(_RUN))
+                _RUNS[name] = fn(tmp_path_factory)
+                path.with_suffix(".tmp").write_bytes(pickle.dumps(_RUNS[name]))
                 os.replace(path.with_suffix(".tmp"), path)
-    return _RUN
+    return _RUNS[name]
+
+
+def jax_room_run(tmp_path_factory):
+    """``_jax_room_run`` once per test session (``_shared_run``)."""
+    return _shared_run(tmp_path_factory, "jax_room_run", lambda _: _jax_room_run())
+
+
+def jax_room_run_ba(tmp_path_factory):
+    """``_jax_room_run_ba`` once per test session (``_shared_run``)."""
+    return _shared_run(tmp_path_factory, "jax_room_run_ba", _jax_room_run_ba)
 
 
 def jax_map_host(m):

@@ -6,7 +6,9 @@ TPU kernel on the ported path is a hand-written CUDA kernel for ``sm_90a``
 (``csrc/``), built with ``nvcc`` at first use and bound with ``ctypes``.
 
 Ported so far: frame-to-frame ORB tracking (``pipeline/tracking.py::
-FusedTracker``) and everything it runs.
+FusedTracker``) and ``pipeline/system.py::SlamSystem`` without a vocabulary
+(the map, tracking against the local map, the local-mapping chain with local
+BA, per frame or in chunks), with every kernel they run.
 
 Entry points run on the card unless the caller passes ``device="cpu"``; on a
 CPU tensor every kernel wrapper runs its plain PyTorch version instead.

@@ -10,18 +10,25 @@ Each frame runs two steps, as the JAX package's ``SlamSystem.track`` does:
   reference's order (localMapping.cpp:16-66): map-point culling,
   triangulation, fuse, local BA, keyframe culling.
 
-Not ported yet: BoW tracking against the reference keyframe, relocalization,
-loop closing, the chunked programs (``track_chunk``/``background_chunk``) and
-the local BA solve itself. Local BA runs only as the interruptBA entry skip
-(``SlamSystem._force_interrupt_ba = True``); otherwise it raises.
+``SlamSystem(..., chunk=K)`` is the JAX package's throughput mode: frames are
+buffered and each full chunk is tracked frame after frame (``track_chunk``)
+before its keyframe events are mapped in order (``background_chunk``), so
+mapping results reach tracking at chunk ends. Within a chunk an event's local
+BA is skipped when a later frame of the chunk also made a keyframe
+(``chunk_ba_stops``, the reference's interruptBA raised by a queued
+keyframe). A partial chunk is tracked frame by frame at ``results()``.
+
+Not ported yet: BoW tracking against the reference keyframe, relocalization
+and loop closing.
 
 Host reads per frame: the JAX package branches with ``lax.cond`` on device
 scalars; here every branch that decides which kernels run is a host bool.
 A tracked frame reads back the r=15 match count (the r=30 retry) and, in
 ``insert_keyframe``, the keyframe decision with its slot (one read). A
-keyframe event adds the triangulation's neighbour gates (one read). The other
-branches (a lost frame's attempt, the pose round 2) run both sides and select
-with ``torch.where``.
+keyframe event adds the triangulation's neighbour gates (one read) and one
+read per local-BA LM iteration (its exit test). The other branches (a lost
+frame's attempt, the pose round 2) run both sides and select with
+``torch.where``.
 """
 
 from __future__ import annotations
@@ -358,6 +365,49 @@ def background_step(m: MapState, did_kf: bool, kf_id: int, interrupt_ba: bool, c
     return _mapping_step(m, did_kf, kf_id, caps, cam, scale_factors, interrupt_ba=interrupt_ba)
 
 
+def track_chunk(state: SlamTrackState, m: MapState, frames, cam: Camera, caps: MapCaps,
+                spec: PyramidSpec, budgets, scale_factors: torch.Tensor,
+                inv_level_sigma2: torch.Tensor, fast_hi: float, fast_lo: float,
+                max_frame_gap: int):
+    """K frames ``(gray, depth, timestamp)`` of tracking in order (the JAX
+    package's ``lax.scan`` over ``_slam_step``), without mapping in between
+    -> (state, map, [SlamOut], [new keyframe id or -1])."""
+    outs, new_kfs = [], []
+    for gray, depth, ts in frames:
+        state, m, out, new_kf = _slam_step(
+            state, m, gray, depth, ts, cam, caps, spec, budgets, scale_factors,
+            inv_level_sigma2, fast_hi, fast_lo, max_frame_gap)
+        outs.append(out)
+        new_kfs.append(new_kf)
+    return state, m, outs, new_kfs
+
+
+def chunk_ba_stops(did_kf) -> torch.Tensor:
+    """[K] bool: event k must skip its local BA because a later frame of the
+    same chunk created a keyframe (the reference's interruptBA raised by a
+    queued new keyframe, localMapping.cpp:538-541, read at the solver's entry,
+    optimizer_ceres.cpp:594)."""
+    d = torch.as_tensor(did_kf, dtype=torch.int32).reshape(-1)
+    later_incl = torch.flip(torch.cumsum(torch.flip(d, [0]), 0), [0])  # KFs at index >= k
+    return (later_incl - d) > 0
+
+
+def background_chunk(m: MapState, did_kf: List[bool], kf_id: List[int], interrupt_ba: bool,
+                     caps: MapCaps, cam: Camera, scale_factors: torch.Tensor,
+                     with_loop: bool = False) -> Tuple[MapState, List[Tuple[int, int]]]:
+    """The mapping chain for every keyframe a tracked chunk created, in
+    creation order; ``stops = chunk_ba_stops(did_kf) | interrupt_ba``.
+    -> (map, [(BA iterations pass 1, pass 2)] per chunk frame)."""
+    if with_loop:
+        raise NotImplementedError("loop closing is not ported yet")
+    stops = (chunk_ba_stops(did_kf) | bool(interrupt_ba)).tolist()
+    iters = []
+    for did, kid, stop in zip(did_kf, kf_id, stops):
+        m, n1, n2 = _mapping_step(m, did, kid, caps, cam, scale_factors, interrupt_ba=stop)
+        iters.append((n1, n2))
+    return m, iters
+
+
 def recover_frame_pose(
     ref: int, gen: int, T_cr: np.ndarray, T_c_w_raw: np.ndarray,
     kf_pose, kf_valid, kf_gen, cull_parent, cull_parent_gen, cull_gen, kf_tcp,
@@ -381,11 +431,11 @@ def recover_frame_pose(
 
 
 class SlamSystem:
-    """Tracking + local mapping over an RGB-D stream, one frame at a time
-    (``chunk=1``), without a vocabulary."""
+    """Tracking + local mapping over an RGB-D stream without a vocabulary:
+    one frame at a time (``chunk=1``) or in chunks of ``chunk`` frames."""
 
     def __init__(self, cfg: SlamConfig, caps: MapCaps = MapCaps(),
-                 device: Optional[Union[str, torch.device]] = None):
+                 device: Optional[Union[str, torch.device]] = None, chunk: int = 1):
         self.cfg = cfg
         self.caps = caps
         self.device = resolve_device(device)
@@ -400,16 +450,22 @@ class SlamSystem:
         self.max_frame_gap = int(cfg.camera_fps)
         self.map = empty_map(caps, self.device)
         self.state = self._empty_state()
-        # interruptBA (localMapping.cpp:538-541): True skips each local BA at
-        # its entry. Local BA is not ported yet, so a keyframe event with
-        # the flag lowered raises.
+        self.chunk = int(chunk)
+        self._chunk_buf: List = []  # buffered (gray, depth, timestamp) on the device
+        # interruptBA (localMapping.cpp:538-541): a forced value for tests
+        # (True skips each local BA at its entry); None = lowered, so every
+        # keyframe event runs local BA (in chunks, chunk_ba_stops still
+        # skips the events a later keyframe of the chunk overtakes)
         self._force_interrupt_ba: Optional[bool] = None
+        # (frame, LM iterations pass 1, pass 2) per keyframe event
         self.ba_iters: List[Tuple[int, int, int]] = []
         self._outs: List[SlamOut] = []
         self.timestamps: List[float] = []
         self._frame_id = 0
 
     def _ba_interrupt(self) -> bool:
+        """The forced interruptBA value, else lowered (the JAX package's
+        default: every keyframe event runs local BA)."""
         return bool(self._force_interrupt_ba)
 
     def _empty_state(self) -> SlamTrackState:
@@ -436,11 +492,20 @@ class SlamSystem:
 
     def track(self, gray: np.ndarray, depth: np.ndarray, timestamp: float) -> None:
         """gray u8 (H, W); depth f32 meters, or u16 raw scaled by the
-        config's depth scale on the device."""
+        config's depth scale on the device. With ``chunk`` > 1 the frame is
+        uploaded and buffered; a full chunk is tracked and mapped at once."""
         gray_d = self._upload(gray)
         depth_d = self._upload(depth)
         if not torch.is_floating_point(depth_d):
             depth_d = depth_d.to(torch.float32) * (1.0 / float(self.cfg.camera_depthScale))
+        if self.chunk > 1:
+            self._chunk_buf.append((gray_d, depth_d, timestamp))
+            if len(self._chunk_buf) >= self.chunk:
+                self._dispatch_chunk()
+            return
+        self._track_one(gray_d, depth_d, timestamp)
+
+    def _track_one(self, gray_d: torch.Tensor, depth_d: torch.Tensor, timestamp: float) -> None:
         self.state, self.map, out, new_kf = _slam_step(
             self.state, self.map, gray_d, depth_d, timestamp, self.camera, self.caps,
             self.spec, self.budgets, self.scale_factors, self.inv_level_sigma2,
@@ -455,8 +520,32 @@ class SlamSystem:
         self.timestamps.append(timestamp)
         self._frame_id += 1
 
+    def _dispatch_chunk(self) -> None:
+        """Track the buffered frames, then map their keyframe events."""
+        buf, self._chunk_buf = self._chunk_buf, []
+        self.state, self.map, outs, new_kfs = track_chunk(
+            self.state, self.map, buf, self.camera, self.caps, self.spec, self.budgets,
+            self.scale_factors, self.inv_level_sigma2, self.fast_hi, self.fast_lo,
+            self.max_frame_gap)
+        did = [o.made_kf for o in outs]
+        self.map, iters = background_chunk(
+            self.map, did, new_kfs, self._ba_interrupt(), self.caps, self.camera,
+            self.scale_factors)
+        self.ba_iters += [(self._frame_id + k, n1, n2)
+                          for k, (made, (n1, n2)) in enumerate(zip(did, iters)) if made]
+        self._outs += outs
+        self.timestamps += [t for _, _, t in buf]
+        self._frame_id += len(buf)
+
+    def _flush(self) -> None:
+        """Track the frames of an incomplete chunk one at a time."""
+        buf, self._chunk_buf = self._chunk_buf, []
+        for gray_d, depth_d, ts in buf:
+            self._track_one(gray_d, depth_d, ts)
+
     def results(self):
         """Blocks; returns (trajectory T_w_c [F,4,4], stats, kf_traj)."""
+        self._flush()
         keys = ("kf_pose", "kf_valid", "kf_gen", "cull_parent",
                 "cull_parent_gen", "cull_gen", "kf_tcp")
         arrays = {k: getattr(self.map, k).cpu().numpy() for k in keys}
