@@ -5,7 +5,8 @@
 
 1. prints the card and its power limit;
 2. builds the CUDA kernels from ``vo_slam_test_tpu_torch/csrc`` with nvcc
-   (sm_90a, one nvcc per source, all started together);
+   (sm_90a, one nvcc per source, all started together) and times the launch
+   floor: an empty kernel, and two in a row (``launch_floor_ms``);
 3. holds each kernel against its plain PyTorch version on the card at the
    main paths' shapes and times both with CUDA events:
    - FAST on a frame's [8,480,640] pyramid, IC angle + rBRIEF on its 1024
@@ -21,7 +22,8 @@
      point back-substitution) on the first LM iteration of a captured local
      BA and on a seeded full-width instance (a stereo/mono mix, outliers past
      the Huber threshold, empty slots), within the tolerances of
-     ``check_ba``, and two launches bit-equal;
+     ``check_ba``, two launches bit-equal, and the accumulate kernel's cost
+     bit-equal to the cost kernel's;
 4. main path 1: the port's FusedTracker over the synthetic corner sequence
    (30 frames, 1000 features, 8 levels: the fr1 extraction settings, as
    ``run_slam --synthetic`` uses): 30/30 tracked frames, ATE < 1 cm, every
@@ -38,13 +40,17 @@
    checks, with local BA skipped (and no BA launch) on the events a later
    keyframe of the same chunk overtakes;
 7. prints one ``{"kernels": [...]}`` line and, last, the ``{"ok": true, ...}``
-   line. No plain version may see a CUDA tensor on any main path. Any
+   line. Every bound is computed from this run's inputs and counts the work
+   the function needs, whatever computes it; a kernel timed under its bound
+   fails the run (the bound is then wrong). No plain version may see a CUDA
+   tensor on any main path. Any
    failed check raises: the exit code is then non-zero and no result line is
    printed. Without a CUDA device it exits 1 at once.
 """
 
 from __future__ import annotations
 
+import ctypes
 import json
 import subprocess
 import sys
@@ -74,6 +80,12 @@ CHUNK = 8
 # 2's result, not a gate
 JAX_CPU_KF_FRAMES = [0, 1, 5, 12, 21, 22, 30, 39]
 JAX_CPU_ATE_CM = 0.7782
+# main path 2 with the first design of ba_accumulate (perf/ba_v1.cu, whose sums
+# were plain f32 in another order; perf/ba_order_probe.py reproduces the run):
+# printed beside this run's, not a gate
+FIRST_DESIGN_ATE_CM = 0.7483
+FIRST_DESIGN_BA_ITERS = [(0, 5, 10), (1, 5, 6), (5, 5, 10), (12, 5, 10), (21, 5, 10), (22, 5, 1),
+                         (30, 5, 1), (39, 5, 10)]
 
 
 def bound_ms(n_bytes: float, ops: dict):
@@ -125,6 +137,57 @@ def time_eager_ms(fn, iters=10) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def launch_times_ms(fn, reps=5) -> dict:
+    """Device ms per call of ``fn`` by kernel name, from the CUDA kernel events
+    of a ``torch.profiler`` window over ``reps`` calls."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    per = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            per[e.name[:40]] = per.get(e.name[:40], 0.0) + e.time_range.elapsed_us() / 1e3 / reps
+    return {k: round(v, 4) for k, v in per.items()}
+
+
+def fast_live_pixels(levels) -> int:
+    """Pixels of a [L,H,W] batch whose FAST score can be non-zero: the centre
+    or one of the 16 ring pixels (indices wrap, as the function defines) is
+    non-zero. Everywhere else every difference is 0 and so is the score,
+    whatever computes it."""
+    from vo_slam_test_tpu_torch.ops.fast import CIRCLE16
+
+    nz = levels != 0
+    live = nz.clone()
+    for dx, dy in CIRCLE16:
+        live |= torch.roll(nz, shifts=(-dy, -dx), dims=(-2, -1))
+    return int(live.sum())
+
+
+# per pair of live pixels, held in the two 16-bit lanes of a word: 17 packed
+# subtracts (the centre's bias and the 16 differences) and 80 three-input
+# packed minima and maxima (for the dark and for the bright arcs: 16 runs of
+# three ring positions, 16 nine-arcs of three runs, 8 for the final maximum),
+# all on the integer pipe (VIMNMX3.S16x2 runs at that pipe's full rate on this
+# card: perf/kernel_split.py)
+FAST_PAIR_OPS = {"alu": 17 + 2 * (16 + 16 + 8)}
+
+
+def fast_bound(levels):
+    """Bound of one FAST launch from this run's input: bytes for every pixel
+    read once and its score written once; operations only for the pixels
+    whose score can be non-zero (``fast_live_pixels``), two to a word, at the
+    fewest instructions the card's instruction set needs (FAST_PAIR_OPS).
+    -> (ms, bound_by, counts)."""
+    n, live = levels.numel(), fast_live_pixels(levels)
+    ms, by = bound_ms(8 * n, {k: v * ((live + 1) // 2) for k, v in FAST_PAIR_OPS.items()})
+    return ms, by, dict(pixels=n, live_pixels=live)
 
 
 def _tensors(arrs, device):
@@ -221,14 +284,15 @@ def random_epi_instance(rng, M, N, device):
     ], device)
 
 
-def random_ba_instance(rng, WF, wk, O, L, n_live, device):
+def random_ba_instance(rng, WF, wk, O, L, n_live, device, slot=None):
     """Seeded local-BA instance in the layout of ``ba_accumulate``: poses
     near the identity looking down +z, ``n_live`` points 2-6 m ahead (the
     rest empty pads), each seen by 2..O distinct keyframe slots (valid
     first, then empty slots), a stereo/mono mix, one observation in ten
     moved beyond the Huber threshold, two fixed window slots and slots past
     the window -> dict of the wrapper's arguments (the Pass-1 case: act is
-    every valid observation)."""
+    every valid observation). ``slot`` [O,L] (i32, -1 none), when given,
+    replaces the drawn observer slots."""
     from vo_slam_test_tpu_torch import lie
 
     fx, fy, cx, cy, bf = 517.3, 516.5, 318.6, 255.3, 40.0
@@ -236,10 +300,11 @@ def random_ba_instance(rng, WF, wk, O, L, n_live, device):
     poses = lie.se3_exp(torch.as_tensor(xi, dtype=torch.float32)).numpy()
     X = np.zeros((3, L), np.float32)
     X[:, :n_live] = rng.uniform([-2, -1.5, 2], [2, 1.5, 6], (n_live, 3)).T
-    slot = np.full((O, L), -1, np.int32)
-    n_obs = rng.integers(2, O + 1, n_live)
-    for p in range(n_live):
-        slot[:n_obs[p], p] = rng.choice(WF, n_obs[p], replace=False)
+    if slot is None:
+        slot = np.full((O, L), -1, np.int32)
+        n_obs = rng.integers(2, O + 1, n_live)
+        for p in range(n_live):
+            slot[:n_obs[p], p] = rng.choice(WF, n_obs[p], replace=False)
     pc = np.einsum("sij,jl->sil", poses[:, :3, :3], X) + poses[:, :3, 3:]   # [WF,3,L]
     s = np.maximum(slot, 0)
     cols = np.arange(L)[None].repeat(O, 0)
@@ -279,13 +344,14 @@ def ba_counts(inst):
                 slot_pairs=int((per_pt * per_pt).sum()))
 
 
-# f32 instructions per unit of work, counted from csrc/ba.cu: a residual with
-# its robust weight ~38; the Jacobians 108; Hll and bl 36; the Wc update of a
-# window observation 72; in the reduction, per pair of window slots of a
-# point WH and the 6x6 block 162, per (point, window slot) the right side 72
-# and, per observation of that slot, the residual and Jacobians again with
-# the 6x6 pose block and gradient (146 + 168); back-substitution 18 per
-# (point, window slot) and 12 per point
+# f32 instructions per unit of work that the function needs, whatever computes
+# it: per valid observation a residual with its robust weight ~38, the
+# Jacobians 108, its terms of Hll and bl 36; per observation by a window slot
+# its Wc row 72 and its terms of the pose block (21 of the symmetric 6x6) and
+# gradient 108; per (point, window slot) Wc Hinv and the right side 72; per
+# pair of window slots of a point the 6x6 block of S_red 108; per live point
+# the closed-form inverse ~40. Back-substitution: 18 per (point, window slot)
+# and 12 per point
 def ba_bound(kind, inst):
     """Bound of one BA kernel call from this run's inputs -> (ms, bound_by,
     counts). Bytes: each input read once and each output written once, for
@@ -303,7 +369,7 @@ def ba_bound(kind, inst):
     if kind == "acc":
         n_bytes = (64 * WF + pts * (12 + 4 * O) + obs * 24 + pts * 48 + ps * 72
                    + 4 * (wk * 42 + (wk * 6) ** 2 + wk * 6 + 1))
-        ops = obs * (38 + 108 + 36) + wobs * (72 + 146 + 168) + pairs * 162 + ps * 72
+        ops = obs * (38 + 108 + 36) + wobs * (72 + 108) + ps * 72 + pairs * 108 + pts * 40
     elif kind == "cost":
         n_bytes = 64 * WF + pts * (12 + 4 * O) + obs * 20 + 4
         ops = obs * 38
@@ -753,6 +819,12 @@ def main() -> int:
         for line in v["log"].splitlines():
             if "registers" in line or "spill" in line:
                 print(f"  {k}.cu: {line.strip()}")
+    noop = _build.Kernel("noop", "noop_launch", [ctypes.c_int, ctypes.c_void_p])
+    floor = {f"launches_{n}": time_graph_ms(
+        lambda: noop(n, torch.cuda.current_stream().cuda_stream)) for n in (1, 2)}
+    # a launch that does nothing, and two in a row (each waits for the one
+    # before it): what a kernel of one or two launches costs before any work
+    print(json.dumps({"launch_floor_ms": floor}))
     all_kernels = {"fast": fast_cuda.KERNEL, "orb": orb_cuda.KERNEL, "top2": match_cuda.KERNEL,
                    "top2_m4096": match_cuda.KERNEL_LOCAL, "top2_chi2": match_cuda.KERNEL_CHI2,
                    "top2_nb": match_cuda.KERNEL_NB, "top1_epi": match_cuda.KERNEL_EPI,
@@ -788,17 +860,17 @@ def main() -> int:
         if not torch.equal(a, b):
             raise AssertionError("FAST candidates differ between kernel and plain scores")
     L, H, W = levels.shape
-    # per pixel: 16 differences (f32), 2 x (64 arc minima + 15 maxima) + 2
-    # min/max (ALU)
-    fb, fby = bound_ms(2 * L * H * W * 4, {"f32": L * H * W * 16,
-                                           "alu": L * H * W * (2 * (4 * 16 + 15) + 2)})
+    if not bool(((levels == levels.round()) & (levels >= 0) & (levels <= 255)).all()):
+        raise AssertionError("the pyramid levels are not integers in [0, 255]")
+    fb, fby, counted = fast_bound(levels)
+    counted["level_pixels"] = sum(h * w for h, w in spec.sizes)
     kernels["fast"] = dict(
         name="fast_score", shape=f"{L}x{H}x{W}", route="cuda", source="vo_slam_test_tpu_torch/csrc/fast.cu",
         replaces="vo_slam_test_tpu/ops/fast_pallas.py:131", max_abs_err=err,
         ms=time_graph_ms(lambda: fast_cuda.fast_score(levels)),
         plain_ms=time_eager_ms(lambda: fast.fast_score(levels)),
-        bound_ms=fb, bound_by=fby, library_ms=None)
-    print(f"phase fast [{L},{H},{W}]: equal on every pixel, candidates equal; "
+        bound_ms=fb, bound_by=fby, library_ms=None, counted=counted)
+    print(f"phase fast [{L},{H},{W}]: equal on every pixel, candidates equal; counted {counted}; "
           f"kernel {kernels['fast']['ms']:.4f} ms, plain {kernels['fast']['plain_ms']:.4f} ms, "
           f"bound {fb:.4f} ms ({fby})")
 
@@ -972,8 +1044,14 @@ def main() -> int:
                 raise AssertionError(f"{kname} on the {label} instance: two launches differ")
             err = max(err, check_ba(f"{kname} on the {label} instance", kind, got,
                                     sub if kind == "backsub" else inst, want))
+            if kind == "acc":  # the LM accept test compares this cost with ba_cost's
+                cost = ba_cuda.ba_cost(*cost_args(inst), n_pts=inst["n_pts"])
+                if not torch.equal(got[4].view(torch.int32), cost.view(torch.int32)):
+                    raise AssertionError(f"{kname} on the {label} instance: its cost "
+                                         f"{float(got[4])} is not ba_cost's {float(cost)}")
             print(f"phase {kname} {label}: within tolerance of the plain version, two launches "
-                  f"bit-equal; {ba_counts(inst)}")
+                  f"bit-equal{', cost bit-equal to ba_cost' if kind == 'acc' else ''}; "
+                  f"{ba_counts(inst)}")
         inst, sub = ba_insts["captured"]
         kb, kby, counted = ba_bound(kind, inst)
         O, L = inst["slot"].shape
@@ -986,18 +1064,7 @@ def main() -> int:
         print(f"  captured: kernel {kernels[key]['ms']:.4f} ms, plain "
               f"{kernels[key]['plain_ms']:.4f} ms, bound {kb:.6f} ms ({kby})")
         # device time of each launch inside the call (torch.profiler kernel events)
-        from torch.profiler import ProfilerActivity, profile
-
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(5):
-                kfn(inst, sub)
-            torch.cuda.synchronize()
-        per = {}
-        for e in prof.events():
-            if e.device_type == torch.autograd.DeviceType.CUDA:
-                per[e.name[:40]] = per.get(e.name[:40], 0.0) + e.time_range.elapsed_us() / 5e3
-        print(f"  device ms per call by kernel: { {k: round(v, 4) for k, v in per.items()} }")
+        print(f"  device ms per call by kernel: {launch_times_ms(lambda: kfn(inst, sub))}")
 
     # -- main path 1: FusedTracker -------------------------------------------
     tracker = tracking.FusedTracker(cfg)
@@ -1090,6 +1157,11 @@ def main() -> int:
     print(f"  beside the JAX package on the CPU (tools/room_orbit_reference.py --impl jax): "
           f"keyframes at {JAX_CPU_KF_FRAMES}, ATE {JAX_CPU_ATE_CM} cm; LM iterations per event "
           f"(frame, pass 1, pass 2): {s1.ba_iters}")
+    print(f"  beside the first design of ba_accumulate (another f32 summation order): the same "
+          f"keyframe frames, ATE {FIRST_DESIGN_ATE_CM} cm, LM iterations "
+          f"{FIRST_DESIGN_BA_ITERS} ({sum(a + b for _, a, b in FIRST_DESIGN_BA_ITERS)} in all); "
+          f"this run differs at "
+          f"{[x for x, y in zip(s1.ba_iters, FIRST_DESIGN_BA_ITERS) if tuple(x) != y]}")
     print(f"  per frame (n_features, n_matches, n_inliers): "
           f"{[(s.n_features, s.n_matches, s.n_inliers) for s in stats2]}")
     print(f"  per-frame ms (CUDA events, tracking + mapping): {[round(float(x), 3) for x in fm]}")
@@ -1157,8 +1229,15 @@ def main() -> int:
         kernels[k]["launches"] = launches1[k]
     for k in ("top2_m4096", "top2_chi2", "top2_nb", "top1_epi") + ba_keys:
         kernels[k]["launches"] = launches2[k]
+    # ba_accumulate and ba_cost are two launches in a row, the others one
+    for k, v in kernels.items():
+        v["launch_floor_x"] = v["ms"] / floor["launches_2" if k in ("ba_acc", "ba_cost")
+                                              else "launches_1"]
+    under = {k: (v["ms"], v["bound_ms"]) for k, v in kernels.items() if v["ms"] < v["bound_ms"]}
+    if under:
+        raise AssertionError(f"kernels timed under their bounds, so the bounds are wrong: {under}")
     keys = ("name", "shape", "route", "source", "replaces", "launches", "max_abs_err", "ms",
-            "plain_ms", "bound_ms", "bound_by", "library_ms", "counted")
+            "plain_ms", "bound_ms", "bound_by", "library_ms", "launch_floor_x", "counted")
     print(f"total {time.perf_counter() - t_start:.1f} s after the card query")
     print(json.dumps({"main_path": {
         "fused_tracker": {"frame_ms_median": float(np.median(steady)), "ate_m": float(ate),

@@ -257,6 +257,115 @@ def test_ba_kernels_deterministic(cuda):
         assert torch.equal(x.view(torch.int32), y.view(torch.int32))
 
 
+def _edge_instance(kind, cuda):
+    """Observer structures at the accumulate kernel's edges: a point seen
+    twice by one window slot, wk = 1 and wk = 32, a window slot no point
+    observes (which also leaves holes in the observer columns), a slot every
+    point observes, no live point and only live points."""
+    rng = np.random.default_rng(len(kind) * 7 + 3)
+    WF, wk, O, L, n_live = {"wk1": (8, 1, 12, 512, 200), "wk32": (40, 32, 12, 512, 300),
+                            "n0": (32, 16, 12, 512, 0), "nL": (32, 16, 12, 512, 512),
+                            "o16": (32, 16, 16, 512, 300)}.get(kind, (32, 16, 12, 512, 300))
+    slot = np.full((O, L), -1, np.int32)
+    for p in range(n_live):
+        k = rng.integers(2, min(O, WF) + 1)
+        slot[:k, p] = rng.choice(WF, k, replace=False)
+    if kind == "dup":  # slots 1 and 3 are the fixed ones
+        for p in range(0, n_live, 3):
+            s = rng.choice([0, 2, 4, 5])
+            slot[:, p][slot[:, p] == s] = -1
+            slot[0, p] = slot[1, p] = s
+            if p % 6 == 0:
+                slot[3, p] = s
+    elif kind == "unseen":
+        slot[slot == 2] = -1
+    elif kind == "all_seen":
+        slot[slot == 0] = -1
+        slot[0, :n_live] = 0
+    return random_ba_instance(rng, WF, wk, O, L, n_live, cuda, slot=slot)
+
+
+@pytest.mark.parametrize("kind", ["dup", "wk1", "wk32", "unseen", "all_seen", "n0", "nL", "o16"])
+def test_ba_accumulate_edge_structures(cuda, kind):
+    """Against the plain version (chip_smoke.check_ba), two launches
+    bit-equal, and the cost bit-equal to ba_cost's."""
+    inst = _edge_instance(kind, cuda)
+    args = _acc_args(inst)
+    got = ba_cuda.ba_accumulate(*args, n_pts=inst["n_pts"])
+    again = ba_cuda.ba_accumulate(*args, n_pts=inst["n_pts"],
+                                  scratch=ba_cuda.ba_scratch(inst["wk"], 512, cuda))
+    want = ba_pallas.ba_accumulate_plain(*args)
+    cost = ba_cuda.ba_cost(*args[1:9], inst["cam5"], inst["huber"], n_pts=inst["n_pts"])
+    torch.cuda.synchronize()
+    check_ba(f"ba_accumulate ({kind})", "acc", got, inst, want)
+    for x, y in zip(got, again):
+        assert torch.equal(x.view(torch.int32), y.view(torch.int32))
+    assert torch.equal(got[4].view(torch.int32), cost.view(torch.int32))
+    n = int(inst["n_pts"])
+    assert (got[7][:, :, n:] == 0).all() and (got[6][:, n:] == 0).all()
+    if kind == "unseen":
+        assert (got[0][2] == 0).all() and (got[7][2] == 0).all()
+        assert (got[2].reshape(16, 6, 16, 6)[2] == 0).all()
+
+
+def test_ba_accumulate_reuses_its_buffers(cuda):
+    """The Wc buffer and the scratch of one BA call serve a second pass with
+    fewer active observations: rows of observations that left are zero."""
+    inst = _ba_instance(cuda, True)
+    args = list(_acc_args(inst))
+    scratch = ba_cuda.ba_scratch(inst["wk"], 4096, cuda)
+    first = ba_cuda.ba_accumulate(*args, n_pts=inst["n_pts"], scratch=scratch)
+    keep = torch.as_tensor(np.random.default_rng(0).random(tuple(args[8].shape)) < 0.7).to(cuda)
+    args[8] = args[8] * keep
+    args[12] = False
+    got = ba_cuda.ba_accumulate(*args, n_pts=inst["n_pts"], wc=first[7], scratch=scratch)
+    want = ba_pallas.ba_accumulate_plain(*args)
+    torch.cuda.synchronize()
+    check_ba("ba_accumulate, second pass", "acc", got, inst, want)
+
+
+def test_ba_accumulate_rejects_too_many_observers(cuda):
+    inst = random_ba_instance(np.random.default_rng(0), 32, 16, 17, 64, 20, cuda)
+    with pytest.raises(ValueError):
+        ba_cuda.ba_accumulate(*_acc_args(inst), n_pts=inst["n_pts"])
+
+
+def _fast_inputs(kind, cuda):
+    rng = np.random.default_rng(len(kind))
+    if kind == "37x53":
+        x = rng.integers(0, 256, (1, 37, 53))
+    elif kind == "3x96x131":
+        x = rng.integers(0, 256, (3, 96, 131))
+    elif kind == "zeros":
+        x = np.zeros((2, 48, 70))
+    elif kind == "constant":
+        x = np.full((2, 48, 70), 255)
+    elif kind == "corners":  # the ring wraps in both axes
+        x = np.zeros((2, 40, 67))
+        for (y, xx), v in zip(((0, 0), (0, -1), (-1, 0), (-1, -1)), (255, 90, 17, 200)):
+            x[0, y, xx] = v
+        x[1, 0, 0] = 1
+    elif kind == "tiny":
+        x = rng.integers(0, 256, (2, 5, 4))
+    else:  # "strided": the interior of a wider canvas, rows not 16-byte aligned
+        canvas = rng.integers(0, 256, (3, 70, 150)).astype(np.float32)
+        return torch.as_tensor(canvas).to(cuda)[:, 19:19 + 45, 19:19 + 101]
+    return torch.as_tensor(x.astype(np.float32)).to(cuda)
+
+
+@pytest.mark.parametrize("kind", ["37x53", "3x96x131", "zeros", "constant", "corners", "tiny",
+                                  "strided"])
+def test_fast_kernel_edge_inputs(cuda, kind):
+    levels = _fast_inputs(kind, cuda)
+    before = fast_cuda.KERNEL.launches
+    got = fast_cuda.fast_score(levels)
+    torch.cuda.synchronize()
+    assert fast_cuda.KERNEL.launches == before + 1
+    assert got.is_contiguous() and torch.equal(got, fast.fast_score(levels))
+    if kind in ("zeros", "constant"):
+        assert (got == 0).all()
+
+
 def test_port_modules_import_no_jax(cuda):
     """On the card's machine: every module of the port, the mapping slice's
     included, imports without JAX or the JAX package."""

@@ -313,3 +313,22 @@ def test_slam_system_ba_on_matches_jax(room_ba):
     ate_j = ate_rmse(ps.timestamps, gt, ps.timestamps, jr["traj"])
     assert abs(ate_j - 0.009998) < 1e-5
     assert abs(ate_p - ate_j) < 5e-4
+
+
+def test_accumulate_wrapper_checks_observers_and_ignores_scratch_on_cpu(synthetic):
+    """The wrapper's O <= 16 check stands before the device branch, and the
+    CPU path takes the plain version whatever ``scratch`` holds."""
+    jp, pp, poses, points, cam = _synthetic_problem(synthetic)
+    wk = min(local_ba.W_KF, CAPS.max_kf)
+    args = _port_inputs(pp, poses, points, cam)
+    assert ba_cuda.ba_scratch(wk, args[3].shape[1], "cpu") is None
+    want = ba_pallas.ba_accumulate_plain(*args, wk, True)
+    got = ba_cuda.ba_accumulate(*args, wk, True, scratch=torch.zeros(3))
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    L = args[3].shape[1]
+    wide = [a.new_zeros((17, L)) if a.dim() == 2 and a.shape[0] == args[3].shape[0]
+            and a.shape[1] == L and i >= 3 else a for i, a in enumerate(args)]
+    assert wide[3].shape[0] == 17
+    with pytest.raises(ValueError, match="at most 16"):
+        ba_cuda.ba_accumulate(*wide, wk, True)

@@ -11,41 +11,103 @@
 // [O,L]; outputs Hpp [wk,36], bp [wk,6], S_red [wk*6,wk*6], rhs_red [wk*6],
 // cost [1], Hinv [9,L], bl [3,L], Wc [wk,18,L].
 //
-// Bound on this card: operations at the path's sizes. A keyframe event's
-// problem holds ~1.5k live points of L = 8192 slots with up to 12 observers
-// each: a few MB of inputs and Wc rows (~1 us of bandwidth) against ~300
-// f32 instructions per observation (residual, Jacobians, the 6x6 pose block)
-// and ~160 per pair of window observers of a point (its Schur block). Design:
-//   - the TPU kernel sums Hpp, bp, S_red, rhs_red and the cost across its
-//     sequential grid. Here blocks run in no order, so no float is summed
-//     with atomics: every cross-point sum is owned by one block, which walks
-//     the points in a fixed order (thread t takes points t, t+128, ...) and
-//     then adds its 128 partials in a fixed tree in shared memory. Two
-//     launches on the same inputs give the same bits;
-//   - launch 1 (ba_point_kernel), one thread per point: the residuals,
-//     Jacobians, Hll, the damped closed-form inverse Hinv, bl, the point's
-//     cost and its Wc rows, and a bit mask of the window slots that observe
-//     it (wk <= 32). Only the Wc rows of those slots are written: Wc stays
-//     allocated and zero elsewhere across the iterations of one BA call;
-//   - launch 2 (ba_reduce_kernel), grid (wk, wk+1): block (a, b < wk) sums
-//     S_red's 6x6 block (a, b) = sum_l Wc_a Hinv Wc_b^T over the points whose
-//     mask holds both slots; block (a, wk) sums Hpp, bp and rhs_red of slot a,
-//     recomputing the Jacobians of the observations by slot a; block (0, wk)
-//     also sums the per-point costs. Each block reads one mask word per point
-//     and skips the rest, so the work follows the observer pairs, not a dense
-//     [wk*6, L] x [L, wk*6] product;
+// Bound on this card: bytes, and far below a launch's fixed cost. A keyframe
+// event's problem holds ~1.5k live points of L = 8192 slots with ~1.6 valid
+// observers each (at most O = 12): a few hundred KB of inputs and outputs
+// (~0.1 us at the memory rate) and ~1 M f32 instructions (less than that).
+// What the card charges for is the length of the dependent chain inside each
+// launch, how many waves of blocks a launch takes, and how many threads share
+// the one sum that most points feed (the newest keyframe observes most live
+// points, so its pose block and its S_red block sum over almost every point).
+// Design of ba_accumulate, two launches:
+//   - launch 1 (ba_point_kernel): one lane per observation. A group of 16
+//     lanes owns a live point (O <= 16) and lane o takes observation o, so the
+//     12 observers of a point are not walked in a row; blocks past the live
+//     points write the dead points' Hinv and bl (the closed form on zero sums)
+//     and leave. The poses are staged in shared memory once per block. A lane
+//     keeps its residual, robust weight and Jacobians in registers and forms
+//     from them everything its observation feeds: its terms of Hll and bl
+//     (summed over the group by a fixed xor-shuffle tree, so every lane holds
+//     the same sums and the same closed-form inverse Hinv), its Wc row, and
+//     its window slot's terms of Hpp, bp and, with Hinv and bl, of rhs_red and
+//     of the slot's own block of S_red. Nothing is computed twice and Wc is
+//     not read back: two observations of one point by one slot are merged
+//     through shuffles in observer order (a rare path, found with
+//     __match_any_sync). The lane writes its Wc row and one record of the
+//     scratch rec [wk, L, 132]: Hpp 36, bp 6, rhs_red 6, the slot's diagonal
+//     S_red terms 36, the rows of Wc Hinv and of Wc padded to 4 floats (6 x 4
+//     each), as 33 16-byte stores. A mask word per point names its window
+//     slots (wk <= 32); rows of Wc and records exist only where the mask has
+//     the slot, and the mask follows povar alone, so the rows written are the
+//     same in every iteration of a BA call (Wc is zeroed once per call, rec
+//     never);
+//   - launch 2 (ba_sum_kernel) only sums. Grid (wk, wk + 2) of 256 threads,
+//     five blocks to an SM, so that the 624 blocks of wk = 24 are one wave
+//     (with 512 threads they were 1.2 waves and took twice as long): block
+//     (a, 0) adds slot a's Hpp, bp and rhs_red records, block (a, 2 + a) its
+//     diagonal S_red records, block (a, 2 + b) multiplies the rows of Wc_a
+//     Hinv and Wc_b into block (a, b) of S_red = sum_l (Wc_a Hinv) Wc_b^T
+//     ((a, b) and (b, a) each on their own), block (0, 1) adds the per-point
+//     costs. A block first compacts, in point order, the points whose mask
+//     holds its slot (or both slots) into shared memory: each warp scans a span
+//     of consecutive mask words, all loaded before the first barrier, and a
+//     block that finds none (most do) writes zeros and leaves after one
+//     barrier. Then its loads are independent 16-byte reads of records with no
+//     slot walk; thread (q, g) adds component q of the points g, g + G, ... of
+//     the list, and the G partials are added in a fixed tree in shared memory.
+//     It reads neither slot, u, v, ur, isig2, act nor povar;
+//   - no float is summed with atomics and no sum depends on the order blocks
+//     run in: two launches on the same inputs give the same bits;
+//   - the sums are exact to their last rounding, so their order and their
+//     implementation no longer show: a point's Hll and bl are added over its
+//     lanes in f64, and the closed-form inverse, Wc Hinv, its right side and
+//     the slot's diagonal products are formed in f64 and rounded once;
+//     launch 2's threads add into f32 pairs (TwoSum, and TwoProduct through an
+//     FMA for the blocks of two slots), their partials go through the tree in
+//     f64 and are rounded once at the end. The reduced camera system S = Hpp
+//     - S_red is a difference of nearly equal matrices, and a point that two
+//     close views constrain has a block of condition 1e8 and more: with plain
+//     f32 sums the order of the additions decided whether a Cholesky succeeded
+//     and an LM step was accepted (three orders gave three sets of LM
+//     iteration counts, and two of them left the chunked path's trajectory at
+//     1.7-2.2 cm where the others gave 0.7 cm). With f64 accumulators and with
+//     the f32 pairs the LM decisions are the same; the pairs are kept because
+//     f32-to-f64 conversions run at an eighth of the f32 rate and made launch
+//     2 a third slower;
 //   - every loop over points stops at n_pts (the count of live points,
 //     compacted first by the problem builder; a device int, no host read);
 //   - the cost (launch 1 and ba_cost_launch) is rounded op by op
-//     (__fmul_rn/__fadd_rn/__fdiv_rn/__fsqrt_rn) and summed by the same
-//     device functions in the same order, so the LM accept test compares two
-//     sums of one fixed order: equal inputs give equal costs.
+//     (__fmul_rn/__fadd_rn/__fdiv_rn/__fsqrt_rn), a point's cost is added in
+//     observer order by one lane and the points' costs by the same device
+//     function in the same order, so the LM accept test compares two sums of
+//     one fixed order: equal inputs give equal costs.
+// One block per sum walks ~35-45 records per thread for a slot that ~1,000
+// points observe: past a few thousand points per slot the sums should be
+// split over blocks with a fixed-order combine.
 
 #include <cuda_runtime.h>
 
 #define PT_THREADS 128
 #define RED_THREADS 128
 #define MAX_WK 32
+#define GROUP 16                          // lanes per point in launch 1
+#define PTS_PER_BLOCK (PT_THREADS / GROUP)
+#define REC 132                           // floats per (slot, point) record
+#define REC_D 48                          // (Wc Hinv) Wc^T of the slot with itself, 36
+#define REC_WH 84                         // rows of Wc Hinv, 6 x 4
+#define REC_WC 108                        // rows of Wc, 6 x 4
+#define SUM_THREADS 256
+#define SUM_WARPS (SUM_THREADS / 32)
+#define SUM_BATCHES 8                     // mask words per lane and pass
+#define WARP_SPAN (32 * SUM_BATCHES)      // consecutive points a warp scans
+#define LIST_MAX (SUM_THREADS * SUM_BATCHES)  // points compacted per pass
+#define SUM_BLOCKS_PER_SM 5               // (24 + 2) 24 = 624 blocks in one wave
+#define P_LANES 12                        // the 48 pose-block floats of a record as float4
+#define D_LANES 9                         // the 36 floats of a diagonal S_red block
+#define S_LANES 6                         // off the diagonal: one row of Wc Hinv per thread
+#define LIN_PAD 32                        // 21 and 28 groups, padded to a power of two
+#define S_PAD 64                          // 42 groups
+#define FULL 0xffffffffu
 
 // sqrt(5.991) and sqrt(7.815) rounded to f32, as the plain version rounds them
 #define DELTA_MONO 2.4476518630981445f
@@ -131,30 +193,63 @@ __device__ __forceinline__ float add_cost(float cost, float a, float rho) {
   return a > 0.0f ? __fadd_rn(cost, rho) : cost;
 }
 
-// fixed-order sum of NV per-thread partials: sh[v][0] holds the block's sum
-template <int NV>
-__device__ __forceinline__ void block_reduce(const float (&acc)[NV],
-                                             float (*sh)[RED_THREADS]) {
+// fixed-order sum of one partial per thread of the block's first RED_THREADS
+// threads (the others only keep the barriers): sh[0] holds the sum
+__device__ __forceinline__ void block_reduce(float acc, float* sh) {
   const int t = threadIdx.x;
-#pragma unroll
-  for (int v = 0; v < NV; ++v) sh[v][t] = acc[v];
+  if (t < RED_THREADS) sh[t] = acc;
   __syncthreads();
   for (int stride = RED_THREADS / 2; stride > 0; stride >>= 1) {
-    if (t < stride) {
-#pragma unroll
-      for (int v = 0; v < NV; ++v) sh[v][t] = __fadd_rn(sh[v][t], sh[v][t + stride]);
-    }
+    if (t < stride) sh[t] = __fadd_rn(sh[t], sh[t + stride]);
     __syncthreads();
   }
 }
 
-// the per-point costs summed in a fixed order (one block of RED_THREADS)
-__device__ __forceinline__ float cost_sum(const float* __restrict__ cost_pt, int n,
-                                          float (*sh)[RED_THREADS]) {
-  float acc[1] = {0.0f};
-  for (int l = threadIdx.x; l < n; l += RED_THREADS) acc[0] = __fadd_rn(acc[0], cost_pt[l]);
-  block_reduce<1>(acc, sh);
-  return sh[0][0];
+// the per-point costs summed in a fixed order by the first RED_THREADS threads
+__device__ __forceinline__ float cost_sum(const float* __restrict__ cost_pt, int n, float* sh) {
+  float acc = 0.0f;
+  if (threadIdx.x < RED_THREADS)
+    for (int l = threadIdx.x; l < n; l += RED_THREADS) acc = __fadd_rn(acc, cost_pt[l]);
+  block_reduce(acc, sh);
+  return sh[0];
+}
+
+// damped closed-form inverse of the symmetric block (the TPU kernel's form),
+// in f64: a point that two close views constrain has a block of condition
+// 1e8 and more, whose inverse in f32 is rounding noise; h = (00, 01, 02, 11,
+// 12, 22)
+__device__ __forceinline__ void inv3x3_sym(const double h[6], float lam, double hv[9]) {
+  const double damp = (double)lam + 1e-8;
+  const double a_ = h[0] + damp, b_ = h[1], c_ = h[2];
+  const double e_ = h[3] + damp, f_ = h[4], i_ = h[5] + damp;
+  const double A = e_ * i_ - f_ * f_;
+  const double B = -(b_ * i_ - f_ * c_);
+  const double C3 = b_ * f_ - e_ * c_;
+  const double det = a_ * A + b_ * B + c_ * C3;
+  const double idet = 1.0 / (fabs(det) < 1e-20 ? 1e-20 : det);
+  hv[0] = A * idet, hv[1] = B * idet, hv[2] = C3 * idet;
+  hv[3] = B * idet, hv[4] = (a_ * i_ - c_ * c_) * idet, hv[5] = -(a_ * f_ - c_ * b_) * idet;
+  hv[6] = C3 * idet, hv[7] = -(a_ * f_ - b_ * c_) * idet, hv[8] = (a_ * e_ - b_ * b_) * idet;
+}
+
+// lane o of a point's group writes one of the point's outputs: Hinv rows
+// (o < 9), bl (9..11), the cost (12) and the mask word (13)
+__device__ __forceinline__ void write_point(int o, int l, int L, const double hv[9],
+                                            const double b[3], float cost, unsigned msk,
+                                            float* __restrict__ Hinv, float* __restrict__ bl,
+                                            float* __restrict__ cost_pt,
+                                            unsigned* __restrict__ mask) {
+  float val = 0.0f;
+#pragma unroll
+  for (int r = 0; r < 9; ++r)
+    if (o == r) val = (float)hv[r];
+#pragma unroll
+  for (int r = 0; r < 3; ++r)
+    if (o == 9 + r) val = (float)b[r];
+  if (o < 9) Hinv[o * L + l] = val;
+  else if (o < 12) bl[(o - 9) * L + l] = val;
+  else if (o == 12) cost_pt[l] = cost;
+  else if (o == 13) mask[l] = msk;
 }
 
 __global__ void __launch_bounds__(PT_THREADS)
@@ -163,183 +258,327 @@ ba_point_kernel(const float* __restrict__ lam_p, const float* __restrict__ cam,
                 const int* __restrict__ slot, const float* __restrict__ u,
                 const float* __restrict__ v, const float* __restrict__ ur,
                 const float* __restrict__ isig2, const float* __restrict__ act,
-                const float* __restrict__ povar, int WF, int wk, int O, int L, int huber,
-                float* __restrict__ Hinv, float* __restrict__ bl, float* __restrict__ Wc,
-                float* __restrict__ cost_pt, unsigned* __restrict__ mask) {
-  const int l = blockIdx.x * PT_THREADS + threadIdx.x;
-  if (l >= L) return;
-  const float x = X[l], y = X[L + l], z = X[2 * L + l];
-
-  // the window slots that observe this point: zero their Wc rows first
-  unsigned msk = 0u;
-  for (int o = 0; o < O; ++o) {
-    const int s = slot[o * L + l];
-    if (s >= 0 && s < wk && povar[o * L + l] != 0.0f && !((msk >> s) & 1u)) {
-      msk |= 1u << s;
-      for (int r = 0; r < 18; ++r) Wc[((size_t)s * 18 + r) * L + l] = 0.0f;
-    }
-  }
-
-  float h[6] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f}, b[3] = {0.f, 0.f, 0.f}, cost = 0.0f;
-  for (int o = 0; o < O; ++o) {
-    const int s = slot[o * L + l];
-    if (s < 0) continue;
-    const int i0 = o * L + l;
-    Obs ob;
-    const float s2 = observe(posesT, WF, s, x, y, z, u[i0], v[i0], ur[i0], isig2[i0], cam, ob);
-    float wrob;
-    const float rho = robust(s2, ob.stereo, huber, wrob);
-    const float a = act[i0];
-    cost = add_cost(cost, a, rho);
-    const float w = a * wrob;
-    if (w == 0.0f) continue;
-    float Jp[3][6], Jl[3][3];
-    jacobians(ob, cam, Jp, Jl);
-    int k = 0;
-#pragma unroll
-    for (int i = 0; i < 3; ++i) {
-      b[i] += w * (Jl[0][i] * ob.ew[0] + Jl[1][i] * ob.ew[1] + Jl[2][i] * ob.ew[2]);
-#pragma unroll
-      for (int j = i; j < 3; ++j, ++k)
-        h[k] += w * (Jl[0][i] * Jl[0][j] + Jl[1][i] * Jl[1][j] + Jl[2][i] * Jl[2][j]);
-    }
-    const float pv = povar[i0];
-    if (s < wk && pv != 0.0f) {
-      float* wc = Wc + (size_t)s * 18 * L + l;
-#pragma unroll
-      for (int i = 0; i < 6; ++i)
-#pragma unroll
-        for (int j = 0; j < 3; ++j)
-          wc[(i * 3 + j) * L] +=
-              pv * (w * (Jp[0][i] * Jl[0][j] + Jp[1][i] * Jl[1][j] + Jp[2][i] * Jl[2][j]));
-    }
-  }
-
-  // damped closed-form inverse of the symmetric block (the TPU kernel's form)
-  const float lam = *lam_p;
-  const float a_ = h[0] + lam + 1e-8f, b_ = h[1], c_ = h[2];
-  const float e_ = h[3] + lam + 1e-8f, f_ = h[4], i_ = h[5] + lam + 1e-8f;
-  const float A = e_ * i_ - f_ * f_;
-  const float B = -(b_ * i_ - f_ * c_);
-  const float C3 = b_ * f_ - e_ * c_;
-  const float det = a_ * A + b_ * B + c_ * C3;
-  const float idet = 1.0f / (fabsf(det) < 1e-20f ? 1e-20f : det);
-  const float hv[9] = {A * idet, B * idet, C3 * idet,
-                       B * idet, (a_ * i_ - c_ * c_) * idet, -(a_ * f_ - c_ * b_) * idet,
-                       C3 * idet, -(a_ * f_ - b_ * c_) * idet, (a_ * e_ - b_ * b_) * idet};
-#pragma unroll
-  for (int r = 0; r < 9; ++r) Hinv[r * L + l] = hv[r];
-#pragma unroll
-  for (int r = 0; r < 3; ++r) bl[r * L + l] = b[r];
-  cost_pt[l] = cost;
-  mask[l] = msk;
-}
-
-__global__ void __launch_bounds__(RED_THREADS)
-ba_reduce_kernel(const float* __restrict__ cam, const float* __restrict__ posesT,
-                 const float* __restrict__ X, const int* __restrict__ slot,
-                 const float* __restrict__ u, const float* __restrict__ v,
-                 const float* __restrict__ ur, const float* __restrict__ isig2,
-                 const float* __restrict__ act, const float* __restrict__ povar,
-                 const int* __restrict__ n_pts, int WF, int wk, int O, int L, int huber,
-                 const float* __restrict__ Hinv, const float* __restrict__ bl,
-                 const float* __restrict__ Wc, const float* __restrict__ cost_pt,
-                 const unsigned* __restrict__ mask, float* __restrict__ Hpp,
-                 float* __restrict__ bp, float* __restrict__ S_red, float* __restrict__ rhs,
-                 float* __restrict__ cost) {
-  __shared__ float sh[48][RED_THREADS];
-  const int a = blockIdx.x, col = blockIdx.y, t = threadIdx.x;
+                const float* __restrict__ povar, const int* __restrict__ n_pts, int WF, int wk,
+                int O, int L, int huber, float* __restrict__ Hinv, float* __restrict__ bl,
+                float* __restrict__ Wc, float* __restrict__ rec, float* __restrict__ cost_pt,
+                unsigned* __restrict__ mask) {
+  extern __shared__ float sp[];  // rows 0..11 of posesT: [12][WF]
+  const int t = threadIdx.x, o = t & (GROUP - 1);
+  const int l = blockIdx.x * PTS_PER_BLOCK + t / GROUP;
   const int n = min(*n_pts, L);
-  const size_t slab = (size_t)18 * L;
-
-  if (col < wk) {
-    // S_red block (a, col) = sum_l (Wc_a Hinv) Wc_col^T
-    const unsigned both = (1u << a) | (1u << col);
-    float acc[36];
-#pragma unroll
-    for (int k = 0; k < 36; ++k) acc[k] = 0.0f;
-    for (int l = t; l < n; l += RED_THREADS) {
-      if ((mask[l] & both) != both) continue;
-      float wa[18], wb[18], hi[9];
-#pragma unroll
-      for (int r = 0; r < 18; ++r) {
-        wa[r] = Wc[a * slab + (size_t)r * L + l];
-        wb[r] = Wc[col * slab + (size_t)r * L + l];
-      }
-#pragma unroll
-      for (int r = 0; r < 9; ++r) hi[r] = Hinv[r * L + l];
-#pragma unroll
-      for (int i = 0; i < 6; ++i) {
-        const float wh0 = wa[i * 3] * hi[0] + wa[i * 3 + 1] * hi[3] + wa[i * 3 + 2] * hi[6];
-        const float wh1 = wa[i * 3] * hi[1] + wa[i * 3 + 1] * hi[4] + wa[i * 3 + 2] * hi[7];
-        const float wh2 = wa[i * 3] * hi[2] + wa[i * 3 + 1] * hi[5] + wa[i * 3 + 2] * hi[8];
-#pragma unroll
-        for (int m = 0; m < 6; ++m)
-          acc[i * 6 + m] += wh0 * wb[m * 3] + wh1 * wb[m * 3 + 1] + wh2 * wb[m * 3 + 2];
-      }
-    }
-    block_reduce<36>(acc, sh);
-    if (t < 36) S_red[(size_t)(a * 6 + t / 6) * (wk * 6) + col * 6 + t % 6] = sh[t][0];
+  const float lam = *lam_p;
+  if (blockIdx.x * PTS_PER_BLOCK >= n) {
+    // dead points only: no observation, the inverse of the damping alone
+    const double zero6[6] = {0.0, 0.0, 0.0, 0.0, 0.0, 0.0}, zero3[3] = {0.0, 0.0, 0.0};
+    double hv[9];
+    inv3x3_sym(zero6, lam, hv);
+    if (l < L) write_point(o, l, L, hv, zero3, 0.0f, 0u, Hinv, bl, cost_pt, mask);
     return;
   }
 
-  // slot a's pose block Hpp (36), gradient bp (6) and Schur right side (6)
-  float acc[48];
+  // this lane's observation, loaded while the poses are staged
+  const bool live = l < n && o < O;
+  const int i0 = o * L + l;
+  const int s = live ? slot[i0] : -1;
+  const bool seen = s >= 0;
+  float uo = 0.f, vo = 0.f, uro = -1.f, is2 = 0.f, a = 0.f, pv = 0.f, x = 0.f, y = 0.f, z = 0.f;
+  if (seen) {
+    uo = u[i0], vo = v[i0], uro = ur[i0], is2 = isig2[i0], a = act[i0], pv = povar[i0];
+    x = X[l], y = X[L + l], z = X[2 * L + l];
+  }
+  for (int i = t; i < 12 * WF; i += PT_THREADS) sp[i] = posesT[i];
+  __syncthreads();
+
+  double h[6] = {0.0, 0.0, 0.0, 0.0, 0.0, 0.0}, b[3] = {0.0, 0.0, 0.0};
+  float wc[18], hp[36], g[6], rho = 0.0f;
 #pragma unroll
-  for (int k = 0; k < 48; ++k) acc[k] = 0.0f;
-  for (int l = t; l < n; l += RED_THREADS) {
-    if (!((mask[l] >> a) & 1u)) continue;
-    float hi[9], bv[3];
+  for (int k = 0; k < 18; ++k) wc[k] = 0.0f;
 #pragma unroll
-    for (int r = 0; r < 9; ++r) hi[r] = Hinv[r * L + l];
+  for (int k = 0; k < 36; ++k) hp[k] = 0.0f;
 #pragma unroll
-    for (int r = 0; r < 3; ++r) bv[r] = bl[r * L + l];
-#pragma unroll
-    for (int i = 0; i < 6; ++i) {
-      float whb = 0.0f;
-#pragma unroll
-      for (int k = 0; k < 3; ++k) {
-        const float wh = Wc[a * slab + (size_t)(i * 3) * L + l] * hi[k] +
-                         Wc[a * slab + (size_t)(i * 3 + 1) * L + l] * hi[3 + k] +
-                         Wc[a * slab + (size_t)(i * 3 + 2) * L + l] * hi[6 + k];
-        whb += wh * bv[k];
-      }
-      acc[42 + i] += whb;
-    }
-    const float x = X[l], y = X[L + l], z = X[2 * L + l];
-    for (int o = 0; o < O; ++o) {
-      const int i0 = o * L + l;
-      const float pv = povar[i0];
-      if (slot[i0] != a || pv == 0.0f) continue;
-      Obs ob;
-      const float s2 = observe(posesT, WF, a, x, y, z, u[i0], v[i0], ur[i0], isig2[i0], cam, ob);
-      float wrob;
-      robust(s2, ob.stereo, huber, wrob);
-      const float w = act[i0] * wrob;
-      if (w == 0.0f) continue;
+  for (int k = 0; k < 6; ++k) g[k] = 0.0f;
+  // a window slot whose pose varies: this lane owns a Wc row and a record
+  bool win = seen && s < wk && pv != 0.0f;
+  if (seen) {
+    Obs ob;
+    const float s2 = observe(sp, WF, s, x, y, z, uo, vo, uro, is2, cam, ob);
+    float wrob;
+    rho = robust(s2, ob.stereo, huber, wrob);
+    const float w = a * wrob;
+    if (w != 0.0f) {
       float Jp[3][6], Jl[3][3];
       jacobians(ob, cam, Jp, Jl);
-      const float pw = pv * w;
+      int k = 0;
 #pragma unroll
-      for (int i = 0; i < 6; ++i) {
+      for (int i = 0; i < 3; ++i) {
+        b[i] = w * (Jl[0][i] * ob.ew[0] + Jl[1][i] * ob.ew[1] + Jl[2][i] * ob.ew[2]);
 #pragma unroll
-        for (int j = 0; j < 6; ++j)
-          acc[i * 6 + j] += pw * (Jp[0][i] * Jp[0][j] + Jp[1][i] * Jp[1][j] + Jp[2][i] * Jp[2][j]);
-        acc[36 + i] += pw * (Jp[0][i] * ob.ew[0] + Jp[1][i] * ob.ew[1] + Jp[2][i] * ob.ew[2]);
+        for (int j = i; j < 3; ++j, ++k)
+          h[k] = w * (Jl[0][i] * Jl[0][j] + Jl[1][i] * Jl[1][j] + Jl[2][i] * Jl[2][j]);
+      }
+      if (win) {
+        const float pw = pv * w;
+#pragma unroll
+        for (int i = 0; i < 6; ++i) {
+#pragma unroll
+          for (int j = 0; j < 3; ++j)
+            wc[i * 3 + j] =
+                pv * (w * (Jp[0][i] * Jl[0][j] + Jp[1][i] * Jl[1][j] + Jp[2][i] * Jl[2][j]));
+#pragma unroll
+          for (int j = i; j < 6; ++j)  // symmetric term by term: the products commute
+            hp[i * 6 + j] = hp[j * 6 + i] =
+                pw * (Jp[0][i] * Jp[0][j] + Jp[1][i] * Jp[1][j] + Jp[2][i] * Jp[2][j]);
+          g[i] = pw * (Jp[0][i] * ob.ew[0] + Jp[1][i] * ob.ew[1] + Jp[2][i] * ob.ew[2]);
+        }
       }
     }
   }
-  block_reduce<48>(acc, sh);
-  if (t < 36) Hpp[a * 36 + t] = sh[t][0];
-  if (t < 6) {
-    bp[a * 6 + t] = sh[36 + t][0];
-    rhs[a * 6 + t] = sh[42 + t][0];
+
+  // Hll and bl over the group, in f64: an xor tree, the same sums in every lane
+#pragma unroll
+  for (int m = GROUP / 2; m > 0; m >>= 1) {
+#pragma unroll
+    for (int k = 0; k < 6; ++k) h[k] += __shfl_xor_sync(FULL, h[k], m, GROUP);
+#pragma unroll
+    for (int k = 0; k < 3; ++k) b[k] += __shfl_xor_sync(FULL, b[k], m, GROUP);
   }
-  if (a == 0) {
+  double hv[9];
+  inv3x3_sym(h, lam, hv);
+
+  // the point's cost, added in observer order
+  float cost = 0.0f;
+  const float a_seen = seen ? a : 0.0f;
+  for (int oo = 0; oo < O; ++oo)
+    cost = add_cost(cost, __shfl_sync(FULL, a_seen, oo, GROUP), __shfl_sync(FULL, rho, oo, GROUP));
+
+  // the point's window slots
+  unsigned msk = win ? 1u << s : 0u;
+#pragma unroll
+  for (int m = GROUP / 2; m > 0; m >>= 1) msk |= __shfl_xor_sync(FULL, msk, m, GROUP);
+
+  // two observations of one point by one slot: the later lane's terms are
+  // added to the earlier lane's, in observer order, and the later lane writes
+  // nothing
+  const int lane = t & 31;
+  const unsigned peers =
+      __match_any_sync(FULL, win ? (unsigned)s | ((unsigned)(lane / GROUP) << 8) : 0x1000u + lane);
+  const int first = __ffs(peers) - 1;
+  unsigned later = __ballot_sync(FULL, win && lane != first);
+  while (later) {
+    const int src = __ffs(later) - 1;
+    later &= later - 1;
+    const bool mine = lane == __shfl_sync(FULL, first, src);
+#pragma unroll
+    for (int k = 0; k < 18; ++k) {
+      const float val = __shfl_sync(FULL, wc[k], src);
+      if (mine) wc[k] += val;
+    }
+#pragma unroll
+    for (int k = 0; k < 36; ++k) {
+      const float val = __shfl_sync(FULL, hp[k], src);
+      if (mine) hp[k] += val;
+    }
+#pragma unroll
+    for (int k = 0; k < 6; ++k) {
+      const float val = __shfl_sync(FULL, g[k], src);
+      if (mine) g[k] += val;
+    }
+    if (lane == src) win = false;
+  }
+
+  if (l < L) write_point(o, l, L, hv, b, cost, msk, Hinv, bl, cost_pt, mask);
+  if (!win) return;
+
+  // this slot's Wc row, Wc Hinv and its right side (Wc Hinv) bl, formed in
+  // f64 and rounded once
+  double whd[18];
+  float wh[18], r6[6];
+#pragma unroll
+  for (int i = 0; i < 6; ++i) {
+    double whb = 0.0;
+#pragma unroll
+    for (int k = 0; k < 3; ++k) {
+      whd[i * 3 + k] = wc[i * 3] * hv[k] + wc[i * 3 + 1] * hv[3 + k] + wc[i * 3 + 2] * hv[6 + k];
+      wh[i * 3 + k] = (float)whd[i * 3 + k];
+      whb += whd[i * 3 + k] * b[k];
+    }
+    r6[i] = (float)whb;
+  }
+#pragma unroll
+  for (int r = 0; r < 18; ++r) Wc[((size_t)s * 18 + r) * L + l] = wc[r];
+  float4* out = reinterpret_cast<float4*>(rec + ((size_t)s * L + l) * REC);
+#pragma unroll
+  for (int k = 0; k < 9; ++k)
+    out[k] = make_float4(hp[4 * k], hp[4 * k + 1], hp[4 * k + 2], hp[4 * k + 3]);
+  out[9] = make_float4(g[0], g[1], g[2], g[3]);
+  out[10] = make_float4(g[4], g[5], r6[0], r6[1]);
+  out[11] = make_float4(r6[2], r6[3], r6[4], r6[5]);
+  // the slot's own 6x6 block of S_red, every entry as the sum kernel forms
+  // the blocks of two slots (no entry is mirrored)
+  float dg[36];
+#pragma unroll
+  for (int i = 0; i < 6; ++i)
+#pragma unroll
+    for (int m = 0; m < 6; ++m)
+      dg[i * 6 + m] = (float)(whd[i * 3] * wc[m * 3] + whd[i * 3 + 1] * wc[m * 3 + 1] +
+                              whd[i * 3 + 2] * wc[m * 3 + 2]);
+#pragma unroll
+  for (int k = 0; k < 9; ++k)
+    out[REC_D / 4 + k] = make_float4(dg[4 * k], dg[4 * k + 1], dg[4 * k + 2], dg[4 * k + 3]);
+#pragma unroll
+  for (int i = 0; i < 6; ++i) {
+    out[REC_WH / 4 + i] = make_float4(wh[i * 3], wh[i * 3 + 1], wh[i * 3 + 2], 0.0f);
+    out[REC_WC / 4 + i] = make_float4(wc[i * 3], wc[i * 3 + 1], wc[i * 3 + 2], 0.0f);
+  }
+}
+
+// hi + lo += x without rounding error to first order (Knuth's TwoSum: the
+// error of the f32 add is exact in err, and lo collects the errors), each op
+// rounded on its own: an f32 pair that sums like an f64 accumulator
+__device__ __forceinline__ void sum2_add(float& hi, float& lo, float x) {
+  const float s = __fadd_rn(hi, x);
+  const float bb = __fsub_rn(s, hi);
+  const float err = __fadd_rn(__fsub_rn(hi, __fsub_rn(s, bb)), __fsub_rn(x, bb));
+  lo = __fadd_rn(lo, err);
+  hi = s;
+}
+
+// hi + lo += a * b, the product exact (its rounding error from one FMA)
+__device__ __forceinline__ void sum2_add_product(float& hi, float& lo, float a, float b) {
+  const float p = __fmul_rn(a, b);
+  lo = __fadd_rn(lo, __fmaf_rn(a, b, -p));
+  sum2_add(hi, lo, p);
+}
+
+// the block's G x NV partials in sh ([g][NV], g padded with zeros to G2, a
+// power of two) added in a fixed tree: sh[0..NV) holds the sums
+template <int NV, int G2>
+__device__ __forceinline__ void tree_sum(double* sh) {
+  for (int half = G2 / 2; half > 0; half >>= 1) {
     __syncthreads();
-    const float c = cost_sum(cost_pt, n, sh);
-    if (t == 0) cost[0] = c;
+    for (int i = threadIdx.x; i < half * NV; i += SUM_THREADS) sh[i] += sh[i + half * NV];
   }
+  __syncthreads();
+}
+
+__global__ void __launch_bounds__(SUM_THREADS, SUM_BLOCKS_PER_SM)
+ba_sum_kernel(const int* __restrict__ n_pts, int wk, int L, const float* __restrict__ rec,
+              const float* __restrict__ cost_pt, const unsigned* __restrict__ mask,
+              float* __restrict__ Hpp, float* __restrict__ bp, float* __restrict__ S_red,
+              float* __restrict__ rhs, float* __restrict__ cost) {
+  __shared__ double sh[S_PAD * 36 > LIN_PAD * 48 ? S_PAD * 36 : LIN_PAD * 48];
+  __shared__ unsigned short list[LIST_MAX];
+  __shared__ int warp_cnt[SUM_WARPS];
+  const int a = blockIdx.x, t = threadIdx.x, lane = t & 31, warp = t >> 5;
+  const int n = min(*n_pts, L);
+
+  if (blockIdx.y == 1) {  // the cost: one block
+    if (a != 0) return;
+    const float c = cost_sum(cost_pt, n, reinterpret_cast<float*>(sh));
+    if (t == 0) cost[0] = c;
+    return;
+  }
+  const bool pose = blockIdx.y == 0;
+  const int col = pose ? a : blockIdx.y - 2;
+  const unsigned need = (1u << a) | (1u << col);
+  const float* rec_a = rec + (size_t)a * L * REC;
+  const float* rec_b = rec + (size_t)col * L * REC;
+  // a pose block and a diagonal block add records; a block of two slots
+  // multiplies rows of the two slots' records
+  const bool linear = pose || col == a;
+  const int lanes = pose ? P_LANES : (linear ? D_LANES : S_LANES);
+  const int q = t % lanes, grp = t / lanes, n_grp = SUM_THREADS / lanes;
+  const int nv = pose ? 48 : 36;
+  // accumulators as f32 pairs (sum2_add): the sums cancel (S = Hpp - S_red is
+  // a difference of nearly equal matrices), and plain f32 sums made LM steps
+  // follow their order; the partials are then added in f64
+  float acc[6] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f}, low[6] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+  bool any = false;
+
+  for (int base = 0; base < n; base += LIST_MAX) {
+    // the points of this pass that hold the slot(s), compacted in point order:
+    // a warp scans WARP_SPAN consecutive points, the loads issued together
+    const int end = min(base + LIST_MAX, n);
+    unsigned word[SUM_BATCHES];
+#pragma unroll
+    for (int j = 0; j < SUM_BATCHES; ++j) {
+      const int l = base + warp * WARP_SPAN + j * 32 + lane;
+      word[j] = l < end ? mask[l] : 0u;
+    }
+    int mine = 0;
+#pragma unroll
+    for (int j = 0; j < SUM_BATCHES; ++j)
+      mine += __popc(__ballot_sync(FULL, (word[j] & need) == need));
+    if (lane == 0) warp_cnt[warp] = mine;
+    __syncthreads();
+    int pos = 0, cnt = 0;
+#pragma unroll
+    for (int w = 0; w < SUM_WARPS; ++w) {
+      const int c = warp_cnt[w];
+      pos += w < warp ? c : 0;
+      cnt += c;
+    }
+    if (cnt == 0) {  // most blocks: no point holds the slot(s)
+      __syncthreads();
+      continue;
+    }
+    any = true;
+#pragma unroll
+    for (int j = 0; j < SUM_BATCHES; ++j) {
+      const bool hit = (word[j] & need) == need;
+      const unsigned bal = __ballot_sync(FULL, hit);
+      if (hit)
+        list[pos + __popc(bal & ((1u << lane) - 1u))] =
+            (unsigned short)(warp * WARP_SPAN + j * 32 + lane);
+      pos += __popc(bal);
+    }
+    __syncthreads();
+    if (grp < n_grp) {
+      if (linear) {
+        const float* src = rec_a + (pose ? 0 : REC_D) + q * 4;
+#pragma unroll 8
+        for (int i = grp; i < cnt; i += n_grp) {
+          const float4 r = *reinterpret_cast<const float4*>(src + (size_t)(base + list[i]) * REC);
+          sum2_add(acc[0], low[0], r.x), sum2_add(acc[1], low[1], r.y);
+          sum2_add(acc[2], low[2], r.z), sum2_add(acc[3], low[3], r.w);
+        }
+      } else {
+        for (int i = grp; i < cnt; i += n_grp) {
+          const size_t off = (size_t)(base + list[i]) * REC;
+          const float4 wh = *reinterpret_cast<const float4*>(rec_a + off + REC_WH + q * 4);
+#pragma unroll
+          for (int m = 0; m < 6; ++m) {
+            const float4 wb = *reinterpret_cast<const float4*>(rec_b + off + REC_WC + m * 4);
+            sum2_add_product(acc[m], low[m], wh.x, wb.x);
+            sum2_add_product(acc[m], low[m], wh.y, wb.y);
+            sum2_add_product(acc[m], low[m], wh.z, wb.z);
+          }
+        }
+      }
+    }
+    __syncthreads();  // the list is rebuilt in the next pass
+  }
+
+  if (any) {
+    const int pad = linear ? LIN_PAD : S_PAD;
+    for (int i = t; i < pad * nv; i += SUM_THREADS) sh[i] = 0.0;
+    __syncthreads();
+    if (grp < n_grp) {
+#pragma unroll
+      for (int k = 0; k < 6; ++k)
+        if (k < (linear ? 4 : 6))
+          sh[grp * nv + q * (linear ? 4 : 6) + k] = (double)acc[k] + (double)low[k];
+    }
+    if (pose) tree_sum<48, LIN_PAD>(sh);
+    else if (linear) tree_sum<36, LIN_PAD>(sh);
+    else tree_sum<36, S_PAD>(sh);
+  }
+  if (t >= nv) return;
+  const float val = any ? (float)sh[t] : 0.0f;
+  if (!pose) S_red[(size_t)(a * 6 + t / 6) * (wk * 6) + col * 6 + t % 6] = val;
+  else if (t < 36) Hpp[a * 36 + t] = val;
+  else if (t < 42) bp[a * 6 + t - 36] = val;
+  else rhs[a * 6 + t - 42] = val;
 }
 
 __global__ void __launch_bounds__(PT_THREADS)
@@ -368,7 +607,7 @@ ba_cost_point_kernel(const float* __restrict__ cam, const float* __restrict__ po
 __global__ void __launch_bounds__(RED_THREADS)
 ba_cost_sum_kernel(const float* __restrict__ cost_pt, const int* __restrict__ n_pts, int L,
                    float* __restrict__ cost) {
-  __shared__ float sh[1][RED_THREADS];
+  __shared__ float sh[RED_THREADS];
   const float c = cost_sum(cost_pt, min(*n_pts, L), sh);
   if (threadIdx.x == 0) cost[0] = c;
 }
@@ -401,24 +640,26 @@ ba_backsub_kernel(const float* __restrict__ Wc, const float* __restrict__ Hinv,
 }
 
 // One LM iteration's normal equations + Schur reduction: two launches.
-// Scratch: cost_pt [L] f32, mask [L] u32. Wc is read-modify-written in the
-// rows of the observing window slots only (zero it once per problem).
+// Scratch: rec [wk,L,132] f32 (never zeroed), cost_pt [L] f32, mask [L] u32.
+// Wc is written in the rows of the observing window slots only (zero it once
+// per problem).
 extern "C" int ba_accumulate_launch(
     const float* lam, const float* cam, const float* posesT, const float* X, const int* slot,
     const float* u, const float* v, const float* ur, const float* isig2, const float* act,
     const float* povar, const int* n_pts, int WF, int wk, int O, int L, int huber, float* Hpp,
     float* bp, float* S_red, float* rhs, float* cost, float* Hinv, float* bl, float* Wc,
-    float* cost_pt, unsigned* mask, void* stream) {
-  if (wk < 1 || wk > MAX_WK || L < 1) return (int)cudaErrorInvalidValue;
+    float* rec, float* cost_pt, unsigned* mask, void* stream) {
+  const size_t smem = (size_t)12 * WF * sizeof(float);
+  if (wk < 1 || wk > MAX_WK || L < 1 || O < 1 || O > GROUP || smem > 48 * 1024)
+    return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
-  ba_point_kernel<<<(L + PT_THREADS - 1) / PT_THREADS, PT_THREADS, 0, st>>>(
-      lam, cam, posesT, X, slot, u, v, ur, isig2, act, povar, WF, wk, O, L, huber, Hinv, bl, Wc,
-      cost_pt, mask);
+  ba_point_kernel<<<(L + PTS_PER_BLOCK - 1) / PTS_PER_BLOCK, PT_THREADS, smem, st>>>(
+      lam, cam, posesT, X, slot, u, v, ur, isig2, act, povar, n_pts, WF, wk, O, L, huber, Hinv,
+      bl, Wc, rec, cost_pt, mask);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  ba_reduce_kernel<<<dim3(wk, wk + 1), RED_THREADS, 0, st>>>(
-      cam, posesT, X, slot, u, v, ur, isig2, act, povar, n_pts, WF, wk, O, L, huber, Hinv, bl,
-      Wc, cost_pt, mask, Hpp, bp, S_red, rhs, cost);
+  ba_sum_kernel<<<dim3(wk, wk + 2), SUM_THREADS, 0, st>>>(n_pts, wk, L, rec, cost_pt, mask, Hpp,
+                                                         bp, S_red, rhs, cost);
   return (int)cudaGetLastError();
 }
 

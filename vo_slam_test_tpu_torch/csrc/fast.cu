@@ -6,88 +6,149 @@
 //
 // What it computes: for every pixel, V = max over the 16 dark and 16 bright
 // cyclic 9-arcs of the 16-pixel Bresenham ring of the minimum |center - ring|
-// inside the arc, clamped at 0. Pixels are integers in [0, 255], so every
-// difference, min and max is exact in f32.
+// inside the arc, clamped at 0. Precondition: pixel values are integers in
+// [0, 255] (the pyramid's 8-bit levels held as f32), so every difference fits
+// 16 bits and integer arithmetic gives the plain version's f32 result exactly.
 //
-// Bound on this card: operations. Each pixel is read once and one score is
-// written (8 bytes per pixel), and it takes ~176 operations: 16 differences
-// and 160 minima and maxima (2 x (64 arc minima + 15 maxima), 2), which run at
-// the compare/min/max rate, half the f32 add rate; they take about four times
-// as long as the bytes at the memory rate. The kernel keeps both low:
-//   - a 32x16 block stages its tile plus a 3-pixel halo in shared memory, so
-//     each input pixel leaves device memory ~1.6 times (halo overhead) and the
-//     17 reads per pixel hit shared memory;
-//   - the 9-arc minima use the same doubling as the plain version (w2, w4, w8,
-//     then one more element): 4 min per ring position instead of 8.
+// Bound on this card: bytes. Each pixel is read once and one score written
+// (8 bytes per pixel, ~6 us for [8,480,640] at the memory rate); the minima
+// and maxima of the pixels that can score at all take about half of that at
+// the integer min/max rate once they are packed. The design keeps the
+// arithmetic, and the instructions around it, under the bytes:
+//   - two pixels per thread in the two 16-bit lanes of a word, with Hopper's
+//     three-input packed minima and maxima (__vimin3_s16x2/__vimax3_s16x2): a
+//     9-arc minimum is min3 of three 3-runs (32 instructions for the 16 arcs of
+//     both pixels where two-input f32 doubling took 64 for one), and the final
+//     maxima are a chain of max3;
+//   - differences are one 32-bit subtract for both lanes: the centre carries
+//     +256 in each lane, so every lane stays in [1, 511] and nothing borrows
+//     across lanes; the bias is taken off the final maximum;
+//   - a 64x16 pixel tile per block of 32x8 threads, each scoring two words
+//     (rows y and y + 8): the kernel's time follows its count of threads and
+//     their fixed costs more than its bytes, so four pixels share one thread's
+//     staging and index arithmetic. The staged tile (3-pixel halo) is stored
+//     as words packing pixels j and j + 32 of a row, so a thread's 17 reads
+//     per word are aligned 32-bit shared loads without bank conflicts and its
+//     scores go to coalesced rows of stores;
+//   - staging walks rows and columns, not a flat index: a thread's three
+//     columns are wrapped once, a row's index once per row, with compares and
+//     adds only (an offset is at most 3 past an edge; H and W are at least 3);
+//   - 61% of a [8,480,640] batch lies beyond its pyramid level and is zero: a
+//     block whose staged pixels are all zero writes zeros and returns (every
+//     difference is 0 there, so this is exact for any input).
 // Edge handling: indices wrap in both axes, exactly like the plain version's
 // roll, so the kernel equals the plain version on every pixel (callers mask a
 // 16 px border anyway). The input may be a strided view (the canvas interior);
-// only the last axis must be contiguous.
+// only the last axis must be contiguous, and loads stay 4 bytes wide (the
+// view's rows are not 16-byte aligned).
 
 #include <cuda_runtime.h>
 
-#define TW 32
-#define TH 16
+#define LANES 32             // threads along x; thread x scores pixels x and x + 32
+#define TW (2 * LANES)       // tile width in pixels
+#define TH 8                 // threads along y
+#define ROWS 2               // rows per thread: thread y scores rows y and y + TH
 #define R 3
-#define SW (TW + 2 * R)
-#define SH (TH + 2 * R)
+#define SH (ROWS * TH + 2 * R)  // staged rows
+#define SWORDS (LANES + 2 * R)  // staged words per row: word j = pixel j | pixel j+32 << 16
+#define BIAS 0x01000100u     // +256 in each 16-bit lane
 
-__global__ void fast_score_kernel(const float* __restrict__ in, long long s_l, long long s_h,
-                                  float* __restrict__ out, int H, int W) {
-  __shared__ float tile[SH][SW];
-  const int l = blockIdx.z;
-  const int x0 = blockIdx.x * TW;
-  const int y0 = blockIdx.y * TH;
-  const float* src = in + (long long)l * s_l;
-  const int tid = threadIdx.y * TW + threadIdx.x;
-  for (int i = tid; i < SH * SW; i += TW * TH) {
-    const int ty = i / SW, tx = i % SW;
-    int gy = y0 + ty - R, gx = x0 + tx - R;
-    gy = ((gy % H) + H) % H;
-    gx = ((gx % W) + W) % W;
-    tile[ty][tx] = src[(long long)gy * s_h + gx];
+#define MIN3(a, b, c) __vimin3_s16x2((a), (b), (c))
+#define MAX3(a, b, c) __vimax3_s16x2((a), (b), (c))
+
+// index g wrapped into [0, n) with two compares and adds, for n >= R: a
+// written pixel reads at most R past an edge, so indices further out (tile
+// rows and columns past the image, read by no written pixel) are clamped to
+// n + R - 1 first. No loop: the compiler turns a subtract-until-in-range loop
+// back into a division.
+__device__ __forceinline__ int wrap(int g, int n) {
+  g = min(g, n + R - 1);
+  g += g < 0 ? n : 0;
+  g -= g >= n ? n : 0;
+  return g;
+}
+
+__global__ void __launch_bounds__(LANES * TH)
+fast_score_kernel(const float* __restrict__ in, long long s_l, long long s_h,
+                  float* __restrict__ out, int H, int W) {
+  __shared__ unsigned tile[SH][SWORDS];
+  const int lane = threadIdx.x, ty = threadIdx.y;
+  const int x0 = blockIdx.x * TW, y0 = blockIdx.y * (ROWS * TH);
+  const float* src = in + (long long)blockIdx.z * s_l;
+
+  // the thread's staged columns: tile columns lane, lane + 32 and (for the
+  // first 2R lanes) lane + 64; tile column 0 is pixel x0 - R
+  const int gx0 = wrap(x0 - R + lane, W);
+  const int gx1 = wrap(x0 - R + lane + LANES, W);
+  const int gx2 = wrap(x0 - R + lane + 2 * LANES, W);
+  unsigned any = 0u;
+  for (int r = ty; r < SH; r += TH) {
+    const float* row = src + (long long)wrap(y0 - R + r, H) * s_h;
+    const unsigned p0 = (unsigned)(int)row[gx0], p1 = (unsigned)(int)row[gx1];
+    tile[r][lane] = p0 | (p1 << 16);
+    any |= p0 | p1;
+    if (lane < 2 * R) {
+      const unsigned p2 = (unsigned)(int)row[gx2];
+      tile[r][LANES + lane] = p1 | (p2 << 16);
+      any |= p2;
+    }
   }
-  __syncthreads();
+  const int live = __syncthreads_or(any != 0u);
 
-  const int x = x0 + threadIdx.x, y = y0 + threadIdx.y;
-  if (x >= W || y >= H) return;
-
+  const int x = x0 + lane;
+  if (x >= W) return;
+  const bool second = x + LANES < W;
   // ring offsets (dx, dy), index 0 at 12 o'clock, clockwise (ops/fast.py CIRCLE16)
   const int DX[16] = {0, 1, 2, 3, 3, 3, 2, 1, 0, -1, -2, -3, -3, -3, -2, -1};
   const int DY[16] = {-3, -3, -2, -1, 0, 1, 2, 3, 3, 3, 2, 1, 0, -1, -2, -3};
-  const int cy = threadIdx.y + R, cx = threadIdx.x + R;
-  const float c = tile[cy][cx];
-  float d[16];
 #pragma unroll
-  for (int k = 0; k < 16; ++k) d[k] = c - tile[cy + DY[k]][cx + DX[k]];
+  for (int h = 0; h < ROWS; ++h) {
+    const int y = y0 + ty + h * TH;
+    if (y >= H) return;
+    float* dst = out + ((long long)blockIdx.z * H + y) * W + x;
+    if (!live) {
+      dst[0] = 0.0f;
+      if (second) dst[LANES] = 0.0f;
+      continue;
+    }
+    const int cy = ty + h * TH + R, cx = lane + R;
+    const unsigned c = tile[cy][cx] + BIAS;
+    unsigned d[16];  // per lane: center - ring + 256, in [1, 511]
+#pragma unroll
+    for (int k = 0; k < 16; ++k) d[k] = c - tile[cy + DY[k]][cx + DX[k]];
 
-  // dark arcs: min of d over 9 consecutive ring positions; bright arcs: min of
-  // -d, i.e. -(max of d)
-  float lo2[16], hi2[16], lo4[16], hi4[16];
+    // minima and maxima of 3 consecutive ring positions, then of 9 (three runs)
+    unsigned lo3[16], hi3[16];
 #pragma unroll
-  for (int k = 0; k < 16; ++k) {
-    lo2[k] = fminf(d[k], d[(k + 1) & 15]);
-    hi2[k] = fmaxf(d[k], d[(k + 1) & 15]);
-  }
+    for (int k = 0; k < 16; ++k) {
+      lo3[k] = MIN3(d[k], d[(k + 1) & 15], d[(k + 2) & 15]);
+      hi3[k] = MAX3(d[k], d[(k + 1) & 15], d[(k + 2) & 15]);
+    }
+    // dark arcs: the largest 9-arc minimum of d; bright arcs: min of -d over
+    // an arc is -(max of d), so the smallest 9-arc maximum of d
+    unsigned dark = 0u, bright = 0x7fff7fffu;
 #pragma unroll
-  for (int k = 0; k < 16; ++k) {
-    lo4[k] = fminf(lo2[k], lo2[(k + 2) & 15]);
-    hi4[k] = fmaxf(hi2[k], hi2[(k + 2) & 15]);
+    for (int k = 0; k < 16; k += 2) {
+      const unsigned lo_a = MIN3(lo3[k], lo3[(k + 3) & 15], lo3[(k + 6) & 15]);
+      const unsigned lo_b = MIN3(lo3[k + 1], lo3[(k + 4) & 15], lo3[(k + 7) & 15]);
+      const unsigned hi_a = MAX3(hi3[k], hi3[(k + 3) & 15], hi3[(k + 6) & 15]);
+      const unsigned hi_b = MAX3(hi3[k + 1], hi3[(k + 4) & 15], hi3[(k + 7) & 15]);
+      dark = MAX3(dark, lo_a, lo_b);
+      bright = MIN3(bright, hi_a, hi_b);
+    }
+    // per lane: max(0, dark - 256, 256 - bright)
+    const int s0 = max(max((int)(dark & 0xffffu) - 256, 256 - (int)(bright & 0xffffu)), 0);
+    const int s1 = max(max((int)(dark >> 16) - 256, 256 - (int)(bright >> 16)), 0);
+    dst[0] = (float)s0;
+    if (second) dst[LANES] = (float)s1;
   }
-  float score = 0.0f;
-#pragma unroll
-  for (int k = 0; k < 16; ++k) {
-    const float lo9 = fminf(fminf(lo4[k], lo4[(k + 4) & 15]), d[(k + 8) & 15]);
-    const float hi9 = fmaxf(fmaxf(hi4[k], hi4[(k + 4) & 15]), d[(k + 8) & 15]);
-    score = fmaxf(score, fmaxf(lo9, -hi9));
-  }
-  out[((long long)l * H + y) * W + x] = score;
 }
 
 extern "C" int fast_score_launch(const float* in, long long s_l, long long s_h, float* out,
                                  int L, int H, int W, void* stream) {
-  dim3 block(TW, TH);
-  dim3 grid((W + TW - 1) / TW, (H + TH - 1) / TH, L);
+  if (H < R || W < R || L < 1 || L > 65535) return (int)cudaErrorInvalidValue;
+  dim3 block(LANES, TH);
+  dim3 grid((W + TW - 1) / TW, (H + ROWS * TH - 1) / (ROWS * TH), L);
   fast_score_kernel<<<grid, block, 0, (cudaStream_t)stream>>>(in, s_l, s_h, out, H, W);
   return (int)cudaGetLastError();
 }

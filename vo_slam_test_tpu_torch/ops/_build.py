@@ -22,7 +22,7 @@ from typing import Dict, Iterable, Sequence
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-KERNEL_SOURCES = ("fast", "orb", "match", "epi", "ba")
+KERNEL_SOURCES = ("fast", "orb", "match", "epi", "ba", "noop")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
@@ -39,25 +39,25 @@ def nvcc_path() -> str:
     raise RuntimeError("nvcc not found (set CUDA_HOME or put nvcc on PATH)")
 
 
-def library_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
+def library_path(name: str, csrc: Path = CSRC) -> Path:
+    src = (csrc / f"{name}.cu").read_bytes()
     digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
 
-def build(names: Iterable[str] = KERNEL_SOURCES) -> Dict[str, dict]:
-    """Compile the named sources that are not built yet, one ``nvcc`` per
-    source, all started together. Returns {name: {"seconds", "log"}} for the
+def build(names: Iterable[str] = KERNEL_SOURCES, csrc: Path = CSRC) -> Dict[str, dict]:
+    """Compile the named sources of ``csrc`` that are not built yet, one
+    ``nvcc`` per source, all started together. Returns {name: {"seconds", "log"}} for the
     ones compiled here; raises with the compiler's output on a failure."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc = nvcc_path()
     procs = {}
     for name in names:
-        out = library_path(name)
+        out = library_path(name, csrc)
         if out.exists():
             continue
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(csrc / f"{name}.cu")]
         procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                                         text=True), tmp, out, time.perf_counter())
     results = {}

@@ -5,7 +5,8 @@ in ``ops/ba_pallas.py`` for CPU tensors; any other device raises. One
 ``_build.Kernel`` per call site, each with its own launch count:
 
 - ``KERNEL_ACC``: ``ba_accumulate`` (one LM iteration's normal equations and
-  Schur reduction; two launches inside, counted once);
+  Schur reduction; two launches inside, counted once; ``ba_scratch`` makes
+  the buffer its first launch hands to its second);
 - ``KERNEL_COST``: ``ba_cost`` (the robust cost of the candidate step);
 - ``KERNEL_BACKSUB``: ``ba_backsub`` (the point update).
 
@@ -26,11 +27,13 @@ import torch
 from . import _build, ba_pallas
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-KERNEL_ACC = _build.Kernel("ba", "ba_accumulate_launch", [_P] * 12 + [_I] * 5 + [_P] * 11)
+KERNEL_ACC = _build.Kernel("ba", "ba_accumulate_launch", [_P] * 12 + [_I] * 5 + [_P] * 12)
 KERNEL_COST = _build.Kernel("ba", "ba_cost_launch", [_P] * 10 + [_I] * 4 + [_P] * 3)
 KERNEL_BACKSUB = _build.Kernel("ba", "ba_backsub_launch", [_P] * 5 + [_I] * 2 + [_P] * 2)
 
 MAX_WK = 32  # the window slots fit one mask word per point
+MAX_O = 16   # the observers of a point fit one group of lanes
+REC = 132    # floats per (window slot, point) record of the scratch
 _F32, _I32 = torch.float32, torch.int32
 
 
@@ -56,15 +59,29 @@ def _obs_specs(posesT, X, slot, u, v, ur, isig2, act):
         (("u", u), ("v", v), ("ur", ur), ("isig2", isig2), ("act", act))]
 
 
+def ba_scratch(wk: int, L: int, device) -> Optional[torch.Tensor]:
+    """The [wk, L, 132] f32 scratch of ``ba_accumulate`` on the card (one
+    record per window slot and point, handed from its first launch to its
+    second; never zeroed, and only the records of observing slots are
+    touched; 104 MB at wk 24 and L 8192), to be made once per BA call; None
+    for the CPU."""
+    if torch.device(device).type == "cpu":
+        return None
+    return torch.empty((wk, L, REC), dtype=_F32, device=device)
+
+
 def ba_accumulate(lam, posesT, X, slot, u, v, ur, isig2, act, povar, cam5, wk: int,
                   use_huber: bool, n_pts: Optional[torch.Tensor] = None,
-                  wc: Optional[torch.Tensor] = None):
+                  wc: Optional[torch.Tensor] = None, scratch: Optional[torch.Tensor] = None):
     """-> (Hpp [wk,36], bp [wk,6], S_red [wk6,wk6], rhs_red [wk6,1], cost
     [1,1], Hinv [9,L], bl [3,L], Wc [wk,18,L]). ``lam`` is a 0-d f32 tensor.
     On the card ``wc``, when given, is the [wk,18,L] buffer of an earlier
     call on the same problem (the kernel writes only the rows of observing
     window slots, which the problem fixes); otherwise a zeroed one is made.
-    Does not synchronize."""
+    ``scratch`` is ``ba_scratch(wk, L, device)``, made here when not given;
+    the CPU path ignores it. Does not synchronize."""
+    if slot.shape[0] > MAX_O:
+        raise ValueError(f"ba_accumulate: O={slot.shape[0]} observers per point, at most {MAX_O}")
     if posesT.device.type == "cpu":
         return ba_pallas.ba_accumulate_plain(lam, posesT, X, slot, u, v, ur, isig2, act, povar,
                                              cam5, wk, use_huber)
@@ -79,14 +96,17 @@ def ba_accumulate(lam, posesT, X, slot, u, v, ur, isig2, act, povar, cam5, wk: i
     specs = ([("lam", lam, _F32, ()), ("cam5", cam5, _F32, (5,))]
              + _obs_specs(posesT, X, slot, u, v, ur, isig2, act)
              + [("povar", povar, _F32, (O, L)), ("n_pts", n_pts, _I32, ())])
-    _check("ba_accumulate", dev, specs + [("wc", wc, _F32, (wk, 18, L))])
+    if scratch is None:
+        scratch = ba_scratch(wk, L, dev)
+    _check("ba_accumulate", dev, specs + [("wc", wc, _F32, (wk, 18, L)),
+                                          ("scratch", scratch, _F32, (wk, L, REC))])
     outs = [torch.empty(s, dtype=_F32, device=dev) for s in
             ((wk, 36), (wk, 6), (wk * 6, wk * 6), (wk * 6, 1), (1, 1), (9, L), (3, L))]
     cost_pt = torch.empty((L,), dtype=_F32, device=dev)
     mask = torch.empty((L,), dtype=_I32, device=dev)
     KERNEL_ACC(*[t.data_ptr() for _, t, _, _ in specs], WF, wk, O, L, int(use_huber),
-               *[t.data_ptr() for t in outs], wc.data_ptr(), cost_pt.data_ptr(),
-               mask.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+               *[t.data_ptr() for t in outs], wc.data_ptr(), scratch.data_ptr(),
+               cost_pt.data_ptr(), mask.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
     return (*outs, wc)
 
 

@@ -24,7 +24,10 @@ def fast_score(levels: torch.Tensor) -> torch.Tensor:
     """[L, H, W] f32 pyramid batch -> [L, H, W] f32 raw FAST score.
 
     ``levels`` may be a strided view (the canvas interior) whose last axis is
-    contiguous; the output is contiguous. Does not synchronize."""
+    contiguous; the output is contiguous. The kernel takes pixel values that
+    are integers in [0, 255] (the pyramid's 8-bit levels held as f32; it
+    computes in packed 16-bit integers, and does not check) and levels of at
+    least 3x3 pixels. Does not synchronize."""
     if levels.device.type == "cpu":
         from . import fast
 
@@ -36,6 +39,8 @@ def fast_score(levels: torch.Tensor) -> torch.Tensor:
     if levels.stride(2) != 1:
         raise ValueError("fast_score: the last axis must be contiguous")
     L, H, W = levels.shape
+    if H < 3 or W < 3 or L > 65535:
+        raise ValueError(f"fast_score: need H, W >= 3 and L <= 65535, got {tuple(levels.shape)}")
     out = torch.empty((L, H, W), dtype=torch.float32, device=levels.device)
     if out.numel():
         KERNEL(levels.data_ptr(), levels.stride(0), levels.stride(1), out.data_ptr(),
