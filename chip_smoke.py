@@ -22,8 +22,9 @@
      point back-substitution) on the first LM iteration of a captured local
      BA and on a seeded full-width instance (a stereo/mono mix, outliers past
      the Huber threshold, empty slots), within the tolerances of
-     ``check_ba``, two launches bit-equal, and the accumulate kernel's cost
-     bit-equal to the cost kernel's;
+     ``check_ba``, two launches bit-equal, the accumulate kernel's cost
+     bit-equal to the cost kernel's and its window mask words equal to the
+     plain ``window_mask``;
 4. main path 1: the port's FusedTracker over the synthetic corner sequence
    (30 frames, 1000 features, 8 levels: the fr1 extraction settings, as
    ``run_slam --synthetic`` uses): 30/30 tracked frames, ATE < 1 cm, every
@@ -407,7 +408,7 @@ def check_ba(label, kind, got, inst, plain):
     if kind == "cost":
         return close("cost", got, plain, 0.0, 1e-5)
     if kind == "backsub":
-        Wc, Hinv, bl, dxp = inst
+        Wc, Hinv, bl, dxp = inst[:4]
         wk, _, L = Wc.shape
         scale = torch.einsum("ijl,jl->il", Hinv.reshape(3, 3, L).abs(), bl.abs() + torch.einsum(
             "wikl,wi->kl", Wc.reshape(wk, 6, 3, L).abs(), dxp.abs()))
@@ -593,8 +594,9 @@ def capture_instances(match_cuda, ba_cuda, system, cfg, frames):
             elif (name == "ba_backsub" and "acc" in ba_best and name not in ba_best
                   and bool(torch.isfinite(args[3]).all())):
                 # the first back-substitution of that BA whose pose step is
-                # finite (a Cholesky of an indefinite system gives NaN)
-                ba_best[name] = ([keep(a) for a in args], {k: keep(v) for k, v in kw.items()})
+                # finite (a Cholesky of an indefinite system gives NaN), with
+                # the mask words of its iteration
+                ba_best[name] = [keep(a) for a in args[:4]] + [keep(kw["mask"])]
             return orig_ba[name](*args, **kw)
         return wrapped
 
@@ -623,7 +625,7 @@ def capture_instances(match_cuda, ba_cuda, system, cfg, frames):
     (lam, posesT, X, slot, u, v, ur, isig2, act, povar, cam5, wk, huber), kw = ba_best["acc"]
     got["ba"] = dict(lam=lam, posesT=posesT, X=X, slot=slot, u=u, v=v, ur=ur, isig2=isig2,
                      act=act, povar=povar, cam5=cam5, wk=wk, huber=huber, n_pts=kw["n_pts"])
-    got["ba_backsub"] = ba_best["ba_backsub"][0][:4]
+    got["ba_backsub"] = ba_best["ba_backsub"]
     return got
 
 
@@ -1016,10 +1018,19 @@ def main() -> int:
     sub_rng = np.random.default_rng(3)
     ba_insts = {}
     for label, inst in (("captured", captured["ba"]), ("seeded", ba_seeded)):
-        acc = ba_cuda.ba_accumulate(*acc_args(inst), n_pts=inst["n_pts"])
-        dxp = (torch.as_tensor(sub_rng.normal(0, 1e-3, (inst["wk"], 6)), dtype=torch.float32)
-               .to(dev) if label == "seeded" else captured["ba_backsub"][3])
-        sub = (acc[7], acc[5], acc[6], dxp) if label == "seeded" else captured["ba_backsub"]
+        mask = ba_cuda.ba_mask(inst["slot"].shape[1], dev)
+        acc = ba_cuda.ba_accumulate(*acc_args(inst), n_pts=inst["n_pts"], mask=mask)
+        if label == "captured":  # as the solver called it, with its iteration's mask
+            sub = captured["ba_backsub"]
+        else:
+            dxp = torch.as_tensor(sub_rng.normal(0, 1e-3, (inst["wk"], 6)), dtype=torch.float32)
+            sub = (acc[7], acc[5], acc[6], dxp.to(dev), mask)
+        n = int(inst["n_pts"])
+        want = ba_pallas.window_mask(inst["slot"][:, :n], inst["povar"][:, :n], inst["wk"])
+        if not (torch.equal(mask[:n], want) and torch.equal(sub[4][:n], want)
+                and bool((mask[n:] == 0).all())):
+            raise AssertionError(f"ba_accumulate on the {label} instance: its window mask words "
+                                 f"differ from the plain window_mask")
         ba_insts[label] = (inst, sub)
     ba_specs = {
         "ba_acc": ("ba_accumulate", lambda i, s: ba_cuda.ba_accumulate(*acc_args(i), n_pts=i["n_pts"]),
@@ -1028,8 +1039,9 @@ def main() -> int:
         "ba_cost": ("ba_cost", lambda i, s: ba_cuda.ba_cost(*cost_args(i), n_pts=i["n_pts"]),
                     lambda i, s: ba_pallas.ba_cost_plain(*cost_args(i)), "cost",
                     "vo_slam_test_tpu/ops/ba_pallas.py:338"),
-        "ba_backsub": ("ba_backsub", lambda i, s: ba_cuda.ba_backsub(*s, n_pts=i["n_pts"]),
-                       lambda i, s: ba_pallas.ba_backsub_plain(*s), "backsub",
+        "ba_backsub": ("ba_backsub",
+                       lambda i, s: ba_cuda.ba_backsub(*s[:4], n_pts=i["n_pts"], mask=s[4]),
+                       lambda i, s: ba_pallas.ba_backsub_plain(*s[:4]), "backsub",
                        "vo_slam_test_tpu/ops/ba_pallas.py:365"),
     }
     for key, (kname, kfn, pfn, kind, replaces) in ba_specs.items():
@@ -1229,10 +1241,9 @@ def main() -> int:
         kernels[k]["launches"] = launches1[k]
     for k in ("top2_m4096", "top2_chi2", "top2_nb", "top1_epi") + ba_keys:
         kernels[k]["launches"] = launches2[k]
-    # ba_accumulate and ba_cost are two launches in a row, the others one
+    # ba_accumulate is two launches in a row, the others one
     for k, v in kernels.items():
-        v["launch_floor_x"] = v["ms"] / floor["launches_2" if k in ("ba_acc", "ba_cost")
-                                              else "launches_1"]
+        v["launch_floor_x"] = v["ms"] / floor["launches_2" if k == "ba_acc" else "launches_1"]
     under = {k: (v["ms"], v["bound_ms"]) for k, v in kernels.items() if v["ms"] < v["bound_ms"]}
     if under:
         raise AssertionError(f"kernels timed under their bounds, so the bounds are wrong: {under}")

@@ -90,9 +90,11 @@ def main() -> int:
     gt = np.stack([room.poses[i] for i in range(len(frames))])
     try:
         for label, take in MIXES.items():
-            def mixed(*args, n_pts=None, wc=None, scratch=None, _take=take):
+            def mixed(*args, n_pts=None, wc=None, scratch=None, mask=None, _take=take):
+                # both designs' Wc rows are zero outside the mask words that
+                # the current kernel writes for the back-substitution
                 old = first_design(*args, n_pts)
-                new = current(*args, n_pts=n_pts)
+                new = current(*args, n_pts=n_pts, mask=mask)
                 return tuple(n if name in _take else o for name, o, n in zip(NAMES, old, new))
 
             ba_cuda.ba_accumulate = mixed

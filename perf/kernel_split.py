@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
-"""Times the parts of the first designs of ``ba_accumulate`` and the FAST score
+"""Times the parts of earlier designs of the BA kernels and the FAST score
 beside the current kernels, on the same inputs, in one run on the card.
 
-    python3 perf/kernel_split.py            # from the repository root
+    python3 perf/kernel_split.py                # from the repository root: every phase
+    python3 perf/kernel_split.py ba_tail fast   # the named phases (dpx, fast, ba, ba_tail)
 
 Prints, after the card's name and power limit:
 
@@ -21,7 +22,19 @@ Prints, after the card's name and power limit:
   points, launch 2 alone, its S_red blocks alone, its pose-block blocks alone,
   the newest keyframe's pose block alone and S_red block (0, 0) alone; then
   the current kernel whole and by launch (profiler kernel events), and with
-  no live point (what its blocks cost before any work).
+  no live point (what its blocks cost before any work);
+- ``ba_cost`` and ``ba_backsub`` (``ba_tail``) on the same captured instance
+  and on ``chip_smoke.py``'s seeded full-width one: the earlier designs
+  (v1, ``perf/ba_tail_v1.cu``) beside the current kernels, in turns, with the
+  outputs checked bit for bit (the cost also against ``ba_accumulate``'s, the
+  back-substitution with a finite pose step as the solver gives it, and with
+  a NaN step printed); the back-substitution's variants
+  (``perf/ba_backsub_variants.cu``: Wc rows strided by L or the records'
+  rows, at 32, 64 and 128 threads a block); ``ba_cost`` built from edited
+  copies of ``csrc/ba.cu`` with other grids (``COST_SHAPES``: blocks per SM
+  and threads per block); ``ba_accumulate`` and ``ba_cost`` built with other
+  counts of loads in flight in ``cost_sum`` (``SUM_LOADS``); the current
+  ``ba_cost`` with no live point. Exits 1 if a bit differs.
 
 All times are CUDA-graph replays (``chip_smoke.time_graph_ms``) unless a
 line says otherwise. Exits 1 without a CUDA device.
@@ -30,6 +43,7 @@ line says otherwise. Exits 1 without a CUDA device.
 from __future__ import annotations
 
 import ctypes
+import re
 import subprocess
 import sys
 from pathlib import Path
@@ -136,7 +150,9 @@ def fast_phase(_build, dev):
           f"{chip_smoke.time_graph_ms(lambda: fast_cuda.fast_score(zeros)):.4f} ms")
 
 
-def ba_phase(_build, dev):
+def capture():
+    """The instances of ``chip_smoke.py``'s capture run over frames 0-12 of
+    the room orbit (the BA with the most live points among them)."""
     from vo_slam_test_tpu_torch.config import SlamConfig
     from vo_slam_test_tpu_torch.datasets import SyntheticRGBD
     from vo_slam_test_tpu_torch.datasets.synthetic import room_orbit_trajectory
@@ -147,8 +163,14 @@ def ba_phase(_build, dev):
     cfg = SlamConfig(camera_fx=room.fx, camera_fy=room.fy, camera_cx=room.cx, camera_cy=room.cy,
                      camera_k1=0, camera_k2=0, camera_p1=0, camera_p2=0, camera_k3=0,
                      camera_fps=30)
-    inst = chip_smoke.capture_instances(match_cuda, ba_cuda, system, cfg,
-                                        [room[i] for i in range(13)])["ba"]
+    return chip_smoke.capture_instances(match_cuda, ba_cuda, system, cfg,
+                                        [room[i] for i in range(13)])
+
+
+def ba_phase(_build, dev, captured):
+    from vo_slam_test_tpu_torch.ops import ba_cuda
+
+    inst = captured["ba"]
     counts = chip_smoke.ba_counts(inst)
     O, L = inst["slot"].shape
     WF, wk = inst["posesT"].shape[1], inst["wk"]
@@ -210,17 +232,249 @@ def ba_phase(_build, dev):
           f"{chip_smoke.launch_times_ms(run_cur)}")
 
 
-def main() -> int:
+COST_SHAPES = ((1, 128), (1, 256), (2, 128), (4, 128))
+# cost_sum's loads in flight per thread (in ba_sum_kernel's cost block and ba_cost_kernel's
+# last block alike); every version adds in the same order. 1 is the source as it stands.
+SUM_LOADS = (1, 4, 16)
+_SUM_LOOP = ("    for (int l = threadIdx.x; l < n; l += RED_THREADS) "
+             "acc = __fadd_rn(acc, __ldcg(cost_pt + l));\n")
+
+
+def batched_sum_loop(k: int) -> str:
+    """cost_sum's loop with ``k`` loads in flight per thread before their adds."""
+    return f"""    for (int l0 = threadIdx.x; l0 < n; l0 += {k} * RED_THREADS) {{
+      float c[{k}];
+#pragma unroll
+      for (int j = 0; j < {k}; ++j)
+        c[j] = l0 + j * RED_THREADS < n ? __ldcg(cost_pt + l0 + j * RED_THREADS) : 0.0f;
+#pragma unroll
+      for (int j = 0; j < {k}; ++j)
+        if (l0 + j * RED_THREADS < n) acc = __fadd_rn(acc, c[j]);
+    }}
+"""
+
+
+def ba_variants(_build, texts):
+    """Copies of ``csrc/ba.cu`` edited into ``texts`` ({name: source}),
+    written into ``_build/variants`` and built there -> {name: CDLL}."""
+    out_dir = _build.BUILD_DIR / "variants"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    for name, text in texts.items():
+        (out_dir / f"{name}.cu").write_text(text)
+    _build.build(texts, out_dir)
+    return {name: ctypes.CDLL(str(_build.library_path(name, out_dir))) for name in texts}
+
+
+def define(src, name, value):
+    """``src`` with ``#define name`` set to ``value`` (it must be there once)."""
+    text, n = re.subn(rf"#define {name} \d+", f"#define {name} {value}", src)
+    assert n == 1, name
+    return text
+
+
+def tail_variants(_build):
+    """``csrc/ba.cu`` built with each grid of COST_SHAPES (blocks per SM,
+    threads per block of ``ba_cost_kernel``) and each of SUM_LOADS, all in one
+    go -> ({shape: cost launch}, {loads: (accumulate launch, cost launch)})."""
+    from vo_slam_test_tpu_torch.ops import ba_cuda
+
+    src = (_build.CSRC / "ba.cu").read_text()
+    assert src.count(_SUM_LOOP) == 1
+    texts = {f"ba_cost_{b}x{th}": define(define(src, "COST_BLOCKS_PER_SM", b), "COST_THREADS", th)
+             for b, th in COST_SHAPES}
+    texts.update({f"ba_loads_{k}": src.replace(_SUM_LOOP, batched_sum_loop(k)) if k > 1 else src
+                  for k in SUM_LOADS})
+    libs = ba_variants(_build, texts)
+
+    def launch(name, symbol):
+        argtypes = {"ba_cost_launch": ba_cuda.KERNEL_COST.argtypes,
+                    "ba_accumulate_launch": ba_cuda.KERNEL_ACC.argtypes}[symbol]
+        return bind(libs[name], symbol, argtypes)
+
+    shapes = {(b, th): launch(f"ba_cost_{b}x{th}", "ba_cost_launch") for b, th in COST_SHAPES}
+    loads = {k: (launch(f"ba_loads_{k}", "ba_accumulate_launch"),
+                 launch(f"ba_loads_{k}", "ba_cost_launch")) for k in SUM_LOADS}
+    return shapes, loads
+
+
+def bits_equal(a, b) -> bool:
+    return torch.equal(a.contiguous().view(torch.int32), b.contiguous().view(torch.int32))
+
+
+def ba_tail_phase(_build, dev, captured) -> list:
+    """-> the labels of the outputs that are not bit-equal (empty: all are)."""
+    from vo_slam_test_tpu_torch.ops import ba_cuda
+
+    lib = ctypes.CDLL(str(_build.library_path("ba_tail_v1", ROOT / "perf")))
+    v1_cost = bind(lib, "ba_tail_v1_cost_launch", [_P] * 10 + [_I] * 4 + [_P] * 3)
+    v1_sub = bind(lib, "ba_tail_v1_backsub_launch", [_P] * 5 + [_I] * 2 + [_P] * 2)
+    variant = bind(ctypes.CDLL(str(_build.library_path("ba_backsub_variants", ROOT / "perf"))),
+                   "ba_backsub_variant_launch", [_P] * 7 + [_I] * 4 + [_P] * 2)
+    shapes, loads = tail_variants(_build)
+    seeded = chip_smoke.random_ba_instance(np.random.default_rng(2), 64, 24, 12, 8192, 1500, dev)
+    rng = np.random.default_rng(3)
+    differ = []
+
+    def check(label, a, b):
+        ok = bits_equal(a, b)
+        print(f"  {label}: {'bit-equal' if ok else 'NOT bit-equal'}")
+        if not ok:
+            differ.append(label)
+
+    # the solver's own back-substitution (its Wc, mask and finite step)
+    Wc, Hinv, bl, dxp, mask = captured["ba_backsub"]
+    n_pts = captured["ba"]["n_pts"]
+    wk, _, L = Wc.shape
+    dx_v1 = torch.empty((3, L), dtype=torch.float32, device=dev)
+    v1_sub(Wc.data_ptr(), Hinv.data_ptr(), bl.data_ptr(), dxp.data_ptr(), n_pts.data_ptr(), wk, L,
+           dx_v1.data_ptr(), stream())
+    check("ba_backsub on the solver's captured call, current against v1's",
+          ba_cuda.ba_backsub(Wc, Hinv, bl, dxp, n_pts=n_pts, mask=mask), dx_v1)
+
+    for label, inst in (("captured", captured["ba"]), ("seeded", seeded)):
+        O, L = inst["slot"].shape
+        WF, wk, n_pts = inst["posesT"].shape[1], inst["wk"], inst["n_pts"]
+        print(f"  {label} instance: WF={WF} wk={wk} O={O} L={L}; {chip_smoke.ba_counts(inst)}")
+        scratch, mask = ba_cuda.ba_scratch(wk, L, dev), ba_cuda.ba_mask(L, dev)
+        acc = ba_cuda.ba_accumulate(
+            inst["lam"], inst["posesT"], inst["X"], inst["slot"], inst["u"], inst["v"], inst["ur"],
+            inst["isig2"], inst["act"], inst["povar"], inst["cam5"], wk, inst["huber"],
+            n_pts=n_pts, scratch=scratch, mask=mask)
+        Wc, Hinv, bl = acc[7], acc[5], acc[6]
+        dxp = (captured["ba_backsub"][3] if label == "captured" else torch.as_tensor(
+            rng.normal(0, 1e-3, (wk, 6)), dtype=torch.float32).to(dev))
+        cost_in = [inst[k] for k in ("cam5", "posesT", "X", "slot", "u", "v", "ur", "isig2", "act",
+                                     "n_pts")]
+        cost_v1 = torch.empty((1, 1), dtype=torch.float32, device=dev)
+        cost_pt_v1 = torch.empty((L,), dtype=torch.float32, device=dev)
+        dx_v1 = torch.empty((3, L), dtype=torch.float32, device=dev)
+        dx_var = torch.empty((3, L), dtype=torch.float32, device=dev)
+        cost_var = torch.empty((1, 1), dtype=torch.float32, device=dev)
+        arrived = torch.zeros((1,), dtype=torch.int32, device=dev)
+        acc_in = [inst[k] for k in ("lam", "cam5", "posesT", "X", "slot", "u", "v", "ur",
+                                    "isig2", "act", "povar", "n_pts")]
+        acc_var = [torch.empty_like(t) for t in acc[:7]] + [
+            torch.zeros_like(Wc), ba_cuda.ba_scratch(wk, L, dev), torch.empty_like(cost_pt_v1),
+            ba_cuda.ba_mask(L, dev)]
+
+        def run_cost_v1():
+            v1_cost(*[t.data_ptr() for t in cost_in], WF, O, L, int(inst["huber"]),
+                    cost_v1.data_ptr(), cost_pt_v1.data_ptr(), stream())
+
+        def run_cost():
+            return ba_cuda.ba_cost(*cost_in[1:9], inst["cam5"], inst["huber"], n_pts=n_pts)
+
+        def run_sub_v1(step=dxp):
+            v1_sub(Wc.data_ptr(), Hinv.data_ptr(), bl.data_ptr(), step.data_ptr(),
+                   n_pts.data_ptr(), wk, L, dx_v1.data_ptr(), stream())
+
+        def run_sub(step=dxp):
+            return ba_cuda.ba_backsub(Wc, Hinv, bl, step, n_pts=n_pts, mask=mask)
+
+        def run_cost_shape(shape):
+            shapes[shape](*[t.data_ptr() for t in cost_in], WF, O, L, int(inst["huber"]),
+                          cost_var.data_ptr(), cost_pt_v1.data_ptr(), arrived.data_ptr(),
+                          stream())
+
+        def run_loads_acc(key):
+            loads[key][0](*[t.data_ptr() for t in acc_in], WF, wk, O, L, int(inst["huber"]),
+                          *[t.data_ptr() for t in acc_var], stream())
+
+        def run_loads_cost(key):
+            loads[key][1](*[t.data_ptr() for t in cost_in], WF, O, L, int(inst["huber"]),
+                          cost_var.data_ptr(), cost_pt_v1.data_ptr(), arrived.data_ptr(),
+                          stream())
+
+        def run_variant(threads, rec_rows):
+            variant(Wc.data_ptr(), scratch.data_ptr(), Hinv.data_ptr(), bl.data_ptr(),
+                    dxp.data_ptr(), mask.data_ptr(), n_pts.data_ptr(), wk, L, threads, rec_rows,
+                    dx_var.data_ptr(), stream())
+
+        run_cost_v1()
+        cost = run_cost()
+        check(f"{label}: ba_cost, current against v1's", cost, cost_v1)
+        check(f"{label}: ba_cost against ba_accumulate's cost", cost, acc[4])
+        for shape in COST_SHAPES:
+            run_cost_shape(shape)
+            check(f"{label}: ba_cost with {shape[0]} blocks per SM of {shape[1]} threads against "
+                  f"v1's", cost_var, cost_v1)
+        for key in SUM_LOADS:
+            run_loads_acc(key)
+            check(f"{label}: ba_accumulate with cost_sum loads {key}, against the current",
+                  torch.cat([t.flatten() for t in acc_var[:7]]),
+                  torch.cat([t.flatten() for t in acc[:7]]))
+            run_loads_cost(key)
+            check(f"{label}: ba_cost with cost_sum loads {key}, against v1's", cost_var, cost_v1)
+        run_sub_v1()
+        check(f"{label}: ba_backsub (finite step), current against v1's", run_sub(), dx_v1)
+        for threads in (32, 64, 128):
+            for rec_rows in (0, 1):
+                run_variant(threads, rec_rows)
+                check(f"{label}: ba_backsub variant ({'record' if rec_rows else 'Wc'} rows, "
+                      f"{threads} threads) against v1's", dx_var, dx_v1)
+        nan_step = dxp.clone()
+        nan_step[0, 0] = float("nan")
+        run_sub_v1(nan_step)
+        got = run_sub(nan_step)
+        torch.cuda.synchronize()
+        n = int(n_pts)
+        print(f"  {label}: ba_backsub with a NaN step: live points all non-finite "
+              f"{not bool(torch.isfinite(got[:, :n]).any())}, dead points bit-equal to v1's "
+              f"{bits_equal(got[:, n:], dx_v1[:, n:])}, all bits equal to v1's "
+              f"{bits_equal(got, dx_v1)}")
+
+        times = []
+        for name, fn in (("ba_cost v1", run_cost_v1), ("ba_cost current", run_cost),
+                         ("ba_cost current", run_cost), ("ba_cost v1", run_cost_v1),
+                         ("ba_backsub v1", run_sub_v1), ("ba_backsub current", run_sub),
+                         ("ba_backsub current", run_sub), ("ba_backsub v1", run_sub_v1)):
+            times.append(f"{name} {chip_smoke.time_graph_ms(fn):.4f}")
+        print(f"  {label}: ms (CUDA-graph replays, in turns): " + ", ".join(times))
+        var_times = [f"{'record' if r else 'Wc'} rows {th} threads "
+                     f"{chip_smoke.time_graph_ms(lambda: run_variant(th, r)):.4f}"
+                     for r in (0, 1) for th in (32, 64, 128)]
+        print(f"  {label}: ba_backsub variants ms: " + ", ".join(var_times))
+        shape_times = [f"{b} x {th} {chip_smoke.time_graph_ms(lambda: run_cost_shape((b, th))):.4f}"
+                       for b, th in COST_SHAPES]
+        print(f"  {label}: ba_cost by grid (blocks per SM x threads) ms: " + ", ".join(shape_times)
+              + f"; arrival counter after the replays {int(arrived)}")
+        time = chip_smoke.time_graph_ms
+        loads_times = [f"{key} ba_accumulate {time(lambda: run_loads_acc(key)):.4f} ba_cost "
+                       f"{time(lambda: run_loads_cost(key)):.4f}" for key in SUM_LOADS]
+        print(f"  {label}: by cost_sum's loads in flight per thread, ms: "
+              + ", ".join(loads_times))
+        print(f"  {label}: by launch (profiler): ba_cost v1 "
+              f"{chip_smoke.launch_times_ms(run_cost_v1)}; current "
+              f"{chip_smoke.launch_times_ms(run_cost)}; ba_backsub v1 "
+              f"{chip_smoke.launch_times_ms(run_sub_v1)}; current "
+              f"{chip_smoke.launch_times_ms(run_sub)}")
+        if label == "seeded":  # every block arrives with no point: grid, fence and count alone
+            none = torch.zeros((), dtype=torch.int32, device=dev)
+            ms = chip_smoke.time_graph_ms(
+                lambda: ba_cuda.ba_cost(*cost_in[1:9], inst["cam5"], True, n_pts=none))
+            print(f"  ba_cost current with n_pts = 0: {ms:.4f} ms")
+    return differ
+
+
+PHASES = ("dpx", "fast", "ba", "ba_tail")
+
+
+def main(argv) -> int:
     if not torch.cuda.is_available():
         print("kernel_split: no CUDA device available", file=sys.stderr)
         return 1
+    phases = argv or PHASES
+    if set(phases) - set(PHASES):
+        print(f"kernel_split: phases are {PHASES}", file=sys.stderr)
+        return 2
     from vo_slam_test_tpu_torch.ops import _build
 
     dev = torch.device("cuda")
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip())
     built = dict(_build.build())
-    built.update(_build.build(("dpx_bench", "fast_v1", "ba_v1"), ROOT / "perf"))
+    built.update(_build.build(("dpx_bench", "fast_v1", "ba_v1", "ba_tail_v1",
+                               "ba_backsub_variants"), ROOT / "perf"))
     for k, v in built.items():
         for line in v["log"].splitlines():
             if "registers" in line or "spill" in line or "Compiling" in line:
@@ -229,12 +483,24 @@ def main() -> int:
     for n in (1, 2):
         print(f"  launch floor, {n} empty launch(es) in a row: "
               f"{chip_smoke.time_graph_ms(lambda: noop(n, stream())):.4f} ms")
-    dpx_phase(_build, dev)
-    fast_phase(_build, dev)
-    ba_phase(_build, dev)
+    if "dpx" in phases:
+        dpx_phase(_build, dev)
+    if "fast" in phases:
+        fast_phase(_build, dev)
+    differ = []
+    if "ba" in phases or "ba_tail" in phases:
+        captured = capture()
+        if "ba" in phases:
+            ba_phase(_build, dev, captured)
+        if "ba_tail" in phases:
+            print("ba_cost and ba_backsub, the earlier designs (v1) beside the current kernels:")
+            differ = ba_tail_phase(_build, dev, captured)
+    if differ:
+        print(f"kernel_split: outputs not bit-equal: {differ}")
+        return 1
     print("kernel_split: done")
     return 0
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

@@ -230,12 +230,13 @@ def test_ba_cost_kernel_matches_plain(cuda, huber):
 
 def test_ba_backsub_kernel_matches_plain(cuda):
     inst = _ba_instance(cuda, True)
-    acc = ba_cuda.ba_accumulate(*_acc_args(inst), n_pts=inst["n_pts"])
+    mask = ba_cuda.ba_mask(4096, cuda)
+    acc = ba_cuda.ba_accumulate(*_acc_args(inst), n_pts=inst["n_pts"], mask=mask)
     dxp = torch.as_tensor(np.random.default_rng(5).normal(0, 1e-3, (16, 6)),
                           dtype=torch.float32).to(cuda)
     sub = (acc[7], acc[5], acc[6], dxp)
     before = ba_cuda.KERNEL_BACKSUB.launches
-    got = ba_cuda.ba_backsub(*sub, n_pts=inst["n_pts"])
+    got = ba_cuda.ba_backsub(*sub, n_pts=inst["n_pts"], mask=mask)
     assert ba_cuda.KERNEL_BACKSUB.launches == before + 1
     want = ba_pallas.ba_backsub_plain(*sub)
     torch.cuda.synchronize()
@@ -246,15 +247,19 @@ def test_ba_kernels_deterministic(cuda):
     """Two launches on the same inputs give bit-equal outputs: no float sum
     depends on the order blocks run in."""
     inst = _ba_instance(cuda, True)
-    a = ba_cuda.ba_accumulate(*_acc_args(inst), n_pts=inst["n_pts"])
+    mask = ba_cuda.ba_mask(4096, cuda)
+    a = ba_cuda.ba_accumulate(*_acc_args(inst), n_pts=inst["n_pts"], mask=mask)
     b = ba_cuda.ba_accumulate(*_acc_args(inst), n_pts=inst["n_pts"])
     args = _acc_args(inst)[1:9] + (inst["cam5"], True)
     c1, c2 = (ba_cuda.ba_cost(*args, n_pts=inst["n_pts"]) for _ in range(2))
     sub = (a[7], a[5], a[6], torch.full((16, 6), 1e-3, device=cuda))
-    d1, d2 = (ba_cuda.ba_backsub(*sub, n_pts=inst["n_pts"]) for _ in range(2))
+    d1, d2 = (ba_cuda.ba_backsub(*sub, n_pts=inst["n_pts"], mask=mask) for _ in range(2))
     torch.cuda.synchronize()
     for x, y in zip((*a, c1, d1), (*b, c2, d2)):
         assert torch.equal(x.view(torch.int32), y.view(torch.int32))
+
+
+EDGE_KINDS = ["dup", "wk1", "wk32", "unseen", "all_seen", "n0", "nL", "o16"]
 
 
 def _edge_instance(kind, cuda):
@@ -285,7 +290,7 @@ def _edge_instance(kind, cuda):
     return random_ba_instance(rng, WF, wk, O, L, n_live, cuda, slot=slot)
 
 
-@pytest.mark.parametrize("kind", ["dup", "wk1", "wk32", "unseen", "all_seen", "n0", "nL", "o16"])
+@pytest.mark.parametrize("kind", EDGE_KINDS)
 def test_ba_accumulate_edge_structures(cuda, kind):
     """Against the plain version (chip_smoke.check_ba), two launches
     bit-equal, and the cost bit-equal to ba_cost's."""
@@ -306,6 +311,92 @@ def test_ba_accumulate_edge_structures(cuda, kind):
     if kind == "unseen":
         assert (got[0][2] == 0).all() and (got[7][2] == 0).all()
         assert (got[2].reshape(16, 6, 16, 6)[2] == 0).all()
+
+
+@pytest.mark.parametrize("kind", EDGE_KINDS)
+def test_ba_backsub_edge_structures(cuda, kind):
+    """On the edge structures of the accumulate test: the kernel's mask words
+    equal the plain window_mask (0 past n_pts); the back-substitution with
+    them is within tolerance of the plain version (chip_smoke.check_ba), two
+    launches bit-equal, and bit-equal to the walk over every window slot (an
+    all-ones mask), which is the kernel's walk before the mask."""
+    inst = _edge_instance(kind, cuda)
+    L, n, wk = inst["slot"].shape[1], int(inst["n_pts"]), inst["wk"]
+    mask = ba_cuda.ba_mask(L, cuda)
+    acc = ba_cuda.ba_accumulate(*_acc_args(inst), n_pts=inst["n_pts"], mask=mask)
+    dxp = torch.as_tensor(np.random.default_rng(len(kind)).normal(0, 1e-3, (wk, 6)),
+                          dtype=torch.float32).to(cuda)
+    sub = (acc[7], acc[5], acc[6], dxp)
+    got = ba_cuda.ba_backsub(*sub, n_pts=inst["n_pts"], mask=mask)
+    again = ba_cuda.ba_backsub(*sub, n_pts=inst["n_pts"], mask=mask)
+    every = ba_cuda.ba_backsub(*sub, n_pts=inst["n_pts"], mask=torch.full_like(mask, -1))
+    want = ba_pallas.ba_backsub_plain(*sub)
+    torch.cuda.synchronize()
+    plain_mask = ba_pallas.window_mask(inst["slot"][:, :n], inst["povar"][:, :n], wk)
+    assert torch.equal(mask[:n], plain_mask) and (mask[n:] == 0).all()
+    check_ba(f"ba_backsub ({kind})", "backsub", got, sub, want)
+    for other in (again, every):
+        assert torch.equal(got.view(torch.int32), other.view(torch.int32))
+
+
+@pytest.mark.parametrize("bad", [float("nan"), float("inf")])
+def test_ba_backsub_nonfinite_step(cuda, bad):
+    """A pose step with NaN or inf (a failed Cholesky) makes every live
+    point's step non-finite, as the LM test needs, and leaves the dead points
+    at -Hinv bl, bit-equal to a zero step's."""
+    inst = _ba_instance(cuda, True)
+    n = int(inst["n_pts"])
+    mask = ba_cuda.ba_mask(4096, cuda)
+    acc = ba_cuda.ba_accumulate(*_acc_args(inst), n_pts=inst["n_pts"], mask=mask)
+    dxp = torch.full((16, 6), 1e-3, device=cuda)
+    dxp[3, 2] = bad
+    got = ba_cuda.ba_backsub(acc[7], acc[5], acc[6], dxp, n_pts=inst["n_pts"], mask=mask)
+    zero = (acc[7], acc[5], acc[6], torch.zeros_like(dxp))
+    still = ba_cuda.ba_backsub(*zero, n_pts=inst["n_pts"], mask=mask)
+    torch.cuda.synchronize()
+    assert not torch.isfinite(got[:, :n]).any()
+    assert torch.equal(got[:, n:].view(torch.int32), still[:, n:].view(torch.int32))
+    check_ba("ba_backsub, zero step", "backsub", still, zero, ba_pallas.ba_backsub_plain(*zero))
+
+
+def test_ba_backsub_requires_mask_on_card(cuda):
+    inst = _ba_instance(cuda, True)
+    acc = ba_cuda.ba_accumulate(*_acc_args(inst), n_pts=inst["n_pts"])
+    with pytest.raises(ValueError, match="mask"):
+        ba_cuda.ba_backsub(acc[7], acc[5], acc[6], torch.zeros((16, 6), device=cuda),
+                           n_pts=inst["n_pts"])
+
+
+@pytest.mark.parametrize("n_live,O", [(0, 1), (0, 16), (512, 1), (512, 16)])
+def test_ba_cost_kernel_edges(cuda, n_live, O):
+    """No live point (cost 0) and only live points, with O = 1 and 16: the
+    cost is within tolerance of the plain version and bit-equal to
+    ba_accumulate's; the arrival counter reads 0 after a call and after a
+    replayed CUDA graph of 50 calls, which all give the same bits."""
+    rng = np.random.default_rng(O * 1000 + n_live)
+    slot = None
+    if O == 1:
+        slot = np.full((1, 512), -1, np.int32)
+        slot[0, :n_live] = rng.integers(0, 32, n_live)
+    inst = random_ba_instance(rng, 32, 16, O, 512, n_live, cuda, slot=slot)
+    args = _acc_args(inst)
+    cost_args = args[1:9] + (inst["cam5"], True)
+    cost = ba_cuda.ba_cost(*cost_args, n_pts=inst["n_pts"])
+    acc = ba_cuda.ba_accumulate(*args, n_pts=inst["n_pts"])
+    counter = ba_cuda.cost_counter(cuda)
+    torch.cuda.synchronize()
+    assert int(counter) == 0
+    assert torch.equal(cost.view(torch.int32), acc[4].view(torch.int32))
+    check_ba(f"ba_cost n={n_live} O={O}", "cost", cost, inst, ba_pallas.ba_cost_plain(*cost_args))
+    if n_live == 0:
+        assert float(cost) == 0.0
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        outs = [ba_cuda.ba_cost(*cost_args, n_pts=inst["n_pts"]) for _ in range(50)]
+    g.replay()
+    torch.cuda.synchronize()
+    assert int(counter) == 0
+    assert all(torch.equal(c.view(torch.int32), cost.view(torch.int32)) for c in outs)
 
 
 def test_ba_accumulate_reuses_its_buffers(cuda):

@@ -332,3 +332,93 @@ def test_accumulate_wrapper_checks_observers_and_ignores_scratch_on_cpu(syntheti
     assert wide[3].shape[0] == 17
     with pytest.raises(ValueError, match="at most 16"):
         ba_cuda.ba_accumulate(*wide, wk, True)
+
+
+def _window_pairs(jp, wk):
+    """[wk, L] bool: (window slot, point) pairs with an observation whose
+    pose varies (the JAX problem's one-hot ``oh_win``)."""
+    return np.asarray(jp.oh_win).reshape(wk, -1, jp.o_valid.shape[1]).any(1)
+
+
+def _rows_outside(Wc, has):
+    """The Wc rows [.., 18] of the (slot, point) pairs not in ``has``."""
+    wk, L = has.shape
+    return np.asarray(Wc).reshape(wk, 18, L).transpose(0, 2, 1)[~has]
+
+
+def test_wc_zero_outside_window_pairs_pallas_interpret(synthetic):
+    """The invariant the card's back-substitution relies on, in the TPU
+    kernel itself (interpret mode, as the slow Pallas test runs it): every Wc
+    row of a (window slot, point) pair with no varying-pose observation is
+    exactly zero, so a point's mask word names all its non-zero rows."""
+    jp, pp, poses, points, cam = _synthetic_problem(synthetic)
+    WF = jp.kf_ids.shape[0]
+    O, L = jp.o_valid.shape
+    wk = min(local_ba.W_KF, CAPS.max_kf)
+    out = jax.device_get(jba_pallas.ba_accumulate(
+        jnp.asarray(1e-4), poses.reshape(WF, 16).T, points.T, jp.o_slot, jp.o_uv[0],
+        jp.o_uv[1], jp.o_ur, jp.o_inv_sigma2, jp.o_valid.astype(jnp.float32),
+        jnp.sum(jp.oh_win, axis=0), cam.fx, cam.fy, cam.cx, cam.cy, cam.bf,
+        WF=WF, wk=wk, O=O, use_huber=True, interpret=True))
+    has = _window_pairs(jp, wk)
+    assert 0 < has.sum() < has.size
+    assert (_rows_outside(out[7], has) == 0).all()
+    assert (np.abs(np.asarray(out[7]).reshape(wk, 18, L)).max(1)[has] > 0).all()
+
+
+def test_wc_zero_outside_window_pairs_xla_and_port(synthetic):
+    """The same invariant where the JAX package's XLA path forms Wc
+    (``_lm_pass_ol``'s einsum with ``oh_win``) and in the port's plain
+    version; the plain ``window_mask`` names exactly the pairs with an
+    observation whose pose varies."""
+    jp, pp, poses, points, cam = _synthetic_problem(synthetic)
+    wk = min(local_ba.W_KF, CAPS.max_kf)
+    has = _window_pairs(jp, wk)
+    xla = jax.device_get(_jax_accumulators(jp, poses, points, cam, wk, True)["Wc"])
+    port = ba_pallas.ba_accumulate_plain(*_port_inputs(pp, poses, points, cam), wk, True)[7]
+    for Wc in (xla, port.numpy()):
+        assert (_rows_outside(Wc, has) == 0).all()
+    words = ba_pallas.window_mask(pp.o_slot, pp.o_povar, wk).numpy().view(np.uint32)
+    bits = (words[None] >> np.arange(wk, dtype=np.uint32)[:, None]) & 1
+    np.testing.assert_array_equal(bits.astype(bool), has)
+
+
+def test_window_mask_words():
+    """Bit a per window slot a observing the point with a varying pose: a
+    slot seen twice sets one bit, a fixed pose or a slot past the window
+    none, and slot 31 is the int32 sign bit."""
+    slot = torch.tensor([[31, 2, 0, 5, -1], [2, 2, 1, 33, -1]], dtype=torch.int32)
+    povar = torch.tensor([[1, 1, 0, 1, 0], [1, 1, 1, 1, 0]], dtype=torch.float32)
+    got = ba_pallas.window_mask(slot, povar, 32)
+    assert got.dtype == torch.int32
+    assert got.tolist() == [-(1 << 31) | 4, 4, 2, 32, 0]
+    assert ba_pallas.window_mask(slot, povar, 4).tolist() == [4, 4, 2, 0, 0]
+
+
+def test_backsub_and_accumulate_ignore_mask_on_cpu(synthetic):
+    """On CPU tensors both wrappers take the plain version whatever ``mask``
+    holds, and ``ba_mask`` makes no buffer."""
+    jp, pp, poses, points, cam = _synthetic_problem(synthetic)
+    wk = min(local_ba.W_KF, CAPS.max_kf)
+    args = _port_inputs(pp, poses, points, cam)
+    assert ba_cuda.ba_mask(args[3].shape[1], "cpu") is None
+    junk = torch.full((3,), 7, dtype=torch.int32)
+    got = ba_cuda.ba_accumulate(*args, wk, True, mask=junk)
+    want = ba_pallas.ba_accumulate_plain(*args, wk, True)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    dxp = torch.as_tensor(np.random.default_rng(2).normal(0, 1e-3, (wk, 6)), dtype=torch.float32)
+    sub = (want[7], want[5], want[6], dxp)
+    assert torch.equal(ba_cuda.ba_backsub(*sub, mask=junk), ba_pallas.ba_backsub_plain(*sub))
+
+
+def test_cost_wrapper_checks_observers(synthetic):
+    """``ba_cost``'s O <= 16 check (one lane per observation on the card)
+    stands before the device branch, as ``ba_accumulate``'s does."""
+    jp, pp, poses, points, cam = _synthetic_problem(synthetic)
+    args = _port_inputs(pp, poses, points, cam)
+    L = args[3].shape[1]
+    wide = [a.new_zeros((17, L)) if i in (3, 4, 5, 6, 7, 8) else a for i, a in enumerate(args)]
+    with pytest.raises(ValueError, match="at most 16"):
+        ba_cuda.ba_cost(*wide[1:9], wide[10], True)
+

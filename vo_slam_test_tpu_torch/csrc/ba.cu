@@ -9,7 +9,7 @@
 // ba_backsub_plain. Layout (f32 unless noted, point axis L last): posesT
 // [16,WF], X [3,L], slot [O,L] i32 (-1 none), u, v, ur, isig2, act, povar
 // [O,L]; outputs Hpp [wk,36], bp [wk,6], S_red [wk*6,wk*6], rhs_red [wk*6],
-// cost [1], Hinv [9,L], bl [3,L], Wc [wk,18,L].
+// cost [1], Hinv [9,L], bl [3,L], Wc [wk,18,L], the window mask words [L] u32.
 //
 // Bound on this card: bytes, and far below a launch's fixed cost. A keyframe
 // event's problem holds ~1.5k live points of L = 8192 slots with ~1.6 valid
@@ -77,13 +77,45 @@
 //   - every loop over points stops at n_pts (the count of live points,
 //     compacted first by the problem builder; a device int, no host read);
 //   - the cost (launch 1 and ba_cost_launch) is rounded op by op
-//     (__fmul_rn/__fadd_rn/__fdiv_rn/__fsqrt_rn), a point's cost is added in
-//     observer order by one lane and the points' costs by the same device
-//     function in the same order, so the LM accept test compares two sums of
-//     one fixed order: equal inputs give equal costs.
+//     (__fmul_rn/__fadd_rn/__fdiv_rn/__fsqrt_rn), a point's cost is folded in
+//     observer order by one device function (group_cost) and the points'
+//     costs are added by another (cost_sum) in one fixed order, so the LM
+//     accept test compares two sums of one order: equal inputs give equal
+//     costs.
 // One block per sum walks ~35-45 records per thread for a slot that ~1,000
 // points observe: past a few thousand points per slot the sums should be
 // split over blocks with a fixed-order combine.
+// Design of ba_cost (ba_cost_kernel, one launch): its work is ~2.6k
+// observations of ~40 f32 instructions each, far below the launch's fixed
+// cost; what it pays for is a chain of round trips to L2 (the fields, the
+// per-point costs, the count, the sum's loads) and a launch. A fixed grid of
+// two 128-thread blocks per SM (it does not follow L; one block per SM or four
+// were slower, 256-thread blocks no faster) walks the live points only, 16
+// lanes to a point and one lane to an observation as in launch 1, the poses
+// staged in shared memory once per block; the first points' fields and the
+// poses are loaded before n_pts arrives. The sum of the points' costs is in
+// the same launch: after a barrier one thread per block fences the block's
+// costs and counts the block on an integer (no float atomics); the block that
+// counts last runs cost_sum, whose loads go to L2 (__ldcg: other blocks wrote
+// the costs in this launch, past any L1), and puts the count back to 0 for
+// the next launch. Two launches must therefore not run at once. The sum loads
+// one cost at a time: 4 or 16 loads in flight per thread did not make ba_cost
+// faster, and 16 made ba_sum_kernel, which shares cost_sum, slower
+// (perf/kernel_split.py).
+// Design of ba_backsub (ba_backsub_kernel): dx_pt [3,L] = -Hinv (bl + Wc^T
+// dx_pose) on every point, a live point reading the Wc rows of its window
+// slots only. Those are the set bits of its mask word (written by launch 1 of
+// the ba_accumulate call that wrote Wc); every other row of Wc is zero, and
+// fma(0, d, t) is t for a finite d, so walking the bits in ascending order
+// with the same FMAs gives the bits of the walk over all wk slots (a zero sum
+// of sign - becomes + as there, by one add). A pose step with NaN or inf (a
+// failed Cholesky) takes the walk over all wk slots, so that every live
+// point's step is NaN as the LM test needs. What bounds it is latency: the
+// mask, then the Wc rows, then the store, with bl, Hinv and the step loaded
+// meanwhile; 64-thread blocks spread the ~1.6k live points over ~26 SMs. A
+// slot's 18 values are read strided by L: neighbouring points mostly share the
+// newest keyframe's slot, so a warp's loads coalesce (the records' padded
+// rows, 96 contiguous bytes per point, read slower).
 
 #include <cuda_runtime.h>
 
@@ -108,6 +140,11 @@
 #define LIN_PAD 32                        // 21 and 28 groups, padded to a power of two
 #define S_PAD 64                          // 42 groups
 #define FULL 0xffffffffu
+#define COST_BLOCKS_PER_SM 2              // ba_cost_kernel's fixed grid: blocks per SM
+#define COST_THREADS 128                  // and threads per block (>= RED_THREADS)
+#define COST_PTS (COST_THREADS / GROUP)
+#define BS_THREADS 64                     // ba_backsub_kernel's block
+#define MAX_DEVICES 64
 
 // sqrt(5.991) and sqrt(7.815) rounded to f32, as the plain version rounds them
 #define DELTA_MONO 2.4476518630981445f
@@ -187,8 +224,7 @@ __device__ __forceinline__ void jacobians(const Obs& ob, const float* __restrict
   }
 }
 
-// the point's cost over its observers in slot order (shared by launch 1 and
-// ba_cost_launch, so both give the same bits)
+// one observation's term of a point's cost (folded by group_cost)
 __device__ __forceinline__ float add_cost(float cost, float a, float rho) {
   return a > 0.0f ? __fadd_rn(cost, rho) : cost;
 }
@@ -205,13 +241,25 @@ __device__ __forceinline__ void block_reduce(float acc, float* sh) {
   }
 }
 
-// the per-point costs summed in a fixed order by the first RED_THREADS threads
+// the per-point costs summed in a fixed order by the first RED_THREADS threads,
+// read from L2 (__ldcg): in ba_cost_kernel the other blocks wrote them in the
+// same launch
 __device__ __forceinline__ float cost_sum(const float* __restrict__ cost_pt, int n, float* sh) {
   float acc = 0.0f;
   if (threadIdx.x < RED_THREADS)
-    for (int l = threadIdx.x; l < n; l += RED_THREADS) acc = __fadd_rn(acc, cost_pt[l]);
+    for (int l = threadIdx.x; l < n; l += RED_THREADS) acc = __fadd_rn(acc, __ldcg(cost_pt + l));
   block_reduce(acc, sh);
   return sh[0];
+}
+
+// a point's cost: its group's rho added in observer order (a = 0 where the
+// lane has no observation); every lane of the group gets it. ba_point_kernel
+// and ba_cost_kernel both call it, so both give the same bits
+__device__ __forceinline__ float group_cost(float a, float rho, int O) {
+  float cost = 0.0f;
+  for (int oo = 0; oo < O; ++oo)
+    cost = add_cost(cost, __shfl_sync(FULL, a, oo, GROUP), __shfl_sync(FULL, rho, oo, GROUP));
+  return cost;
 }
 
 // damped closed-form inverse of the symmetric block (the TPU kernel's form),
@@ -346,10 +394,7 @@ ba_point_kernel(const float* __restrict__ lam_p, const float* __restrict__ cam,
   inv3x3_sym(h, lam, hv);
 
   // the point's cost, added in observer order
-  float cost = 0.0f;
-  const float a_seen = seen ? a : 0.0f;
-  for (int oo = 0; oo < O; ++oo)
-    cost = add_cost(cost, __shfl_sync(FULL, a_seen, oo, GROUP), __shfl_sync(FULL, rho, oo, GROUP));
+  const float cost = group_cost(seen ? a : 0.0f, rho, O);
 
   // the point's window slots
   unsigned msk = win ? 1u << s : 0u;
@@ -581,68 +626,178 @@ ba_sum_kernel(const int* __restrict__ n_pts, int wk, int L, const float* __restr
   else rhs[a * 6 + t - 42] = val;
 }
 
-__global__ void __launch_bounds__(PT_THREADS)
-ba_cost_point_kernel(const float* __restrict__ cam, const float* __restrict__ posesT,
-                     const float* __restrict__ X, const int* __restrict__ slot,
-                     const float* __restrict__ u, const float* __restrict__ v,
-                     const float* __restrict__ ur, const float* __restrict__ isig2,
-                     const float* __restrict__ act, int WF, int O, int L, int huber,
-                     float* __restrict__ cost_pt) {
-  const int l = blockIdx.x * PT_THREADS + threadIdx.x;
-  if (l >= L) return;
-  const float x = X[l], y = X[L + l], z = X[2 * L + l];
-  float cost = 0.0f;
-  for (int o = 0; o < O; ++o) {
-    const int s = slot[o * L + l];
-    if (s < 0) continue;
+// lane o's observation for the cost, loaded together (the fields of a live
+// lane whatever its slot, so that no load waits for the slot's)
+struct CostIn {
+  int s;
+  float x, y, z, uo, vo, uro, is2, a;
+};
+
+__device__ __forceinline__ CostIn cost_in(const float* __restrict__ X, const int* __restrict__ slot,
+                                          const float* __restrict__ u, const float* __restrict__ v,
+                                          const float* __restrict__ ur,
+                                          const float* __restrict__ isig2,
+                                          const float* __restrict__ act, int l, int o, int n, int O,
+                                          int L) {
+  CostIn c = {-1, 0.f, 0.f, 0.f, 0.f, 0.f, -1.f, 0.f, 0.f};
+  if (l < n && o < O) {
     const int i0 = o * L + l;
-    Obs ob;
-    const float s2 = observe(posesT, WF, s, x, y, z, u[i0], v[i0], ur[i0], isig2[i0], cam, ob);
-    float wrob;
-    cost = add_cost(cost, act[i0], robust(s2, ob.stereo, huber, wrob));
+    c.s = slot[i0];
+    c.x = X[l], c.y = X[L + l], c.z = X[2 * L + l];
+    c.uo = u[i0], c.vo = v[i0], c.uro = ur[i0], c.is2 = isig2[i0], c.a = act[i0];
   }
-  cost_pt[l] = cost;
+  return c;
 }
 
-__global__ void __launch_bounds__(RED_THREADS)
-ba_cost_sum_kernel(const float* __restrict__ cost_pt, const int* __restrict__ n_pts, int L,
-                   float* __restrict__ cost) {
+// The robust cost in one launch: a fixed grid (COST_BLOCKS_PER_SM blocks per
+// SM) walks the live points, a group of 16 lanes to a point and one lane to an
+// observation, as ba_point_kernel; the block that arrives last sums the
+// points' costs (cost_sum) and puts the arrival count back to 0.
+__global__ void __launch_bounds__(COST_THREADS)
+ba_cost_kernel(const float* __restrict__ cam, const float* __restrict__ posesT,
+               const float* __restrict__ X, const int* __restrict__ slot,
+               const float* __restrict__ u, const float* __restrict__ v,
+               const float* __restrict__ ur, const float* __restrict__ isig2,
+               const float* __restrict__ act, const int* __restrict__ n_pts, int WF, int O, int L,
+               int huber, float* __restrict__ cost, float* __restrict__ cost_pt,
+               unsigned* __restrict__ arrived) {
+  extern __shared__ float sp[];  // rows 0..11 of posesT: [12][WF]
   __shared__ float sh[RED_THREADS];
-  const float c = cost_sum(cost_pt, min(*n_pts, L), sh);
-  if (threadIdx.x == 0) cost[0] = c;
+  __shared__ bool last;
+  const int t = threadIdx.x, o = t & (GROUP - 1);
+  const int stride = gridDim.x * COST_PTS;
+  int base = blockIdx.x * COST_PTS;  // the same for the whole block
+  // the first points' loads and the poses' do not wait for n_pts
+  const int n_in = *n_pts;
+  CostIn in = cost_in(X, slot, u, v, ur, isig2, act, base + t / GROUP, o, L, O, L);
+  if (base < L) {
+    for (int i = t; i < 12 * WF; i += COST_THREADS) sp[i] = posesT[i];
+    __syncthreads();
+  }
+  const int n = min(n_in, L);
+  if (base + t / GROUP >= n) in.s = -1;
+  while (base < n) {
+    const int l = base + t / GROUP;
+    float rho = 0.0f, a = 0.0f;
+    if (in.s >= 0) {
+      Obs ob;
+      const float s2 = observe(sp, WF, in.s, in.x, in.y, in.z, in.uo, in.vo, in.uro, in.is2,
+                               cam, ob);
+      float wrob;
+      rho = robust(s2, ob.stereo, huber, wrob);
+      a = in.a;
+    }
+    const float c = group_cost(a, rho, O);
+    if (o == 0 && l < n) cost_pt[l] = c;
+    base += stride;
+    if (base < n) in = cost_in(X, slot, u, v, ur, isig2, act, base + t / GROUP, o, n, O, L);
+  }
+  // the block's costs, then its count: after the barrier one thread's fence
+  // orders every thread's stores before the count (as a grid barrier does)
+  __syncthreads();
+  if (t == 0) {
+    __threadfence();
+    last = atomicAdd(arrived, 1u) == gridDim.x - 1;
+    if (last) __threadfence();
+  }
+  __syncthreads();
+  if (!last) return;
+  const float c = cost_sum(cost_pt, n, sh);
+  if (t == 0) {
+    cost[0] = c;
+    *arrived = 0u;  // ready for the next launch, a CUDA-graph replay's too
+  }
 }
 
-__global__ void __launch_bounds__(PT_THREADS)
+// dx_pt's terms of window slot a: tv += Wc_a^T dx_a, row by row, one FMA each
+__device__ __forceinline__ void backsub_slot(const float* __restrict__ Wc, const float* sdx, int a,
+                                             int l, int L, float tv[3]) {
+  const float* wc = Wc + (size_t)a * 18 * L + l;
+#pragma unroll
+  for (int i = 0; i < 6; ++i) {
+    const float d = sdx[a * 6 + i];
+#pragma unroll
+    for (int k = 0; k < 3; ++k) tv[k] += wc[(i * 3 + k) * L] * d;
+  }
+}
+
+__global__ void __launch_bounds__(BS_THREADS)
 ba_backsub_kernel(const float* __restrict__ Wc, const float* __restrict__ Hinv,
                   const float* __restrict__ bl, const float* __restrict__ dxp,
-                  const int* __restrict__ n_pts, int wk, int L, float* __restrict__ dx) {
+                  const unsigned* __restrict__ mask, const int* __restrict__ n_pts, int wk, int L,
+                  float* __restrict__ dx) {
   __shared__ float sdx[MAX_WK * 6];
-  for (int i = threadIdx.x; i < wk * 6; i += PT_THREADS) sdx[i] = dxp[i];
+  const int t = threadIdx.x, lane = t & 31;
+  const int l = blockIdx.x * BS_THREADS + t;
+  const unsigned slots = wk == 32 ? FULL : (1u << wk) - 1u;
+  // what does not wait for the pose step is loaded before the barrier
+  unsigned m = 0u;
+  bool live = false;
+  float tv[3] = {0.f, 0.f, 0.f}, h[9];
+  if (l < L) {
+    m = mask[l] & slots;
+    live = l < *n_pts;
+#pragma unroll
+    for (int k = 0; k < 3; ++k) tv[k] = bl[k * L + l];
+#pragma unroll
+    for (int k = 0; k < 9; ++k) h[k] = Hinv[k * L + l];
+  }
+  for (int i = t; i < wk * 6; i += BS_THREADS) sdx[i] = dxp[i];
   __syncthreads();
-  const int l = blockIdx.x * PT_THREADS + threadIdx.x;
+  // each warp reads the step: is every entry finite, and which slots have an
+  // entry without its sign bit (a zero Wc row times it is +0)
+  bool fin = true, pos = false;
+  if (lane < wk) {
+#pragma unroll
+    for (int i = 0; i < 6; ++i) {
+      const float d = sdx[lane * 6 + i];
+      fin = fin && isfinite(d);
+      pos = pos || !signbit(d);
+    }
+  }
+  const bool finite = __all_sync(FULL, fin);
+  const unsigned pos_slots = __ballot_sync(FULL, pos);
   if (l >= L) return;
-  float tv[3] = {bl[l], bl[L + l], bl[2 * L + l]};
-  if (l < *n_pts) {  // past the live points every Wc row is zero
-    for (int a = 0; a < wk; ++a) {
-      const float* wc = Wc + (size_t)a * 18 * L + l;
+  if (live) {
+    if (finite) {
+      // the slots of the mask in ascending order: the others' rows are zero
+      // and would add fma(0, d, tv) = tv, except that a +0 product turns a
+      // -0 sum into +0, which the last add repeats
+      for (unsigned b = m; b; b &= b - 1) backsub_slot(Wc, sdx, __ffs(b) - 1, l, L, tv);
+      if (pos_slots & ~m & slots) {
 #pragma unroll
-      for (int i = 0; i < 6; ++i) {
-        const float d = sdx[a * 6 + i];
-#pragma unroll
-        for (int k = 0; k < 3; ++k) tv[k] += wc[(i * 3 + k) * L] * d;
+        for (int k = 0; k < 3; ++k) tv[k] = __fadd_rn(tv[k], 0.0f);
       }
+    } else {
+      // NaN or inf in the step (a failed Cholesky): every slot, so that 0 x
+      // NaN makes every live point's step NaN and the LM test rejects it
+      for (int a = 0; a < wk; ++a) backsub_slot(Wc, sdx, a, l, L, tv);
     }
   }
 #pragma unroll
   for (int i = 0; i < 3; ++i)
-    dx[i * L + l] = -(Hinv[(i * 3) * L + l] * tv[0] + Hinv[(i * 3 + 1) * L + l] * tv[1] +
-                      Hinv[(i * 3 + 2) * L + l] * tv[2]);
+    dx[i * L + l] = -(h[i * 3] * tv[0] + h[i * 3 + 1] * tv[1] + h[i * 3 + 2] * tv[2]);
+}
+
+// the card's SM count, read once per device
+static cudaError_t sm_count(int* sms) {
+  static int cached[MAX_DEVICES];
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev >= MAX_DEVICES) return cudaErrorInvalidDevice;
+  if (cached[dev] == 0) {
+    err = cudaDeviceGetAttribute(&cached[dev], cudaDevAttrMultiProcessorCount, dev);
+    if (err != cudaSuccess) return err;
+  }
+  *sms = cached[dev];
+  return cudaSuccess;
 }
 
 // One LM iteration's normal equations + Schur reduction: two launches.
-// Scratch: rec [wk,L,132] f32 (never zeroed), cost_pt [L] f32, mask [L] u32.
-// Wc is written in the rows of the observing window slots only (zero it once
-// per problem).
+// Scratch: rec [wk,L,132] f32 (never zeroed), cost_pt [L] f32; mask [L] u32
+// is the caller's (ba_backsub_launch reads it). Wc is written in the rows of
+// the observing window slots only (zero it once per problem).
 extern "C" int ba_accumulate_launch(
     const float* lam, const float* cam, const float* posesT, const float* X, const int* slot,
     const float* u, const float* v, const float* ur, const float* isig2, const float* act,
@@ -663,28 +818,31 @@ extern "C" int ba_accumulate_launch(
   return (int)cudaGetLastError();
 }
 
-// The robust cost alone: per-point costs, then the fixed-order sum.
+// The robust cost alone, one launch. arrived: a u32 that is 0 before the
+// launch and after it (zero it once; the launch's last block resets it), so
+// two launches must not run at once.
 extern "C" int ba_cost_launch(const float* cam, const float* posesT, const float* X,
                               const int* slot, const float* u, const float* v, const float* ur,
                               const float* isig2, const float* act, const int* n_pts, int WF,
                               int O, int L, int huber, float* cost, float* cost_pt,
-                              void* stream) {
-  if (L < 1) return (int)cudaErrorInvalidValue;
-  cudaStream_t st = (cudaStream_t)stream;
-  ba_cost_point_kernel<<<(L + PT_THREADS - 1) / PT_THREADS, PT_THREADS, 0, st>>>(
-      cam, posesT, X, slot, u, v, ur, isig2, act, WF, O, L, huber, cost_pt);
-  cudaError_t err = cudaGetLastError();
+                              unsigned* arrived, void* stream) {
+  const size_t smem = (size_t)12 * WF * sizeof(float);
+  if (L < 1 || O < 1 || O > GROUP || smem > 48 * 1024) return (int)cudaErrorInvalidValue;
+  int sms = 0;
+  cudaError_t err = sm_count(&sms);
   if (err != cudaSuccess) return (int)err;
-  ba_cost_sum_kernel<<<1, RED_THREADS, 0, st>>>(cost_pt, n_pts, L, cost);
+  ba_cost_kernel<<<sms * COST_BLOCKS_PER_SM, COST_THREADS, smem, (cudaStream_t)stream>>>(
+      cam, posesT, X, slot, u, v, ur, isig2, act, n_pts, WF, O, L, huber, cost, cost_pt, arrived);
   return (int)cudaGetLastError();
 }
 
-// dx_pt [3,L] = -Hinv (bl + Wc^T dx_pose), one thread per point.
+// dx_pt [3,L] = -Hinv (bl + Wc^T dx_pose), one thread per point. mask: the
+// mask words of the ba_accumulate_launch that wrote Wc.
 extern "C" int ba_backsub_launch(const float* Wc, const float* Hinv, const float* bl,
-                                 const float* dxp, const int* n_pts, int wk, int L, float* dx,
-                                 void* stream) {
+                                 const float* dxp, const unsigned* mask, const int* n_pts, int wk,
+                                 int L, float* dx, void* stream) {
   if (wk < 1 || wk > MAX_WK || L < 1) return (int)cudaErrorInvalidValue;
-  ba_backsub_kernel<<<(L + PT_THREADS - 1) / PT_THREADS, PT_THREADS, 0, (cudaStream_t)stream>>>(
-      Wc, Hinv, bl, dxp, n_pts, wk, L, dx);
+  ba_backsub_kernel<<<(L + BS_THREADS - 1) / BS_THREADS, BS_THREADS, 0, (cudaStream_t)stream>>>(
+      Wc, Hinv, bl, dxp, mask, n_pts, wk, L, dx);
   return (int)cudaGetLastError();
 }

@@ -140,6 +140,18 @@ def ba_cost_plain(posesT, X, slot, u, v, ur, isig2, act, cam5, use_huber: bool):
     return torch.sum(torch.where((slot >= 0) & (act > 0), rho, 0.0)).reshape(1, 1)
 
 
+def window_mask(slot, povar, wk: int):
+    """Each point's window mask word -> [L] int32: bit a is set where window
+    slot a observes the point with a varying pose (some o with slot[o] == a
+    and povar[o] != 0). Exactly the slots whose rows of ``Wc`` may be
+    non-zero; the CUDA accumulate kernel writes these words for
+    ``ba_backsub``."""
+    a = torch.arange(wk, device=slot.device)
+    has = ((slot[None] == a[:, None, None]) & (povar[None] != 0)).any(1)      # [wk,L]
+    word = (has.to(torch.int64) << a[:, None]).sum(0)
+    return torch.where(word >= 1 << 31, word - (1 << 32), word).to(torch.int32)
+
+
 def ba_backsub_plain(Wc, Hinv, bl, dx_pose):
     """dx_pt [3,L] = -Hinv (bl + Wc^T dx_pose); Wc [wk,18,L], Hinv [9,L],
     bl [3,L], dx_pose [wk,6]."""

@@ -164,10 +164,12 @@ def _cam5(cam: Camera) -> torch.Tensor:
 
 
 def _lm_pass(poses0, points0, prob: BAProblemOL, cam5, active, use_huber: bool, iters: int,
-             wk: int, n_pts, wc, scratch):
-    """One LM pass -> (poses, points, iterations run, Wc buffer). ``wc`` and
-    ``scratch`` are the accumulate kernel's buffers, shared by the passes of
-    one BA call."""
+             wk: int, n_pts, wc, scratch, mask):
+    """One LM pass -> (poses, points, iterations run, Wc buffer). ``wc``,
+    ``scratch`` and ``mask`` are the accumulate kernel's buffers, shared by
+    the passes of one BA call; ``mask`` also goes to every back-substitution
+    (the rows of ``Wc`` it names follow ``slot`` and ``povar`` alone, so they
+    are the same in every iteration)."""
     WF = prob.kf_ids.shape[0]
     dev = poses0.device
     act = active.to(_F32)
@@ -181,14 +183,14 @@ def _lm_pass(poses0, points0, prob: BAProblemOL, cam5, active, use_huber: bool, 
     while it < iters:
         Hpp36, bp, S_red, rhs_red, cost_old, Hinv, bl, wc = ba_cuda.ba_accumulate(
             lam, poses.reshape(WF, 16).T.contiguous(), points.T.contiguous(), *obs,
-            prob.o_povar, cam5, wk, use_huber, n_pts=n_pts, wc=wc, scratch=scratch)
+            prob.o_povar, cam5, wk, use_huber, n_pts=n_pts, wc=wc, scratch=scratch, mask=mask)
         Hpp = Hpp36.reshape(wk, 6, 6) + lam * eye6
         S = torch.einsum("wij,wv->wivj", Hpp, eye_w) - S_red.reshape(wk, 6, wk, 6)
         rhs = bp - rhs_red.reshape(wk, 6)
         chol, info = torch.linalg.cholesky_ex(S.reshape(wk * 6, wk * 6) + 1e-7 * eye_s)
         chol = torch.where(info == 0, chol, nan)
         dx_pose = -torch.cholesky_solve(rhs.reshape(-1, 1), chol).reshape(wk, 6)
-        dx_pt = ba_cuda.ba_backsub(wc, Hinv, bl, dx_pose.contiguous(), n_pts=n_pts)
+        dx_pt = ba_cuda.ba_backsub(wc, Hinv, bl, dx_pose.contiguous(), n_pts=n_pts, mask=mask)
 
         poses_new = torch.cat([lie.se3_exp(dx_pose) @ poses[:wk], poses[wk:]])
         points_new = points + dx_pt.T
@@ -229,12 +231,14 @@ def _ba_optimize(poses, points, prob: BAProblemOL, cam5, wk: int, it1: int, it2:
     """The two-pass LM optimization -> (poses, points, final inliers,
     iterations of pass 1, of pass 2)."""
     n_pts = (prob.pt_ids >= 0).sum(dtype=_I32)
-    scratch = ba_cuda.ba_scratch(wk, prob.pt_ids.shape[0], poses.device)
+    L = prob.pt_ids.shape[0]
+    scratch = ba_cuda.ba_scratch(wk, L, poses.device)
+    mask = ba_cuda.ba_mask(L, poses.device)
     poses, points, n1, wc = _lm_pass(poses, points, prob, cam5, prob.o_valid, True, it1, wk,
-                                     n_pts, None, scratch)
+                                     n_pts, None, scratch, mask)
     inl = _classify_ol(poses, points, prob, cam5)
     poses, points, n2, _ = _lm_pass(poses, points, prob, cam5, inl, False, it2, wk, n_pts, wc,
-                                    scratch)
+                                    scratch, mask)
     return poses, points, _classify_ol(poses, points, prob, cam5), n1, n2
 
 
