@@ -17,7 +17,10 @@
      (fuse into the neighbours) and the epipolar top-1 at 1024x1024
      (triangulation), each on an instance captured from the SlamSystem path
      and on a seeded instance with ties, empty rows and a stereo/mono mix.
-     Every output must be equal;
+     Every output must be equal. IC angle + rBRIEF and the four top-2 sites
+     are also held bit for bit against their first designs
+     (``perf/orb_v1.cu``, ``perf/match_v1.cu``), which are timed beside them
+     (``v1_ms``);
    - the local-BA kernels (LM accumulate + Schur reduction, robust cost,
      point back-substitution) on the first LM iteration of a captured local
      BA and on a seeded full-width instance (a stereo/mono mix, outliers past
@@ -57,6 +60,7 @@ import subprocess
 import sys
 import time
 import warnings
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -527,6 +531,101 @@ def epi_bound(args):
                         allowed_pairs=allowed)
 
 
+PERF_DIR = Path(__file__).resolve().parent / "perf"
+# the first designs of rows 2-5, built beside the current kernels and timed
+# with them (perf/kernel_split.py takes them apart)
+V1_SOURCES = (("orb_v1", PERF_DIR), ("match_v1", PERF_DIR))
+
+
+def v1_launchers(_build):
+    """The first designs of rows 2-5 (``perf/orb_v1.cu``, ``perf/match_v1.cu``)
+    -> (orb, top2): each maps a split mode (0: the whole kernel) to a callable
+    that takes the current C entry's arguments, so ``orb_call`` and
+    ``top2_call`` launch it as the wrappers launch the current kernel."""
+    from vo_slam_test_tpu_torch.ops import match_cuda, orb_cuda
+
+    def launcher(name, symbol, argtypes):
+        fn = getattr(ctypes.CDLL(str(_build.library_path(name, PERF_DIR))), symbol)
+        fn.argtypes = list(argtypes[:-1]) + [ctypes.c_int, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+
+        def with_mode(mode):
+            def call(*args):  # the C entry's arguments, the stream last
+                rc = fn(*args[:-1], mode, args[-1])
+                if rc != 0:
+                    raise RuntimeError(f"{symbol}: cudaError {rc}")
+            return call
+        return with_mode
+
+    return (launcher("orb_v1", "orb_v1_launch", orb_cuda.KERNEL.argtypes),
+            launcher("match_v1", "masked_top2_v1_launch", match_cuda.KERNEL.argtypes))
+
+
+def orb_call(kernel, raw, blur, level, ys, xs):
+    """Launch ``kernel`` (``orb_cuda.KERNEL`` or a first-design launcher) on
+    ``orb_angle_desc``'s arguments, as the wrapper does -> (angle, desc)."""
+    from vo_slam_test_tpu_torch.ops import orb_cuda
+
+    pat, umax = orb_cuda._tables(raw.device)
+    N = level.shape[0]
+    angle = torch.empty((N,), dtype=torch.float32, device=raw.device)
+    desc = torch.empty((N, 8), dtype=torch.int32, device=raw.device)
+    kernel(raw.data_ptr(), blur.data_ptr(), level.data_ptr(), ys.data_ptr(), xs.data_ptr(),
+           pat.data_ptr(), umax.data_ptr(), N, *raw.shape, angle.data_ptr(), desc.data_ptr(),
+           torch.cuda.current_stream().cuda_stream)
+    return angle, desc
+
+
+def top2_call(kernel, args, kw):
+    """Launch ``kernel`` (a top-2 call site's ``_build.Kernel`` or a
+    first-design launcher) on the arguments of ``masked_top2`` ([M,...]) or
+    ``masked_top2_nb`` ([B,M,...]), as their wrappers do -> four [B,M]
+    int32."""
+    from vo_slam_test_tpu_torch.ops import match_cuda
+
+    batched = args[0].dim() == 3
+    x = [t if batched else t[None] for t in args]
+    isig = kw.get("col_isig2")
+    if isig is not None and not batched:
+        isig = isig[None]
+    B, M, N = x[0].shape[0], x[0].shape[1], x[1].shape[1]
+    return match_cuda._launch_top2("top2_call", kernel, x[0], x[1], x[2:10], x[10:15], isig,
+                                   kw.get("chi2_gate", False), B, M, N)
+
+
+def bits_equal(a, b) -> bool:
+    return torch.equal(a.contiguous().view(torch.int32), b.contiguous().view(torch.int32))
+
+
+def frame_instances(seq, cfg, device):
+    """Phases 1-3's inputs from frames 0 and 1 of the first main path's
+    sequence: a FusedTracker, frame 0's pyramid and its selected keypoints
+    (the ORB kernel's input), both frames' extraction, frame 0's points and
+    the frame-pair top-2 arguments at r=15 with identity poses -> dict."""
+    from vo_slam_test_tpu_torch.frontend.extractor import extract_fused, select_keypoints
+    from vo_slam_test_tpu_torch.matching import matcher
+    from vo_slam_test_tpu_torch.ops.pyramid import build_pyramid
+    from vo_slam_test_tpu_torch.pipeline import tracking
+
+    tracker = tracking.FusedTracker(cfg, device=device)
+    spec, cam = tracker.spec, tracker.camera
+    (gray0, depth0, _), (gray1, depth1, _) = seq[0], seq[1]
+    gray0 = torch.as_tensor(gray0).to(device)
+    pyr = build_pyramid(gray0, spec)
+    sel = select_keypoints(pyr, spec, tracker.budgets)
+    f0 = extract_fused(gray0, torch.as_tensor(depth0).to(device), cam, spec, tracker.budgets)
+    f1 = extract_fused(torch.as_tensor(gray1).to(device), torch.as_tensor(depth1).to(device),
+                       cam, spec, tracker.budgets)
+    eye = torch.eye(4, device=device)
+    pts, pts_ok = tracking._spawn_temp_points(f0, eye, cam)
+    top2_args = matcher.projection_top2_args(
+        pts, f0.desc, f0.octave, pts_ok, f1.uv_und, f1.u_right, f1.octave, f1.desc, f1.valid,
+        torch.zeros_like(f1.valid), eye, eye, tracker.scale_factors,
+        cam.fx, cam.fy, cam.cx, cam.cy, cam.bf, cam.b, float(cam.width), float(cam.height), 15.0)
+    return dict(tracker=tracker, pyr=pyr, sel=sel, f0=f0, f1=f1, eye=eye, pts=pts,
+                pts_ok=pts_ok, top2_args=top2_args)
+
+
 class PlainGuard:
     """Wraps plain versions; records any call that gets a CUDA tensor."""
 
@@ -794,11 +893,10 @@ def main() -> int:
     from vo_slam_test_tpu_torch.config import SlamConfig
     from vo_slam_test_tpu_torch.datasets import SyntheticRGBD, ate_rmse
     from vo_slam_test_tpu_torch.datasets.synthetic import room_orbit_trajectory
-    from vo_slam_test_tpu_torch.frontend.extractor import extract_fused, select_keypoints
     from vo_slam_test_tpu_torch.ops import (
         _build, ba_cuda, ba_pallas, brief, fast, fast_cuda, match_cuda, match_pallas, orb_cuda,
         orientation, pattern)
-    from vo_slam_test_tpu_torch.ops.pyramid import build_pyramid, interior
+    from vo_slam_test_tpu_torch.ops.pyramid import interior
     from vo_slam_test_tpu_torch.matching import matcher
     from vo_slam_test_tpu_torch.pipeline import system, tracking
     from vo_slam_test_tpu_torch.slam_map import triangulate
@@ -814,7 +912,7 @@ def main() -> int:
 
     # -- build ------------------------------------------------------------
     t0 = time.perf_counter()
-    built = _build.build()
+    built = _build.build(extra=V1_SOURCES)
     print(f"build: {time.perf_counter() - t0:.2f} s wall for {sorted(built)} "
           + " ".join(f"{k}={v['seconds']:.2f}s" for k, v in built.items()))
     for k, v in built.items():
@@ -827,6 +925,7 @@ def main() -> int:
     # a launch that does nothing, and two in a row (each waits for the one
     # before it): what a kernel of one or two launches costs before any work
     print(json.dumps({"launch_floor_ms": floor}))
+    orb_v1, top2_v1 = v1_launchers(_build)
     all_kernels = {"fast": fast_cuda.KERNEL, "orb": orb_cuda.KERNEL, "top2": match_cuda.KERNEL,
                    "top2_m4096": match_cuda.KERNEL_LOCAL, "top2_chi2": match_cuda.KERNEL_CHI2,
                    "top2_nb": match_cuda.KERNEL_NB, "top1_epi": match_cuda.KERNEL_EPI,
@@ -845,10 +944,9 @@ def main() -> int:
     print(f"rendered {len(frames)} frames {frames[0][0].shape} in {time.perf_counter() - t0:.1f} s")
     cfg = SlamConfig(camera_fx=seq.fx, camera_fy=seq.fy, camera_cx=seq.cx, camera_cy=seq.cy,
                      camera_k1=0, camera_k2=0, camera_p1=0, camera_p2=0, camera_k3=0)
-    tracker = tracking.FusedTracker(cfg)
+    inst = frame_instances(seq, cfg, dev)
+    tracker, pyr, sel = inst["tracker"], inst["pyr"], inst["sel"]
     spec, cam = tracker.spec, tracker.camera
-    gray0 = torch.as_tensor(frames[0][0]).to(dev)
-    pyr = build_pyramid(gray0, spec)
     levels = interior(pyr.raw, spec)
     kernels = {}
 
@@ -877,9 +975,9 @@ def main() -> int:
           f"bound {fb:.4f} ms ({fby})")
 
     # -- phase 2: IC angle + rBRIEF -----------------------------------------
-    sel = select_keypoints(pyr, spec, tracker.budgets)
     n_valid = int(sel.valid.sum())
-    ang, desc = orb_cuda.orb_angle_desc(pyr.raw, pyr.blur, sel.level, sel.ys, sel.xs)
+    orb_in = (pyr.raw, pyr.blur, sel.level, sel.ys, sel.xs)
+    ang, desc = orb_cuda.orb_angle_desc(*orb_in)
     ang_ref = orientation.ic_angle(pyr.raw, sel.level, sel.ys, sel.xs)
     desc_ref = brief.compute_descriptors(pyr.blur, sel.level, sel.ys, sel.xs, ang_ref)
     d = (ang - ang_ref).abs()
@@ -889,6 +987,8 @@ def main() -> int:
           f"flipped bits: max {int(flips.max())} per descriptor, {int(flips.sum())} in all")
     if ang_err > 1e-3 or flips.max() > 0:
         raise AssertionError("ORB kernel differs from the plain version beyond tolerance")
+    if not all(bits_equal(x, y) for x, y in zip((ang, desc), orb_call(orb_v1(0), *orb_in))):
+        raise AssertionError("ORB kernel differs from its first design (perf/orb_v1.cu)")
     N = sel.level.shape[0]
     n_disc = int(pattern.circular_patch_mask().sum())
     # per keypoint: 2 FMAs per disc pixel (the moments), 9 per pattern pair
@@ -898,32 +998,26 @@ def main() -> int:
     kernels["orb"] = dict(
         name="orb_angle_desc", shape=f"N={N}", route="cuda", source="vo_slam_test_tpu_torch/csrc/orb.cu",
         replaces="vo_slam_test_tpu/ops/orb_pallas.py:137", max_abs_err=ang_err,
-        ms=time_graph_ms(lambda: orb_cuda.orb_angle_desc(
-            pyr.raw, pyr.blur, sel.level, sel.ys, sel.xs)),
+        ms=time_graph_ms(lambda: orb_cuda.orb_angle_desc(*orb_in)),
+        v1_ms=time_graph_ms(lambda: orb_call(orb_v1(0), *orb_in)),
         plain_ms=time_eager_ms(lambda: brief.compute_descriptors(
             pyr.blur, sel.level, sel.ys, sel.xs,
             orientation.ic_angle(pyr.raw, sel.level, sel.ys, sel.xs))),
         bound_ms=ob, bound_by=oby, library_ms=None)
-    print(f"  kernel {kernels['orb']['ms']:.4f} ms, plain {kernels['orb']['plain_ms']:.4f} ms, "
-          f"bound {ob:.4f} ms ({oby})")
+    print(f"  kernel {kernels['orb']['ms']:.4f} ms (first design {kernels['orb']['v1_ms']:.4f} ms, "
+          f"bit-equal), plain {kernels['orb']['plain_ms']:.4f} ms, bound {ob:.4f} ms ({oby})")
 
     # -- phase 3: masked Hamming top-2 at 1024x1024 ---------------------------
-    depth0 = torch.as_tensor(frames[0][1]).to(dev)
-    depth1 = torch.as_tensor(frames[1][1]).to(dev)
-    f0 = extract_fused(gray0, depth0, cam, spec, tracker.budgets)
-    f1 = extract_fused(torch.as_tensor(frames[1][0]).to(dev), depth1, cam, spec, tracker.budgets)
-    eye = torch.eye(4, device=dev)
-    pts, pts_ok = tracking._spawn_temp_points(f0, eye, cam)
-    real_args = matcher.projection_top2_args(
-        pts, f0.desc, f0.octave, pts_ok, f1.uv_und, f1.u_right, f1.octave, f1.desc, f1.valid,
-        torch.zeros_like(f1.valid), eye, eye, tracker.scale_factors,
-        cam.fx, cam.fy, cam.cx, cam.cy, cam.bf, cam.b, float(cam.width), float(cam.height), 15.0)
+    f0, f1, eye, pts, pts_ok = (inst[k] for k in ("f0", "f1", "eye", "pts", "pts_ok"))
+    real_args = inst["top2_args"]
     rand_args = random_top2_instance(np.random.default_rng(0), 1024, 1024, dev)
     top2_err = 0.0
     for label, args in (("frame pair", real_args), ("random ties/empty rows", rand_args)):
         got = match_cuda.masked_top2(*args)
         want = match_pallas.masked_top2_plain(*args)
         top2_err = max(top2_err, check_equal(f"top-2 on {label}", got, want, TOP2_OUTS))
+        check_equal(f"top-2 on {label} against its first design (perf/match_v1.cu)", got,
+                    [o[0] for o in top2_call(top2_v1(0), args, {})], TOP2_OUTS)
         n_match = int((got[1] <= matcher.TH_HIGH).sum())
         print(f"phase top2 {label} {tuple(args[0].shape)}x{tuple(args[1].shape)}: "
               f"all four outputs equal; {n_match} rows with best <= {matcher.TH_HIGH}")
@@ -933,10 +1027,11 @@ def main() -> int:
         name="masked_top2", shape=f"{Mr}x{Nr}", route="cuda", source="vo_slam_test_tpu_torch/csrc/match.cu",
         replaces="vo_slam_test_tpu/ops/match_pallas.py:121", max_abs_err=top2_err,
         ms=time_graph_ms(lambda: match_cuda.masked_top2(*real_args)),
+        v1_ms=time_graph_ms(lambda: top2_call(top2_v1(0), real_args, {})),
         plain_ms=time_eager_ms(lambda: match_pallas.masked_top2_plain(*real_args)),
         bound_ms=mb, bound_by=mby, library_ms=None, counted=counted)
-    print(f"  frame pair: counted {counted}; kernel "
-          f"{kernels['top2']['ms']:.4f} ms, plain {kernels['top2']['plain_ms']:.4f} ms, "
+    print(f"  frame pair: counted {counted}; kernel {kernels['top2']['ms']:.4f} ms (first design "
+          f"{kernels['top2']['v1_ms']:.4f} ms, equal), plain {kernels['top2']['plain_ms']:.4f} ms, "
           f"bound {mb:.6f} ms ({mby})")
 
     # -- data: the second main path's sequence --------------------------------
@@ -985,6 +1080,11 @@ def main() -> int:
             got = kfn(*args, **kw)
             want = pfn(*args, **kw)
             err = max(err, check_equal(f"{kname} on the {label} instance", got, want, outs))
+            if key != "top1_epi":
+                v1 = top2_call(top2_v1(0), args, kw)
+                check_equal(f"{kname} on the {label} instance against its first design "
+                            f"(perf/match_v1.cu)", got,
+                            v1 if key == "top2_nb" else [o[0] for o in v1], outs)
             shape = "x".join(str(s) for s in args[0].shape[:-1]) + f"x{args[1].shape[-2]}"
             print(f"phase {kname} {label} {shape}: all {len(outs)} outputs equal; "
                   f"{int((got[1] < match_pallas.BIG).sum())} rows with an allowed pair")
@@ -999,7 +1099,11 @@ def main() -> int:
             ms=time_graph_ms(lambda: kfn(*args, **kw)),
             plain_ms=time_eager_ms(lambda: pfn(*args, **kw)),
             bound_ms=kb, bound_by=kby, library_ms=None, counted=counted)
-        print(f"  captured: counted {counted}; kernel {kernels[key]['ms']:.4f} ms, "
+        if key != "top1_epi":
+            kernels[key]["v1_ms"] = time_graph_ms(lambda: top2_call(top2_v1(0), args, kw))
+        v1_note = (f" (first design {kernels[key]['v1_ms']:.4f} ms, equal)"
+                   if "v1_ms" in kernels[key] else "")
+        print(f"  captured: counted {counted}; kernel {kernels[key]['ms']:.4f} ms{v1_note}, "
               f"plain {kernels[key]['plain_ms']:.4f} ms, bound {kb:.6f} ms ({kby})")
 
     # -- phases 8-10: the local-BA kernels ------------------------------------
@@ -1248,7 +1352,8 @@ def main() -> int:
     if under:
         raise AssertionError(f"kernels timed under their bounds, so the bounds are wrong: {under}")
     keys = ("name", "shape", "route", "source", "replaces", "launches", "max_abs_err", "ms",
-            "plain_ms", "bound_ms", "bound_by", "library_ms", "launch_floor_x", "counted")
+            "v1_ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "launch_floor_x",
+            "counted")
     print(f"total {time.perf_counter() - t_start:.1f} s after the card query")
     print(json.dumps({"main_path": {
         "fused_tracker": {"frame_ms_median": float(np.median(steady)), "ate_m": float(ate),

@@ -1,9 +1,11 @@
 #!/usr/bin/env python3
-"""Times the parts of earlier designs of the BA kernels and the FAST score
-beside the current kernels, on the same inputs, in one run on the card.
+"""Times the parts of earlier designs of the BA kernels, the FAST score, the
+masked top-2 and the IC angle + rBRIEF beside the current kernels, on the same
+inputs, in one run on the card.
 
     python3 perf/kernel_split.py                # from the repository root: every phase
-    python3 perf/kernel_split.py ba_tail fast   # the named phases (dpx, fast, ba, ba_tail)
+    python3 perf/kernel_split.py ba_tail fast   # named phases: dpx fast ba ba_tail top2 orb
+    python3 perf/kernel_split.py top2 orb --v1-only   # the first designs' parts alone
 
 Prints, after the card's name and power limit:
 
@@ -34,7 +36,26 @@ Prints, after the card's name and power limit:
   copies of ``csrc/ba.cu`` with other grids (``COST_SHAPES``: blocks per SM
   and threads per block); ``ba_accumulate`` and ``ba_cost`` built with other
   counts of loads in flight in ``cost_sum`` (``SUM_LOADS``); the current
-  ``ba_cost`` with no live point. Exits 1 if a bit differs.
+  ``ba_cost`` with no live point;
+- the masked top-2 (``top2``) on ``chip_smoke.py``'s instances of its four
+  call sites (the frame pair as its phase 3 builds it, the local map, chi2 and
+  batched searches as its capture run keeps them) and on its seeded ones: the
+  live rows, columns and allowed pairs, the blocks with no live row (of 8 rows,
+  the first design's, and of 16, the current one's), and the first design (``perf/match_v1.cu``) whole, with its staging
+  alone and with every row dead; then the current kernel beside it in turns,
+  with every row dead, and built from edited copies of ``csrc/match.cu``
+  (``TOP2_VARIANTS``: room for two blocks per SM, one 32-column step per
+  gate batch with a 32-column queue, other band heights, and the sort without
+  the row walks), every output of the exact ones checked bit for bit against
+  the first design's;
+- the IC angle + rBRIEF (``orb``) on frame 0's keypoints: the first design
+  (``perf/orb_v1.cu``) whole, without its disc loop, without thread 0's tail
+  and without the pattern samples; then the current kernel beside it in turns
+  and built with other counts of keypoints per block (``ORB_KPB``), angle
+  and descriptor bits checked against the first design's.
+
+``--v1-only`` leaves out the current kernels of ``top2`` and ``orb``. Exits 1
+if a bit differs.
 
 All times are CUDA-graph replays (``chip_smoke.time_graph_ms``) unless a
 line says otherwise. Exits 1 without a CUDA device.
@@ -254,9 +275,9 @@ def batched_sum_loop(k: int) -> str:
 """
 
 
-def ba_variants(_build, texts):
-    """Copies of ``csrc/ba.cu`` edited into ``texts`` ({name: source}),
-    written into ``_build/variants`` and built there -> {name: CDLL}."""
+def source_variants(_build, texts):
+    """Edited copies of a ``csrc`` source (``texts``: {name: source}), written
+    into ``_build/variants`` and built there -> {name: CDLL}."""
     out_dir = _build.BUILD_DIR / "variants"
     out_dir.mkdir(parents=True, exist_ok=True)
     for name, text in texts.items():
@@ -284,7 +305,7 @@ def tail_variants(_build):
              for b, th in COST_SHAPES}
     texts.update({f"ba_loads_{k}": src.replace(_SUM_LOOP, batched_sum_loop(k)) if k > 1 else src
                   for k in SUM_LOADS})
-    libs = ba_variants(_build, texts)
+    libs = source_variants(_build, texts)
 
     def launch(name, symbol):
         argtypes = {"ba_cost_launch": ba_cuda.KERNEL_COST.argtypes,
@@ -295,10 +316,6 @@ def tail_variants(_build):
     loads = {k: (launch(f"ba_loads_{k}", "ba_accumulate_launch"),
                  launch(f"ba_loads_{k}", "ba_cost_launch")) for k in SUM_LOADS}
     return shapes, loads
-
-
-def bits_equal(a, b) -> bool:
-    return torch.equal(a.contiguous().view(torch.int32), b.contiguous().view(torch.int32))
 
 
 def ba_tail_phase(_build, dev, captured) -> list:
@@ -316,7 +333,7 @@ def ba_tail_phase(_build, dev, captured) -> list:
     differ = []
 
     def check(label, a, b):
-        ok = bits_equal(a, b)
+        ok = chip_smoke.bits_equal(a, b)
         print(f"  {label}: {'bit-equal' if ok else 'NOT bit-equal'}")
         if not ok:
             differ.append(label)
@@ -420,8 +437,8 @@ def ba_tail_phase(_build, dev, captured) -> list:
         n = int(n_pts)
         print(f"  {label}: ba_backsub with a NaN step: live points all non-finite "
               f"{not bool(torch.isfinite(got[:, :n]).any())}, dead points bit-equal to v1's "
-              f"{bits_equal(got[:, n:], dx_v1[:, n:])}, all bits equal to v1's "
-              f"{bits_equal(got, dx_v1)}")
+              f"{chip_smoke.bits_equal(got[:, n:], dx_v1[:, n:])}, all bits equal to v1's "
+              f"{chip_smoke.bits_equal(got, dx_v1)}")
 
         times = []
         for name, fn in (("ba_cost v1", run_cost_v1), ("ba_cost current", run_cost),
@@ -456,14 +473,187 @@ def ba_tail_phase(_build, dev, captured) -> list:
     return differ
 
 
-PHASES = ("dpx", "fast", "ba", "ba_tail")
+# match.cu built with other shapes and edits: {label: ({#define: value}, [(old, new)
+# text], whether the outputs stay the function's)}; the first is the source as it stands
+SORT_ALONE = ("    if (walk) {\n      // the gate", "    if (false) {  // no row walks\n      // the gate")
+TOP2_VARIANTS = {
+    "as it stands": ({}, [], True),
+    "2 blocks per SM": ({"MIN_BLOCKS": 2}, [], True),
+    "1 step, queue of 32": ({"STEPS": 1, "QCAP": 32}, [], True),
+    "bands of 4 px": ({"NB": 128, "BAND_PX": 4}, [], True),
+    "bands of 16 px": ({"NB": 32, "BAND_PX": 16}, [], True),
+    "bands of 4 px, 2 blocks per SM": ({"NB": 128, "BAND_PX": 4, "MIN_BLOCKS": 2}, [], True),
+    "sort alone (no row walks)": ({}, [SORT_ALONE], False),
+}
+# orb.cu built with other counts of keypoints (warps) per block; the first is
+# the source as it stands
+ORB_KPB = (4, 2, 8)
+
+
+def corner_frames(dev):
+    """``chip_smoke.py``'s phase 1-3 inputs from the corner sequence's frames 0 and 1."""
+    from vo_slam_test_tpu_torch.config import SlamConfig
+    from vo_slam_test_tpu_torch.datasets import SyntheticRGBD
+
+    seq = SyntheticRGBD(n_frames=30, seed=0, motion_scale=0.5)
+    cfg = SlamConfig(camera_fx=seq.fx, camera_fy=seq.fy, camera_cx=seq.cx, camera_cy=seq.cy,
+                     camera_k1=0, camera_k2=0, camera_p1=0, camera_p2=0, camera_k3=0)
+    return chip_smoke.frame_instances(seq, cfg, dev)
+
+
+def top2_instances(dev, frame, captured):
+    """[(label, args, kw)]: the four call sites as ``chip_smoke.py`` captures
+    them (the frame pair as its phase 3 builds it), then its seeded instances
+    (the same seeds, in the same order)."""
+    rng = np.random.default_rng(1)
+    m4096 = chip_smoke.random_top2_instance(rng, 4096, 1024, dev)
+    chi2 = chip_smoke.random_chi2_instance(rng, 4096, 1024, dev)
+    nb = chip_smoke.random_nb_instance(rng, 16, 1024, 1024, dev)
+    chi2_kw = lambda x: dict(col_isig2=x[15], chi2_gate=True)  # noqa: E731
+    return [
+        ("frame pair 1024x1024 (row 3)", frame["top2_args"], {}),
+        ("captured local map 4096x1024 (row 3)", *captured["top2_m4096"]),
+        ("captured chi2 4096x1024 (row 4)", *captured["top2_chi2"]),
+        ("captured batched 16x1024x1024 (row 5)", *captured["top2_nb"]),
+        ("seeded 1024x1024", chip_smoke.random_top2_instance(np.random.default_rng(0), 1024, 1024,
+                                                             dev), {}),
+        ("seeded 4096x1024", m4096, {}),
+        ("seeded chi2 4096x1024", chi2[:15], chi2_kw(chi2)),
+        ("seeded batched 16x1024x1024", nb[:15], chi2_kw(nb)),
+    ]
+
+
+def dead_block_share(row_ok, rows_per_block):
+    """Blocks of ``rows_per_block`` rows (per search) that hold no live row."""
+    ok = row_ok.reshape(-1, row_ok.shape[-1])
+    B, M = ok.shape
+    pad = torch.zeros((B, -M % rows_per_block), dtype=torch.bool, device=ok.device)
+    blocks = torch.cat([ok, pad], 1).reshape(B, -1, rows_per_block).any(-1)
+    return int((~blocks).sum()), blocks.numel()
+
+
+def edited(src, defines, edits):
+    """``src`` with its ``#define``s set (``define``) and each (old, new) text edit made
+    (each old text must be there once)."""
+    for name, value in defines.items():
+        src = define(src, name, value)
+    for old, new in edits:
+        assert src.count(old) == 1, old
+        src = src.replace(old, new)
+    return src
+
+
+def top2_variants(_build):
+    """``csrc/match.cu`` built as each of TOP2_VARIANTS -> {label: launch}."""
+    from vo_slam_test_tpu_torch.ops import match_cuda
+
+    src = (_build.CSRC / "match.cu").read_text()
+    names = {label: f"match_variant_{i}" for i, label in enumerate(TOP2_VARIANTS)}
+    libs = source_variants(_build, {names[label]: edited(src, d, e)
+                                    for label, (d, e, _) in TOP2_VARIANTS.items()})
+    return {label: bind(libs[names[label]], "masked_top2_launch", match_cuda.KERNEL.argtypes)
+            for label in TOP2_VARIANTS}
+
+
+def top2_phase(_build, dev, captured, v1_only) -> list:
+    """-> the labels of the outputs that are not bit-equal (empty: all are)."""
+    from vo_slam_test_tpu_torch.ops import match_cuda
+
+    _, top2_v1 = chip_smoke.v1_launchers(_build)
+    time = chip_smoke.time_graph_ms
+    shapes = {} if v1_only else top2_variants(_build)
+    differ = []
+    for label, args, kw in top2_instances(dev, corner_frames(dev), captured):
+        chi2 = kw.get("chi2_gate", False)
+        _, _, counted = chip_smoke.top2_bound(args, kw.get("col_isig2"), chi2)
+        dead8, dead16 = dead_block_share(args[9], 8), dead_block_share(args[9], 16)
+        dead = list(args)
+        dead[9] = torch.zeros_like(args[9])
+        v1 = lambda mode, a=args: chip_smoke.top2_call(top2_v1(mode), a, kw)  # noqa: E731
+        print(f"  {label}: {counted}; blocks with no live row: {dead8[0]} of {dead8[1]} of 8 "
+              f"rows (v1), {dead16[0]} of {dead16[1]} of 16 rows (current)")
+        print(f"  {label}: v1 whole {time(lambda: v1(0)):.4f} ms, staging alone (no lane loop) "
+              f"{time(lambda: v1(1)):.4f} ms, every row dead "
+              f"{time(lambda: v1(0, dead)):.4f} ms")
+        if v1_only:
+            continue
+        want = torch.cat([o.flatten() for o in v1(0)])
+        cur = lambda a=args: chip_smoke.top2_call(match_cuda.KERNEL, a, kw)  # noqa: E731
+        for name, got in [("current", cur()), ("current, every row dead", cur(dead))] + [
+                (f"variant {vname}", chip_smoke.top2_call(fn, args, kw))
+                for vname, fn in shapes.items() if TOP2_VARIANTS[vname][2]]:
+            ref = want if "dead" not in name else torch.cat([o.flatten() for o in v1(0, dead)])
+            ok = chip_smoke.bits_equal(torch.cat([o.flatten() for o in got]), ref)
+            if not ok:
+                differ.append(f"{label}: {name}")
+                print(f"  {label}: {name} NOT bit-equal to v1")
+        turns = [f"{name} {time(fn):.4f}" for name, fn in
+                 (("v1", lambda: v1(0)), ("current", cur), ("current", cur), ("v1", lambda: v1(0)))]
+        print(f"  {label}: ms in turns: " + ", ".join(turns) + f"; current with every row dead "
+              f"{time(lambda: cur(dead)):.4f}")
+        print(f"  {label}: current built as each variant, ms: " + ", ".join(
+            f"{name} {time(lambda fn=fn: chip_smoke.top2_call(fn, args, kw)):.4f}"
+            for name, fn in shapes.items()))
+    return differ
+
+
+def orb_variants(_build):
+    """``csrc/orb.cu`` built with each count of ORB_KPB -> {count: launch}."""
+    from vo_slam_test_tpu_torch.ops import orb_cuda
+
+    src = (_build.CSRC / "orb.cu").read_text()
+    libs = source_variants(_build, {f"orb_{k}": define(src, "KPB", k) for k in ORB_KPB})
+    return {k: bind(libs[f"orb_{k}"], "orb_angle_desc_launch", orb_cuda.KERNEL.argtypes)
+            for k in ORB_KPB}
+
+
+def orb_phase(_build, dev, v1_only) -> list:
+    """-> the labels of the outputs that are not bit-equal (empty: all are)."""
+    from vo_slam_test_tpu_torch.ops import orb_cuda
+
+    orb_v1, _ = chip_smoke.v1_launchers(_build)
+    time = chip_smoke.time_graph_ms
+    frame = corner_frames(dev)
+    pyr, sel = frame["pyr"], frame["sel"]
+    orb_in = (pyr.raw, pyr.blur, sel.level, sel.ys, sel.xs)
+    print(f"  orb on frame 0's keypoints: N={sel.level.shape[0]} ({int(sel.valid.sum())} valid), "
+          f"canvas {tuple(pyr.raw.shape)}")
+    labels = {0: "whole", 1: "without the disc loop", 2: "without thread 0's tail (fixed angle)",
+              3: "without the pattern samples"}
+    print("  orb v1: " + ", ".join(
+        f"{labels[m]} {time(lambda m=m: chip_smoke.orb_call(orb_v1(m), *orb_in)):.4f} ms"
+        for m in labels))
+    if v1_only:
+        return []
+    want = chip_smoke.orb_call(orb_v1(0), *orb_in)
+    variants = orb_variants(_build)
+    differ = []
+    for name, fn in [("current", orb_cuda.KERNEL)] + [(f"{k} keypoints per block", v)
+                                                      for k, v in variants.items()]:
+        got = chip_smoke.orb_call(fn, *orb_in)
+        if not all(chip_smoke.bits_equal(g, w) for g, w in zip(got, want)):
+            differ.append(f"orb {name}")
+            print(f"  orb {name}: NOT bit-equal to v1 (angle and descriptor)")
+    v1 = lambda: chip_smoke.orb_call(orb_v1(0), *orb_in)  # noqa: E731
+    cur = lambda: orb_cuda.orb_angle_desc(*orb_in)  # noqa: E731
+    print("  orb ms in turns: " + ", ".join(
+        f"{name} {time(fn):.4f}" for name, fn in (("v1", v1), ("current", cur), ("current", cur),
+                                                  ("v1", v1))))
+    print("  orb current by keypoints per block, ms: " + ", ".join(
+        f"{k} {time(lambda v=v: chip_smoke.orb_call(v, *orb_in)):.4f}"
+        for k, v in variants.items()))
+    return differ
+
+
+PHASES = ("dpx", "fast", "ba", "ba_tail", "top2", "orb")
 
 
 def main(argv) -> int:
     if not torch.cuda.is_available():
         print("kernel_split: no CUDA device available", file=sys.stderr)
         return 1
-    phases = argv or PHASES
+    v1_only = "--v1-only" in argv
+    phases = [a for a in argv if a != "--v1-only"] or PHASES
     if set(phases) - set(PHASES):
         print(f"kernel_split: phases are {PHASES}", file=sys.stderr)
         return 2
@@ -472,9 +662,9 @@ def main(argv) -> int:
     dev = torch.device("cuda")
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip())
-    built = dict(_build.build())
-    built.update(_build.build(("dpx_bench", "fast_v1", "ba_v1", "ba_tail_v1",
-                               "ba_backsub_variants"), ROOT / "perf"))
+    built = _build.build(extra=[(n, ROOT / "perf") for n in (
+        "dpx_bench", "fast_v1", "ba_v1", "ba_tail_v1", "ba_backsub_variants", "match_v1",
+        "orb_v1")])
     for k, v in built.items():
         for line in v["log"].splitlines():
             if "registers" in line or "spill" in line or "Compiling" in line:
@@ -488,13 +678,19 @@ def main(argv) -> int:
     if "fast" in phases:
         fast_phase(_build, dev)
     differ = []
-    if "ba" in phases or "ba_tail" in phases:
+    if {"ba", "ba_tail", "top2"} & set(phases):
         captured = capture()
         if "ba" in phases:
             ba_phase(_build, dev, captured)
         if "ba_tail" in phases:
             print("ba_cost and ba_backsub, the earlier designs (v1) beside the current kernels:")
-            differ = ba_tail_phase(_build, dev, captured)
+            differ += ba_tail_phase(_build, dev, captured)
+        if "top2" in phases:
+            print("masked top-2 (rows 3-5), the first design (v1) beside the current kernel:")
+            differ += top2_phase(_build, dev, captured, v1_only)
+    if "orb" in phases:
+        print("IC angle + rBRIEF (row 2), the first design (v1) beside the current kernel:")
+        differ += orb_phase(_build, dev, v1_only)
     if differ:
         print(f"kernel_split: outputs not bit-equal: {differ}")
         return 1

@@ -457,6 +457,146 @@ def test_fast_kernel_edge_inputs(cuda, kind):
         assert (got == 0).all()
 
 
+# (M, N) of each top-2 edge case; "live_tail": live rows only past row 4000
+_TOP2_SHAPES = {"all_dead": (1024, 1024), "live_tail": (4096, 1024), "outside": (1024, 1024),
+                "window_edge": (256, 1024), "big_window": (1024, 1024), "n1": (1024, 1),
+                "n777": (1000, 777), "n5000": (1024, 5000)}
+_ODD = [-5.0, -1e-3, 0.0, 479.99, 480.0, 512.0, 520.0, 700.0, 1e6, -1e6, float("inf"),
+        float("-inf"), float("nan")]
+
+
+def _top2_edge_one(kind, chi2, rng, cuda):
+    """One search's arguments ([M,...] tensors, col_isig2 last in chi2 mode)."""
+    M, N = _TOP2_SHAPES[kind]
+    x = (random_chi2_instance if chi2 else random_top2_instance)(rng, M, N, cuda)
+    x = [t.clone() for t in x]
+    if not chi2:
+        x.append(None)
+    r_u, r_v, r_rw, r_ur, r_rur, r_lo, r_hi, r_ok = x[2:10]
+    c_u, c_v, c_ur, c_oct, c_ok, c_isig = x[10:16]
+    odd = torch.tensor(_ODD, dtype=torch.float32, device=cuda)
+    k = len(_ODD)
+    if kind == "all_dead":
+        r_ok[:] = False
+    elif kind == "live_tail":
+        r_ok[:4000] = False
+        r_ok[4000:] = True
+    elif kind == "outside":  # coordinates off the image, +-inf and NaN on both sides
+        c_u[:k], c_v[:k] = odd, odd.roll(3)
+        c_u[k:2 * k], c_v[k:2 * k] = 320.0, odd
+        r_u[16:16 + k], r_v[16:16 + k] = odd.roll(5), odd
+        r_u[16 + k:16 + 2 * k], r_v[16 + k:16 + 2 * k] = 320.0, odd + 2.0
+        r_rw[16:16 + 2 * k] = 40.0
+        r_rw[16 + 2 * k:16 + 3 * k] = float("inf")
+        r_v[16 + 2 * k:16 + 3 * k] = odd
+        r_ok[16:16 + 3 * k] = True
+        c_ok[:2 * k] = True
+        c_ur[:2 * k] = -1.0
+        if chi2:
+            c_isig[:2 * k] = 1e-6
+    elif kind == "window_edge":  # col_v at row_v +- row_rw exactly, and one ulp inside
+        rv = torch.as_tensor(rng.integers(0, 1920, M) / 4.0, dtype=torch.float32, device=cuda)
+        rw = torch.as_tensor(rng.choice([0.25, 4.0, 7.5, 12.0, 8.0, 40.0], M),
+                             dtype=torch.float32, device=cuda)
+        r_v[:], r_rw[:], r_ok[16:] = rv, rw, True
+        r_lo[:], r_hi[:] = 0, 7
+        hi, lo = rv + rw, rv - rw
+        cols = torch.stack([hi, torch.nextafter(hi, rv), lo, torch.nextafter(lo, rv)], 1)
+        c_v[:4 * M] = cols.flatten()
+        c_u[:4 * M] = r_u.repeat_interleave(4)
+        c_oct[:4 * M], c_ur[:4 * M], c_ok[:4 * M] = 3, -1.0, True
+        if chi2:
+            c_isig[:4 * M] = 1e-4
+    elif kind == "big_window":  # windows larger than the image, and infinite ones
+        r_rw[::2] = 1e4
+        r_rw[1::4] = float("inf")
+    return x
+
+
+def _top2_edge_case(kind, site, cuda):
+    """-> (args, kw) of the call site's wrapper; the batched site stacks 16
+    searches that share one source set."""
+    rng = np.random.default_rng(sum(map(ord, kind + site)))
+    if site != "nb":
+        x = _top2_edge_one(kind, site == "chi2", rng, cuda)
+        return x[:15], (dict(col_isig2=x[15], chi2_gate=True) if site == "chi2" else {})
+    xs = [_top2_edge_one(kind, True, rng, cuda) for _ in range(16)]
+    args = [torch.stack(t) for t in zip(*xs)]
+    args[0] = xs[0][0][None].expand_as(args[0])
+    return args[:15], dict(col_isig2=args[15], chi2_gate=True)
+
+
+@pytest.mark.parametrize("site", ["frame", "local", "chi2", "nb"])
+@pytest.mark.parametrize("kind", list(_TOP2_SHAPES))
+def test_top2_kernel_edges_at_every_site(cuda, kind, site):
+    args, kw = _top2_edge_case(kind, site, cuda)
+    kernel = {"frame": match_cuda.KERNEL, "local": match_cuda.KERNEL_LOCAL,
+              "chi2": match_cuda.KERNEL_CHI2, "nb": match_cuda.KERNEL_NB}[site]
+    before = kernel.launches
+    if site == "nb":
+        got = match_cuda.masked_top2_nb(*args, **kw)
+        want = match_pallas.masked_top2_nb_plain(*args, **kw)
+    else:
+        got = match_cuda.masked_top2(*args, **kw, kernel=kernel)
+        want = match_pallas.masked_top2_plain(*args, **kw)
+    _equal(got, want)
+    assert kernel.launches == before + 1
+    if kind == "all_dead":
+        assert (got[1] == match_pallas.BIG).all() and (got[0] == 0).all()
+
+
+def _orb_edge_case(kind, cuda):
+    """-> (raw, blur, level, ys, xs). "border": keypoints whose disc and
+    samples run past the canvas's first and last pixels and across row ends
+    (the clamps act); "quadrants": tiles whose moments are zero, positive or
+    negative on either axis; "n1" and "n1001": one keypoint, and a count that
+    is not a multiple of the keypoints per block."""
+    rng = np.random.default_rng(len(kind))
+    L, CH, CW = 3, 96, 128
+    raw = rng.integers(0, 256, (L, CH, CW)).astype(np.float32)
+    blur = rng.integers(0, 256, (L, CH, CW)).astype(np.float32)
+    H, W = CH - 38, CW - 38  # level-image size inside the 19-pixel halo
+    if kind == "border":
+        ys = [-19, -19, -19, 0, H - 1, H + 18, H + 18, 5, 5, -40, H + 60, 30]
+        xs = [-19, 0, W + 18, -19, W + 18, -19, W + 18, -19, W + 18, 10, 10, -60]
+        lv = [0, 0, 0, 0, 2, 2, 2, 1, 1, 0, 2, 1]
+    elif kind == "quadrants":
+        yy, xx = np.mgrid[-19:20, -19:20]
+        tiles = [np.zeros_like(yy), xx, -xx, yy, -yy, xx + yy, xx - yy, -xx + yy, -xx - yy,
+                 np.abs(xx), np.abs(yy), xx * (yy > 0)]
+        ys, xs, lv = [], [], []
+        for i, t in enumerate(tiles):
+            lvl, cy, cx = i % L, 19 + 39 * ((i // L) % 2), 19 + 39 * ((i // L) // 2 % 2)
+            raw[lvl, cy - 19:cy + 20, cx - 19:cx + 20] = 100 + 4 * t
+            ys.append(cy - 19)
+            xs.append(cx - 19)
+            lv.append(lvl)
+    else:
+        n = 1 if kind == "n1" else 1001
+        ys, xs = rng.integers(0, H, n), rng.integers(0, W, n)
+        lv = rng.integers(0, L, n)
+    i32 = lambda a: torch.as_tensor(np.asarray(a, np.int32)).to(cuda)  # noqa: E731
+    return (torch.as_tensor(raw).to(cuda), torch.as_tensor(blur).to(cuda), i32(lv), i32(ys),
+            i32(xs))
+
+
+@pytest.mark.parametrize("kind", ["border", "quadrants", "n1", "n1001"])
+def test_orb_kernel_edges(cuda, kind):
+    raw, blur, level, ys, xs = _orb_edge_case(kind, cuda)
+    before = orb_cuda.KERNEL.launches
+    ang, desc = orb_cuda.orb_angle_desc(raw, blur, level, ys, xs)
+    ang_ref = orientation.ic_angle(raw, level, ys, xs)
+    desc_ref = brief.compute_descriptors(blur, level, ys, xs, ang_ref)
+    torch.cuda.synchronize()
+    assert orb_cuda.KERNEL.launches == before + 1
+    assert torch.equal(ang.view(torch.int32), ang_ref.view(torch.int32))
+    assert torch.equal(desc, desc_ref)
+    if kind == "quadrants":  # every branch of cvFastAtan2's quadrant fix-up ran
+        a = ang_ref.cpu().numpy()
+        assert a[0] == 0.0 and ((a > 90) & (a < 180)).any() and ((a > 180) & (a < 270)).any()
+        assert ((a > 270) & (a < 360)).any() and ((a > 0) & (a < 90)).any()
+
+
 def test_port_modules_import_no_jax(cuda):
     """On the card's machine: every module of the port, the mapping slice's
     included, imports without JAX or the JAX package."""

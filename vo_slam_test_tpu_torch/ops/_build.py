@@ -17,7 +17,7 @@ import shutil
 import subprocess
 import time
 from pathlib import Path
-from typing import Dict, Iterable, Sequence
+from typing import Dict, Iterable, Sequence, Tuple
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
@@ -45,19 +45,21 @@ def library_path(name: str, csrc: Path = CSRC) -> Path:
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
 
-def build(names: Iterable[str] = KERNEL_SOURCES, csrc: Path = CSRC) -> Dict[str, dict]:
-    """Compile the named sources of ``csrc`` that are not built yet, one
-    ``nvcc`` per source, all started together. Returns {name: {"seconds", "log"}} for the
-    ones compiled here; raises with the compiler's output on a failure."""
+def build(names: Iterable[str] = KERNEL_SOURCES, csrc: Path = CSRC,
+          extra: Iterable[Tuple[str, Path]] = ()) -> Dict[str, dict]:
+    """Compile the named sources of ``csrc``, and the (name, directory) pairs
+    of ``extra``, that are not built yet, one ``nvcc`` per source, all started
+    together. Returns {name: {"seconds", "log"}} for the ones compiled here;
+    raises with the compiler's output on a failure."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc = nvcc_path()
     procs = {}
-    for name in names:
-        out = library_path(name, csrc)
+    for name, src_dir in [(n, csrc) for n in names] + list(extra):
+        out = library_path(name, src_dir)
         if out.exists():
             continue
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(csrc / f"{name}.cu")]
+        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(src_dir / f"{name}.cu")]
         procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                                         text=True), tmp, out, time.perf_counter())
     results = {}

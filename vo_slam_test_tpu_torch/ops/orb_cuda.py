@@ -22,6 +22,11 @@ KERNEL = _build.Kernel(
 )
 
 
+# rows and columns from a keypoint's centre that the kernel's reads reach
+# (csrc/orb.cu: REACH); its offsets from the centre are 32-bit
+_REACH = 19
+
+
 @functools.lru_cache(maxsize=None)
 def _tables(device: torch.device) -> Tuple[torch.Tensor, torch.Tensor]:
     pat = torch.as_tensor(pattern.bit_pattern_31(), dtype=torch.int32).contiguous()
@@ -57,6 +62,9 @@ def orb_angle_desc(
         if t.dtype != torch.int32 or t.shape != (N,) or not t.is_contiguous() or t.device != dev:
             raise ValueError(f"orb_angle_desc: {name} must be a contiguous [N] int32 on {dev}")
     L, CH, CW = canvas_raw.shape
+    if _REACH * CW + _REACH >= 2**31:
+        raise ValueError(f"orb_angle_desc: canvas width {CW} too large for the kernel's "
+                         "32-bit offsets")
     pat, umax = _tables(dev)
     angle = torch.empty((N,), dtype=torch.float32, device=dev)
     desc = torch.empty((N, 8), dtype=torch.int32, device=dev)
