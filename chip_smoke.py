@@ -17,17 +17,23 @@
      (fuse into the neighbours) and the epipolar top-1 at 1024x1024
      (triangulation), each on an instance captured from the SlamSystem path
      and on a seeded instance with ties, empty rows and a stereo/mono mix.
-     Every output must be equal. IC angle + rBRIEF and the four top-2 sites
-     are also held bit for bit against their first designs
-     (``perf/orb_v1.cu``, ``perf/match_v1.cu``), which are timed beside them
-     (``v1_ms``);
+     Every output must be equal. IC angle + rBRIEF, the four top-2 sites and
+     the epipolar top-1 are also held bit for bit against their first designs
+     (``perf/orb_v1.cu``, ``perf/match_v1.cu``, ``perf/epi_v1.cu``), which
+     are timed beside them (``v1_ms``); the epipolar top-1 also on seeded edge
+     instances (``EPI_EDGE_CASES``: non-finite lines, den = 0, thr = inf,
+     pairs on the gate's boundary, no live row, one live row at each position
+     of a block, ties, odd N);
    - the local-BA kernels (LM accumulate + Schur reduction, robust cost,
      point back-substitution) on the first LM iteration of a captured local
      BA and on a seeded full-width instance (a stereo/mono mix, outliers past
      the Huber threshold, empty slots), within the tolerances of
      ``check_ba``, two launches bit-equal, the accumulate kernel's cost
      bit-equal to the cost kernel's and its window mask words equal to the
-     plain ``window_mask``;
+     plain ``window_mask``; the accumulate kernel is timed with the buffers
+     the solver carries over a BA call's iterations (its ``Wc`` zeroed once),
+     after two calls on them are checked bit for bit against the call on
+     fresh buffers, and once with a fresh ``Wc`` as earlier runs timed it;
 4. main path 1: the port's FusedTracker over the synthetic corner sequence
    (30 frames, 1000 features, 8 levels: the fr1 extraction settings, as
    ``run_slam --synthetic`` uses): 30/30 tracked frames, ATE < 1 cm, every
@@ -64,6 +70,10 @@ from pathlib import Path
 
 import numpy as np
 import torch
+
+from vo_slam_test_tpu_torch.ops.epi_instances import (EPI_EDGE_CASES, epi_edge_arrays,
+                                                      random_epi_arrays)
+from vo_slam_test_tpu_torch.ops.epi_instances import descriptors as _descriptors
 
 # published H100 SXM peaks (dense): HBM bandwidth and the f32 rate, an FMA
 # counted as two operations
@@ -199,15 +209,6 @@ def _tensors(arrs, device):
     return [torch.as_tensor(np.ascontiguousarray(x)).to(device) for x in arrs]
 
 
-def _descriptors(rng, M, N):
-    """Random source and target descriptors; every third target repeats its
-    neighbour's, so distances tie."""
-    a = rng.integers(0, 2**32, size=(M, 8), dtype=np.uint32)
-    b = rng.integers(0, 2**32, size=(N, 8), dtype=np.uint32)
-    b[1::3] = b[0::3][: len(b[1::3])]
-    return a.view(np.int32), b.view(np.int32)
-
-
 def random_top2_instance(rng, M, N, device):
     """Seeded instance with clustered windows, duplicated target descriptors
     (distance ties) and 16 rows with nothing allowed."""
@@ -262,31 +263,27 @@ def random_nb_instance(rng, B, M, N, device):
 
 
 def random_epi_instance(rng, M, N, device):
-    """Seeded epipolar instance: each source row's line passes near a target
-    keypoint, line scales span three decades, a quarter of the rows and
-    targets have unknown featVec groups, a mono/epipole-flag mix, ties and 16
-    empty rows -> the 13 arguments of ``masked_top1_epi``."""
-    a, b = _descriptors(rng, M, N)
-    cu = rng.uniform(0, 640, N).astype(np.float32)
-    cv = rng.uniform(0, 480, N).astype(np.float32)
-    c_oct = rng.integers(0, 8, N)
-    pick = rng.integers(0, N, M)
-    ang = rng.uniform(0, np.pi, M)
-    s = 10.0 ** rng.uniform(-3, 0, M)
-    lx, ly = (s * np.cos(ang)).astype(np.float32), (s * np.sin(ang)).astype(np.float32)
-    lz = (-(lx * cu[pick] + ly * cv[pick]) + s * rng.normal(0, 3.0, M)).astype(np.float32)
-    row_l = np.stack([lx, ly, lz], 1).astype(np.float32)
-    den = (lx * lx + ly * ly).astype(np.float32)
-    row_ok = rng.random(M) < 0.9
-    row_ok[:16] = False
-    return _tensors([
-        a, b, row_l, den,
-        np.where(rng.random(M) < 0.25, -1, rng.integers(0, 4, M)).astype(np.int32),
-        row_ok, rng.random(M) < 0.5, cu, cv,
-        (3.84 * (1.2 ** c_oct) ** 2).astype(np.float32),
-        np.where(rng.random(N) < 0.25, -1, rng.integers(0, 4, N)).astype(np.int32),
-        rng.random(N) < 0.95, rng.random(N) < 0.3,
-    ], device)
+    """``epi_instances.random_epi_arrays`` on ``device`` -> the 13 arguments
+    of ``masked_top1_epi``."""
+    return _tensors(random_epi_arrays(rng, M, N), device)
+
+
+def epi_edge_instance(kind, M, N, device):
+    """``epi_instances.epi_edge_arrays`` on ``device``."""
+    return _tensors(epi_edge_arrays(kind, M, N), device)
+
+
+def seeded_mapping_instances(device):
+    """The seeded instances of the mapping path's four search sites, drawn in
+    this order from one generator -> {site: (args, kwargs)}."""
+    rng = np.random.default_rng(1)
+    chi2_kw = lambda x: (x[:15], dict(col_isig2=x[15], chi2_gate=True))  # noqa: E731
+    return {
+        "top2_m4096": (random_top2_instance(rng, 4096, 1024, device), {}),
+        "top2_chi2": chi2_kw(random_chi2_instance(rng, 4096, 1024, device)),
+        "top2_nb": chi2_kw(random_nb_instance(rng, 16, 1024, 1024, device)),
+        "top1_epi": (random_epi_instance(rng, 1024, 1024, device), {}),
+    }
 
 
 def random_ba_instance(rng, WF, wk, O, L, n_live, device, slot=None):
@@ -472,15 +469,16 @@ def _count(ops: dict, n: int, into: dict) -> None:
 def top2_bound(args, col_isig2=None, chi2=False):
     """Bound of one top-2 launch from this run's inputs ([M,...] for one
     search, [B,M,...] for the batched form). Only live rows (row_ok) and
-    live columns (col_ok) cost more than their flag: the kernel skips the
-    rest. Bytes: row_ok and col_ok for every row and column; the descriptor
-    (32) and gate parameters (28) of each live row, a source set shared by
-    the neighbours (stride 0) once; the descriptor and parameters of each
-    live column (32 + 16, + 4 for col_isig2); the four outputs (16 per row).
-    Operations on each live pair (live rows x live columns of the same
-    search): the window, octave and stereo gate, 3 f32 and 7 ALU; in chi2
-    mode 6 f32 (+3 for a stereo column) and 6 ALU. Then TOP2_PAIR_OPS on each
-    allowed pair. -> (ms, bound_by, counts)."""
+    live columns (col_ok) cost more than their flag, and only pairs that
+    pass the gates need descriptors. Bytes: row_ok for every row and the four
+    outputs (16 per row); the gate parameters of each live row (28); in a
+    search with a live row, col_ok for every column and the gate parameters
+    of each live column (16, + 4 for col_isig2); the 32-byte descriptor of
+    each row and each column with an allowed pair, a source set shared by the
+    neighbours (stride 0) once. Operations on each live pair (live rows x
+    live columns of the same search): the window, octave and stereo gate, 3
+    f32 and 7 ALU; in chi2 mode 6 f32 (+3 for a stereo column) and 6 ALU.
+    Then TOP2_PAIR_OPS on each allowed pair. -> (ms, bound_by, counts)."""
     from vo_slam_test_tpu_torch.ops import match_pallas
 
     batched = args[0].dim() == 3
@@ -490,9 +488,16 @@ def top2_bound(args, col_isig2=None, chi2=False):
     row_ok, col_ok = x[9], x[14]
     live_r = row_ok.sum(1, dtype=torch.int64)
     live_c = col_ok.sum(1, dtype=torch.int64)
-    src_rows = int(row_ok.any(0).sum()) if batched and args[0].stride(0) == 0 else int(live_r.sum())
-    n_bytes = (B * (M + N) + src_rows * 32 + int(live_r.sum()) * 28
-               + int(live_c.sum()) * (48 + (4 if chi2 else 0)) + B * M * 16)
+    mask = torch.stack([match_pallas.allowed_mask(
+        *[t[b] for t in x[2:15]], None if isig is None else isig[b], chi2) for b in range(B)])
+    allowed = int(mask.sum())
+    rows_a = mask.any(2)
+    src_rows = (int(rows_a.any(0).sum()) if batched and args[0].stride(0) == 0
+                else int(rows_a.sum()))
+    cols_a = int(mask.any(1).sum())
+    col_bytes = (N + live_c * (16 + (4 if chi2 else 0))) * (live_r > 0)
+    n_bytes = (B * M * 17 + int(live_r.sum()) * 28 + int(col_bytes.sum())
+               + (src_rows + cols_a) * 32)
     live_pairs = int((live_r * live_c).sum())
     ops = {}
     if chi2:
@@ -501,47 +506,55 @@ def top2_bound(args, col_isig2=None, chi2=False):
         _count({"f32": 3}, int((live_r * stereo_c).sum()), ops)
     else:
         _count({"f32": 3, "alu": 7}, live_pairs, ops)
-    allowed = sum(int(match_pallas.allowed_mask(
-        *[t[b] for t in x[2:15]], None if isig is None else isig[b], chi2).sum())
-        for b in range(B))
     _count(TOP2_PAIR_OPS, allowed, ops)
     ms, by = bound_ms(n_bytes, ops)
     return ms, by, dict(live_rows=int(live_r.sum()), live_cols=int(live_c.sum()),
-                        live_pairs=live_pairs, allowed_pairs=allowed)
+                        live_pairs=live_pairs, allowed_pairs=allowed,
+                        rows_with_allowed=src_rows, cols_with_allowed=cols_a)
 
 
 def epi_bound(args):
-    """Bound of one epipolar top-1 launch from this run's inputs. Bytes:
-    row_ok and col_ok for every row and column; per live row the descriptor,
-    line, den, group and mono flag (53); per live column the descriptor, u,
-    v, thr, group and epipole flag (49); two outputs (8 per row). Operations
-    on each live pair: the line value and the two products, 6 f32; the
-    compare, the group escape and the mono/epipole rejection, 5 ALU. Then
-    TOP1_PAIR_OPS on each allowed pair. -> (ms, bound_by, counts)."""
+    """Bound of one epipolar top-1 launch from this run's inputs. Only live
+    rows (row_ok) and live columns (col_ok) cost more than their flag, and
+    only pairs that pass the gates need descriptors. Bytes: row_ok for every
+    row and the two outputs (8 per row); the line, den, group and mono flag
+    of each live row (21); with a live row in the launch, col_ok for every
+    column and the u, v, thr, group and epipole flag of each live column
+    (17); the 32-byte descriptor of each row and each column with an allowed
+    pair. Operations on each live pair: the line value and the two products,
+    6 f32; the compare, the group escape and the mono/epipole rejection, 5
+    ALU. Then TOP1_PAIR_OPS on each allowed pair. -> (ms, bound_by,
+    counts)."""
     from vo_slam_test_tpu_torch.ops import match_pallas
 
     M, N = args[0].shape[0], args[1].shape[0]
     live_r, live_c = int(args[5].sum()), int(args[11].sum())
-    allowed = int(match_pallas.epi_allowed_mask(*args[2:]).sum())
+    mask = match_pallas.epi_allowed_mask(*args[2:])
+    allowed = int(mask.sum())
+    rows_a, cols_a = int(mask.any(1).sum()), int(mask.any(0).sum())
     ops = {}
     _count({"f32": 6, "alu": 5}, live_r * live_c, ops)
     _count(TOP1_PAIR_OPS, allowed, ops)
-    ms, by = bound_ms(M + N + live_r * 53 + live_c * 49 + M * 8, ops)
+    n_bytes = (M * 9 + live_r * 21 + ((N + live_c * 17) if live_r else 0)
+               + (rows_a + cols_a) * 32)
+    ms, by = bound_ms(n_bytes, ops)
     return ms, by, dict(live_rows=live_r, live_cols=live_c, live_pairs=live_r * live_c,
-                        allowed_pairs=allowed)
+                        allowed_pairs=allowed, rows_with_allowed=rows_a,
+                        cols_with_allowed=cols_a)
 
 
 PERF_DIR = Path(__file__).resolve().parent / "perf"
-# the first designs of rows 2-5, built beside the current kernels and timed
+# the first designs of rows 2-6, built beside the current kernels and timed
 # with them (perf/kernel_split.py takes them apart)
-V1_SOURCES = (("orb_v1", PERF_DIR), ("match_v1", PERF_DIR))
+V1_SOURCES = (("orb_v1", PERF_DIR), ("match_v1", PERF_DIR), ("epi_v1", PERF_DIR))
 
 
 def v1_launchers(_build):
-    """The first designs of rows 2-5 (``perf/orb_v1.cu``, ``perf/match_v1.cu``)
-    -> (orb, top2): each maps a split mode (0: the whole kernel) to a callable
-    that takes the current C entry's arguments, so ``orb_call`` and
-    ``top2_call`` launch it as the wrappers launch the current kernel."""
+    """The first designs of rows 2-6 (``perf/orb_v1.cu``, ``perf/match_v1.cu``,
+    ``perf/epi_v1.cu``) -> (orb, top2, epi): each maps a split mode (0: the
+    whole kernel) to a callable that takes the current C entry's arguments,
+    so ``orb_call``, ``top2_call`` and ``epi_call`` launch it as the wrappers
+    launch the current kernel."""
     from vo_slam_test_tpu_torch.ops import match_cuda, orb_cuda
 
     def launcher(name, symbol, argtypes):
@@ -558,7 +571,8 @@ def v1_launchers(_build):
         return with_mode
 
     return (launcher("orb_v1", "orb_v1_launch", orb_cuda.KERNEL.argtypes),
-            launcher("match_v1", "masked_top2_v1_launch", match_cuda.KERNEL.argtypes))
+            launcher("match_v1", "masked_top2_v1_launch", match_cuda.KERNEL.argtypes),
+            launcher("epi_v1", "masked_top1_epi_v1_launch", match_cuda.KERNEL_EPI.argtypes))
 
 
 def orb_call(kernel, raw, blur, level, ys, xs):
@@ -591,6 +605,18 @@ def top2_call(kernel, args, kw):
     B, M, N = x[0].shape[0], x[0].shape[1], x[1].shape[1]
     return match_cuda._launch_top2("top2_call", kernel, x[0], x[1], x[2:10], x[10:15], isig,
                                    kw.get("chi2_gate", False), B, M, N)
+
+
+def epi_call(kernel, args):
+    """Launch ``kernel`` (``match_cuda.KERNEL_EPI``, a first-design launcher
+    or a build variant) on ``masked_top1_epi``'s 13 arguments (contiguous, on
+    the card, as the wrapper checks them) -> (best_i, best_d)."""
+    M, N = args[0].shape[0], args[1].shape[0]
+    assert all(t.is_cuda and t.is_contiguous() for t in args), "epi_call: contiguous CUDA tensors"
+    outs = [torch.empty((M,), dtype=torch.int32, device=args[0].device) for _ in range(2)]
+    kernel(*[t.data_ptr() for t in args], M, N, *[o.data_ptr() for o in outs],
+           torch.cuda.current_stream().cuda_stream)
+    return tuple(outs)
 
 
 def bits_equal(a, b) -> bool:
@@ -925,7 +951,7 @@ def main() -> int:
     # a launch that does nothing, and two in a row (each waits for the one
     # before it): what a kernel of one or two launches costs before any work
     print(json.dumps({"launch_floor_ms": floor}))
-    orb_v1, top2_v1 = v1_launchers(_build)
+    orb_v1, top2_v1, epi_v1 = v1_launchers(_build)
     all_kernels = {"fast": fast_cuda.KERNEL, "orb": orb_cuda.KERNEL, "top2": match_cuda.KERNEL,
                    "top2_m4096": match_cuda.KERNEL_LOCAL, "top2_chi2": match_cuda.KERNEL_CHI2,
                    "top2_nb": match_cuda.KERNEL_NB, "top1_epi": match_cuda.KERNEL_EPI,
@@ -1053,15 +1079,7 @@ def main() -> int:
     captured = capture_instances(match_cuda, ba_cuda, system, room_cfg, room_frames[:13])
     print(f"captured the slice path's kernel instances from frames 0-12 in "
           f"{time.perf_counter() - t0:.1f} s")
-    rng = np.random.default_rng(1)
-    seeded = {
-        "top2_m4096": (random_top2_instance(rng, 4096, 1024, dev), {}),
-        "top2_chi2": (lambda x: (x[:15], dict(col_isig2=x[15], chi2_gate=True)))(
-            random_chi2_instance(rng, 4096, 1024, dev)),
-        "top2_nb": (lambda x: (x[:15], dict(col_isig2=x[15], chi2_gate=True)))(
-            random_nb_instance(rng, 16, 1024, 1024, dev)),
-        "top1_epi": (random_epi_instance(rng, 1024, 1024, dev), {}),
-    }
+    seeded = seeded_mapping_instances(dev)
     specs = {
         "top2_m4096": ("masked_top2_m4096", match_cuda.masked_top2, match_pallas.masked_top2_plain,
                        "vo_slam_test_tpu/ops/match_pallas.py:121", "match.cu", TOP2_OUTS),
@@ -1080,7 +1098,10 @@ def main() -> int:
             got = kfn(*args, **kw)
             want = pfn(*args, **kw)
             err = max(err, check_equal(f"{kname} on the {label} instance", got, want, outs))
-            if key != "top1_epi":
+            if key == "top1_epi":
+                check_equal(f"{kname} on the {label} instance against its first design "
+                            f"(perf/epi_v1.cu)", got, epi_call(epi_v1(0), args), outs)
+            else:
                 v1 = top2_call(top2_v1(0), args, kw)
                 check_equal(f"{kname} on the {label} instance against its first design "
                             f"(perf/match_v1.cu)", got,
@@ -1099,12 +1120,24 @@ def main() -> int:
             ms=time_graph_ms(lambda: kfn(*args, **kw)),
             plain_ms=time_eager_ms(lambda: pfn(*args, **kw)),
             bound_ms=kb, bound_by=kby, library_ms=None, counted=counted)
-        if key != "top1_epi":
-            kernels[key]["v1_ms"] = time_graph_ms(lambda: top2_call(top2_v1(0), args, kw))
-        v1_note = (f" (first design {kernels[key]['v1_ms']:.4f} ms, equal)"
-                   if "v1_ms" in kernels[key] else "")
-        print(f"  captured: counted {counted}; kernel {kernels[key]['ms']:.4f} ms{v1_note}, "
-              f"plain {kernels[key]['plain_ms']:.4f} ms, bound {kb:.6f} ms ({kby})")
+        kernels[key]["v1_ms"] = time_graph_ms(
+            (lambda: epi_call(epi_v1(0), args)) if key == "top1_epi"
+            else (lambda: top2_call(top2_v1(0), args, kw)))
+        print(f"  captured: counted {counted}; kernel {kernels[key]['ms']:.4f} ms (first design "
+              f"{kernels[key]['v1_ms']:.4f} ms, equal), plain {kernels[key]['plain_ms']:.4f} ms, "
+              f"bound {kb:.6f} ms ({kby})")
+
+    # -- phase 7b: the epipolar search's edge instances ---------------------------
+    for kind, M, N in EPI_EDGE_CASES:
+        args = epi_edge_instance(kind, M, N, dev)
+        got = match_cuda.masked_top1_epi(*args)
+        check_equal(f"masked_top1_epi on the {kind} {M}x{N} edge instance", got,
+                    match_pallas.masked_top1_epi_plain(*args), ("best_i", "best_d"))
+        check_equal(f"masked_top1_epi on the {kind} {M}x{N} edge instance against its first "
+                    f"design (perf/epi_v1.cu)", got, epi_call(epi_v1(0), args),
+                    ("best_i", "best_d"))
+    print(f"phase masked_top1_epi edge instances {[f'{k} {m}x{n}' for k, m, n in EPI_EDGE_CASES]}: "
+          f"both outputs equal to the plain version and to the first design on each")
 
     # -- phases 8-10: the local-BA kernels ------------------------------------
     # the captured instance: the first LM iteration of the frames 0-12 event
@@ -1171,13 +1204,37 @@ def main() -> int:
         inst, sub = ba_insts["captured"]
         kb, kby, counted = ba_bound(kind, inst)
         O, L = inst["slot"].shape
+        timed, note = (lambda: kfn(inst, sub)), ""
+        if key == "ba_acc":
+            # as the solver runs it: Wc zeroed once per BA call and carried, with
+            # the scratch and the mask words, over the call's LM iterations
+            wc = torch.zeros((inst["wk"], 18, L), dtype=torch.float32, device=dev)
+            scratch, mask = ba_cuda.ba_scratch(inst["wk"], L, dev), ba_cuda.ba_mask(L, dev)
+            timed = lambda: ba_cuda.ba_accumulate(  # noqa: E731
+                *acc_args(inst), n_pts=inst["n_pts"], wc=wc, scratch=scratch, mask=mask)
+            # what is timed is what was checked: the first and a later call on
+            # the carried buffers give the fresh-buffer call's bits
+            fresh = kfn(inst, sub)
+            n = int(inst["n_pts"])
+            want = ba_pallas.window_mask(inst["slot"][:, :n], inst["povar"][:, :n], inst["wk"])
+            for rep in ("first", "second"):
+                carried = timed()
+                if not (all(bits_equal(a, b) for a, b in zip(carried, fresh))
+                        and torch.equal(mask[:n], want) and bool((mask[n:] == 0).all())):
+                    raise AssertionError(f"{kname} on the captured instance: the {rep} call on "
+                                         f"the carried Wc, scratch and mask differs from the "
+                                         f"call on fresh buffers")
+            print(f"  {kname} on the carried buffers: two calls bit-equal to the fresh-buffer "
+                  f"call, mask words equal to the plain window_mask")
+            note = (f" with the solver's carried Wc (with a fresh Wc zeroed in every call: "
+                    f"{time_graph_ms(lambda: kfn(inst, sub)):.4f} ms)")
         kernels[key] = dict(
             name=kname, shape=f"WF={inst['posesT'].shape[1]} wk={inst['wk']} O={O} L={L}",
             route="cuda", source="vo_slam_test_tpu_torch/csrc/ba.cu", replaces=replaces,
-            max_abs_err=err, ms=time_graph_ms(lambda: kfn(inst, sub)),
+            max_abs_err=err, ms=time_graph_ms(timed),
             plain_ms=time_eager_ms(lambda: pfn(inst, sub)),
             bound_ms=kb, bound_by=kby, library_ms=None, counted=counted)
-        print(f"  captured: kernel {kernels[key]['ms']:.4f} ms, plain "
+        print(f"  captured: kernel {kernels[key]['ms']:.4f} ms{note}, plain "
               f"{kernels[key]['plain_ms']:.4f} ms, bound {kb:.6f} ms ({kby})")
         # device time of each launch inside the call (torch.profiler kernel events)
         print(f"  device ms per call by kernel: {launch_times_ms(lambda: kfn(inst, sub))}")

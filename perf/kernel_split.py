@@ -1,11 +1,11 @@
 #!/usr/bin/env python3
 """Times the parts of earlier designs of the BA kernels, the FAST score, the
-masked top-2 and the IC angle + rBRIEF beside the current kernels, on the same
-inputs, in one run on the card.
+masked top-2, the IC angle + rBRIEF and the epipolar top-1 beside the current
+kernels, on the same inputs, in one run on the card.
 
     python3 perf/kernel_split.py                # from the repository root: every phase
-    python3 perf/kernel_split.py ba_tail fast   # named phases: dpx fast ba ba_tail top2 orb
-    python3 perf/kernel_split.py top2 orb --v1-only   # the first designs' parts alone
+    python3 perf/kernel_split.py ba_tail fast   # named phases: dpx fast ba ba_tail top2 orb epi
+    python3 perf/kernel_split.py epi --v1-only  # the first designs' parts alone
 
 Prints, after the card's name and power limit:
 
@@ -52,10 +52,23 @@ Prints, after the card's name and power limit:
   (``perf/orb_v1.cu``) whole, without its disc loop, without thread 0's tail
   and without the pattern samples; then the current kernel beside it in turns
   and built with other counts of keypoints per block (``ORB_KPB``), angle
-  and descriptor bits checked against the first design's.
+  and descriptor bits checked against the first design's;
+- the epipolar top-1 (``epi``): the live rows, columns and allowed pairs of
+  each of main path 2's launches (``chip_smoke.py``'s SlamSystem run over 40
+  frames, recorded here) and the distribution of their live rows; on
+  ``chip_smoke.py``'s captured instance and its seeded one, the blocks with
+  no live row (of 8 and 16 rows) and the first design (``perf/epi_v1.cu``)
+  whole, with its staging alone and with every row dead; then the current
+  kernel beside it in turns, with every row dead, and built from edited
+  copies of ``csrc/epi.cu`` (``EPI_VARIANTS``: other rows and threads per
+  block, and the gate without the descriptor round); both designs on each of
+  main path 2's launches, in turns, summed; every output of the exact ones,
+  and of the current kernel and the plain version on
+  ``epi_instances.EPI_EDGE_CASES``, checked bit for bit against the first
+  design's.
 
-``--v1-only`` leaves out the current kernels of ``top2`` and ``orb``. Exits 1
-if a bit differs.
+``--v1-only`` leaves out the current kernels of ``top2``, ``orb`` and ``epi``.
+Exits 1 if a bit differs.
 
 All times are CUDA-graph replays (``chip_smoke.time_graph_ms``) unless a
 line says otherwise. Exits 1 without a CUDA device.
@@ -76,6 +89,7 @@ ROOT = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(ROOT))
 
 import chip_smoke  # noqa: E402
+from vo_slam_test_tpu_torch.ops.epi_instances import EPI_EDGE_CASES  # noqa: E402
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 
@@ -171,21 +185,28 @@ def fast_phase(_build, dev):
           f"{chip_smoke.time_graph_ms(lambda: fast_cuda.fast_score(zeros)):.4f} ms")
 
 
-def capture():
-    """The instances of ``chip_smoke.py``'s capture run over frames 0-12 of
-    the room orbit (the BA with the most live points among them)."""
+def room_orbit(n_frames):
+    """``chip_smoke.py``'s main path 2 inputs: its config and the first
+    ``n_frames`` frames of the room orbit."""
     from vo_slam_test_tpu_torch.config import SlamConfig
     from vo_slam_test_tpu_torch.datasets import SyntheticRGBD
     from vo_slam_test_tpu_torch.datasets.synthetic import room_orbit_trajectory
-    from vo_slam_test_tpu_torch.ops import ba_cuda, match_cuda
-    from vo_slam_test_tpu_torch.pipeline import system
 
     room = SyntheticRGBD(trajectory=room_orbit_trajectory(240, loops=1.5), scene="room", seed=7)
     cfg = SlamConfig(camera_fx=room.fx, camera_fy=room.fy, camera_cx=room.cx, camera_cy=room.cy,
                      camera_k1=0, camera_k2=0, camera_p1=0, camera_p2=0, camera_k3=0,
                      camera_fps=30)
-    return chip_smoke.capture_instances(match_cuda, ba_cuda, system, cfg,
-                                        [room[i] for i in range(13)])
+    return cfg, [room[i] for i in range(n_frames)]
+
+
+def capture():
+    """The instances of ``chip_smoke.py``'s capture run over frames 0-12 of
+    the room orbit (the BA with the most live points among them)."""
+    from vo_slam_test_tpu_torch.ops import ba_cuda, match_cuda
+    from vo_slam_test_tpu_torch.pipeline import system
+
+    cfg, frames = room_orbit(13)
+    return chip_smoke.capture_instances(match_cuda, ba_cuda, system, cfg, frames)
 
 
 def ba_phase(_build, dev, captured):
@@ -505,11 +526,7 @@ def top2_instances(dev, frame, captured):
     """[(label, args, kw)]: the four call sites as ``chip_smoke.py`` captures
     them (the frame pair as its phase 3 builds it), then its seeded instances
     (the same seeds, in the same order)."""
-    rng = np.random.default_rng(1)
-    m4096 = chip_smoke.random_top2_instance(rng, 4096, 1024, dev)
-    chi2 = chip_smoke.random_chi2_instance(rng, 4096, 1024, dev)
-    nb = chip_smoke.random_nb_instance(rng, 16, 1024, 1024, dev)
-    chi2_kw = lambda x: dict(col_isig2=x[15], chi2_gate=True)  # noqa: E731
+    seeded = chip_smoke.seeded_mapping_instances(dev)
     return [
         ("frame pair 1024x1024 (row 3)", frame["top2_args"], {}),
         ("captured local map 4096x1024 (row 3)", *captured["top2_m4096"]),
@@ -517,9 +534,9 @@ def top2_instances(dev, frame, captured):
         ("captured batched 16x1024x1024 (row 5)", *captured["top2_nb"]),
         ("seeded 1024x1024", chip_smoke.random_top2_instance(np.random.default_rng(0), 1024, 1024,
                                                              dev), {}),
-        ("seeded 4096x1024", m4096, {}),
-        ("seeded chi2 4096x1024", chi2[:15], chi2_kw(chi2)),
-        ("seeded batched 16x1024x1024", nb[:15], chi2_kw(nb)),
+        ("seeded 4096x1024", *seeded["top2_m4096"]),
+        ("seeded chi2 4096x1024", *seeded["top2_chi2"]),
+        ("seeded batched 16x1024x1024", *seeded["top2_nb"]),
     ]
 
 
@@ -559,7 +576,7 @@ def top2_phase(_build, dev, captured, v1_only) -> list:
     """-> the labels of the outputs that are not bit-equal (empty: all are)."""
     from vo_slam_test_tpu_torch.ops import match_cuda
 
-    _, top2_v1 = chip_smoke.v1_launchers(_build)
+    _, top2_v1, _ = chip_smoke.v1_launchers(_build)
     time = chip_smoke.time_graph_ms
     shapes = {} if v1_only else top2_variants(_build)
     differ = []
@@ -611,7 +628,7 @@ def orb_phase(_build, dev, v1_only) -> list:
     """-> the labels of the outputs that are not bit-equal (empty: all are)."""
     from vo_slam_test_tpu_torch.ops import orb_cuda
 
-    orb_v1, _ = chip_smoke.v1_launchers(_build)
+    orb_v1, _, _ = chip_smoke.v1_launchers(_build)
     time = chip_smoke.time_graph_ms
     frame = corner_frames(dev)
     pyr, sel = frame["pyr"], frame["sel"]
@@ -645,7 +662,150 @@ def orb_phase(_build, dev, v1_only) -> list:
     return differ
 
 
-PHASES = ("dpx", "fast", "ba", "ba_tail", "top2", "orb")
+# epi.cu built with other shapes and edits: {label: ({#define: value}, whether the
+# descriptor stage is cut (EPI_NO_DESC), whether the outputs stay the function's)};
+# the first is the source as it stands
+EPI_DESC_STAGE = ("    // the descriptors of the columns some row allows", "  __syncthreads();\n")
+EPI_NO_DESC = """#pragma unroll
+    for (int i = 0; i < PER_THREAD; ++i)  // no descriptor round: the gate's keys alone
+      if (am[i]) atomicMin(&skey[__ffs(am[i]) - 1], (unsigned)(c0 + t + i * THREADS));
+  }
+
+"""
+EPI_VARIANTS = {
+    "as it stands": ({}, False, True),
+    "8 rows, 256 threads": ({"ROWS": 8, "THREADS": 256, "PER_THREAD": 4}, False, True),
+    "32 rows": ({"ROWS": 32}, False, True),
+    "256 threads": ({"THREADS": 256, "PER_THREAD": 4}, False, True),
+    "no descriptor round": ({}, True, False),
+}
+
+
+def epi_variants(_build):
+    """``csrc/epi.cu`` built as each of EPI_VARIANTS -> {label: launch}."""
+    from vo_slam_test_tpu_torch.ops import match_cuda
+
+    src = (_build.CSRC / "epi.cu").read_text()
+    start, end = src.index(EPI_DESC_STAGE[0]), src.index(EPI_DESC_STAGE[1])
+    no_desc = [(src[start:end], EPI_NO_DESC)]
+    names = {label: f"epi_variant_{i}" for i, label in enumerate(EPI_VARIANTS)}
+    libs = source_variants(_build, {names[label]: edited(src, d, no_desc if cut else [])
+                                    for label, (d, cut, _) in EPI_VARIANTS.items()})
+    return {label: bind(libs[names[label]], "masked_top1_epi_launch",
+                        match_cuda.KERNEL_EPI.argtypes) for label in EPI_VARIANTS}
+
+
+def main_path_epi_calls(cfg, frames):
+    """The arguments of every epipolar search of one SlamSystem run (main
+    path 2: local BA on every keyframe event) over ``frames``."""
+    from vo_slam_test_tpu_torch.ops import match_cuda
+    from vo_slam_test_tpu_torch.pipeline import system
+
+    calls = []
+    orig = match_cuda.masked_top1_epi
+
+    def recorded(*args):
+        calls.append([a.clone() for a in args])
+        return orig(*args)
+
+    match_cuda.masked_top1_epi = recorded
+    try:
+        s = system.SlamSystem(cfg)
+        for f in frames:
+            s.track(*f)
+        torch.cuda.synchronize()
+    finally:
+        match_cuda.masked_top1_epi = orig
+    return calls
+
+
+def epi_phase(_build, dev, captured, v1_only) -> list:
+    """-> the labels of the outputs that are not bit-equal (empty: all are)."""
+    from vo_slam_test_tpu_torch.ops import match_cuda, match_pallas
+
+    _, _, epi_v1 = chip_smoke.v1_launchers(_build)
+    time = chip_smoke.time_graph_ms
+    variants = {} if v1_only else epi_variants(_build)
+    differ = []
+
+    def check(label, got, want):
+        if not chip_smoke.bits_equal(torch.cat(got), torch.cat(want)):
+            differ.append(label)
+            print(f"  {label}: NOT bit-equal to v1")
+
+    cfg, frames = room_orbit(chip_smoke.SLICE_FRAMES)
+    calls = main_path_epi_calls(cfg, frames)
+    print(f"  main path 2 ({len(frames)} frames): {len(calls)} launches; per launch (live rows, "
+          f"live columns, allowed pairs, rows with an allowed pair, 16-row blocks with no live "
+          f"row): " + ", ".join(
+              f"({c['live_rows']}, {c['live_cols']}, {c['allowed_pairs']}, "
+              f"{int((match_pallas.masked_top1_epi_plain(*a)[1] < match_pallas.BIG).sum())}, "
+              f"{dead_block_share(a[5], 16)[0]})"
+              for a, c in ((a, chip_smoke.epi_bound(a)[2]) for a in calls)))
+    live = sorted(int(a[5].sum()) for a in calls)
+    print(f"  main path 2: live rows per launch, sorted {live}; median {live[len(live) // 2]}, "
+          f"sum {sum(live)}")
+
+    seeded = chip_smoke.seeded_mapping_instances(dev)["top1_epi"][0]
+    for label, args in (("captured main path 2 1024x1024 (row 6)", captured["top1_epi"][0]),
+                        ("seeded 1024x1024", seeded)):
+        _, _, counted = chip_smoke.epi_bound(args)
+        dead8, dead16 = dead_block_share(args[5], 8), dead_block_share(args[5], 16)
+        dead = list(args)
+        dead[5] = torch.zeros_like(args[5])
+        v1 = lambda mode, a=args: chip_smoke.epi_call(epi_v1(mode), a)  # noqa: E731
+        print(f"  {label}: {counted}; blocks with no live row: {dead8[0]} of {dead8[1]} of 8 "
+              f"rows (v1), {dead16[0]} of {dead16[1]} of 16 rows")
+        print(f"  {label}: v1 whole {time(lambda: v1(0)):.4f} ms, staging alone (no lane loop) "
+              f"{time(lambda: v1(1)):.4f} ms, every row dead {time(lambda: v1(0, dead)):.4f} ms")
+        if v1_only:
+            continue
+        cur = lambda a=args: match_cuda.masked_top1_epi(*a)  # noqa: E731
+        check(f"{label}: current", cur(), v1(0))
+        check(f"{label}: current, every row dead", cur(dead), v1(0, dead))
+        for vname, fn in variants.items():
+            if EPI_VARIANTS[vname][2]:
+                check(f"{label}: variant {vname}", chip_smoke.epi_call(fn, args), v1(0))
+        turns = [f"{name} {time(fn):.4f}" for name, fn in
+                 (("v1", lambda: v1(0)), ("current", cur), ("current", cur), ("v1", lambda: v1(0)))]
+        print(f"  {label}: ms in turns: " + ", ".join(turns) + f"; current with every row dead "
+              f"{time(lambda: cur(dead)):.4f}")
+        print(f"  {label}: current built as each variant, ms: " + ", ".join(
+            f"{name} {time(lambda fn=fn: chip_smoke.epi_call(fn, args)):.4f}"
+            for name, fn in variants.items()))
+
+    # every launch of main path 2, each design timed on it in turns: row 6's
+    # device time over the run, and its loss against the bounds
+    bounds = [chip_smoke.epi_bound(a)[0] for a in calls]
+    v1_ms, cur_ms = [], []
+    for a in calls:
+        v1 = lambda a=a: chip_smoke.epi_call(epi_v1(0), a)  # noqa: E731
+        if v1_only:
+            v1_ms.append(time(v1))
+            continue
+        check(f"main path 2 launch {len(cur_ms)}: current", match_cuda.masked_top1_epi(*a), v1())
+        cur = lambda a=a: match_cuda.masked_top1_epi(*a)  # noqa: E731
+        t = [time(v1), time(cur), time(cur), time(v1)]
+        v1_ms.append((t[0] + t[3]) / 2)
+        cur_ms.append((t[1] + t[2]) / 2)
+    for name, ms in (("v1", v1_ms), ("current", cur_ms)):
+        if ms:
+            print(f"  main path 2, {name}: {sum(ms):.4f} ms over the {len(ms)} launches (per "
+                  f"launch {[round(x, 4) for x in ms]}); lost against the bounds "
+                  f"{sum(m - b for m, b in zip(ms, bounds)):.4f} ms")
+    if not v1_only:
+        for kind, M, N in EPI_EDGE_CASES:
+            args = chip_smoke.epi_edge_instance(kind, M, N, dev)
+            got = match_cuda.masked_top1_epi(*args)
+            check(f"edge {kind} {M}x{N}: current", got, chip_smoke.epi_call(epi_v1(0), args))
+            check(f"edge {kind} {M}x{N}: plain", match_pallas.masked_top1_epi_plain(*args),
+                  chip_smoke.epi_call(epi_v1(0), args))
+        print(f"  edge instances {len(EPI_EDGE_CASES)}: current and plain checked "
+              f"against v1")
+    return differ
+
+
+PHASES = ("dpx", "fast", "ba", "ba_tail", "top2", "orb", "epi")
 
 
 def main(argv) -> int:
@@ -664,7 +824,7 @@ def main(argv) -> int:
                          capture_output=True, text=True, check=True).stdout.strip())
     built = _build.build(extra=[(n, ROOT / "perf") for n in (
         "dpx_bench", "fast_v1", "ba_v1", "ba_tail_v1", "ba_backsub_variants", "match_v1",
-        "orb_v1")])
+        "orb_v1", "epi_v1")])
     for k, v in built.items():
         for line in v["log"].splitlines():
             if "registers" in line or "spill" in line or "Compiling" in line:
@@ -678,7 +838,7 @@ def main(argv) -> int:
     if "fast" in phases:
         fast_phase(_build, dev)
     differ = []
-    if {"ba", "ba_tail", "top2"} & set(phases):
+    if {"ba", "ba_tail", "top2", "epi"} & set(phases):
         captured = capture()
         if "ba" in phases:
             ba_phase(_build, dev, captured)
@@ -688,6 +848,9 @@ def main(argv) -> int:
         if "top2" in phases:
             print("masked top-2 (rows 3-5), the first design (v1) beside the current kernel:")
             differ += top2_phase(_build, dev, captured, v1_only)
+        if "epi" in phases:
+            print("epipolar top-1 (row 6), the first design (v1) beside the current kernel:")
+            differ += epi_phase(_build, dev, captured, v1_only)
     if "orb" in phases:
         print("IC angle + rBRIEF (row 2), the first design (v1) beside the current kernel:")
         differ += orb_phase(_build, dev, v1_only)

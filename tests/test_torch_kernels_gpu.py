@@ -20,12 +20,14 @@ from vo_slam_test_tpu_torch.frontend.extractor import select_keypoints
 from vo_slam_test_tpu_torch.ops import (ba_cuda, ba_pallas, brief, fast, fast_cuda, match_cuda,
                                         match_pallas, orb_cuda)
 from vo_slam_test_tpu_torch.ops import orientation
+from vo_slam_test_tpu_torch.ops.epi_instances import EPI_EDGE_CASES
 from vo_slam_test_tpu_torch.ops.pyramid import PyramidSpec, build_pyramid, interior
 from vo_slam_test_tpu_torch.datasets.synthetic import room_orbit_trajectory
 from vo_slam_test_tpu_torch.pipeline.system import SlamSystem
 from vo_slam_test_tpu_torch.pipeline.tracking import FusedTracker
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+import chip_smoke  # noqa: E402
 from chip_smoke import (check_ba, random_ba_instance, random_chi2_instance,  # noqa: E402
                         random_epi_instance, random_nb_instance, random_top2_instance)
 
@@ -139,6 +141,32 @@ def test_epi_kernel_matches_plain(cuda, M, N):
     assert match_cuda.KERNEL_EPI.launches == before + 1
     _equal(got, match_pallas.masked_top1_epi_plain(*x))
     assert (got[1][:16] == match_pallas.BIG).all() and (got[0][:16] == 0).all()
+
+
+@pytest.fixture(scope="module")
+def epi_v1(cuda):
+    """The first design of the epipolar top-1 (``perf/epi_v1.cu``), built
+    beside the current kernel."""
+    from vo_slam_test_tpu_torch.ops import _build
+
+    _build.build(extra=chip_smoke.V1_SOURCES)
+    return chip_smoke.v1_launchers(_build)[2](0)
+
+
+@pytest.mark.parametrize("kind,M,N", EPI_EDGE_CASES)
+def test_epi_kernel_edges(cuda, epi_v1, kind, M, N):
+    """NaN/inf lines, den = 0, thr = inf, pairs on the num^2 = den * thr
+    boundary (some whose line value a contracted FMA would move), no live
+    row, one live row at each position of a 16-row block, ties and odd N:
+    the kernel equals the plain version and the first design bit for bit."""
+    x = chip_smoke.epi_edge_instance(kind, M, N, cuda)
+    before = match_cuda.KERNEL_EPI.launches
+    got = match_cuda.masked_top1_epi(*x)
+    assert match_cuda.KERNEL_EPI.launches == before + 1
+    _equal(got, match_pallas.masked_top1_epi_plain(*x))
+    _equal(got, chip_smoke.epi_call(epi_v1, x))
+    if kind == "all_dead":
+        assert (got[1] == match_pallas.BIG).all() and (got[0] == 0).all()
 
 
 def test_slam_system_runs_on_card(cuda):

@@ -15,7 +15,7 @@ import pytest
 import torch
 
 from vo_slam_test_tpu.ops import match_pallas as jmp
-from vo_slam_test_tpu_torch.ops import match_cuda, match_pallas
+from vo_slam_test_tpu_torch.ops import epi_instances, match_cuda, match_pallas
 
 NAMES = ("best_i", "best_d", "second_i", "second_d")
 
@@ -193,6 +193,56 @@ def test_epi_ties_go_to_lowest_column():
     assert_equal(got, want, "xla")
     first_ok = int(np.argmax(args[11]))
     assert (got[0][args[5]] == first_ok).all()
+
+
+# epi_instances.EPI_EDGE_CASES' kinds at sizes up to 256 (N = 1, 33 and 177 are
+# not multiples of a warp or of a block)
+EPI_EDGE_CPU = [("nonfinite", 256, 128), ("den_zero", 128, 128), ("thr_inf", 128, 128),
+                ("boundary", 256, 256), ("all_dead", 128, 128), ("block_positions", 256, 128),
+                ("ties", 128, 128), ("random", 200, 1), ("random", 200, 33), ("random", 250, 177),
+                ("boundary", 250, 177)]
+
+
+def _pad_rows_cols(args, M, N):
+    """The Pallas kernel takes M and N in multiples of 128: dead rows
+    (row_ok False) and columns that no pair may use (col_ok False) fill the
+    rest, which leaves the first M rows' answers as they are."""
+    Mp, Np = -(-M // 128) * 128, -(-N // 128) * 128
+    return [np.pad(x, [(0, (Mp if k < 7 else Np) - x.shape[0])] + [(0, 0)] * (x.ndim - 1))
+            for k, x in enumerate(args)]
+
+
+@pytest.mark.parametrize("kind,M,N", EPI_EDGE_CPU)
+def test_epi_plain_matches_jax_on_edges(kind, M, N):
+    """The epipolar search's edge instances (``epi_instances.epi_edge_arrays``):
+    the plain version equals ``masked_top1_epi_xla`` on every row and
+    ``masked_top1_epi_pallas`` in interpret mode on every row but one set.
+    On the CPU the interpret path contracts the line value into an FMA, so on
+    the boundary rows chosen to be moved by a contraction
+    (``epi_instances.epi_contraction_rows``) it may let the pair through (the
+    pair's distance is 0, so it wins): there it gives the plain answer or
+    that pair, nothing else."""
+    x = epi_instances.epi_edge_arrays(kind, M, N)
+    got = [g.numpy() for g in match_pallas.masked_top1_epi_plain(*to_port(x))]
+    as_u32 = lambda a: [v.view(np.uint32) if k < 2 else v for k, v in enumerate(a)]  # noqa: E731
+    assert_equal([torch.as_tensor(g) for g in got], jmp.masked_top1_epi_xla(*to_jax(as_u32(x))),
+                 "xla")
+    pal = [np.asarray(p)[:M] for p in jmp.masked_top1_epi_pallas(
+        *to_jax(as_u32(_pad_rows_cols(x, M, N))), interpret=True)]
+    fused = epi_instances.epi_contraction_rows(M, N) if kind == "boundary" else np.array([], int)
+    rest = np.setdiff1d(np.arange(M), fused)
+    for p, g, name in zip(pal, got, NAMES):
+        np.testing.assert_array_equal(p[rest], g[rest], err_msg=f"pallas: {name}")
+    same = (pal[0][fused] == got[0][fused]) & (pal[1][fused] == got[1][fused])
+    assert (same | ((pal[0][fused] == fused) & (pal[1][fused] == 0))).all()
+    if kind == "boundary":  # the instance holds what it claims: only the inside pairs pass
+        i = np.arange(min(M, N))
+        wins = (got[0][i] == i) & (got[1][i] == 0)
+        assert (wins == (i % 3 == 1)).all()
+    if kind == "all_dead":
+        assert (got[1] == match_pallas.BIG).all() and (got[0] == 0).all()
+    if kind == "block_positions":
+        assert (got[1][np.setdiff1d(np.arange(M), 17 * np.arange(16))] == match_pallas.BIG).all()
 
 
 def test_wrappers_refuse_other_devices():
