@@ -49,7 +49,23 @@
 6. main path 3: the same frames through ``SlamSystem(chunk=8)``: the same
    checks, with local BA skipped (and no BA launch) on the events a later
    keyframe of the same chunk overtakes;
-7. prints one ``{"kernels": [...]}`` line and, last, the ``{"ok": true, ...}``
+7. main path 4, the kidnap: ``SlamSystem(vocabulary=...)`` (loop closing off;
+   it is not ported) over the reference's relocalization scenario at 640x480
+   (tests/test_reloc.py: frames 0-7 of SyntheticRGBD(n_frames=12, seed=31,
+   motion_scale=0.3), three black frames, frames 2-5 again; MapCaps(max_kf=32,
+   max_pt=8192)) with the scene vocabulary build_vocabulary(k=8, levels=3,
+   seed=2) of the port's extract_fused descriptors of frames 0-2, in three
+   variants counted together: default, depth-poor return frames (EPnP) and
+   ``reloc_parity=True``. Each must track frames 0-7, lose 8-10, first
+   relocalize at frame >= 11 with the recovered pose within 5 cm of the same
+   view's phase-1 estimate; parity mode relocalizes on the default's frame; a
+   second default run gives identical maps; every kernel is launched. Every
+   epipolar search of the path (live featVec groups) and FAST and the top-2
+   on the black frames are held bit for bit against their plain versions.
+   Then transform, bow_vector and scores_vs_keyframes at ORBvoc scale
+   (synth_vocabulary(k=10, levels=6), 10^6 words) on one frame's 1000
+   descriptors against the CPU's results;
+8. prints one ``{"kernels": [...]}`` line and, last, the ``{"ok": true, ...}``
    line. Every bound is computed from this run's inputs and counts the work
    the function needs, whatever computes it; a kernel timed under its bound
    fails the run (the bound is then wrong). No plain version may see a CUDA
@@ -858,6 +874,155 @@ def run_chunked(system, cfg, frames, chunk):
     return s, chunk_ms
 
 
+def kidnap_sequence():
+    """Main path 4's sequence and config: the reference's kidnap scenario
+    (tests/test_reloc.py:38-57) at 640x480, 1000 features, 8 levels."""
+    from vo_slam_test_tpu_torch.config import SlamConfig
+    from vo_slam_test_tpu_torch.datasets import SyntheticRGBD
+
+    seq = SyntheticRGBD(n_frames=12, seed=31, motion_scale=0.3)
+    cfg = SlamConfig(camera_fx=seq.fx, camera_fy=seq.fy, camera_cx=seq.cx, camera_cy=seq.cy,
+                     camera_k1=0, camera_k2=0, camera_p1=0, camera_p2=0, camera_k3=0)
+    return seq, cfg
+
+
+def kidnap_frames(seq, depth_poor: bool):
+    """Frames 0-7 tracked, three black frames (sensor dropout), then frames
+    2-5 again (a return to a mapped view), without depth when ``depth_poor``
+    -> 15 (gray, depth, timestamp)."""
+    H, W = seq.height, seq.width
+    black_g, no_depth = np.zeros((H, W), np.uint8), np.zeros((H, W), np.float32)
+    return ([seq[i] for i in range(8)] + [(black_g, no_depth, 8.0 + j) for j in range(3)]
+            + [(seq[i][0], no_depth if depth_poor else seq[i][1], 20.0 + i) for i in range(2, 6)])
+
+
+def kidnap_vocabulary(seq, cfg, device):
+    """The scene vocabulary of main path 4: build_vocabulary(k=8, levels=3,
+    seed=2) over the port's extract_fused descriptors of frames 0-2 (the
+    reference's test builds it from its host OrbExtractor, not ported)."""
+    from vo_slam_test_tpu_torch.bow.vocabulary import build_vocabulary
+    from vo_slam_test_tpu_torch.frontend.extractor import extract_fused
+    from vo_slam_test_tpu_torch.pipeline import tracking
+
+    tr = tracking.FusedTracker(cfg, device=device)
+    descs = []
+    for i in range(3):
+        g, d, _ = seq[i]
+        f = extract_fused(torch.as_tensor(g).to(device), torch.as_tensor(d).to(device),
+                          tr.camera, tr.spec, tr.budgets)
+        descs.append(f.desc[f.valid].cpu().numpy())
+    return build_vocabulary(np.concatenate(descs), k=8, levels=3, seed=2, device=device)
+
+
+def run_kidnap(system, cfg, voc, frames, parity: bool, recorder=None, profile_frames=()):
+    """One SlamSystem run over the kidnap frames with the vocabulary (loop
+    closing off: it is not ported): CUDA events per frame and host syncs per
+    frame (sync debug mode); ``recorder`` (a LaunchRecorder) learns the frame;
+    a torch.profiler window over ``profile_frames`` (consecutive) ->
+    rec["profile"] = (profiler, host wall ms per frame)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from vo_slam_test_tpu_torch.slam_map.map_state import MapCaps
+
+    s = system.SlamSystem(cfg, caps=MapCaps(max_kf=32, max_pt=8192), vocabulary=voc,
+                          reloc_parity=parity)
+    s.enable_loop_closing = False
+    rec = dict(frame_ms=[], syncs=[], sync_sites={}, profile=None)
+    prof = None
+    for i, (gray, depth, ts) in enumerate(frames):
+        if recorder is not None:
+            recorder.frame = i
+        if profile_frames and i == profile_frames[0]:
+            torch.cuda.synchronize()
+            prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+            prof.__enter__()
+            t_prof = time.perf_counter()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            s.track(gray, depth, ts)
+            torch.cuda.set_sync_debug_mode("default")
+        end.record()
+        torch.cuda.synchronize()
+        rec["frame_ms"].append(start.elapsed_time(end))
+        sync_ws = [w for w in caught if "synchroniz" in str(w.message)]
+        rec["syncs"].append(len(sync_ws))
+        for w in sync_ws:
+            site = f"{w.filename.split('vo_slam_test_tpu_torch/')[-1]}:{w.lineno}"
+            rec["sync_sites"][site] = rec["sync_sites"].get(site, 0) + 1
+        if prof is not None and i == profile_frames[-1]:
+            wall = (time.perf_counter() - t_prof) * 1e3 / len(profile_frames)
+            prof.__exit__(None, None, None)
+            rec["profile"], prof = (prof, wall), None
+    return s, rec
+
+
+def kidnap_report(label, s, rec):
+    """Print main path 4's per-variant numbers and hold it to the reference's
+    asserts (tests/test_reloc.py:59-72): frames 0-7 tracked, 8-10 lost, the
+    first relocalization at frame >= 11, the recovered pose within 5 cm of
+    the same frame's phase-1 estimate -> the first relocalized frame."""
+    traj, stats, _ = s.results()
+    oks = [st.ok for st in stats]
+    reloc = s.reloc_frames
+    fm = np.array(rec["frame_ms"])
+    lost = [i for i, ok in enumerate(oks) if not ok]
+    tracked = [i for i, ok in enumerate(oks) if ok and i not in reloc and i > 0]
+    first_ok = 11 + oks[11:].index(True) if any(oks[11:]) else None
+    rel = (float(np.linalg.norm(traj[first_ok][:3, 3] - traj[first_ok - 9][:3, 3]))
+           if first_ok is not None else float("nan"))
+    print(f"  {label}: frames ok {sum(oks)}/{len(oks)} {[int(o) for o in oks]}; lost {lost}; "
+          f"reloc_frames {reloc}; recovered pose {rel * 100:.4f} cm from the phase-1 estimate "
+          f"of the same view")
+    print(f"    per frame (n_features, n_matches, n_inliers): "
+          f"{[(x.n_features, x.n_matches, x.n_inliers) for x in stats]}; keyframe events at "
+          f"{[i for i, o in enumerate(s._outs) if o.made_kf]}; LM iterations {s.ba_iters}")
+    print(f"    winning candidate (slot, n_bow, n_ransac, n_obs) per relocalization attempt: "
+          f"{ {i: o.reloc_winner for i, o in enumerate(s._outs) if o.reloc_winner} }")
+    print(f"    frame ms (CUDA events): tracked median {np.median(fm[tracked]):.3f} "
+          f"({len(tracked)} frames), lost {[round(float(fm[i]), 3) for i in lost]}, relocalized "
+          f"{[round(float(fm[i]), 3) for i in reloc]}, frame 0 {fm[0]:.3f}")
+    print(f"    host syncs per frame: {rec['syncs']}; by the line that synced: {rec['sync_sites']}")
+    if not (all(oks[:8]) and not any(oks[8:11]) and reloc and reloc[0] >= 11 and rel < 0.05):
+        raise AssertionError(f"main path 4 ({label}) failed: ok {oks}, reloc_frames {reloc}, "
+                             f"recovered pose {rel} m from the phase-1 estimate")
+    return dict(oks=oks, reloc=reloc, rel_m=rel, frame_ms=rec["frame_ms"], syncs=rec["syncs"],
+                tracked_ms_median=float(np.median(fm[tracked])),
+                lost_ms=[float(fm[i]) for i in lost], reloc_ms=[float(fm[i]) for i in reloc],
+                winners={str(i): o.reloc_winner for i, o in enumerate(s._outs) if o.reloc_winner})
+
+
+class LaunchRecorder:
+    """Wraps kernel wrappers and keeps a copy of the arguments of every call
+    that ``keep(index of the call on its frame, args)`` accepts, tagged with
+    the frame being tracked."""
+
+    def __init__(self, targets):
+        self.targets = targets  # (module, attribute, keep)
+        self.frame = -1
+        self.got = {attr: [] for _, attr, _ in targets}
+        self.saved = []
+
+    def __enter__(self):
+        for mod, attr, keep in self.targets:
+            fn = getattr(mod, attr)
+            self.saved.append((mod, attr, fn))
+
+            def wrapped(*args, _fn=fn, _attr=attr, _keep=keep, **kw):
+                if _keep(self.frame, args):
+                    self.got[_attr].append((self.frame, [a.clone() for a in args], dict(kw)))
+                return _fn(*args, **kw)
+            setattr(mod, attr, wrapped)
+        return self
+
+    def __exit__(self, *exc):
+        for mod, attr, fn in self.saved:
+            setattr(mod, attr, fn)
+        self.saved = []
+
+
 def expected_stops(made_kf, chunk):
     """Events whose local BA a later keyframe of the same chunk overtakes
     (the rule of ``chunk_ba_stops``, computed apart from the port)."""
@@ -1398,19 +1563,156 @@ def main() -> int:
     check_ba_launches("main path 3", s3, kf_frames3, launches3, stops3)
     check_same_maps("main path 3", s3, s4)
 
+    # -- main path 4: the kidnap, SlamSystem with a vocabulary ------------------
+    t0 = time.perf_counter()
+    kseq, kcfg = kidnap_sequence()
+    voc = kidnap_vocabulary(kseq, kcfg, dev)
+    kframes, kframes_poor = kidnap_frames(kseq, False), kidnap_frames(kseq, True)
+    print(f"main path 4 data: the kidnap sequence (SyntheticRGBD(n_frames=12, seed=31, "
+          f"motion_scale=0.3) frames 0-7, three black frames, frames 2-5) and its vocabulary "
+          f"(k={voc.k}, levels={voc.levels}, {int(sum(v.sum() for v in voc.node_valid[-1:]))} "
+          f"words, from the port's extract_fused descriptors of frames 0-2) in "
+          f"{time.perf_counter() - t0:.1f} s")
+    on_black = lambda f, args: 8 <= f <= 10  # noqa: E731
+    recorded = [(fast_cuda, "fast_score", on_black), (match_cuda, "masked_top2", on_black),
+                (match_cuda, "masked_top1_epi", lambda f, args: True)]
+    # the path is its three variants; their launches are counted together
+    with PlainGuard(plains) as guard4:
+        torch.cuda.synchronize()
+        for k in all_kernels.values():
+            k.reset()
+        with LaunchRecorder(recorded) as lrec:
+            s4, r4 = run_kidnap(system, kcfg, voc, kframes, False, lrec)
+            s4p, r4p = run_kidnap(system, kcfg, voc, kframes_poor, False, lrec)
+            s4q, r4q = run_kidnap(system, kcfg, voc, kframes, True, lrec)
+        launches4 = {k: v.launches for k, v in all_kernels.items()}
+        s4b, r4b = run_kidnap(system, kcfg, voc, kframes, False, profile_frames=(10, 11, 12))
+    print("main path 4 (SlamSystem(vocabulary=...), the kidnap at 640x480, "
+          "MapCaps(max_kf=32, max_pt=8192)):")
+    kid = {"default": kidnap_report("default", s4, r4)}
+    kidnap_report("default, second run", s4b, r4b)
+    check_same_maps("main path 4 (default)", s4, s4b)
+    print("  the second run's frames 10 (lost), 11 (relocalized) and 12 (tracked), events "
+          "and the profiler's wall ms include its overhead:")
+    prof4, wall4 = r4b["profile"]
+    busy4, nl4 = device_profile(prof4, 3, wall4)
+    kid["profile_frames_10_12"] = dict(device_busy_ms=busy4, kernels_per_frame=nl4,
+                                       wall_ms=wall4)
+    kid["depth_poor"] = kidnap_report("depth-poor return frames (EPnP)", s4p, r4p)
+    kid["reloc_parity"] = kidnap_report("reloc_parity=True", s4q, r4q)
+    print(f"  kernel launches (the three variants): {launches4}; plain versions on CUDA: "
+          f"{guard4.cuda_calls}")
+    if kid["reloc_parity"]["reloc"][0] != kid["default"]["reloc"][0]:
+        raise AssertionError(f"main path 4: parity mode relocalized at "
+                             f"{kid['reloc_parity']['reloc']}, the default at "
+                             f"{kid['default']['reloc']}")
+    if min(launches4.values()) < 1:
+        raise AssertionError(f"main path 4 launched no {[k for k, v in launches4.items() if not v]}")
+    if guard4.cuda_calls:
+        raise AssertionError(f"plain versions ran on CUDA tensors: {guard4.cuda_calls}")
+
+    # the path's own launches against the plain versions: every epipolar
+    # search (featVec groups live: a 3-level vocabulary puts every word in
+    # bucket 0), and FAST and the top-2 on the black frames of each variant
+    epi_calls = lrec.got["masked_top1_epi"]
+    epi_err, epi_rows = 0.0, []
+    for f, args, _ in epi_calls:
+        if not bool((args[4] >= 0).any() and (args[10] >= 0).any()):
+            raise AssertionError(f"main path 4: an epipolar search at frame {f} had no live group")
+        epi_err = max(epi_err, check_equal(
+            f"masked_top1_epi at frame {f} of main path 4", match_cuda.masked_top1_epi(*args),
+            match_pallas.masked_top1_epi_plain(*args), ("best_i", "best_d")))
+        epi_rows.append(int(args[5].sum()))
+    dead_epi = sum(r == 0 for r in epi_rows)
+    kernels["top1_epi"]["max_abs_err"] = max(kernels["top1_epi"]["max_abs_err"], epi_err)
+    kernels["top1_epi"]["kidnap_instances"] = dict(launches=len(epi_calls), live_rows=epi_rows,
+                                                   bit_equal=True)
+    print(f"  masked_top1_epi: all {len(epi_calls)} launches of the path (live rows "
+          f"{epi_rows}, featVec groups live) bit-equal to the plain version; {dead_epi} with no "
+          f"live row")
+    black = {"fast_score": [], "masked_top2": []}
+    for f, (levels,), _ in lrec.got["fast_score"]:
+        if bool(levels.any()):
+            raise AssertionError(f"main path 4: black frame {f}'s pyramid is not all zero")
+        check_equal(f"fast_score on black frame {f}", (fast_cuda.fast_score(levels),),
+                    (fast.fast_score(levels),), ("score",))
+        black["fast_score"].append(f)
+    for f, args, kw in lrec.got["masked_top2"]:
+        if bool(args[14].any()):
+            raise AssertionError(f"main path 4: a top-2 search on black frame {f} had a target")
+        check_equal(f"masked_top2 on black frame {f}", match_cuda.masked_top2(*args, **kw),
+                    match_pallas.masked_top2_plain(*args, **{k: v for k, v in kw.items()
+                                                             if k != "kernel"}), TOP2_OUTS)
+        black["masked_top2"].append((f, args[0].shape[0], int(args[9].sum())))
+    if len(black["fast_score"]) != 9 or len(black["masked_top2"]) < 9:
+        raise AssertionError(f"main path 4: black-frame launches {black}")
+    print(f"  black frames 8-10 of the three variants: FAST on the all-zero pyramids of frames "
+          f"{black['fast_score']}, "
+          f"top-2 searches with no target (frame, M, live source rows) {black['masked_top2']}; "
+          f"each bit-equal to its plain version")
+
+    # -- BoW at ORBvoc scale: transform, bow_vector, scores_vs_keyframes -------
+    from vo_slam_test_tpu_torch.bow import retrieval as bow_ret
+    from vo_slam_test_tpu_torch.bow import vocabulary as bow_voc
+    from vo_slam_test_tpu_torch.frontend.extractor import extract_fused
+
+    big = bow_voc.synth_vocabulary(k=10, levels=6, seed=0, device=dev)
+    cent_mb = sum(c.numel() * 4 for c in big.centroids) / 1e6
+    feats_b = [extract_fused(torch.as_tensor(g).to(dev), torch.as_tensor(d).to(dev), s4.camera,
+                             s4.spec, s4.budgets) for g, d, _ in kframes[:8] + kframes[11:12]]
+    kf_vecs = [bow_ret.bow_vector(bow_voc.transform(big, f.desc, f.valid), big.idf)
+               for f in feats_b[:8]]
+    K = 32
+    kf_word = torch.full((K, feats_b[0].valid.shape[0]), bow_ret.PAD_WORD, dtype=torch.int32,
+                         device=dev)
+    kf_weight = torch.zeros(kf_word.shape, device=dev)
+    kf_word[:8] = torch.stack([u for u, _ in kf_vecs])
+    kf_weight[:8] = torch.stack([w for _, w in kf_vecs])
+    kf_on = (torch.arange(K, device=dev) < 8).to(torch.float32)
+    q = feats_b[8]
+    words = bow_voc.transform(big, q.desc, q.valid)
+    uniq, wgt = bow_ret.bow_vector(words, big.idf)
+    score, shared = bow_ret.scores_vs_keyframes(uniq, wgt, kf_word, kf_weight, kf_on)
+    big_cpu = big.to("cpu")
+    words_c = bow_voc.transform(big_cpu, q.desc.cpu(), q.valid.cpu())
+    uniq_c, wgt_c = bow_ret.bow_vector(words_c, big_cpu.idf)
+    score_c, shared_c = bow_ret.scores_vs_keyframes(uniq_c, wgt_c, kf_word.cpu(), kf_weight.cpu(),
+                                                    kf_on.cpu())
+    self_score = bow_ret.scores_vs_keyframes(uniq, wgt, uniq[None], wgt[None], kf_on[:1])[0]
+    if not (torch.equal(words.cpu(), words_c) and torch.equal(uniq.cpu(), uniq_c)
+            and torch.equal(shared.cpu(), shared_c)
+            and torch.allclose(wgt.cpu(), wgt_c, rtol=1e-6, atol=0)
+            and torch.allclose(score.cpu(), score_c, rtol=1e-6, atol=1e-7)
+            and abs(float(self_score[0]) - 1.0) < 1e-4):
+        raise AssertionError("BoW at ORBvoc scale: the card's words, weights or scores differ "
+                             "from the same calls on the CPU")
+    bow_ms = dict(transform=time_eager_ms(lambda: bow_voc.transform(big, q.desc, q.valid)),
+                  bow_vector=time_eager_ms(lambda: bow_ret.bow_vector(words, big.idf)),
+                  scores_vs_keyframes=time_eager_ms(lambda: bow_ret.scores_vs_keyframes(
+                      uniq, wgt, kf_word, kf_weight, kf_on)))
+    print(f"phase BoW at ORBvoc scale (synth_vocabulary k=10 levels=6: {big.n_words} words, "
+          f"{cent_mb:.1f} MB of centroids and {big.idf.numel() * 4 / 1e6:.1f} MB of idf on the "
+          f"card): frame 11's {int(q.valid.sum())} descriptors -> {int((uniq < bow_ret.PAD_WORD).sum())} "
+          f"words, scored against {int(kf_on.sum())} keyframes of {K} slots (shared words "
+          f"{shared[:8].tolist()}, best score {float(score.max()):.6f}); words, weights and scores "
+          f"equal to the CPU's; ms per call (CUDA events, launches included): {bow_ms}")
+
     for k in ("fast", "orb", "top2"):
         kernels[k]["launches"] = launches1[k]
     for k in ("top2_m4096", "top2_chi2", "top2_nb", "top1_epi") + ba_keys:
         kernels[k]["launches"] = launches2[k]
+    for k in kernels:
+        kernels[k]["launches_by_path"] = {"1": launches1[k], "2": launches2[k],
+                                          "3": launches3[k], "4": launches4[k]}
     # ba_accumulate is two launches in a row, the others one
     for k, v in kernels.items():
         v["launch_floor_x"] = v["ms"] / floor["launches_2" if k == "ba_acc" else "launches_1"]
     under = {k: (v["ms"], v["bound_ms"]) for k, v in kernels.items() if v["ms"] < v["bound_ms"]}
     if under:
         raise AssertionError(f"kernels timed under their bounds, so the bounds are wrong: {under}")
-    keys = ("name", "shape", "route", "source", "replaces", "launches", "max_abs_err", "ms",
-            "v1_ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "launch_floor_x",
-            "counted")
+    keys = ("name", "shape", "route", "source", "replaces", "launches", "launches_by_path",
+            "max_abs_err", "ms", "v1_ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+            "launch_floor_x", "counted", "kidnap_instances")
     print(f"total {time.perf_counter() - t_start:.1f} s after the card query")
     print(json.dumps({"main_path": {
         "fused_tracker": {"frame_ms_median": float(np.median(steady)), "ate_m": float(ate),
@@ -1423,6 +1725,7 @@ def main() -> int:
         "slam_system_chunk8": {"chunk_ms": chunk_ms, "ate_m": float(ate3),
                                "keyframe_frames": kf_frames3, "ba_iters": s3.ba_iters,
                                "launches": launches3},
+        "kidnap": dict(kid, launches=launches4, bow_orbvoc_ms=bow_ms),
         "card": smi}}))
     order = ("fast", "orb", "top2", "top2_m4096", "top2_chi2", "top2_nb", "top1_epi") + ba_keys
     print(json.dumps({"kernels": [{key: kernels[k][key] for key in keys if key in kernels[k]}

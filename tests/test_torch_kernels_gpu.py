@@ -625,6 +625,61 @@ def test_orb_kernel_edges(cuda, kind):
         assert ((a > 270) & (a < 360)).any() and ((a > 0) & (a < 90)).any()
 
 
+@pytest.fixture(scope="module")
+def kidnap_launches(cuda):
+    """chip_smoke.py's main path 4 in its depth-poor variant (EPnP; its
+    return frames make keyframes, whose triangulation searches carry live
+    featVec groups): a copy of the arguments of every epipolar search, and of
+    FAST and the top-2 searches on the black frames 8-10."""
+    from vo_slam_test_tpu_torch.pipeline import system
+
+    seq, cfg = chip_smoke.kidnap_sequence()
+    voc = chip_smoke.kidnap_vocabulary(seq, cfg, cuda)
+    on_black = lambda f, args: 8 <= f <= 10  # noqa: E731
+    recorded = [(fast_cuda, "fast_score", on_black), (match_cuda, "masked_top2", on_black),
+                (match_cuda, "masked_top1_epi", lambda f, args: True)]
+    with chip_smoke.LaunchRecorder(recorded) as lrec:
+        s, _ = chip_smoke.run_kidnap(system, cfg, voc, chip_smoke.kidnap_frames(seq, True), False,
+                                     lrec)
+    assert s.reloc_frames and s.reloc_frames[0] >= 11
+    return lrec.got
+
+
+def test_epi_kernel_on_kidnap_live_groups(kidnap_launches):
+    calls = kidnap_launches["masked_top1_epi"]
+    assert calls
+    for f, args, _ in calls:
+        assert bool((args[4] >= 0).any() and (args[10] >= 0).any()), f  # live featVec groups
+        _equal(match_cuda.masked_top1_epi(*args), match_pallas.masked_top1_epi_plain(*args))
+
+
+def test_epi_kernel_on_kidnap_without_live_rows(kidnap_launches):
+    """The same searches with no live row, the shape a keyframe without free
+    keypoints gives (no epipolar search runs on a black frame itself:
+    triangulation runs only on keyframe events)."""
+    for f, args, _ in kidnap_launches["masked_top1_epi"]:
+        dead = list(args)
+        dead[5] = torch.zeros_like(args[5])
+        got = match_cuda.masked_top1_epi(*dead)
+        _equal(got, match_pallas.masked_top1_epi_plain(*dead))
+        assert bool((got[1] == match_pallas.BIG).all())
+
+
+@pytest.mark.parametrize("name", ["fast_score", "masked_top2"])
+def test_black_frame_launches_match_plain(kidnap_launches, name):
+    calls = kidnap_launches[name]
+    assert len(calls) >= 3
+    for f, args, kw in calls:
+        if name == "fast_score":
+            assert not bool(args[0].any())  # an all-zero pyramid
+            _equal((fast_cuda.fast_score(*args),), (fast.fast_score(*args),))
+        else:
+            assert not bool(args[14].any())  # no target keypoint
+            plain_kw = {k: v for k, v in kw.items() if k != "kernel"}
+            _equal(match_cuda.masked_top2(*args, **kw),
+                   match_pallas.masked_top2_plain(*args, **plain_kw))
+
+
 def test_port_modules_import_no_jax(cuda):
     """On the card's machine: every module of the port, the mapping slice's
     included, imports without JAX or the JAX package."""
@@ -637,7 +692,9 @@ def test_port_modules_import_no_jax(cuda):
         importlib.import_module(m.name)
     for name in ("slam_map.map_state", "slam_map.insert", "slam_map.local_map",
                  "slam_map.culling", "slam_map.fuse", "slam_map.triangulate",
-                 "pipeline.system", "solvers.local_ba", "ops.ba_cuda", "ops.ba_pallas"):
+                 "pipeline.system", "solvers.local_ba", "ops.ba_cuda", "ops.ba_pallas",
+                 "bow.vocabulary", "bow.retrieval", "matching.bow_match", "solvers.ransac",
+                 "solvers.epnp", "utils.prng"):
         assert pkg.__name__ + "." + name in sys.modules
     bad = [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "vo_slam_test_tpu")]
     assert not bad, bad

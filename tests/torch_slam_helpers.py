@@ -1,8 +1,10 @@
 """Shared set-up of the port's map and system parity tests
 (tests/test_torch_map.py, test_torch_mapping.py, test_torch_system.py,
-test_torch_local_ba.py): the room-orbit sequence at 320x240, its config, the
-JAX system runs over its first 24 frames shared by those files (interruptBA
-forced, and local BA on), and the map comparison."""
+test_torch_local_ba.py, test_torch_reloc.py, test_torch_reloc_run.py): the
+room-orbit sequence at 320x240, its config, the JAX system runs over its first
+24 frames shared by those files (interruptBA forced, and local BA on), the
+kidnap scenario at 320x240 with its vocabulary and its JAX run, and the map
+comparison."""
 
 import fcntl
 import os
@@ -205,3 +207,73 @@ def assert_maps_agree(port, jax_map, label):
             np.testing.assert_allclose(got[k], want, err_msg=f"{label}: {k}", **FLOAT_TOL)
         else:
             np.testing.assert_array_equal(got[k], want, err_msg=f"{label}: {k}")
+
+
+# ---------------------------------------------------------------------------
+# the kidnap scenario (tests/test_reloc.py) at 320x240
+# ---------------------------------------------------------------------------
+
+
+def kidnap_frames(seq, depth_poor=False):
+    """Frames 0-7, three black frames, then frames 2-5 again (without depth
+    when ``depth_poor``) -> 15 (gray, depth, timestamp)."""
+    h, w = seq.height, seq.width
+    black_g, no_d = np.zeros((h, w), np.uint8), np.zeros((h, w), np.float32)
+    return ([seq[i] for i in range(8)] + [(black_g, no_d, 8.0 + j) for j in range(3)]
+            + [(seq[i][0], no_d if depth_poor else seq[i][1], 20.0 + i) for i in range(2, 6)])
+
+
+def kidnap_small():
+    """SyntheticRGBD(n_frames=12, seed=31, motion_scale=0.3) at 320x240, its
+    config keys (4 levels, 500 features), the 15 kidnap frames, and the
+    vocabulary both packages build (k=8, levels=3, seed=2) from the port's
+    extract_fused descriptors of frames 0-2 -> dict(seq, kw, frames, descs)."""
+    from vo_slam_test_tpu_torch.config import SlamConfig
+    from vo_slam_test_tpu_torch.frontend.extractor import extract_fused
+    from vo_slam_test_tpu_torch.pipeline.system import SlamSystem
+
+    seq = SyntheticRGBD(n_frames=12, seed=31, motion_scale=0.3, width=W, height=H,
+                        fx=517.3 * 0.5, fy=516.5 * 0.5, cx=318.6 * 0.5, cy=255.3 * 0.5)
+    kw = dict(camera_fx=seq.fx, camera_fy=seq.fy, camera_cx=seq.cx, camera_cy=seq.cy,
+              camera_k1=0, camera_k2=0, camera_p1=0, camera_p2=0, camera_k3=0,
+              camera_width=W, camera_height=H, level_pyramid=4, num_of_features=500)
+    ps = SlamSystem(SlamConfig(**kw), caps=P_CAPS, device="cpu")
+    descs = []
+    for i in range(3):
+        g, d, _ = seq[i]
+        f = extract_fused(torch.as_tensor(g), torch.as_tensor(d), ps.camera, ps.spec, ps.budgets)
+        descs.append(f.desc[f.valid].numpy().view(np.uint32))
+    return dict(seq=seq, kw=kw, frames=kidnap_frames(seq), descs=np.concatenate(descs))
+
+
+def per_frame_rows(outs):
+    """SlamOut list (either package) -> per-frame dicts of numpy/Python values."""
+    o = jax.device_get(outs)
+    return [dict(ok=bool(x.ok), relocalized=bool(x.relocalized), n_features=int(x.n_features),
+                 n_matches=int(x.n_matches), n_inliers=int(x.n_inliers), made_kf=bool(x.made_kf),
+                 T=np.asarray(x.T_c_w)) for x in o]
+
+
+def _jax_kidnap_run(_):
+    """The JAX SlamSystem (loop closing on, its default with a vocabulary)
+    over the 320x240 kidnap: per-frame rows, its state and map before each
+    frame and its map after the last, as numpy; its relocalization frames and
+    loop closures."""
+    from vo_slam_test_tpu.bow import vocabulary as JV
+
+    k = kidnap_small()
+    js = JSlamSystem(JConfig(**k["kw"]), caps=J_CAPS,
+                     vocabulary=JV.build_vocabulary(k["descs"], k=8, levels=3, seed=2))
+    pre = []
+    for g, d, ts in k["frames"]:
+        pre.append(tuple(convert.dataclass_to_numpy(jax.device_get(x)) for x in (js.state, js.map)))
+        js.track(g, d, ts)
+    js.results()
+    return dict(rows=per_frame_rows(js._outs), pre=pre,
+                post=convert.dataclass_to_numpy(jax.device_get(js.map)),
+                reloc_frames=js.reloc_frames, loop_closures=list(js.loop_closures))
+
+
+def jax_kidnap_run(tmp_path_factory):
+    """``_jax_kidnap_run`` once per test session (``_shared_run``)."""
+    return _shared_run(tmp_path_factory, "jax_kidnap_run", _jax_kidnap_run)

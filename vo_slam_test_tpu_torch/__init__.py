@@ -6,9 +6,11 @@ TPU kernel on the ported path is a hand-written CUDA kernel for ``sm_90a``
 (``csrc/``), built with ``nvcc`` at first use and bound with ``ctypes``.
 
 Ported so far: frame-to-frame ORB tracking (``pipeline/tracking.py::
-FusedTracker``) and ``pipeline/system.py::SlamSystem`` without a vocabulary
-(the map, tracking against the local map, the local-mapping chain with local
-BA, per frame or in chunks), with every kernel they run.
+FusedTracker``) and ``pipeline/system.py::SlamSystem`` (the map, tracking
+against the local map, the local-mapping chain with local BA, per frame or in
+chunks), with every kernel they run; with a vocabulary (``bow/``) it adds BoW
+tracking against the reference keyframe and relocalization (``solvers/
+ransac.py``, ``solvers/epnp.py``). Loop closing and global BA are not ported.
 
 Entry points run on the card unless the caller passes ``device="cpu"``; on a
 CPU tensor every kernel wrapper runs its plain PyTorch version instead.

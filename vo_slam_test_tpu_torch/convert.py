@@ -2,10 +2,11 @@
 
 The system has no learned weights; its state is the config, the camera, the
 pattern tables, the tracking state and the map. These helpers move
-``FrameFeatures``, ``TrackState``, ``SlamTrackState`` and ``MapState`` across
-as dicts of numpy arrays with the JAX layouts (descriptors as uint32), so a
-test can start the port from the JAX system's exact state after frame k and
-compare frame k+1 alone.
+``FrameFeatures``, ``TrackState``, ``SlamTrackState``, ``MapState`` and a BoW
+``Vocabulary`` across as numpy arrays with the JAX layouts (descriptors and
+centroids as uint32), so a test can start the port from the JAX system's
+exact state after frame k and compare frame k+1 alone, or run both packages
+on one vocabulary.
 """
 
 from __future__ import annotations
@@ -16,6 +17,7 @@ from typing import Any, Dict
 import numpy as np
 import torch
 
+from .bow.vocabulary import Vocabulary
 from .frontend.frame import FrameFeatures
 from .pipeline.system import SlamTrackState
 from .pipeline.tracking import TrackState
@@ -111,3 +113,12 @@ def dataclass_to_numpy(obj) -> Dict[str, Any]:
     ``np.asarray``)."""
     return {f.name: (dataclass_to_numpy(v) if dataclasses.is_dataclass(v) else np.asarray(v))
             for f in dataclasses.fields(obj) for v in [getattr(obj, f.name)]}
+
+
+def vocabulary_from_jax(voc, device) -> Vocabulary:
+    """A JAX package ``Vocabulary`` (any object with its fields: ``k``,
+    ``levels``, ``centroids``, ``idf``, ``node_valid``, arrays that convert
+    with ``np.asarray``) -> the port's on ``device``."""
+    return Vocabulary.from_numpy(voc.k, voc.levels, [np.asarray(c) for c in voc.centroids],
+                                 np.asarray(voc.idf), [np.asarray(v) for v in voc.node_valid],
+                                 device)

@@ -3,7 +3,9 @@
 
 Descriptors are int32 bit patterns. ``distance_matrix`` takes the package's
 matmul form (``distance_matrix_mxu``): with bits as +-1, a.b = 256 - 2 d,
-exact in f32.
+exact in f32. ``popcount_u32`` and ``hamming`` are the XOR + SWAR popcount
+form, exact on the 32-bit patterns (in int64: ``uint32`` lacks ``>>`` on the
+CPU, and int32 products would overflow).
 """
 
 from __future__ import annotations
@@ -24,3 +26,17 @@ def distance_matrix(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     256)."""
     dot = _signs(a) @ _signs(b).transpose(-1, -2)
     return ((256.0 - dot) * 0.5).to(torch.int32)
+
+
+def popcount_u32(v: torch.Tensor) -> torch.Tensor:
+    """Set bits of each 32-bit pattern (int32 or int64 lanes) -> int32."""
+    v = v.to(torch.int64) & 0xFFFFFFFF
+    v = v - ((v >> 1) & 0x55555555)
+    v = (v & 0x33333333) + ((v >> 2) & 0x33333333)
+    v = (v + (v >> 4)) & 0x0F0F0F0F
+    return (((v * 0x01010101) & 0xFFFFFFFF) >> 24).to(torch.int32)
+
+
+def hamming(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Elementwise Hamming distance of aligned [..., 8] descriptors -> [...]."""
+    return popcount_u32(a ^ b).sum(-1, dtype=torch.int32)

@@ -1,14 +1,25 @@
 """Tracking against the map and the local-mapping chain (port of
-``vo_slam_test_tpu/pipeline/system.py`` without a vocabulary).
+``vo_slam_test_tpu/pipeline/system.py``).
 
 Each frame runs two steps, as the JAX package's ``SlamSystem.track`` does:
 
-- ``_slam_step``: ORB extraction, trackWithMotion (visualOdometry.cpp:225-255),
+- ``_slam_step``: ORB extraction, the reference's fallback chain
+  trackWithMotion (visualOdometry.cpp:225-255) -> trackReferenceKeyFrame (BoW
+  against the reference keyframe, :257-277) -> relocalization (BoW candidate
+  retrieval, RANSAC absolute pose and projection top-ups, :313-395), then
   trackLocalMap (:279-311), the keyframe policy (:397-461) and the keyframe
-  insertion (:463-517);
+  insertion (:463-517). The two fallbacks need a vocabulary
+  (``SlamSystem(vocabulary=...)``); without one only motion tracking runs;
 - ``background_step``: the local-mapping chain ``_mapping_step`` in the
   reference's order (localMapping.cpp:16-66): map-point culling,
   triangulation, fuse, local BA, keyframe culling.
+
+Relocalization follows the JAX package: by default the top ``RELOC_K``
+candidates are evaluated and the one with the most observed inliers wins
+(Horn 3D-3D when at least half its BoW matches carry depth, else EPnP), with
+one top-up cascade on the winner; ``reloc_parity=True`` evaluates up to
+``RELOC_PARITY_K`` candidates, always with EPnP and a cascade each, and takes
+the first success in keyframe-insertion order (the reference's loop).
 
 ``SlamSystem(..., chunk=K)`` is the JAX package's throughput mode: frames are
 buffered and each full chunk is tracked frame after frame (``track_chunk``)
@@ -18,17 +29,21 @@ BA is skipped when a later frame of the chunk also made a keyframe
 (``chunk_ba_stops``, the reference's interruptBA raised by a queued
 keyframe). A partial chunk is tracked frame by frame at ``results()``.
 
-Not ported yet: BoW tracking against the reference keyframe, relocalization
-and loop closing.
+Not ported yet: loop closing. With a vocabulary the JAX package turns it on
+(``enable_loop_closing``); here the background step then raises
+``NotImplementedError`` until the caller sets ``enable_loop_closing = False``.
 
 Host reads per frame: the JAX package branches with ``lax.cond`` on device
 scalars; here every branch that decides which kernels run is a host bool.
 A tracked frame reads back the r=15 match count (the r=30 retry) and, in
 ``insert_keyframe``, the keyframe decision with its slot (one read). A
 keyframe event adds the triangulation's neighbour gates (one read) and one
-read per local-BA LM iteration (its exit test). The other branches (a lost
-frame's attempt, the pose round 2) run both sides and select with
-``torch.where``.
+read per local-BA LM iteration (its exit test). Without a vocabulary a lost
+frame's motion attempt runs and is discarded (``torch.where``). With one, the
+frame first reads the motion gate, then ``a1.ok`` and, if it failed, the
+reference-keyframe attempt's ``ok``; only then does the relocalization
+attempt run, which reads its candidates (none: it stops there), their solver
+choice and counts, and the top-up cascade's gates.
 """
 
 from __future__ import annotations
@@ -40,17 +55,27 @@ import numpy as np
 import torch
 
 from .. import lie, resolve_device
+from ..bow import retrieval as bow_ret
+from ..bow import vocabulary as bow_voc
 from ..camera import Camera
 from ..config import SlamConfig
 from ..frontend.extractor import extract_fused
 from ..frontend.frame import FrameFeatures
-from ..matching import matcher
+from ..matching import bow_match, matcher
 from ..ops.pyramid import PyramidSpec
 from ..slam_map import culling, fuse, local_map, triangulate
 from ..slam_map import insert as map_insert
-from ..slam_map.map_state import MapCaps, MapState, empty_map, pick, scatter_or
-from ..solvers import local_ba, pose_only
+from ..slam_map.map_state import (MapCaps, MapState, empty_map, pick, scatter_or,
+                                  winner_per_target)
+from ..solvers import epnp, local_ba, pose_only, ransac
+from ..utils import prng
 from .tracking import TrackStats, _spawn_temp_points
+
+RELOC_K = 3         # BoW relocalization candidates evaluated per lost frame
+RELOC_PARITY_K = 8  # candidate cap in reloc parity mode (the reference iterates
+                    # all candidates, visualOdometry.cpp:313-395), evaluated
+                    # first-success in keyframe-insertion order
+DESC_ARCHIVE_CAP = 4096  # frames whose descriptors create_vocabulary may read
 
 
 @dataclasses.dataclass
@@ -81,9 +106,12 @@ class SlamOut:
     n_matches: torch.Tensor
     n_inliers: torch.Tensor
     made_kf: bool
-    relocalized: bool
+    relocalized: torch.Tensor   # bool: the relocalization attempt tracked this frame
     kp_uv: torch.Tensor         # [N,2] raw pixel coords (HUD overlay)
     kp_state: torch.Tensor      # [N] i32: 0 untracked, 1 map-tracked, 2 VO-tracked
+    # the relocalization attempt's winning candidate as (keyframe slot, BoW
+    # matches, RANSAC inliers, observed inliers), when it had candidates
+    reloc_winner: Optional[Tuple[int, int, int, int]] = None
 
 
 @dataclasses.dataclass
@@ -153,12 +181,7 @@ def _attempt_motion(state: SlamTrackState, m: MapState, feats: FrameFeatures, T_
     res = search(15.0)
     if int(res.count) < 20:  # host read: widen the window
         res = search(30.0)
-    matched = res.idx >= 0
-    src_ids = torch.arange(N, dtype=torch.int32, device=feats.valid.device)
-    winner = torch.full((N + 1,), -1, dtype=torch.int32, device=src_ids.device)
-    winner.scatter_reduce_(0, torch.where(matched, res.idx, N).long(),
-                           torch.where(matched, src_ids, -1), "amax", include_self=True)
-    winner = winner[:N]
+    winner = winner_per_target(res.idx, N)
     has_m = winner >= 0
     w_safe = winner.clamp(min=0).long()
     kp_pt = torch.where(has_m, state.assign_real[w_safe], -1)
@@ -168,6 +191,196 @@ def _attempt_motion(state: SlamTrackState, m: MapState, feats: FrameFeatures, T_
         m, feats, T_pred, kp_pt, kp_temp, kp_pw, inv_level_sigma2, cam)
     ok = (res.count >= 20) & (n_obs >= 10)
     return _Attempt(T=T1, kp_pt=kp_pt, kp_temp=kp_temp, kp_pw=kp_pw, n_match=res.count, ok=ok)
+
+
+def reloc_topup_cascade(topup1, topup2, T_in, kp_in, n_in):
+    """The relocalization top-up gates, visualOdometry.cpp:352-384 (the
+    caller's gate is n0 < 50):
+
+      add1 <- searchByProjection(r=10, th=100); if n0 + add1 >= 50:
+        n1 <- solvePoseOnly (the top-up's state adopted)
+        if 30 < n1 < 50:
+          add2 <- searchByProjection(r=3, th=60); if n1 + add2 >= 50:
+            n2 <- solvePoseOnly (the second top-up adopted)
+      anything else keeps the previous stage's state.
+
+    topup1/topup2: (T, kp) -> (T', kp', n', add), the projection search and
+    the pose-only solve after it (n' the observed inliers after the solve,
+    add the new matches). Each gate is a host read, and the second top-up
+    runs only when its gate passes. -> (T, kp, n) of the adopted stage."""
+    T_a, kp_a, n_a, add1 = topup1(T_in, kp_in)
+    reach_a, n_a_h = torch.stack([torch.as_tensor(n_in + add1), torch.as_tensor(n_a)]).tolist()
+    if reach_a < 50:
+        return T_in, kp_in, n_in
+    if 30 < n_a_h < 50:
+        T_b, kp_b, n_b, add2 = topup2(T_a, kp_a)
+        if int(n_a + add2) >= 50:
+            return T_b, kp_b, n_b
+    return T_a, kp_a, n_a
+
+
+def _attempt_ref(state: SlamTrackState, m: MapState, feats: FrameFeatures, groups_c, voc,
+                 T_last, cam, inv_level_sigma2) -> _Attempt:
+    """trackReferenceKeyFrame: BoW matches against the reference keyframe
+    (ratio 0.7), solved from the last pose."""
+    kf = state.ref_kf
+    row = pick(m.kf_mp, kf)
+    res = bow_match.search_by_bow_kf_frame(
+        kf_desc=pick(m.kf_desc, kf), kf_groups=bow_voc.feature_groups(voc, pick(m.kf_word, kf)),
+        kf_mp=row, kf_angle=pick(m.kf_angle, kf), kf_pt_valid=m.pt_valid[row.clamp(min=0).long()],
+        f_desc=feats.desc, f_groups=groups_c, f_angle=feats.angle, f_valid=feats.valid, ratio=0.7)
+    no_tmp = torch.zeros_like(feats.valid)
+    kp_pw = m.pt_pos[res.assign.clamp(min=0).long()]
+    T2, kp_pt, _, n_obs = _solve_and_cull(m, feats, T_last, res.assign, no_tmp, kp_pw,
+                                          inv_level_sigma2, cam)
+    ok = (res.count >= 15) & (n_obs >= 10)
+    return _Attempt(T=T2, kp_pt=kp_pt, kp_temp=no_tmp, kp_pw=kp_pw, n_match=res.count, ok=ok)
+
+
+def _attempt_reloc(m: MapState, feats: FrameFeatures, bow, voc, frame_id: int, reloc_parity: bool,
+                   fail: _Attempt, cam, scale_factors, inv_level_sigma2
+                   ) -> Tuple[_Attempt, bool, Optional[Tuple[int, int, int, int]]]:
+    """Relocalization (visualOdometry.cpp:313-395) -> (attempt, ok read back,
+    the winner's (slot, n_bow, n_ransac, n_obs) or None without candidates).
+
+    Candidates are read back once; with none the attempt stops (its match
+    count is then 0, where the JAX package reports the BoW count against the
+    slot ``top_k`` returns first, which is no candidate). Candidate i of the
+    BoW ranking draws its RANSAC hypotheses from seed frame_id * K + i, as the
+    JAX package's do."""
+    uniq_c, wgt_c, groups_c = bow
+    N = feats.valid.shape[0]
+    P = m.pt_valid.shape[0]
+    no_tmp = torch.zeros_like(feats.valid)
+    score, shared = bow_ret.scores_vs_keyframes(uniq_c, wgt_c, m.kf_bow_word, m.kf_bow_weight,
+                                                m.kf_valid.to(torch.float32))
+    cand = bow_ret.reloc_candidates(score, shared, m.covis, m.kf_valid)
+    n_cand_k = RELOC_PARITY_K if reloc_parity else RELOC_K
+    c_scores, c_kfs = prng.top_k(torch.where(cand, score, -torch.inf), n_cand_k)
+    c_kfs = torch.where(torch.isfinite(c_scores), c_kfs, -1)
+    kfs, seqs = torch.stack([c_kfs, m.kf_seq[c_kfs.clamp(min=0)].to(torch.int64)]).tolist()
+    live = [i for i in range(n_cand_k) if kfs[i] >= 0]
+    if not live:
+        return fail, False, None
+    p_cam = cam.pixel2camera(feats.uv_und, torch.clamp(feats.depth, min=1e-3))
+    inv_sig = inv_level_sigma2[feats.octave.long()]
+
+    def topup(kf, row, pt_live, T_in, kp_in, radius, th):
+        in_set = scatter_or(P, kp_in.clamp(min=0), kp_in >= 0)
+        safe = row.clamp(min=0).long()
+        res2 = matcher.search_by_projection_kf(
+            p_world=m.pt_pos[safe], src_desc=m.pt_desc[safe], src_angle=m.kf_angle[kf],
+            src_min_dist=0.8 * m.pt_min_dist[safe], src_max_dist=1.2 * m.pt_max_dist[safe],
+            src_pt=row, src_valid=(row >= 0) & pt_live & ~in_set[safe],
+            tgt_uv_und=feats.uv_und, tgt_angle=feats.angle, tgt_octave=feats.octave,
+            tgt_desc=feats.desc, tgt_valid=feats.valid, tgt_blocked=kp_in >= 0,
+            T_c_w=T_in, scale_factors=scale_factors, fx=cam.fx, fy=cam.fy, cx=cam.cx, cy=cam.cy,
+            width=float(cam.width), height=float(cam.height), radius=radius, dist_threshold=th)
+        winner = winner_per_target(res2.idx, N)
+        add_pt = torch.where(winner >= 0, row[winner.clamp(min=0).long()], -1)
+        kp_new = torch.where(kp_in >= 0, kp_in, add_pt)
+        T_out, kp_out, _, n_out = _solve_and_cull(
+            m, feats, T_in, kp_new, no_tmp, m.pt_pos[kp_new.clamp(min=0).long()],
+            inv_level_sigma2, cam)
+        return T_out, kp_out, n_out, res2.count
+
+    def cascade(kf, row, pt_live, T3, kp3, n_obs):
+        return reloc_topup_cascade(
+            lambda T, kp: topup(kf, row, pt_live, T, kp, 10.0, 100.0),
+            lambda T, kp: topup(kf, row, pt_live, T, kp, 3.0, 60.0), T3, kp3, n_obs)
+
+    def bow_matches(i):
+        row = m.kf_mp[kfs[i]]
+        pt_live = m.pt_valid[row.clamp(min=0).long()]
+        res = bow_match.search_by_bow_kf_frame(
+            kf_desc=m.kf_desc[kfs[i]], kf_groups=bow_voc.feature_groups(voc, m.kf_word[kfs[i]]),
+            kf_mp=row, kf_angle=m.kf_angle[kfs[i]], kf_pt_valid=pt_live, f_desc=feats.desc,
+            f_groups=groups_c, f_angle=feats.angle, f_valid=feats.valid, ratio=0.75)
+        return row, pt_live, res
+
+    def solve(i, res, horn: bool):
+        has = res.assign >= 0
+        p_world = m.pt_pos[res.assign.clamp(min=0).long()]
+        seed = frame_id * n_cand_k + i
+        if horn:
+            Tr, _, n_ransac = ransac.ransac_pose_3d3d(
+                p_world, p_cam, feats.uv_und, has & (feats.depth > 0), has,
+                cam.fx, cam.fy, cam.cx, cam.cy, seed)
+        else:
+            Tr, _, n_ransac = epnp.ransac_pnp(prng.prng_key(seed), p_world, feats.uv_und, has,
+                                              inv_sig, cam)
+        T3, kp3, _, n_obs = _solve_and_cull(m, feats, Tr, res.assign, no_tmp, p_world,
+                                            inv_level_sigma2, cam)
+        return T3, kp3, n_obs, n_ransac
+
+    done = {}  # top-k index -> (T, kp, n_obs, n_bow, n_ransac) on the device
+    if reloc_parity:
+        # the reference's loop: always EPnP, a cascade per candidate, the
+        # first success in keyframe-insertion order wins
+        win = None
+        for i in sorted(live, key=lambda j: seqs[j]):
+            row, pt_live, res = bow_matches(i)
+            T3, kp3, n_obs, n_ransac = solve(i, res, horn=False)
+            n_bow_h, n_ransac_h, n_obs_h = torch.stack([res.count, n_ransac, n_obs]).tolist()
+            if n_obs_h < 50:
+                T3, kp3, n_obs = cascade(kfs[i], row, pt_live, T3, kp3, n_obs)
+                n_obs_h = int(n_obs)
+            done[i] = (T3, kp3, n_obs, res.count, n_ransac, (n_bow_h, n_ransac_h, n_obs_h))
+            if n_bow_h >= 15 and n_ransac_h >= 10 and n_obs_h >= 50:
+                win = i
+                break
+        win = live[0] if win is None else win  # none passed: the best-scoring
+        T4, kp4, n_obs4, n_bow, n_ransac, (n_bow_h, n_ransac_h, n_obs_h) = done[win]
+    else:
+        # the top RELOC_K by score, Horn 3D-3D when half the matches carry
+        # depth; the most observed inliers among the passing ones wins
+        matches = {i: bow_matches(i) for i in live}
+        has = {i: res.assign >= 0 for i, (_, _, res) in matches.items()}
+        rich = torch.stack([2 * (has[i] & (feats.depth > 0)).sum() >= has[i].sum()
+                            for i in live]).tolist()
+        for i, horn in zip(live, rich):
+            res = matches[i][2]
+            T3, kp3, n_obs, n_ransac = solve(i, res, horn)
+            done[i] = (T3, kp3, n_obs, res.count, n_ransac)
+        counts = torch.stack([torch.stack([done[i][3], done[i][4], done[i][2]])
+                              for i in live]).tolist()
+        rank = [n_obs if (n_bow >= 15 and n_ransac >= 10) else -1
+                for n_bow, n_ransac, n_obs in counts]
+        j = rank.index(max(rank))  # the first maximum, as jnp.argmax
+        win = live[j]
+        T4, kp4, n_obs4, n_bow, n_ransac = done[win]
+        n_bow_h, n_ransac_h, n_obs_h = counts[j]
+        if n_obs_h < 50:  # one cascade, on the winner
+            row, pt_live, _ = matches[win]
+            T4, kp4, n_obs4 = cascade(kfs[win], row, pt_live, T4, kp4, n_obs4)
+            n_obs_h = int(n_obs4)
+    ok = (n_bow >= 15) & (n_ransac >= 10) & (n_obs4 >= 50)
+    att = _Attempt(T=T4, kp_pt=torch.where(ok, kp4, -1), kp_temp=no_tmp,
+                   kp_pw=m.pt_pos[kp4.clamp(min=0).long()], n_match=n_bow, ok=ok)
+    ok_h = n_bow_h >= 15 and n_ransac_h >= 10 and n_obs_h >= 50
+    return att, ok_h, (kfs[win], n_bow_h, n_ransac_h, n_obs_h)
+
+
+def _track_attempts_bow(state: SlamTrackState, m: MapState, feats: FrameFeatures, bow, voc,
+                        reloc_parity: bool, T_last, fail: _Attempt, cam, scale_factors,
+                        inv_level_sigma2):
+    """The fallback chain with a vocabulary -> (attempt, relocalized on the
+    host, the reloc winner or None). Motion tracking needs an armed motion
+    model (visualOdometry.cpp:227-231); each fallback runs only after the
+    host has read that the attempts before it failed."""
+    frame_id = state.frame_id
+    can_motion = ~state.lost & state.motion_valid
+    lost_h, can_h = torch.stack([state.lost, can_motion]).tolist()
+    if can_h and frame_id >= state.last_reloc_frame + 2:
+        a1 = _attempt_motion(state, m, feats, T_last, cam, scale_factors, inv_level_sigma2)
+        if bool(a1.ok):
+            return a1, False, None
+    if not lost_h:
+        a2 = _attempt_ref(state, m, feats, bow[2], voc, T_last, cam, inv_level_sigma2)
+        if bool(a2.ok):
+            return a2, False, None
+    return _attempt_reloc(m, feats, bow, voc, frame_id, reloc_parity, fail, cam, scale_factors,
+                          inv_level_sigma2)
 
 
 def _slam_step(
@@ -185,9 +398,11 @@ def _slam_step(
     fast_hi: float,
     fast_lo: float,
     max_frame_gap: int,
+    voc: Optional[bow_voc.Vocabulary] = None,
+    reloc_parity: bool = False,
 ) -> Tuple[SlamTrackState, MapState, SlamOut, int]:
-    """One frame of tracking with the map, without a vocabulary -> (state,
-    map, out, new keyframe id or -1)."""
+    """One frame of tracking with the map -> (state, map, out, new keyframe
+    id or -1). ``voc``: the vocabulary; None runs motion tracking alone."""
     frame_id = state.frame_id
     dev = gray.device
     feats = extract_fused(gray, depth_img, cam, spec, budgets, fast_hi, fast_lo)
@@ -196,12 +411,18 @@ def _slam_step(
     P = caps.max_pt
     eye = torch.eye(4, dtype=torch.float32, device=dev)
     zero = torch.zeros((), dtype=torch.int32, device=dev)
+    words_c = uniq_c = wgt_c = None
+    if voc is not None:
+        words_c = bow_voc.transform(voc, feats.desc, feats.valid)
+        uniq_c, wgt_c = bow_ret.bow_vector(words_c, voc.idf)
+        bow = (uniq_c, wgt_c, bow_voc.feature_groups(voc, words_c))
 
     def insert_kf(m, T, assign, do):
         already = _observed(m, assign)
         create = map_insert.spawn_mask_depth_sorted(feats, already, cam.th_depth)
         return map_insert.insert_keyframe(
-            m, caps, feats, T, timestamp, frame_id, assign, create, cam, scale_factors, do=do)
+            m, caps, feats, T, timestamp, frame_id, assign, create, cam, scale_factors,
+            words_c, uniq_c, wgt_c, do=do)
 
     if not state.initialized:
         # the first frame initializes the map: identity pose, no bindings.
@@ -212,19 +433,19 @@ def _slam_step(
         made = new_kf >= 0
         ref_kf_out = torch.full((), max(new_kf, 0), dtype=torch.int32, device=dev)
         assign_out = m.kf_mp[max(new_kf, 0)] if made else no_pt
+        false = torch.zeros((), dtype=torch.bool, device=dev)
         st = SlamTrackState(
             frame_id=frame_id + 1, feats=feats, assign_real=assign_out,
             assign_gen=torch.where(assign_out >= 0, m.pt_gen[assign_out.clamp(min=0).long()], -1),
             T_cr=eye @ lie.se3_inverse(m.kf_pose[max(new_kf, 0)]), ref_kf=ref_kf_out, T_cl=eye,
-            motion_valid=torch.zeros((), dtype=torch.bool, device=dev), initialized=True,
-            lost=torch.zeros((), dtype=torch.bool, device=dev),
+            motion_valid=false, initialized=True, lost=false,
             last_kf_frame=frame_id if made else state.last_kf_frame,
             last_was_kf=made, last_reloc_frame=state.last_reloc_frame,
         )
         out = SlamOut(
             T_c_w=eye, T_cr=st.T_cr, ref_kf=ref_kf_out, ref_gen=m.kf_gen[max(new_kf, 0)],
             ok=torch.ones((), dtype=torch.bool, device=dev), n_features=n_feats,
-            n_matches=zero, n_inliers=zero, made_kf=made, relocalized=False,
+            n_matches=zero, n_inliers=zero, made_kf=made, relocalized=false,
             kp_uv=feats.uv, kp_state=torch.zeros((N,), dtype=torch.int32, device=dev),
         )
         return st, m, out, new_kf
@@ -235,13 +456,22 @@ def _slam_step(
                     kp_temp=torch.zeros((N,), dtype=torch.bool, device=dev),
                     kp_pw=torch.zeros((N, 3), device=dev), n_match=zero,
                     ok=torch.zeros((), dtype=torch.bool, device=dev))
-    # without a vocabulary there is no ref-KF or relocalization fallback, and
-    # motion tracking is attempted from T_last directly; a lost frame's
-    # attempt runs and is discarded (a select, not a host read)
-    can_motion = ~state.lost & (frame_id >= state.last_reloc_frame + 2)
-    a1 = _attempt_motion(state, m, feats, T_last, cam, scale_factors, inv_level_sigma2)
-    att = a1.where(can_motion & a1.ok, fail)
-    reloc_frame = state.last_reloc_frame
+    reloc_winner = None
+    if voc is None:
+        # without a vocabulary there is no ref-KF or relocalization fallback,
+        # and motion tracking is attempted from T_last directly; a lost
+        # frame's attempt runs and is discarded (a select, not a host read)
+        can_motion = ~state.lost & (frame_id >= state.last_reloc_frame + 2)
+        a1 = _attempt_motion(state, m, feats, T_last, cam, scale_factors, inv_level_sigma2)
+        att = a1.where(can_motion & a1.ok, fail)
+        relocalized = fail.ok
+        reloc_frame = state.last_reloc_frame
+    else:
+        att, reloc_h, reloc_winner = _track_attempts_bow(
+            state, m, feats, bow, voc, reloc_parity, T_last, fail, cam, scale_factors,
+            inv_level_sigma2)
+        relocalized = att.ok if reloc_h else fail.ok
+        reloc_frame = frame_id if reloc_h else state.last_reloc_frame
     track_pre = att.ok
     kp_pw_cur = torch.where((att.kp_pt >= 0)[:, None], m.pt_pos[att.kp_pt.clamp(min=0).long()],
                             att.kp_pw)
@@ -332,22 +562,25 @@ def _slam_step(
     out = SlamOut(
         T_c_w=T_new, T_cr=T_cr, ref_kf=ref_kf_out, ref_gen=pick(m.kf_gen, ref_kf_out), ok=ok,
         n_features=n_feats, n_matches=att.n_match, n_inliers=observed_inliers, made_kf=made,
-        relocalized=False, kp_uv=feats.uv, kp_state=kp_state,
+        relocalized=relocalized, kp_uv=feats.uv, kp_state=kp_state, reloc_winner=reloc_winner,
     )
     return st, m, out, new_kf
 
 
 def _mapping_step(m: MapState, did_kf: bool, kf_id: int, caps: MapCaps, cam: Camera,
-                  scale_factors: torch.Tensor, interrupt_ba: bool = False
-                  ) -> Tuple[MapState, int, int]:
+                  scale_factors: torch.Tensor, interrupt_ba: bool = False,
+                  bow_group_div: int = 0) -> Tuple[MapState, int, int]:
     """The local-mapping chain for one new keyframe, in the order of
     LocalMapping::run (localMapping.cpp:16-66): cullingMapPoints ->
     createNewMapPoints -> searchInNeighbors (fuse) -> local BA ->
-    cullingKeyFrames. Returns (map, BA iterations pass 1, pass 2)."""
+    cullingKeyFrames. ``bow_group_div``: the triangulation's featVec bucket
+    divisor (0 without a vocabulary). Returns (map, BA iterations pass 1,
+    pass 2)."""
     if not (did_kf and kf_id >= 0):
         return m, 0, 0
     m = culling.cull_map_points(m, kf_id, caps)
-    m = triangulate.create_new_map_points(m, kf_id, caps, cam, scale_factors)
+    m = triangulate.create_new_map_points(m, kf_id, caps, cam, scale_factors,
+                                          bow_group_div=bow_group_div)
     m = fuse.search_in_neighbors(m, kf_id, caps, cam, scale_factors)
     m, n1, n2 = local_ba.local_bundle_adjust_iters(
         m, kf_id, caps, cam, 1.0 / (scale_factors * scale_factors), stop=interrupt_ba)
@@ -356,30 +589,34 @@ def _mapping_step(m: MapState, did_kf: bool, kf_id: int, caps: MapCaps, cam: Cam
 
 
 def background_step(m: MapState, did_kf: bool, kf_id: int, interrupt_ba: bool, caps: MapCaps,
-                    cam: Camera, scale_factors: torch.Tensor, with_loop: bool = False
-                    ) -> Tuple[MapState, int, int]:
+                    cam: Camera, scale_factors: torch.Tensor, with_loop: bool = False,
+                    bow_group_div: int = 0) -> Tuple[MapState, int, int]:
     """The work the reference runs off the tracking thread. Only the
     local-mapping chain is ported; loop closing is not."""
     if with_loop:
         raise NotImplementedError("loop closing is not ported yet")
-    return _mapping_step(m, did_kf, kf_id, caps, cam, scale_factors, interrupt_ba=interrupt_ba)
+    return _mapping_step(m, did_kf, kf_id, caps, cam, scale_factors, interrupt_ba=interrupt_ba,
+                         bow_group_div=bow_group_div)
 
 
 def track_chunk(state: SlamTrackState, m: MapState, frames, cam: Camera, caps: MapCaps,
                 spec: PyramidSpec, budgets, scale_factors: torch.Tensor,
                 inv_level_sigma2: torch.Tensor, fast_hi: float, fast_lo: float,
-                max_frame_gap: int):
+                max_frame_gap: int, voc: Optional[bow_voc.Vocabulary] = None,
+                reloc_parity: bool = False):
     """K frames ``(gray, depth, timestamp)`` of tracking in order (the JAX
     package's ``lax.scan`` over ``_slam_step``), without mapping in between
-    -> (state, map, [SlamOut], [new keyframe id or -1])."""
-    outs, new_kfs = [], []
+    -> (state, map, [SlamOut], [new keyframe id or -1], [the frame's
+    FrameFeatures])."""
+    outs, new_kfs, feats = [], [], []
     for gray, depth, ts in frames:
         state, m, out, new_kf = _slam_step(
             state, m, gray, depth, ts, cam, caps, spec, budgets, scale_factors,
-            inv_level_sigma2, fast_hi, fast_lo, max_frame_gap)
+            inv_level_sigma2, fast_hi, fast_lo, max_frame_gap, voc, reloc_parity)
         outs.append(out)
         new_kfs.append(new_kf)
-    return state, m, outs, new_kfs
+        feats.append(state.feats)
+    return state, m, outs, new_kfs, feats
 
 
 def chunk_ba_stops(did_kf) -> torch.Tensor:
@@ -394,7 +631,8 @@ def chunk_ba_stops(did_kf) -> torch.Tensor:
 
 def background_chunk(m: MapState, did_kf: List[bool], kf_id: List[int], interrupt_ba: bool,
                      caps: MapCaps, cam: Camera, scale_factors: torch.Tensor,
-                     with_loop: bool = False) -> Tuple[MapState, List[Tuple[int, int]]]:
+                     with_loop: bool = False, bow_group_div: int = 0
+                     ) -> Tuple[MapState, List[Tuple[int, int]]]:
     """The mapping chain for every keyframe a tracked chunk created, in
     creation order; ``stops = chunk_ba_stops(did_kf) | interrupt_ba``.
     -> (map, [(BA iterations pass 1, pass 2)] per chunk frame)."""
@@ -403,7 +641,8 @@ def background_chunk(m: MapState, did_kf: List[bool], kf_id: List[int], interrup
     stops = (chunk_ba_stops(did_kf) | bool(interrupt_ba)).tolist()
     iters = []
     for did, kid, stop in zip(did_kf, kf_id, stops):
-        m, n1, n2 = _mapping_step(m, did, kid, caps, cam, scale_factors, interrupt_ba=stop)
+        m, n1, n2 = _mapping_step(m, did, kid, caps, cam, scale_factors, interrupt_ba=stop,
+                                  bow_group_div=bow_group_div)
         iters.append((n1, n2))
     return m, iters
 
@@ -431,11 +670,15 @@ def recover_frame_pose(
 
 
 class SlamSystem:
-    """Tracking + local mapping over an RGB-D stream without a vocabulary:
-    one frame at a time (``chunk=1``) or in chunks of ``chunk`` frames."""
+    """Tracking + local mapping over an RGB-D stream: one frame at a time
+    (``chunk=1``) or in chunks of ``chunk`` frames. ``vocabulary`` turns on
+    BoW tracking against the reference keyframe and relocalization (and the
+    featVec buckets of triangulation); ``reloc_parity`` picks the reference's
+    relocalization loop (module docstring)."""
 
     def __init__(self, cfg: SlamConfig, caps: MapCaps = MapCaps(),
-                 device: Optional[Union[str, torch.device]] = None, chunk: int = 1):
+                 device: Optional[Union[str, torch.device]] = None, chunk: int = 1,
+                 vocabulary: Optional[bow_voc.Vocabulary] = None, reloc_parity: bool = False):
         self.cfg = cfg
         self.caps = caps
         self.device = resolve_device(device)
@@ -450,6 +693,18 @@ class SlamSystem:
         self.max_frame_gap = int(cfg.camera_fps)
         self.map = empty_map(caps, self.device)
         self.state = self._empty_state()
+        self.voc = None if vocabulary is None else vocabulary.to(self.device)
+        self.use_bow = vocabulary is not None
+        self.reloc_parity = bool(reloc_parity)
+        # the JAX package turns loop closing on with a vocabulary; it is not
+        # ported, so the background step raises until a caller sets False
+        self.enable_loop_closing = self.use_bow
+        # featVec bucket divisor of triangulation (matcher.cpp:903-965):
+        # word // k^levels_up at levels_up = 3
+        self._bow_group_div = vocabulary.k ** min(3, vocabulary.levels) if vocabulary else 0
+        # per-frame (desc, valid) device tensors for create_vocabulary, which
+        # reads the lost frames' descriptors too (map.cpp:79-83)
+        self._frame_desc: List[Tuple[torch.Tensor, torch.Tensor]] = []
         self.chunk = int(chunk)
         self._chunk_buf: List = []  # buffered (gray, depth, timestamp) on the device
         # interruptBA (localMapping.cpp:538-541): a forced value for tests
@@ -505,17 +760,22 @@ class SlamSystem:
             return
         self._track_one(gray_d, depth_d, timestamp)
 
+    def _archive(self, feats: FrameFeatures) -> None:
+        if len(self._frame_desc) < DESC_ARCHIVE_CAP:
+            self._frame_desc.append((feats.desc, feats.valid))
+
     def _track_one(self, gray_d: torch.Tensor, depth_d: torch.Tensor, timestamp: float) -> None:
         self.state, self.map, out, new_kf = _slam_step(
             self.state, self.map, gray_d, depth_d, timestamp, self.camera, self.caps,
             self.spec, self.budgets, self.scale_factors, self.inv_level_sigma2,
-            self.fast_hi, self.fast_lo, self.max_frame_gap,
+            self.fast_hi, self.fast_lo, self.max_frame_gap, self.voc, self.reloc_parity,
         )
         self.map, n1, n2 = background_step(
             self.map, out.made_kf, new_kf, self._ba_interrupt(), self.caps, self.camera,
-            self.scale_factors)
+            self.scale_factors, self.enable_loop_closing, self._bow_group_div)
         if out.made_kf:
             self.ba_iters.append((self._frame_id, n1, n2))
+        self._archive(self.state.feats)
         self._outs.append(out)
         self.timestamps.append(timestamp)
         self._frame_id += 1
@@ -523,16 +783,18 @@ class SlamSystem:
     def _dispatch_chunk(self) -> None:
         """Track the buffered frames, then map their keyframe events."""
         buf, self._chunk_buf = self._chunk_buf, []
-        self.state, self.map, outs, new_kfs = track_chunk(
+        self.state, self.map, outs, new_kfs, feats = track_chunk(
             self.state, self.map, buf, self.camera, self.caps, self.spec, self.budgets,
             self.scale_factors, self.inv_level_sigma2, self.fast_hi, self.fast_lo,
-            self.max_frame_gap)
+            self.max_frame_gap, self.voc, self.reloc_parity)
         did = [o.made_kf for o in outs]
         self.map, iters = background_chunk(
             self.map, did, new_kfs, self._ba_interrupt(), self.caps, self.camera,
-            self.scale_factors)
+            self.scale_factors, self.enable_loop_closing, self._bow_group_div)
         self.ba_iters += [(self._frame_id + k, n1, n2)
                           for k, (made, (n1, n2)) in enumerate(zip(did, iters)) if made]
+        for f in feats:
+            self._archive(f)
         self._outs += outs
         self.timestamps += [t for _, _, t in buf]
         self._frame_id += len(buf)
@@ -573,3 +835,38 @@ class SlamSystem:
     @property
     def n_points(self) -> int:
         return int(self.map.pt_valid.sum())
+
+    @property
+    def reloc_frames(self) -> List[int]:
+        """Frames that the relocalization attempt tracked (one read)."""
+        if not self._outs:
+            return []
+        flags = torch.stack([o.relocalized for o in self._outs]).tolist()
+        return [i for i, f in enumerate(flags) if f]
+
+    def create_vocabulary(self, k: int = 10, levels: int = 4, seed: int = 0) -> bow_voc.Vocabulary:
+        """A scene vocabulary from the live keyframes' descriptors and those
+        of the lost frames (map.cpp:60-99; lost frames archived as at
+        visualOdometry.cpp:115-121), on this system's device."""
+        kf_descs, lost_descs = self._vocabulary_descriptors()
+        descs = kf_descs + lost_descs
+        if not descs:
+            raise RuntimeError("no keyframes to build a vocabulary from")
+        return bow_voc.build_vocabulary(np.concatenate(descs), k=k, levels=levels, seed=seed,
+                                        device=self.device)
+
+    def _vocabulary_descriptors(self) -> Tuple[List[np.ndarray], List[np.ndarray]]:
+        """(keyframe descriptor arrays, lost-frame descriptor arrays), uint32."""
+        kf_valid = self.map.kf_valid.cpu().numpy()
+        kf_desc = self.map.kf_desc.cpu().numpy().view(np.uint32)
+        kp_valid = self.map.kf_kp_valid.cpu().numpy()
+        kf_descs = [kf_desc[kf][kp_valid[kf]] for kf in np.nonzero(kf_valid)[0]]
+        n = len(self._frame_desc)
+        oks = torch.stack([o.ok for o in self._outs[:n]]).tolist() if n else []
+        lost_descs = []
+        for ok, (desc, valid) in zip(oks, self._frame_desc):
+            if not ok:
+                d = desc[valid].cpu().numpy().view(np.uint32)
+                if d.size:
+                    lost_descs.append(d)
+        return kf_descs, lost_descs

@@ -133,6 +133,18 @@ def scatter_or(size: int, idx: torch.Tensor, mask: torch.Tensor) -> torch.Tensor
     return hits > 0
 
 
+def winner_per_target(idx: torch.Tensor, n_tgt: int) -> torch.Tensor:
+    """Source matches ``idx`` [N_src] (-1 none) -> [n_tgt] int32 source per
+    target (-1 none), the highest source index among several (the
+    reference's last overwrite; ``.at[].max`` in the JAX package)."""
+    matched = idx >= 0
+    src_ids = torch.arange(idx.shape[0], dtype=torch.int32, device=idx.device)
+    winner = torch.full((n_tgt + 1,), -1, dtype=torch.int32, device=idx.device)
+    winner.scatter_reduce_(0, torch.where(matched, idx, n_tgt).long(),
+                           torch.where(matched, src_ids, -1), "amax", include_self=True)
+    return winner[:n_tgt]
+
+
 def scatter_add(arr: torch.Tensor, idx: torch.Tensor, vals: torch.Tensor) -> torch.Tensor:
     """``arr.at[idx].add(vals)`` along the first axis."""
     return arr.index_add(0, idx.reshape(-1).long(), vals.reshape((-1,) + arr.shape[1:]).to(arr.dtype))

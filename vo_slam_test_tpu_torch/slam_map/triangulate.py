@@ -54,7 +54,12 @@ def create_new_map_points(
     caps: MapCaps,
     cam: Camera,
     scale_factors: torch.Tensor,
+    bow_group_div: int = 0,
 ) -> MapState:
+    """bow_group_div: k^min(3, levels) of the vocabulary (0: none). When set,
+    a candidate pair must share its featVec bucket (word // div), as the
+    reference's searchForTriangulation walks featVec nodes in lockstep
+    (matcher.cpp:903-965); a keypoint without a word stays unrestricted."""
     K_cap = m.kf_valid.shape[0]
     P = caps.max_pt
     N = caps.n_feat
@@ -63,6 +68,13 @@ def create_new_map_points(
     # without a vocabulary every featVec group is unknown (-1), which the
     # kernel's group gate lets through
     no_group = torch.full((N,), -1, dtype=torch.int32, device=dev)
+
+    def groups_of(words):
+        if bow_group_div <= 0:
+            return no_group
+        return torch.where(words >= 0, torch.div(words, bow_group_div, rounding_mode="floor"), -1)
+
+    g1 = groups_of(m.kf_word[kf_id])
 
     # ---- neighbour selection (top-10 covisible, localMapping.cpp:136) ------
     w_row = m.covis[kf_id] * m.kf_valid.to(torch.int32)
@@ -103,9 +115,9 @@ def create_new_map_points(
         den = l2[:, 0] ** 2 + l2[:, 1] ** 2
         sf2 = scale_factors[oct2.long()]
         best2, best_d = match_cuda.masked_top1_epi(
-            desc1, m.kf_desc[nbs], l2.contiguous(), den, no_group, free1, ur1 < 0,
+            desc1, m.kf_desc[nbs], l2.contiguous(), den, g1, free1, ur1 < 0,
             uv2[:, 0].contiguous(), uv2[:, 1].contiguous(), 3.84 * sf2 ** 2,
-            no_group, free2, (ur2 < 0) & (dist_e2 < 100.0 * sf2),
+            groups_of(m.kf_word[nbs]), free2, (ur2 < 0) & (dist_e2 < 100.0 * sf2),
         )
         has = best_d <= TH_LOW
         # rotation consistency (searchForTriangulation checkRot default)
