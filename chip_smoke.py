@@ -49,8 +49,8 @@
 6. main path 3: the same frames through ``SlamSystem(chunk=8)``: the same
    checks, with local BA skipped (and no BA launch) on the events a later
    keyframe of the same chunk overtakes;
-7. main path 4, the kidnap: ``SlamSystem(vocabulary=...)`` (loop closing off;
-   it is not ported) over the reference's relocalization scenario at 640x480
+7. main path 4, the kidnap: ``SlamSystem(vocabulary=...)`` (loop closing on,
+   the default) over the reference's relocalization scenario at 640x480
    (tests/test_reloc.py: frames 0-7 of SyntheticRGBD(n_frames=12, seed=31,
    motion_scale=0.3), three black frames, frames 2-5 again; MapCaps(max_kf=32,
    max_pt=8192)) with the scene vocabulary build_vocabulary(k=8, levels=3,
@@ -58,14 +58,31 @@
    variants counted together: default, depth-poor return frames (EPnP) and
    ``reloc_parity=True``. Each must track frames 0-7, lose 8-10, first
    relocalize at frame >= 11 with the recovered pose within 5 cm of the same
-   view's phase-1 estimate; parity mode relocalizes on the default's frame; a
-   second default run gives identical maps; every kernel is launched. Every
-   epipolar search of the path (live featVec groups) and FAST and the top-2
-   on the black frames are held bit for bit against their plain versions.
-   Then transform, bow_vector and scores_vs_keyframes at ORBvoc scale
-   (synth_vocabulary(k=10, levels=6), 10^6 words) on one frame's 1000
-   descriptors against the CPU's results;
-8. prints one ``{"kernels": [...]}`` line and, last, the ``{"ok": true, ...}``
+   view's phase-1 estimate, and close no loop; parity mode relocalizes on the
+   default's frame; a second default run gives identical maps; every kernel
+   is launched. Every epipolar search of the path (live featVec groups) and
+   FAST and the top-2 on the black frames are held bit for bit against their
+   plain versions. Then transform, bow_vector and scores_vs_keyframes at
+   ORBvoc scale (synth_vocabulary(k=10, levels=6), 10^6 words) on one frame's
+   1000 descriptors against the CPU's results;
+8. main path 5, the pan loop of tests/test_loop_e2e.py at 640x480 (60 frames,
+   SyntheticRGBD(seed=41), camera_fps=3, MapCaps(max_kf=32, max_pt=8192),
+   the vocabulary build_vocabulary(k=8, levels=3, seed=3) of the port's
+   extract_fused descriptors of seven frames) with the drift se3(tx=0.5,
+   ty=0.2, ry=-0.08) injected after frame 27 by ``inject_drift``, then the
+   old side severed too (``pan_sever_old``), in three variants: chunk=4,
+   chunk=1, chunk=4 with global BA. Each
+   must track > 90% of frames, close exactly one loop, set loop edges and
+   bring the island keyframes' median residual against their pre-drift
+   poses under 0.35 |t_D|; two runs of the chunk=4 variant with global BA
+   give identical maps; every loop-fuse launch of the chi2 top-2 is held bit for bit against
+   the plain version; the chunk=4 run with the JAX package's own (one-sided)
+   instrument must reproduce the JAX package's CPU outcome (no closure);
+   then global BA on tests/test_global_ba.py's fabricated scene (gba_scene),
+   where its steps are taken, at the tests' caps (the card against the CPU
+   within 1e-5) and at the default MapCaps: two calls identical, the robust
+   cost lower, every keyframe within 1 cm of the truth; timed;
+9. prints one ``{"kernels": [...]}`` line and, last, the ``{"ok": true, ...}``
    line. Every bound is computed from this run's inputs and counts the work
    the function needs, whatever computes it; a kernel timed under its bound
    fails the run (the bound is then wrong). No plain version may see a CUDA
@@ -77,6 +94,7 @@
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import json
 import subprocess
 import sys
@@ -794,12 +812,12 @@ def run_slice(system, triangulate, cfg, frames, timed: bool, profile_frames=()):
     orig_bg, orig_tri = system.background_step, triangulate.create_new_map_points
     cur = [0]
 
-    def timed_bg(m, did_kf, kf_id, *a, **k):
+    def timed_bg(m, loop_state, did_kf, kf_id, *a, **k):
         if not did_kf:
-            return orig_bg(m, did_kf, kf_id, *a, **k)
+            return orig_bg(m, loop_state, did_kf, kf_id, *a, **k)
         e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         e0.record()
-        out = orig_bg(m, did_kf, kf_id, *a, **k)
+        out = orig_bg(m, loop_state, did_kf, kf_id, *a, **k)
         e1.record()
         rec["map_events"].append((cur[0], e0, e1))
         return out
@@ -916,7 +934,7 @@ def kidnap_vocabulary(seq, cfg, device):
 
 def run_kidnap(system, cfg, voc, frames, parity: bool, recorder=None, profile_frames=()):
     """One SlamSystem run over the kidnap frames with the vocabulary (loop
-    closing off: it is not ported): CUDA events per frame and host syncs per
+    closing on, the default): CUDA events per frame and host syncs per
     frame (sync debug mode); ``recorder`` (a LaunchRecorder) learns the frame;
     a torch.profiler window over ``profile_frames`` (consecutive) ->
     rec["profile"] = (profiler, host wall ms per frame)."""
@@ -926,7 +944,6 @@ def run_kidnap(system, cfg, voc, frames, parity: bool, recorder=None, profile_fr
 
     s = system.SlamSystem(cfg, caps=MapCaps(max_kf=32, max_pt=8192), vocabulary=voc,
                           reloc_parity=parity)
-    s.enable_loop_closing = False
     rec = dict(frame_ms=[], syncs=[], sync_sites={}, profile=None)
     prof = None
     for i, (gray, depth, ts) in enumerate(frames):
@@ -963,7 +980,8 @@ def kidnap_report(label, s, rec):
     """Print main path 4's per-variant numbers and hold it to the reference's
     asserts (tests/test_reloc.py:59-72): frames 0-7 tracked, 8-10 lost, the
     first relocalization at frame >= 11, the recovered pose within 5 cm of
-    the same frame's phase-1 estimate -> the first relocalized frame."""
+    the same frame's phase-1 estimate; with loop closing on, no loop closes
+    (the kidnap keeps fewer than MIN_KF_GAP keyframes) -> the numbers."""
     traj, stats, _ = s.results()
     oks = [st.ok for st in stats]
     reloc = s.reloc_frames
@@ -985,13 +1003,429 @@ def kidnap_report(label, s, rec):
           f"({len(tracked)} frames), lost {[round(float(fm[i]), 3) for i in lost]}, relocalized "
           f"{[round(float(fm[i]), 3) for i in reloc]}, frame 0 {fm[0]:.3f}")
     print(f"    host syncs per frame: {rec['syncs']}; by the line that synced: {rec['sync_sites']}")
-    if not (all(oks[:8]) and not any(oks[8:11]) and reloc and reloc[0] >= 11 and rel < 0.05):
+    print(f"    loop closing: closures {s.loop_closures}, attempts {s.loop_attempts}")
+    if not (all(oks[:8]) and not any(oks[8:11]) and reloc and reloc[0] >= 11 and rel < 0.05
+            and not s.loop_closures and not s.loop_attempts):
         raise AssertionError(f"main path 4 ({label}) failed: ok {oks}, reloc_frames {reloc}, "
-                             f"recovered pose {rel} m from the phase-1 estimate")
+                             f"recovered pose {rel} m from the phase-1 estimate, loop closures "
+                             f"{s.loop_closures}")
     return dict(oks=oks, reloc=reloc, rel_m=rel, frame_ms=rec["frame_ms"], syncs=rec["syncs"],
                 tracked_ms_median=float(np.median(fm[tracked])),
                 lost_ms=[float(fm[i]) for i in lost], reloc_ms=[float(fm[i]) for i in reloc],
                 winners={str(i): o.reloc_winner for i, o in enumerate(s._outs) if o.reloc_winner})
+
+
+PAN_VOC_FRAMES = (0, 6, 12, 20, 26, 36, 50)
+# the JAX package's SlamSystem over main path 5 on the CPU, chunk=4, with the
+# vocabulary this script builds on the card and its own (one-sided) drift
+# instrument (perf/loop_path5_jax_cpu.py --voc): no closure, the one Sim3
+# attempt (frame, winner, accepted) rejected
+JAX_CPU_PAN_ONE_SIDED = dict(closures=[], attempts=[(36, -1, False)])
+PAN_CUT_FRAME, PAN_DRIFT_FRAME = 19, 27  # tests/test_loop_e2e.py's hooks
+PAN_CHUNK = 4
+
+
+def se3(tx=0.0, ty=0.0, tz=0.0, rx=0.0, ry=0.0, rz=0.0) -> np.ndarray:
+    """[4,4] f32 exp of the twist (translation, rotation), on the CPU."""
+    from vo_slam_test_tpu_torch import lie
+
+    xi = torch.tensor([tx, ty, tz, rx, ry, rz], dtype=torch.float32)
+    return lie.se3_exp(xi).numpy()
+
+
+def pan_trajectory() -> np.ndarray:
+    """tests/test_loop_e2e.py::pan_trajectory (60 T_w_c): recede from the back
+    wall under a small sweep, pan onto the side wall until the start view has
+    left the frustum, pan back, keep receding over the old wall."""
+    settle = [se3(tx=0.12 * np.sin(0.8 * i), ty=0.1 * np.sin(1.3 * i),
+                  tz=-0.15 * i, ry=0.05 * np.sin(1.1 * i)) for i in range(14)]
+    z0 = -0.15 * 13
+    yaws = ([0.1 + 0.133 * i for i in range(12)] + [1.7] * 4
+            + [1.7 - 0.133 * i for i in range(12)] + [0.1 - 0.02 * i for i in range(4)])
+    pan = [se3(tx=0.05 * np.sin(3 * y), tz=z0, ry=y) for y in yaws]
+    home = [se3(tx=0.1 * np.sin(0.9 * i + 2), ty=0.1 * np.sin(1.1 * i),
+                tz=z0 - 0.15 * (i + 1), ry=0.04 * np.sin(1.3 * i)) for i in range(14)]
+    return np.stack(settle + pan + home)
+
+
+def pan_drift() -> np.ndarray:
+    """The drift the loop must undo: larger than every search window."""
+    return se3(tx=0.5, ty=0.2, ry=-0.08)
+
+
+def pan_sequence():
+    """Main path 5's sequence and config: tests/test_loop_e2e.py's pan loop at
+    640x480 (corner scene, seed 41, 60 frames, 1000 features, 8 levels) with
+    camera_fps=3 (a small frame gap keeps the keyframe cadence up)."""
+    from vo_slam_test_tpu_torch.config import SlamConfig
+    from vo_slam_test_tpu_torch.datasets import SyntheticRGBD
+
+    seq = SyntheticRGBD(seed=41, trajectory=pan_trajectory())
+    cfg = SlamConfig(camera_fx=seq.fx, camera_fy=seq.fy, camera_cx=seq.cx, camera_cy=seq.cy,
+                     camera_k1=0, camera_k2=0, camera_p1=0, camera_p2=0, camera_k3=0,
+                     camera_fps=3)
+    return seq, cfg
+
+
+def pan_vocabulary(seq, cfg, device):
+    """The scene vocabulary of main path 5: build_vocabulary(k=8, levels=3,
+    seed=3) over the port's extract_fused descriptors of PAN_VOC_FRAMES (the
+    reference's test builds it from its host OrbExtractor, not ported)."""
+    from vo_slam_test_tpu_torch.bow.vocabulary import build_vocabulary
+    from vo_slam_test_tpu_torch.frontend.extractor import extract_fused
+    from vo_slam_test_tpu_torch.pipeline import tracking
+
+    tr = tracking.FusedTracker(cfg, device=device)
+    descs = []
+    for i in PAN_VOC_FRAMES:
+        g, d, _ = seq[i]
+        f = extract_fused(torch.as_tensor(g).to(device), torch.as_tensor(d).to(device),
+                          tr.camera, tr.spec, tr.budgets)
+        descs.append(f.desc[f.valid].cpu().numpy())
+    return build_vocabulary(np.concatenate(descs), k=8, levels=3, seed=3, device=device)
+
+
+def _host(a) -> np.ndarray:
+    return a.cpu().numpy() if isinstance(a, torch.Tensor) else np.asarray(a)
+
+
+def pan_sever_old(m, kf_cut: int) -> dict:
+    """Main path 5's second sever, applied to the map after ``inject_drift``
+    (either package's): old keyframes' bindings to island points and their
+    observer entries on those points cleared, the observer counts lowered to
+    match. ``inject_drift`` severs the island side only; the old side's links
+    are points that the first island keyframes triangulated with old ones,
+    and through them a later keyframe becomes covisible with old keyframes,
+    so that local BA pulls the island back before any loop is detected
+    (PERF.md §6). Island membership is ``inject_drift``'s, which leaves
+    kf_seq, kf_valid, pt_ref_kf and pt_valid as they were. -> the new
+    kf_mp, pt_obs_kf, pt_obs_kp, pt_obs_cnt as numpy arrays, for the
+    caller's ``m.replace``."""
+    K, P = m.kf_valid.shape[0], m.pt_valid.shape[0]
+    seq, valid = _host(m.kf_seq), _host(m.kf_valid)
+    kf_sel = (seq >= seq[min(max(int(kf_cut), 0), K - 1)]) & valid
+    ref = _host(m.pt_ref_kf)
+    pt_sel = (ref >= 0) & kf_sel[np.clip(ref, 0, K - 1)] & _host(m.pt_valid)
+    kf_mp = _host(m.kf_mp)
+    cut = ~kf_sel[:, None] & (kf_mp >= 0) & pt_sel[np.clip(kf_mp, 0, P - 1)]
+    obs = _host(m.pt_obs_kf)
+    cross = (obs >= 0) & ~kf_sel[np.clip(obs, 0, K - 1)] & pt_sel[:, None]
+    cnt = _host(m.pt_obs_cnt)
+    return dict(kf_mp=np.where(cut, -1, kf_mp).astype(kf_mp.dtype),
+                pt_obs_kf=np.where(cross, -1, obs).astype(obs.dtype),
+                pt_obs_kp=np.where(cross, -1, _host(m.pt_obs_kp)).astype(obs.dtype),
+                pt_obs_cnt=np.maximum(cnt - cross.sum(1), 0).astype(cnt.dtype))
+
+
+def island_residual(pre_poses, pre_valid, kf_cut, final_poses) -> np.ndarray:
+    """Per island keyframe (live before the drift, slot >= kf_cut): the
+    distance between its final translation and its pre-drift one."""
+    island = pre_valid.copy()
+    island[:kf_cut] = False
+    return np.linalg.norm(final_poses[island][:, :3, 3] - pre_poses[island][:, :3, 3], axis=1)
+
+
+def gba_scene(caps, device, n_kf=6, n_pt=400, noise_px=0.3, pose_noise=0.03, pt_noise=0.05,
+              seed=3):
+    """tests/test_local_ba.py::fabricate_map with the arguments of
+    tests/test_global_ba.py::test_recovers_geometry, in a port MapState of
+    ``caps``: n_pt points seen by n_kf keyframes (half of the observations
+    stereo), every pose but keyframe 0's and every point perturbed -> (map,
+    ground-truth poses [n_kf,4,4], camera)."""
+    from vo_slam_test_tpu_torch import lie
+    from vo_slam_test_tpu_torch.camera import Camera
+    from vo_slam_test_tpu_torch.config import SlamConfig
+    from vo_slam_test_tpu_torch.slam_map.map_state import empty_map
+
+    def exp(xi):
+        return lie.se3_exp(torch.as_tensor(np.asarray(xi, np.float32))).numpy()
+
+    rng = np.random.default_rng(seed)
+    cam = Camera.from_config(SlamConfig(camera_k1=0, camera_k2=0, camera_p1=0, camera_p2=0,
+                                        camera_k3=0), device)
+    fx, fy, cx, cy, bf = (float(cam.fx), float(cam.fy), float(cam.cx), float(cam.cy),
+                          float(cam.bf))
+    gt_pts = rng.uniform([-2, -1.5, 2.5], [2, 1.5, 6.0], size=(n_pt, 3)).astype(np.float32)
+    gt_poses = []
+    for _ in range(n_kf):
+        xi = np.zeros(6, np.float32)
+        xi[:3] = rng.uniform(-0.3, 0.3, 3)
+        xi[3:] = rng.uniform(-0.05, 0.05, 3)
+        gt_poses.append(exp(xi))
+    gt_poses = np.stack(gt_poses)
+    m = empty_map(caps, "cpu")
+    md = {f: getattr(m, f).numpy().copy() for f in (
+        "kf_pose kf_valid kf_uv_und kf_octave kf_u_right kf_depth kf_kp_valid kf_mp "
+        "pt_pos pt_valid pt_obs_kf pt_obs_kp pt_obs_cnt covis".split())}
+    for k in range(n_kf):
+        T = gt_poses[k]
+        pc = gt_pts @ T[:3, :3].T + T[:3, 3]
+        u = fx * pc[:, 0] / pc[:, 2] + cx + rng.normal(0, noise_px, n_pt)
+        v = fy * pc[:, 1] / pc[:, 2] + cy + rng.normal(0, noise_px, n_pt)
+        vis = (pc[:, 2] > 0.2) & (u > 5) & (u < 635) & (v > 5) & (v < 475)
+        md["kf_pose"][k] = T
+        md["kf_valid"][k] = True
+        for slot, p in enumerate(np.nonzero(vis)[0][:caps.n_feat]):
+            md["kf_uv_und"][k, slot] = (u[p], v[p])
+            md["kf_octave"][k, slot] = 0
+            stereo = rng.uniform() < 0.5
+            md["kf_u_right"][k, slot] = ((u[p] - bf / pc[p, 2] + rng.normal(0, noise_px))
+                                         if stereo else -1.0)
+            md["kf_depth"][k, slot] = pc[p, 2] if stereo else -1.0
+            md["kf_kp_valid"][k, slot] = True
+            md["kf_mp"][k, slot] = p
+            cnt = md["pt_obs_cnt"][p]
+            if cnt < caps.max_obs:
+                md["pt_obs_kf"][p, cnt] = k
+                md["pt_obs_kp"][p, cnt] = slot
+            md["pt_obs_cnt"][p] += 1
+    md["pt_pos"][:n_pt] = gt_pts + rng.normal(0, pt_noise, (n_pt, 3))
+    md["pt_valid"][:n_pt] = True
+    md["covis"][:n_kf, :n_kf] = 200
+    np.fill_diagonal(md["covis"], 0)
+    for k in range(1, n_kf):
+        xi = np.concatenate([rng.normal(0, pose_noise, 3),
+                             rng.normal(0, pose_noise / 2, 3)]).astype(np.float32)
+        md["kf_pose"][k] = exp(xi) @ md["kf_pose"][k]
+    m = m.replace(n_kf=torch.tensor(n_kf, dtype=torch.int32),
+                  n_pt=torch.tensor(n_pt, dtype=torch.int32),
+                  **{f: torch.as_tensor(v) for f, v in md.items()})
+    m = m.replace(**{f.name: getattr(m, f.name).to(device)
+                     for f in dataclasses.fields(m)})
+    return m, gt_poses, cam
+
+
+def gba_cost(m, cam, inv_level_sigma2=None):
+    """The robust cost global BA minimises (solvers/global_ba.py), in
+    float64, over the map's bound observations -> (cost, observations)."""
+    from vo_slam_test_tpu_torch.solvers import global_ba as G
+    from vo_slam_test_tpu_torch.solvers.pose_only import CHI2_MONO, CHI2_STEREO
+
+    o_kf, o_pt, o_valid, uv, ur, inv2 = G._prep_obs(m, inv_level_sigma2)
+    e, _, _, st = G._residuals_jacs(m.kf_pose.double(), m.pt_pos.double(), o_kf, o_pt,
+                                    uv.double(), ur.double(), cam)
+    s2 = ((e * torch.sqrt(inv2.double())[:, None]) ** 2).sum(-1)
+    d = torch.where(st, CHI2_STEREO ** 0.5, CHI2_MONO ** 0.5)
+    ss = torch.sqrt(s2 + 1e-12)
+    rho = torch.where(ss <= d, s2, 2 * d * ss - d * d)
+    return float(torch.where(o_valid, rho, 0.0).sum()), int(o_valid.sum())
+
+
+def run_gba_scene(label, caps, device, cpu_check: bool) -> dict:
+    """Global BA on ``gba_scene(caps)`` on the card, twice, timed with CUDA
+    events, with the host syncs of the second call counted. Fails unless the
+    two maps are identical, steps were taken (the robust cost fell), keyframe
+    0 (the gauge) kept its pose and every keyframe lands within 1 cm of its
+    ground truth (tests/test_global_ba.py's bound); with ``cpu_check`` the
+    card's poses and points must also agree with the same call on the CPU
+    within 1e-5."""
+    from vo_slam_test_tpu_torch.solvers import global_ba
+
+    m, gt, cam = gba_scene(caps, device)
+    outs, ms, syncs = [], [], 0
+    for k in range(2):
+        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            if k:
+                torch.cuda.set_sync_debug_mode("warn")
+            e0.record()
+            outs.append(global_ba.global_bundle_adjust(m, caps, cam, 0))
+            e1.record()
+            torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+        ms.append(e0.elapsed_time(e1))
+        syncs = len([w for w in caught if "synchroniz" in str(w.message)])
+    out = outs[0]
+    c0, n_obs = gba_cost(m, cam)
+    c1, _ = gba_cost(out, cam)
+    n_kf = gt.shape[0]
+    terr = np.linalg.norm(out.kf_pose[:n_kf, :3, 3].cpu().numpy() - gt[:, :3, 3], axis=1)
+    row = dict(caps=[caps.max_kf, caps.max_pt, caps.max_obs, caps.n_feat], observations=n_obs,
+               table=caps.max_kf * caps.n_feat, ms=ms, host_syncs=syncs, cost=[c0, c1],
+               max_kf_err_m=float(terr.max()))
+    same = all(torch.equal(getattr(outs[0], f), getattr(outs[1], f)) for f in ("kf_pose", "pt_pos"))
+    if cpu_check:
+        mc = m.replace(**{f.name: getattr(m, f.name).cpu() for f in dataclasses.fields(m)})
+        cam_c = gba_scene(caps, "cpu")[2]
+        oc = global_ba.global_bundle_adjust(mc, caps, cam_c, 0)
+        row["cpu_max_abs"] = max(float((out.kf_pose.cpu() - oc.kf_pose).abs().max()),
+                                 float((out.pt_pos.cpu() - oc.pt_pos).abs().max()))
+    print(f"  {label} (MapCaps{tuple(row['caps'])}, {n_obs} bound observations of "
+          f"{row['table']} table slots): ms per call (CUDA events) {[round(x, 3) for x in ms]}; "
+          f"host syncs {syncs}; robust cost {c0:.6f} -> {c1:.6f}; largest keyframe error "
+          f"{row['max_kf_err_m']:.6f} m; two calls identical {same}"
+          + (f"; against the CPU {row['cpu_max_abs']:.3e}" if cpu_check else ""))
+    if not (same and c1 < c0 and terr.max() < 0.01
+            and torch.equal(out.kf_pose[0], m.kf_pose[0])
+            and row.get("cpu_max_abs", 0.0) < 1e-5):
+        raise AssertionError(f"global BA on the fabricated scene ({label}) failed: {row}")
+    return row
+
+
+def run_pan(system, cfg, voc, frames, chunk: int, gba: bool, recorder=None, sever_old=True,
+            profile_frames=()):
+    """One main-path-5 run: ``SlamSystem(vocabulary=voc, chunk=chunk,
+    enable_global_ba=gba)`` with MapCaps(max_kf=32, max_pt=8192) over the pan
+    loop, the drift injected after frame PAN_DRIFT_FRAME with the cut at the
+    keyframe count after frame PAN_CUT_FRAME by ``inject_drift``, then (with
+    ``sever_old``) ``pan_sever_old``.
+    CUDA events around each track call (per frame, or per chunk where the
+    chunk's work runs), around each keyframe event's background step and
+    each global BA; host syncs per track call (sync debug mode). ``recorder``
+    (a LaunchRecorder) learns the frame and, as its tag, whether the loop
+    correction runs; a torch.profiler window over the track calls of
+    ``profile_frames`` (consecutive) -> rec["profile"] = (profiler, host wall
+    ms per frame)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from vo_slam_test_tpu_torch.pipeline import loop_closing
+    from vo_slam_test_tpu_torch.slam_map.map_state import MapCaps
+    from vo_slam_test_tpu_torch.solvers import global_ba
+    from vo_slam_test_tpu_torch.utils.drift import inject_drift
+
+    D = torch.as_tensor(pan_drift()).to("cuda")
+    s = system.SlamSystem(cfg, caps=MapCaps(max_kf=32, max_pt=8192), vocabulary=voc,
+                          chunk=chunk, enable_global_ba=gba)
+    rec = dict(call_ms=[], syncs=[], sync_sites={}, events=[], gba=[])
+    orig_bg, orig_gba, orig_corr = (system.background_step, global_ba.global_bundle_adjust,
+                                    loop_closing._correct)
+
+    def timed_bg(*a, **k):
+        if not (a[2] and a[3] >= 0):  # no keyframe event
+            return orig_bg(*a, **k)
+        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        e0.record()
+        out = orig_bg(*a, **k)
+        e1.record()
+        rec["events"].append((e0, e1, out[2]))
+        return out
+
+    def timed_gba(*a, **k):
+        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        e0.record()
+        out = orig_gba(*a, **k)
+        e1.record()
+        rec["gba"].append((e0, e1))
+        return out
+
+    def tagged_correct(*a, **k):
+        if recorder is not None:
+            recorder.tag = "loop_fuse"
+        try:
+            return orig_corr(*a, **k)
+        finally:
+            if recorder is not None:
+                recorder.tag = None
+
+    system.background_step, global_ba.global_bundle_adjust = timed_bg, timed_gba
+    loop_closing._correct = tagged_correct
+    kf_cut = pre_poses = pre_valid = prof = None
+    rec["profile"] = None
+    try:
+        for i, (gray, depth, ts) in enumerate(frames):
+            if recorder is not None:
+                recorder.frame = i
+            if profile_frames and i == profile_frames[0]:
+                torch.cuda.synchronize()
+                prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+                prof.__enter__()
+                t_prof = time.perf_counter()
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                torch.cuda.set_sync_debug_mode("warn")
+                s.track(gray, depth, ts)
+                torch.cuda.set_sync_debug_mode("default")
+            end.record()
+            torch.cuda.synchronize()
+            rec["call_ms"].append(start.elapsed_time(end))
+            sync_ws = [w for w in caught if "synchroniz" in str(w.message)]
+            rec["syncs"].append(len(sync_ws))
+            for w in sync_ws:
+                site = f"{w.filename.split('vo_slam_test_tpu_torch/')[-1]}:{w.lineno}"
+                rec["sync_sites"][site] = rec["sync_sites"].get(site, 0) + 1
+            if prof is not None and i == profile_frames[-1]:
+                wall = (time.perf_counter() - t_prof) * 1e3 / len(profile_frames)
+                prof.__exit__(None, None, None)
+                rec["profile"], prof = (prof, wall), None
+            if i == PAN_CUT_FRAME:
+                assert not s._chunk_buf
+                kf_cut = max(int(s.map.n_kf), 1)
+            if i == PAN_DRIFT_FRAME:
+                assert not s._chunk_buf
+                pre_poses = s.map.kf_pose.cpu().numpy()
+                pre_valid = s.map.kf_valid.cpu().numpy()
+                s.map, s.state.assign_real = inject_drift(s.map, s.state.assign_real, kf_cut, D)
+                if sever_old:
+                    s.map = s.map.replace(**{k: torch.as_tensor(v, device=s.map.device)
+                                             for k, v in pan_sever_old(s.map, kf_cut).items()})
+        torch.cuda.synchronize()
+    finally:
+        system.background_step, global_ba.global_bundle_adjust = orig_bg, orig_gba
+        loop_closing._correct = orig_corr
+        if prof is not None:
+            prof.__exit__(None, None, None)
+    # keyframe events run in frame order, one background step each
+    kf_frames = [i for i, o in enumerate(s._outs) if o.made_kf]
+    assert len(kf_frames) == len(rec["events"])
+    rec.update(kf_cut=kf_cut, pre_poses=pre_poses, pre_valid=pre_valid,
+               map_ms={f: e0.elapsed_time(e1) for f, (e0, e1, _) in zip(kf_frames, rec["events"])},
+               closing_ms=[e0.elapsed_time(e1) for e0, e1, out in rec.pop("events") if out.closed],
+               gba_ms=[e0.elapsed_time(e1) for e0, e1 in rec.pop("gba")])
+    return s, rec
+
+
+def pan_report(label, s, rec, gt):
+    """Print one main-path-5 variant and hold it to tests/test_loop_e2e.py's
+    gates: > 90% of frames tracked, exactly one loop closure, loop edges set,
+    the island keyframes' median residual against their pre-drift poses
+    under 0.35 |t_D|."""
+    from vo_slam_test_tpu_torch.datasets import ate_rmse
+
+    traj, stats, _ = s.results()
+    oks = [st.ok for st in stats]
+    D = pan_drift()
+    res = island_residual(rec["pre_poses"], rec["pre_valid"], rec["kf_cut"],
+                          s.map.kf_pose.cpu().numpy())
+    gate = 0.35 * float(np.linalg.norm(D[:3, 3]))
+    ate = ate_rmse(s.timestamps, gt, s.timestamps, traj)
+    kf_frames = [i for i, o in enumerate(s._outs) if o.made_kf]
+    closing = s.loop_closures[0] if s.loop_closures else None
+    cm = np.array(rec["call_ms"])
+    print(f"  {label}: tracked {sum(oks)}/{len(oks)}; kf_cut {rec['kf_cut']}; loop closures at "
+          f"frames {s.loop_closures}; attempts (frame, winner, accepted) {s.loop_attempts}; "
+          f"loop edges {torch.nonzero(s.map.loop_edges).tolist()}")
+    print(f"    Sim3 gates per attempt (frame, candidate, accepted, gates): {s.loop_gates}")
+    print(f"    island residual median {float(np.median(res)) if res.size else float('nan'):.6f} m "
+          f"(gate {gate:.4f}) per keyframe {res.round(6).tolist()}; ATE {ate * 100:.4f} cm; "
+          f"keyframe events at {kf_frames}; live keyframes {s.n_keyframes}, points {s.n_points}; "
+          f"LM iterations {s.ba_iters}")
+    chunk = s.chunk
+    work = [i for i in range(len(cm)) if chunk == 1 or (i + 1) % chunk == 0]
+    plain_ev = [v for i, v in sorted(rec["map_ms"].items()) if i != closing]
+    close_ms = rec["closing_ms"][0] if rec["closing_ms"] else None
+    kf_calls = {i for i in work if any(i - chunk < f <= i for f in kf_frames)}
+    print(f"    ms per track call (CUDA events; {'frame' if chunk == 1 else f'chunk of {chunk}'}): "
+          f"without a keyframe event median "
+          f"{np.median([cm[i] for i in work if i not in kf_calls and i > 0]):.3f}, with one "
+          f"median {np.median([cm[i] for i in kf_calls if i > 0]):.3f}; keyframe events' "
+          f"background step ms median {np.median(plain_ev):.3f} over {len(plain_ev)}, the closing "
+          f"event's {close_ms if close_ms is None else round(close_ms, 3)}; global BA ms "
+          f"{[round(x, 3) for x in rec['gba_ms']]}")
+    print(f"    host syncs per track call: {rec['syncs']}; by the line that synced: "
+          f"{rec['sync_sites']}")
+    print(f"    kernel launches: {rec.get('launches')}")
+    if not (sum(oks) > 0.9 * len(oks) and len(s.loop_closures) == 1
+            and bool(s.map.loop_edges.any()) and res.size and np.median(res) < gate):
+        raise AssertionError(f"main path 5 ({label}) failed: {sum(oks)}/{len(oks)} tracked, "
+                             f"closures {s.loop_closures}, residual {res.tolist()} m (gate {gate})")
+    return dict(oks=sum(oks), closing_frame=closing, attempts=s.loop_attempts,
+                gates=[(f, c, a, g) for f, c, a, g in s.loop_gates], residual_m=res.tolist(),
+                ate_m=float(ate), call_ms=rec["call_ms"], map_ms=rec["map_ms"],
+                closing_event_ms=close_ms, gba_ms=rec["gba_ms"], syncs=rec["syncs"],
+                launches=rec.get("launches"))
 
 
 class LaunchRecorder:
@@ -1002,6 +1436,7 @@ class LaunchRecorder:
     def __init__(self, targets):
         self.targets = targets  # (module, attribute, keep)
         self.frame = -1
+        self.tag = None  # set by the caller around the calls a keep looks for
         self.got = {attr: [] for _, attr, _ in targets}
         self.saved = []
 
@@ -1651,6 +2086,99 @@ def main() -> int:
           f"top-2 searches with no target (frame, M, live source rows) {black['masked_top2']}; "
           f"each bit-equal to its plain version")
 
+    # -- main path 5: the pan loop; loop closing and global BA -----------------
+    t0 = time.perf_counter()
+    pseq, pcfg = pan_sequence()
+    pframes = [pseq[i] for i in range(len(pseq))]
+    pgt = np.stack([pseq.poses[i] for i in range(len(pseq))])
+    pvoc = pan_vocabulary(pseq, pcfg, dev)
+    print(f"main path 5 data: the pan loop of tests/test_loop_e2e.py ({len(pframes)} frames, "
+          f"SyntheticRGBD(seed=41), camera_fps=3) and its vocabulary (k={pvoc.k}, "
+          f"levels={pvoc.levels}, from the port's extract_fused descriptors of frames "
+          f"{PAN_VOC_FRAMES}; centroid sum "
+          f"{sum(int(c.cpu().numpy().view(np.uint32).astype(np.uint64).sum()) for c in pvoc.centroids)}) "
+          f"in {time.perf_counter() - t0:.1f} s")
+    on_loop_fuse = lambda f, args: lrec5.tag == "loop_fuse"  # noqa: E731
+    with PlainGuard(plains) as guard5:
+        torch.cuda.synchronize()
+        for k in all_kernels.values():
+            k.reset()
+        by_variant = {}
+        with LaunchRecorder([(match_cuda, "masked_top2", on_loop_fuse)]) as lrec5:
+            for label, chunk_v, gba in ((f"chunk={PAN_CHUNK}", PAN_CHUNK, False),
+                                        ("chunk=1", 1, False),
+                                        (f"chunk={PAN_CHUNK}, global BA", PAN_CHUNK, True)):
+                before = {k: v.launches for k, v in all_kernels.items()}
+                by_variant[label] = run_pan(system, pcfg, pvoc, pframes, chunk_v, gba, lrec5)
+                by_variant[label][1]["launches"] = {k: v.launches - before[k]
+                                                    for k, v in all_kernels.items()}
+        launches5 = {k: v.launches for k, v in all_kernels.items()}
+        (s5, r5), (s5f, r5f), (s5g, r5g) = by_variant.values()
+        # the determinism run (global BA included) carries the profiler window
+        # over the closing chunk
+        s5gb, r5gb = run_pan(system, pcfg, pvoc, pframes, PAN_CHUNK, True,
+                             profile_frames=(40, 41, 42, 43))
+        s5o, r5o = run_pan(system, pcfg, pvoc, pframes, PAN_CHUNK, False, sever_old=False)
+    print("main path 5 (SlamSystem(vocabulary=...), the pan loop at 640x480 with the drift "
+          "injected by inject_drift + pan_sever_old, MapCaps(max_kf=32, max_pt=8192)):")
+    pan = {f"chunk={PAN_CHUNK}": pan_report(f"chunk={PAN_CHUNK}", s5, r5, pgt),
+           "chunk=1": pan_report("chunk=1", s5f, r5f, pgt),
+           f"chunk={PAN_CHUNK}, global BA": pan_report(f"chunk={PAN_CHUNK}, global BA", s5g, r5g,
+                                                       pgt)}
+    # the JAX package's own instrument (old keyframes keep their island
+    # points): local BA pulls the island back at frame 36 and no loop closes,
+    # as in the JAX package's run on the CPU (perf/loop_path5_jax_cpu.py)
+    one_sided = dict(closures=s5o.loop_closures, attempts=s5o.loop_attempts,
+                     residual_m=island_residual(r5o["pre_poses"], r5o["pre_valid"], r5o["kf_cut"],
+                                                s5o.map.kf_pose.cpu().numpy()).tolist())
+    print(f"  chunk={PAN_CHUNK} with the JAX package's one-sided sever: {one_sided}; the JAX "
+          f"package on the CPU: {JAX_CPU_PAN_ONE_SIDED}")
+    if (s5o.loop_closures, s5o.loop_attempts) != (JAX_CPU_PAN_ONE_SIDED["closures"],
+                                                  JAX_CPU_PAN_ONE_SIDED["attempts"]):
+        raise AssertionError(f"main path 5 with the one-sided sever: {one_sided}, the JAX "
+                             f"package on the CPU: {JAX_CPU_PAN_ONE_SIDED}")
+    pan["one_sided_sever"] = one_sided
+    check_same_maps(f"main path 5 (chunk={PAN_CHUNK}, global BA)", s5g, s5gb)
+    print(f"  the second chunk={PAN_CHUNK} global-BA run's chunk of frames 40-43 (the closing "
+          f"event and the global BA), events and the profiler's wall ms include its overhead:")
+    prof5, wall5 = r5gb["profile"]
+    busy5, nl5 = device_profile(prof5, 4, wall5)
+    pan["profile_frames_40_43"] = dict(device_busy_ms=busy5, kernels_per_frame=nl5, wall_ms=wall5)
+    if len(r5g["gba_ms"]) != 1 or r5["gba_ms"] or r5f["gba_ms"]:
+        raise AssertionError(f"main path 5: global BA ran {len(r5g['gba_ms'])} times with it on, "
+                             f"{len(r5['gba_ms']) + len(r5f['gba_ms'])} with it off")
+    # the loop fuse (row 4 at its new site): every launch of the three
+    # variants' corrections held bit for bit against the plain version
+    fuse_calls = lrec5.got["masked_top2"]
+    for f, args, kw in fuse_calls:
+        check_equal(f"masked_top2 (chi2) of the loop fuse at frame {f}",
+                    match_cuda.masked_top2(*args, **kw),
+                    match_pallas.masked_top2_plain(*args, **kw), TOP2_OUTS)
+    if not fuse_calls or not all(kw.get("chi2_gate") for _, _, kw in fuse_calls):
+        raise AssertionError(f"main path 5: {len(fuse_calls)} loop-fuse launches recorded")
+    fuse_rows = [(f, int(args[9].sum()), int((match_cuda.masked_top2(*args, **kw)[1] <= 50).sum()))
+                 for f, args, kw in fuse_calls]
+    kernels["top2_chi2"]["loop_fuse_instances"] = dict(launches=len(fuse_calls), bit_equal=True,
+                                                       frame_live_matched=fuse_rows)
+    print(f"  loop fuse: {len(fuse_calls)} chi2 top-2 launches over the three variants' "
+          f"corrections (frame, live rows, rows matched <= TH_LOW): {fuse_rows}; each bit-equal "
+          f"to the plain version")
+    print(f"  kernel launches (the three variants): {launches5}; plain versions on CUDA: "
+          f"{guard5.cuda_calls}")
+    if min(launches5.values()) < 1:
+        raise AssertionError(f"main path 5 launched no {[k for k, v in launches5.items() if not v]}")
+    if guard5.cuda_calls:
+        raise AssertionError(f"plain versions ran on CUDA tensors: {guard5.cuda_calls}")
+
+    # -- global BA on a scene where it takes its steps -----------------------
+    from vo_slam_test_tpu_torch.slam_map.map_state import MapCaps
+
+    print("phase global BA on tests/test_global_ba.py's fabricated scene (6 keyframes, 400 "
+          "points, poses and points perturbed; float64 solve):")
+    gba_rows = {"tests' caps": run_gba_scene("the tests' caps", MapCaps(16, 2048, 12, 256), dev,
+                                             True),
+                "default MapCaps": run_gba_scene("the default MapCaps", MapCaps(), dev, False)}
+
     # -- BoW at ORBvoc scale: transform, bow_vector, scores_vs_keyframes -------
     from vo_slam_test_tpu_torch.bow import retrieval as bow_ret
     from vo_slam_test_tpu_torch.bow import vocabulary as bow_voc
@@ -1703,7 +2231,8 @@ def main() -> int:
         kernels[k]["launches"] = launches2[k]
     for k in kernels:
         kernels[k]["launches_by_path"] = {"1": launches1[k], "2": launches2[k],
-                                          "3": launches3[k], "4": launches4[k]}
+                                          "3": launches3[k], "4": launches4[k],
+                                          "5": launches5[k]}
     # ba_accumulate is two launches in a row, the others one
     for k, v in kernels.items():
         v["launch_floor_x"] = v["ms"] / floor["launches_2" if k == "ba_acc" else "launches_1"]
@@ -1712,7 +2241,7 @@ def main() -> int:
         raise AssertionError(f"kernels timed under their bounds, so the bounds are wrong: {under}")
     keys = ("name", "shape", "route", "source", "replaces", "launches", "launches_by_path",
             "max_abs_err", "ms", "v1_ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
-            "launch_floor_x", "counted", "kidnap_instances")
+            "launch_floor_x", "counted", "kidnap_instances", "loop_fuse_instances")
     print(f"total {time.perf_counter() - t_start:.1f} s after the card query")
     print(json.dumps({"main_path": {
         "fused_tracker": {"frame_ms_median": float(np.median(steady)), "ate_m": float(ate),
@@ -1726,6 +2255,8 @@ def main() -> int:
                                "keyframe_frames": kf_frames3, "ba_iters": s3.ba_iters,
                                "launches": launches3},
         "kidnap": dict(kid, launches=launches4, bow_orbvoc_ms=bow_ms),
+        "pan_loop": dict(pan, launches=launches5),
+        "global_ba_scene": gba_rows,
         "card": smi}}))
     order = ("fast", "orb", "top2", "top2_m4096", "top2_chi2", "top2_nb", "top1_epi") + ba_keys
     print(json.dumps({"kernels": [{key: kernels[k][key] for key in keys if key in kernels[k]}

@@ -694,7 +694,181 @@ def test_port_modules_import_no_jax(cuda):
                  "slam_map.culling", "slam_map.fuse", "slam_map.triangulate",
                  "pipeline.system", "solvers.local_ba", "ops.ba_cuda", "ops.ba_pallas",
                  "bow.vocabulary", "bow.retrieval", "matching.bow_match", "solvers.ransac",
-                 "solvers.epnp", "utils.prng"):
+                 "solvers.epnp", "utils.prng", "utils.linalg", "utils.drift", "solvers.sim3",
+                 "solvers.pose_graph", "solvers.global_ba", "pipeline.loop_closing"):
         assert pkg.__name__ + "." + name in sys.modules
     bad = [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "vo_slam_test_tpu")]
     assert not bad, bad
+
+
+# ---------------------------------------------------------------------------
+# loop closing: the loop fuse (row 4 at its new site) and global BA
+# ---------------------------------------------------------------------------
+
+
+def drifted_loop_map(device):
+    """tests/test_loop_close.py::build_drifted_loop_map with the port's own
+    map and lie (the card's machine has no JAX): ten keyframes, KF0 and KF9
+    revisit one place, the stored chain drifts with the index -> (map, caps,
+    camera, scale factors)."""
+    from vo_slam_test_tpu_torch import lie
+    from vo_slam_test_tpu_torch.camera import Camera
+    from vo_slam_test_tpu_torch.slam_map.map_state import MapCaps, empty_map
+
+    caps = MapCaps(max_kf=16, max_pt=512, max_obs=8, n_feat=128)
+    cam = Camera.from_config(SlamConfig(camera_k1=0, camera_k2=0, camera_p1=0, camera_p2=0,
+                                        camera_k3=0), device)
+
+    def se3(tx=0.0, ty=0.0, ry=0.0):
+        return lie.se3_exp(torch.tensor([tx, ty, 0.0, 0.0, ry, 0.0])).numpy()
+
+    rng = np.random.default_rng(7)
+    n = 80
+    gt = np.stack([np.eye(4, dtype=np.float32)] + [se3(tx=0.02 * i, ry=0.01 * i)
+                                                   for i in range(1, 9)] + [se3(tx=0.05)])
+    stored = np.stack([gt[i] @ se3(tx=0.03 * i, ty=0.015 * i, ry=0.008 * i) for i in range(10)])
+    p_true = np.stack([rng.uniform(-0.8, 0.8, n), rng.uniform(-0.6, 0.6, n),
+                       rng.uniform(1.5, 2.5, n)], 1).astype(np.float32)
+    descs = rng.integers(0, 2**32, size=(n, 8), dtype=np.uint32).view(np.int32)
+    fx, fy, cx, cy = (float(v) for v in (cam.fx, cam.fy, cam.cx, cam.cy))
+
+    def project(T):
+        pc = p_true @ T[:3, :3].T + T[:3, 3]
+        return np.stack([fx * pc[:, 0] / pc[:, 2] + cx, fy * pc[:, 1] / pc[:, 2] + cy], 1), pc
+
+    uv0, pc0 = project(gt[0])
+    uv9, pc9 = project(gt[9])
+    inv9 = np.linalg.inv(stored[9])
+    p_dup = pc9 @ inv9[:3, :3].T + inv9[:3, 3]
+    K, N, P, O = caps.max_kf, caps.n_feat, caps.max_pt, caps.max_obs
+    f = {k: v.cpu().numpy().copy() for k, v in empty_map(caps, "cpu").__dict__.items()}
+    f["kf_pose"][:10] = stored
+    f["kf_valid"][:10] = True
+    for k, uv, base in ((0, uv0, 0), (9, uv9, n)):
+        f["kf_uv_und"][k, :n] = uv
+        f["kf_desc"][k, :n] = descs
+        f["kf_kp_valid"][k, :n] = True
+        f["kf_mp"][k, :n] = base + np.arange(n)
+        f["pt_obs_kf"][base:base + n, 0] = k
+        f["pt_obs_kp"][base:base + n, 0] = np.arange(n)
+    for i in range(9):
+        f["covis"][i, i + 1] = f["covis"][i + 1, i] = 120
+    f["parent"][1:10] = np.arange(9)
+    f["pt_pos"][:n], f["pt_pos"][n:2 * n] = p_true, p_dup
+    f["pt_desc"][:n] = f["pt_desc"][n:2 * n] = descs
+    f["pt_valid"][:2 * n] = True
+    f["pt_ref_kf"][:n], f["pt_ref_kf"][n:2 * n] = 0, 9
+    d0, d9 = np.linalg.norm(pc0, axis=1), np.linalg.norm(pc9, axis=1)
+    f["pt_min_dist"][:n], f["pt_max_dist"][:n] = 0.5 * d0, 1.02 * d0
+    f["pt_min_dist"][n:2 * n], f["pt_max_dist"][n:2 * n] = 0.5 * d9, 1.02 * d9
+    f["pt_obs_cnt"][:2 * n] = 1
+    f["kf_seq"][:10] = 10 + np.arange(10)
+    f["n_kf_ever"], f["n_kf"], f["n_pt"] = np.int32(20), np.int32(10), np.int32(2 * n)
+    m = type(empty_map(caps, "cpu"))(**{k: torch.as_tensor(np.asarray(v)).to(device)
+                                         for k, v in f.items()})
+    return m, caps, cam, torch.tensor([1.2 ** i for i in range(8)], device=device), gt
+
+
+def test_loop_fuse_launches_match_plain(cuda):
+    """close_step on the drifted chain, on the card: every chi2 top-2 launch
+    of the loop fuse (one per corrected-group keyframe) bit-equal to the
+    plain version; the loop accepted and KF9 corrected."""
+    from chip_smoke import LaunchRecorder, TOP2_OUTS
+    from vo_slam_test_tpu_torch.pipeline import loop_closing
+
+    m, caps, cam, scales, gt = drifted_loop_map(cuda)
+    groups = torch.zeros(caps.n_feat, dtype=torch.int32, device=cuda)
+    orig = loop_closing._correct
+
+    def tagged(*a, **k):
+        rec.tag = "loop_fuse"
+        try:
+            return orig(*a, **k)
+        finally:
+            rec.tag = None
+
+    before = match_cuda.KERNEL_CHI2.launches
+    loop_closing._correct = tagged
+    try:
+        with LaunchRecorder([(match_cuda, "masked_top2",
+                              lambda f, args: rec.tag == "loop_fuse")]) as rec:
+            m2, ls, accepted, gates = loop_closing.close_step(
+                m, loop_closing.empty_loop_state(caps, cuda), 9, 0, caps, cam, scales, groups,
+                groups, diag=True)
+    finally:
+        loop_closing._correct = orig
+    torch.cuda.synchronize()
+    calls = rec.got["masked_top2"]
+    assert accepted and gates["total"] >= 40
+    # the corrected group: KF9 and its covisible KF8
+    assert len(calls) == 2 == match_cuda.KERNEL_CHI2.launches - before
+    for _, args, kw in calls:
+        got = match_cuda.masked_top2(*args, **kw)
+        want = match_pallas.masked_top2_plain(*args, **kw)
+        for name, a, b in zip(TOP2_OUTS, got, want):
+            assert torch.equal(a, b), name
+    assert np.linalg.norm(m2.kf_pose[9, :3, 3].cpu().numpy() - gt[9][:3, 3]) < 0.05
+
+
+def fabricated_ba_map(device, n_kf=6, n_pt=400, seed=3):
+    """tests/test_local_ba.py::fabricate_map's scene with the port's map and
+    lie: n_kf views of n_pt points with 0.3 px noise, half of the
+    observations stereo, poses (but KF0) and points perturbed -> (map,
+    caps, camera)."""
+    from vo_slam_test_tpu_torch import lie
+    from vo_slam_test_tpu_torch.camera import Camera
+    from vo_slam_test_tpu_torch.slam_map.map_state import MapCaps, empty_map
+
+    caps = MapCaps(max_kf=16, max_pt=2048, max_obs=12, n_feat=256)
+    cam = Camera.from_config(SlamConfig(camera_k1=0, camera_k2=0, camera_p1=0, camera_p2=0,
+                                        camera_k3=0), device)
+    fx, fy, cx, cy, bf = (float(v) for v in (cam.fx, cam.fy, cam.cx, cam.cy, cam.bf))
+    rng = np.random.default_rng(seed)
+    pts = rng.uniform([-2, -1.5, 2.5], [2, 1.5, 6.0], size=(n_pt, 3)).astype(np.float32)
+    f = {k: v.cpu().numpy().copy() for k, v in empty_map(caps, "cpu").__dict__.items()}
+    for k in range(n_kf):
+        xi = np.concatenate([rng.uniform(-0.3, 0.3, 3), rng.uniform(-0.05, 0.05, 3)])
+        T = lie.se3_exp(torch.tensor(xi, dtype=torch.float32)).numpy()
+        pc = pts @ T[:3, :3].T + T[:3, 3]
+        u = fx * pc[:, 0] / pc[:, 2] + cx + rng.normal(0, 0.3, n_pt)
+        v = fy * pc[:, 1] / pc[:, 2] + cy + rng.normal(0, 0.3, n_pt)
+        vis = np.nonzero((u > 5) & (u < 635) & (v > 5) & (v < 475))[0][:caps.n_feat]
+        stereo = rng.uniform(size=vis.size) < 0.5
+        f["kf_pose"][k] = T
+        f["kf_valid"][k] = True
+        f["kf_uv_und"][k, :vis.size] = np.stack([u[vis], v[vis]], 1)
+        f["kf_u_right"][k, :vis.size] = np.where(stereo, u[vis] - bf / pc[vis, 2], -1.0)
+        f["kf_kp_valid"][k, :vis.size] = True
+        f["kf_mp"][k, :vis.size] = vis
+    f["pt_pos"][:n_pt] = pts + rng.normal(0, 0.05, (n_pt, 3))
+    f["pt_valid"][:n_pt] = True
+    for k in range(1, n_kf):
+        xi = np.concatenate([rng.normal(0, 0.03, 3), rng.normal(0, 0.015, 3)])
+        f["kf_pose"][k] = lie.se3_exp(torch.tensor(xi, dtype=torch.float32)).numpy() @ f["kf_pose"][k]
+    m = type(empty_map(caps, "cpu"))(**{k: torch.as_tensor(np.asarray(v)).to(device)
+                                         for k, v in f.items()})
+    return m, caps, cam
+
+
+def _reproj_rmse(m, cam):
+    valid = (m.kf_mp >= 0) & m.kf_kp_valid & m.kf_valid[:, None]
+    T = m.kf_pose[:, None].expand(-1, m.kf_mp.shape[1], -1, -1)[valid]
+    X = m.pt_pos[m.kf_mp[valid].long()]
+    pc = torch.einsum("mij,mj->mi", T[:, :3, :3], X) + T[:, :3, 3]
+    uv = torch.stack([cam.fx * pc[:, 0] / pc[:, 2] + cam.cx, cam.fy * pc[:, 1] / pc[:, 2] + cam.cy], 1)
+    return float(torch.sqrt(((uv - m.kf_uv_und[valid]) ** 2).sum(1).mean()))
+
+
+def test_global_ba_deterministic(cuda):
+    """Global BA on the card twice gives identical maps (every sum in a
+    fixed order), and recovers the perturbed scene as on the CPU."""
+    from vo_slam_test_tpu_torch.solvers.global_ba import global_bundle_adjust
+
+    m, caps, cam = fabricated_ba_map(cuda)
+    a = global_bundle_adjust(m, caps, cam, 0)
+    b = global_bundle_adjust(m, caps, cam, 0)
+    torch.cuda.synchronize()
+    assert torch.equal(a.kf_pose, b.kf_pose) and torch.equal(a.pt_pos, b.pt_pos)
+    before, after = _reproj_rmse(m, cam), _reproj_rmse(a, cam)
+    assert after < 0.1 * before and after < 1.0, (before, after)
+    assert torch.equal(a.kf_pose[0], m.kf_pose[0])

@@ -7,16 +7,17 @@ Fast tier: the kidnap at 320x240 (4 levels, 500 features, MapCaps(max_kf=16,
 max_pt=4096)) with a vocabulary built by both packages from frames 0-2's
 descriptors (the same numpy k-means, checked equal). The JAX run is the
 session's one (tests/torch_slam_helpers.py::jax_kidnap_run), with loop closing
-on, as tests/test_reloc.py leaves it; the tests assert that it closed no
-loop, so the port's run without loop closing (not ported) is a like-for-like
-comparison (detection alone does not touch the map). Frame by frame, each
+on, as tests/test_reloc.py leaves it, and so is the port's; neither closes a
+loop (the kidnap keeps fewer than MIN_KF_GAP keyframes). Frame by frame, each
 port step starts from the JAX system's exact state and map before that frame
 (tracking, the fallback chain, the keyframe insert and the mapping chain):
 ok, relocalized, the feature, match and inlier counts and the keyframe
 decision equal, the pose within FLOAT_TOL (both sides round in f32 but sum in
 another order), and the map after the step against JAX's: integer fields
 equal, float fields within FLOAT_TOL. tests/test_torch_reloc_run.py runs the
-port free over the same frames.
+port free over the same frames. A lost textured frame with no BoW candidate
+(every keyframe's BoW vector cleared) evaluates the slot top_k returns first,
+as the JAX package does: the same BoW match count, flags and pose.
 
 Slow tier (-m slow): twins of tests/test_reloc.py's cases at 640x480 with the
 vocabulary built once in JAX (OrbExtractor, as that file builds it) and
@@ -41,7 +42,7 @@ from vo_slam_test_tpu_torch.bow import vocabulary as V
 from vo_slam_test_tpu_torch.config import SlamConfig
 from vo_slam_test_tpu_torch.pipeline.system import SlamSystem
 from vo_slam_test_tpu_torch.slam_map.map_state import MapCaps
-from torch_slam_helpers import (FLOAT_TOL, P_CAPS, assert_maps_agree, jax_kidnap_run,
+from torch_slam_helpers import (FLOAT_TOL, J_CAPS, P_CAPS, assert_maps_agree, jax_kidnap_run,
                                 kidnap_frames, kidnap_small, per_frame_rows)
 
 @pytest.fixture(scope="module")
@@ -72,7 +73,6 @@ def test_kidnap_step_by_step_matches_jax(small, tmp_path_factory):
     for k, (g, d, ts) in enumerate(small["frames"]):
         ps = SlamSystem(SlamConfig(**small["kw"]), caps=P_CAPS, device="cpu",
                         vocabulary=small["voc"])
-        ps.enable_loop_closing = False
         if k:
             ps.state = convert.slam_track_state_from_numpy(pre[k][0], "cpu")
             ps.map = convert.map_state_from_numpy(pre[k][1], "cpu")
@@ -83,9 +83,47 @@ def test_kidnap_step_by_step_matches_jax(small, tmp_path_factory):
             np.testing.assert_allclose(p["T"], j["T"], err_msg=f"frame {k}", **FLOAT_TOL)
         after = pre[k + 1][1] if k + 1 < len(pre) else jr["post"]
         assert_maps_agree(ps.map, after, f"map after frame {k}")
+        assert ps.loop_closures == []
         if j["relocalized"]:
             slot, n_bow, n_ransac, n_obs = ps._outs[0].reloc_winner
             assert n_bow >= 15 and n_ransac >= 10 and n_obs >= 50
+
+
+def _jax_state(d):
+    """A SlamTrackState numpy dict -> the JAX package's SlamTrackState."""
+    from vo_slam_test_tpu.frontend.frame import FrameFeatures as JFrameFeatures
+    from vo_slam_test_tpu.pipeline.system import SlamTrackState as JSlamTrackState
+
+    return JSlamTrackState(**{k: JFrameFeatures(**{f: jnp.asarray(a) for f, a in v.items()})
+                              if k == "feats" else jnp.asarray(v) for k, v in d.items()})
+
+
+def test_no_candidate_reports_jax_bow_count(small, tmp_path_factory):
+    """Frame 9's state (lost after the first black frame) with every
+    keyframe's BoW vector cleared: a textured frame has features but no BoW
+    candidate, so both packages evaluate the slot top_k returns first and
+    report its BoW matches as the frame's match count, with ok false."""
+    from vo_slam_test_tpu.slam_map.map_state import MapState as JMapState
+
+    jr = jax_kidnap_run(tmp_path_factory)
+    st, mp = jr["pre"][9]
+    mp = dict(mp, kf_bow_word=np.full_like(mp["kf_bow_word"], 1 << 30),
+              kf_bow_weight=np.zeros_like(mp["kf_bow_weight"]))
+    assert bool(st["lost"])
+    g, d, _ = small["seq"][3]
+    js = JSlamSystem(JConfig(**small["kw"]), caps=J_CAPS, vocabulary=small["jvoc"])
+    js.state = _jax_state(st)
+    js.map = JMapState(**{k: jnp.asarray(v) for k, v in mp.items()})
+    js.track(g, d, 9.5)
+    ps = SlamSystem(SlamConfig(**small["kw"]), caps=P_CAPS, device="cpu", vocabulary=small["voc"])
+    ps.state = convert.slam_track_state_from_numpy(st, "cpu")
+    ps.map = convert.map_state_from_numpy(mp, "cpu")
+    ps.track(g, d, 9.5)
+    p, j = per_frame_rows(ps._outs)[0], per_frame_rows(js._outs)[0]
+    assert tuple(p[x] for x in KEYS) == tuple(j[x] for x in KEYS), (p, j)
+    assert not p["ok"] and not p["relocalized"] and p["n_features"] > 100 and p["n_matches"] > 0
+    assert ps._outs[0].reloc_winner is None
+    np.testing.assert_allclose(p["T"], j["T"], **FLOAT_TOL)
 
 
 # ---------------------------------------------------------------------------
@@ -121,7 +159,6 @@ def run_full(scene_voc, frames, parity=False, before_return=None):
                      reloc_parity=parity)
     ps = SlamSystem(SlamConfig(**kw), caps=MapCaps(max_kf=32, max_pt=8192), device="cpu",
                     vocabulary=voc, reloc_parity=parity)
-    ps.enable_loop_closing = False
     for k, (g, d, ts) in enumerate(frames):
         if k == 11 and before_return is not None:
             before_return(js, ps)
@@ -129,7 +166,7 @@ def run_full(scene_voc, frames, parity=False, before_return=None):
         ps.track(g, d, ts)
     j_traj, j_stats, _ = js.results()
     p_traj, p_stats, _ = ps.results()
-    assert js.loop_closures == []
+    assert js.loop_closures == [] == ps.loop_closures
     return js, ps, j_traj, p_traj, [s.ok for s in p_stats]
 
 

@@ -9,7 +9,7 @@ keyframe decision equal; poses of tracked frames within 1e-4. The first
 chunk's local BA (after frame 4) rounds in another order than JAX's (its LM
 decisions are rounding-sensitive, ROADMAP queue 3), which moves the later
 poses by up to 4e-5; FLOAT_TOL's atol of 1e-5 holds the frames before it.
-The JAX side runs with loop closing on and closes no loop."""
+Both sides run with loop closing on and close no loop."""
 
 import jax
 import numpy as np
@@ -31,13 +31,12 @@ def test_kidnap_in_chunks_matches_jax():
                      vocabulary=JV.build_vocabulary(k["descs"], k=8, levels=3, seed=2))
     ps = SlamSystem(SlamConfig(**k["kw"]), caps=P_CAPS, device="cpu", chunk=CHUNK,
                     vocabulary=V.build_vocabulary(k["descs"], k=8, levels=3, seed=2, device="cpu"))
-    ps.enable_loop_closing = False
     for g, d, ts in k["frames"]:
         js.track(g, d, ts)
         ps.track(g, d, ts)
     js.results()
     ps.results()
-    assert js.loop_closures == []
+    assert js.loop_closures == [] == ps.loop_closures
     j_rows = per_frame_rows(js._per_frame(jax.device_get(js._outs)))
     p_rows = per_frame_rows(ps._outs)
     assert len(p_rows) == len(j_rows) == 15

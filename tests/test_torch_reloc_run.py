@@ -1,7 +1,7 @@
 """The port's SlamSystem(vocabulary=...) run free over the 320x240 kidnap
 (tests/torch_slam_helpers.py::kidnap_small) against the session's JAX run of
-the same frames (jax_kidnap_run, loop closing on and closing no loop), and the
-vocabulary options of SlamSystem.
+the same frames (jax_kidnap_run; loop closing on in both, closing no loop),
+and the vocabulary options of SlamSystem, loop closing among them.
 
 The free run holds ok, relocalized, the keyframe events, the relocalization
 frames and the match counts equal. Frame 1's local BA rounds in another order
@@ -33,9 +33,7 @@ def small():
 
 
 def port(small, **kw):
-    ps = SlamSystem(SlamConfig(**small["kw"]), caps=P_CAPS, device="cpu", **kw)
-    ps.enable_loop_closing = False
-    return ps
+    return SlamSystem(SlamConfig(**small["kw"]), caps=P_CAPS, device="cpu", **kw)
 
 
 def test_kidnap_free_run_matches_jax(small, tmp_path_factory):
@@ -51,21 +49,52 @@ def test_kidnap_free_run_matches_jax(small, tmp_path_factory):
         if j["ok"]:
             np.testing.assert_allclose(p["T"], j["T"], atol=FREE_RUN_POSE_TOL, err_msg=f"frame {i}")
     assert ps.reloc_frames == jr["reloc_frames"] == [11]
+    assert ps.loop_closures == [] and ps.loop_attempts == []
     traj, stats, _ = ps.results()
     # tests/test_reloc.py's gauge: the relocalized pose against frame 2's
     assert np.linalg.norm(traj[11][:3, 3] - traj[2][:3, 3]) < 0.05
 
 
-def test_loop_closing_raises_until_disabled(small):
-    ps = SlamSystem(SlamConfig(**small["kw"]), caps=P_CAPS, device="cpu", vocabulary=small["voc"])
-    assert ps.use_bow and ps.enable_loop_closing  # the JAX package's default with a vocabulary
-    with pytest.raises(NotImplementedError):
-        ps.track(*small["frames"][0])
-    chunked = SlamSystem(SlamConfig(**small["kw"]), caps=P_CAPS, device="cpu",
-                         vocabulary=small["voc"], chunk=2)
-    chunked.track(*small["frames"][0])
-    with pytest.raises(NotImplementedError):
-        chunked.track(*small["frames"][1])
+@pytest.mark.parametrize("chunk", [1, 2])
+def test_loop_closing_runs_by_default(small, chunk, monkeypatch):
+    """With a vocabulary, loop closing is on (the JAX package's default):
+    per frame and with chunk=2, detect_step runs on every keyframe event and
+    nowhere else, and a confirmed candidate's Sim3 attempt lands in
+    loop_attempts and loop_gates. The kidnap's first keyframes are too few to
+    confirm one, so the second event's detection is handed keyframe 0 as a
+    confirmed candidate: its attempt fails the >= 10 keyframe gap (a gate
+    value), and the map equals that of a run without it."""
+    from vo_slam_test_tpu_torch.pipeline import loop_closing
+
+    orig = loop_closing.detect_step
+    calls = []
+
+    def forced(m, ls, did_kf, kf_id, caps):
+        ls, cands, gens = orig(m, ls, did_kf, kf_id, caps)
+        calls.append((did_kf, kf_id))
+        if kf_id == 1:
+            cands = torch.tensor([0] + [-1] * (loop_closing.MAX_CANDS - 1), dtype=torch.int32)
+            gens = torch.where(cands >= 0, m.kf_gen[0], -1)
+        return ls, cands, gens
+
+    plain = port(small, vocabulary=small["voc"], chunk=chunk)
+    for g, d, ts in small["frames"][:2]:
+        plain.track(g, d, ts)
+    monkeypatch.setattr(loop_closing, "detect_step", forced)
+    ps = port(small, vocabulary=small["voc"], chunk=chunk)
+    assert ps.enable_loop_closing and not ps.enable_global_ba
+    for g, d, ts in small["frames"][:2]:
+        ps.track(g, d, ts)
+    ps.results()
+    plain.results()
+    kf_frames = [i for i, o in enumerate(ps._outs) if o.made_kf]
+    assert kf_frames[:2] == [0, 1] and calls == [(True, i) for i in range(len(kf_frames))]
+    assert ps.loop_attempts == [(1, -1, False)] and ps.loop_closures == []
+    (frame, cand, accepted, gates), = ps.loop_gates
+    assert (frame, cand, accepted, gates["gap_ok"], gates["gen_ok"]) == (1, 0, False, 0, 1)
+    assert gates["n_bow"] > 20 and gates["kf_seq"] == 1
+    for f in ps.map.__dataclass_fields__:
+        assert torch.equal(getattr(ps.map, f), getattr(plain.map, f)), f
 
 
 def test_no_vocabulary_never_relocalizes(small):
@@ -75,7 +104,7 @@ def test_no_vocabulary_never_relocalizes(small):
     seq = SyntheticRGBD(n_frames=4, seed=33, motion_scale=0.3, width=320, height=240,
                         fx=517.3 * 0.5, fy=516.5 * 0.5, cx=318.6 * 0.5, cy=255.3 * 0.5)
     ps = SlamSystem(SlamConfig(**dict(small["kw"], camera_fx=seq.fx)), caps=P_CAPS, device="cpu")
-    assert not ps.use_bow and not ps.enable_loop_closing
+    assert not ps.use_bow and not ps.enable_loop_closing and ps.loop_attempts == []
     for i in range(4):
         ps.track(*seq[i])
     assert ps.reloc_frames == []

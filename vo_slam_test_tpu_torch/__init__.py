@@ -10,7 +10,9 @@ FusedTracker``) and ``pipeline/system.py::SlamSystem`` (the map, tracking
 against the local map, the local-mapping chain with local BA, per frame or in
 chunks), with every kernel they run; with a vocabulary (``bow/``) it adds BoW
 tracking against the reference keyframe and relocalization (``solvers/
-ransac.py``, ``solvers/epnp.py``). Loop closing and global BA are not ported.
+ransac.py``, ``solvers/epnp.py``) and loop closing (``pipeline/
+loop_closing.py``, ``solvers/sim3.py``, ``solvers/pose_graph.py``), with
+global BA after a closure on request (``solvers/global_ba.py``).
 
 Entry points run on the card unless the caller passes ``device="cpu"``; on a
 CPU tensor every kernel wrapper runs its plain PyTorch version instead.

@@ -5,7 +5,8 @@ The query scores against every keyframe at once (one searchsorted and masked
 reductions) in place of the reference's inverted-index walk; the L1 score is
 Map::score's (map.cpp:335-376), and ``reloc_candidates`` is the cascade of
 map.cpp:101-208 (shared-word counts, the 0.8 * max cut, covisible-group
-scores, the 0.75 * best-group cut).
+scores, the 0.75 * best-group cut); ``loop_candidates`` is its loop form
+(map.cpp:210-333).
 """
 
 from __future__ import annotations
@@ -88,3 +89,30 @@ def reloc_candidates(scores: torch.Tensor, shared: torch.Tensor, covis: torch.Te
     best_group = torch.where(selected, group_score, 0.0).max()
     passing = selected & (group_score > 0.75 * best_group)
     return scatter_or(K, best_member, passing) & kf_valid
+
+
+def loop_candidates(scores: torch.Tensor, shared: torch.Tensor, covis: torch.Tensor,
+                    kf_valid: torch.Tensor, query_kf: int, min_score: torch.Tensor
+                    ) -> torch.Tensor:
+    """Loop candidate mask [K] (map.cpp:210-333): the relocalization cascade
+    with the query's connected keyframes excluded and candidates scoring at
+    least ``min_score`` (the query's worst covisible score)."""
+    K = scores.shape[0]
+    ids = torch.arange(K, device=scores.device)
+    connected = covis[query_kf] > 0
+    eligible = kf_valid & ~connected & (ids != query_kf)
+    sharing = (shared > 0) & eligible
+    max_common = torch.where(sharing, shared, 0).max()
+    min_common = 0.8 * max_common.to(torch.float32)
+    selected = sharing & (shared.to(torch.float32) > min_common) & (scores >= min_score)
+
+    nb = _top10_covisibles(covis, kf_valid)
+    nb_score = torch.where(sharing[nb], scores[nb], 0.0)
+    group_score = scores + nb_score.sum(1)
+    cand_scores = torch.cat([scores[:, None], nb_score], 1)
+    cand_ids = torch.cat([ids[:, None], nb], 1)
+    best_member = torch.gather(cand_ids, 1, torch.argmax(cand_scores, 1, keepdim=True))[:, 0]
+
+    best_group = torch.where(selected, group_score, 0.0).max()
+    passing = selected & (group_score > 0.75 * best_group)
+    return scatter_or(K, best_member, passing) & eligible

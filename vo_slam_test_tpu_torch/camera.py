@@ -73,6 +73,12 @@ class Camera:
         v = self.fy * p3d[..., 1] / safe_z + self.cy
         return torch.stack([u, v], dim=-1)
 
+    def in_image(self, uv: torch.Tensor, border: float = 0.0) -> torch.Tensor:
+        """Boolean mask of pixels inside the image bounds."""
+        u, v = uv[..., 0], uv[..., 1]
+        return ((u >= border) & (u < self.width - border)
+                & (v >= border) & (v < self.height - border))
+
     def pixel2camera(self, uv: torch.Tensor, depth: torch.Tensor) -> torch.Tensor:
         """(..., 2) pixels + (...,) depth -> (..., 3) camera points."""
         x = (uv[..., 0] - self.cx) * depth / self.fx

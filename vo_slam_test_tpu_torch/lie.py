@@ -1,10 +1,13 @@
-"""SO3 / SE3 operations on torch tensors (port of the SO3/SE3 half of
-``vo_slam_test_tpu/lie.py``; Sim3 is not ported yet).
+"""SO3 / SE3 / Sim3 operations on torch tensors (port of
+``vo_slam_test_tpu/lie.py``).
 
 Conventions as in the JAX package: rotations are 3x3, poses 4x4 homogeneous;
 twists are (rho, phi) = (translation, rotation); quaternions (qx, qy, qz, qw).
 Every op is batched over leading dimensions and branch-free (``torch.where``),
-so nothing reads a value back to the host.
+so nothing reads a value back to the host. Where a branch divides by a small
+angle, its input is masked first (``torch.where`` on the argument, then on
+the result), so forward-mode derivatives (``torch.func.jacfwd``) at a zero
+tangent stay finite, as the JAX package's do.
 """
 
 from __future__ import annotations
@@ -206,3 +209,71 @@ def quat_to_mat(q: torch.Tensor) -> torch.Tensor:
         ],
         dim=-2,
     )
+
+
+# ---------------------------------------------------------------------------
+# Sim(3): the loop-closing Sim3 solvers and the essential graph
+# (reference: sim3Solver.cpp, optimizer_ceres.h:211-311)
+# ---------------------------------------------------------------------------
+
+
+def sim3_apply(s, R, t, pts):
+    """Apply similarity (s, R, t) to points (..., N, 3)."""
+    return s[..., None, None] * torch.einsum("...ij,...nj->...ni", R, pts) + t[..., None, :]
+
+
+def sim3_inverse(s, R, t):
+    s_inv = 1.0 / s
+    R_inv = R.transpose(-1, -2)
+    t_inv = -s_inv[..., None] * torch.einsum("...ij,...j->...i", R_inv, t)
+    return s_inv, R_inv, t_inv
+
+
+def sim3_compose(s1, R1, t1, s2, R2, t2):
+    """(s1,R1,t1) o (s2,R2,t2): first apply 2, then 1."""
+    s = s1 * s2
+    R = R1 @ R2
+    t = s1[..., None] * torch.einsum("...ij,...j->...i", R1, t2) + t1
+    return s, R, t
+
+
+def _sim3_w(s, sigma, phi):
+    """The Sim3 translation matrix W(sigma, phi) (Strasdat's thesis) with
+    the JAX package's Taylor/AD-safe blends."""
+    theta2 = torch.sum(phi * phi, dim=-1)
+    small_th = theta2 < 1e-10
+    theta = torch.sqrt(torch.where(small_th, 1.0, theta2))
+    theta = torch.where(small_th, 1e-5, theta)
+    W = hat(phi)
+    W2 = W @ W
+    small_sig = torch.abs(sigma) < 1e-5
+    A_ = torch.where(small_sig, 1.0 + sigma / 2.0,
+                     (s - 1.0) / torch.where(small_sig, 1.0, sigma))
+    sin_t, cos_t = torch.sin(theta), torch.cos(theta)
+    denom = sigma * sigma + theta2
+    denom = torch.where(denom < _EPS, 1.0, denom)
+    t2_safe = torch.where(small_th, 1.0, theta2)
+    a = s * sin_t
+    b = s * cos_t
+    c_coef = torch.where(small_th, 0.5, (a * sigma + (1.0 - b) * theta) / (denom * theta))
+    d_coef = torch.where(small_th, 1.0 / 6.0,
+                         (A_ - (b - 1.0) * sigma / denom - a * theta / denom) / t2_safe)
+    return (A_[..., None, None] * _eye3(phi, W.shape[:-2]) + c_coef[..., None, None] * W
+            + d_coef[..., None, None] * W2)
+
+
+def sim3_exp(xi7: torch.Tensor):
+    """7-vector (rho, phi, sigma) -> (s, R, t)."""
+    rho, phi, sigma = xi7[..., :3], xi7[..., 3:6], xi7[..., 6]
+    s = torch.exp(sigma)
+    R = so3_exp(phi)
+    t = torch.einsum("...ij,...j->...i", _sim3_w(s, sigma, phi), rho)
+    return s, R, t
+
+
+def sim3_log(s, R, t) -> torch.Tensor:
+    """(s, R, t) -> 7-vector (rho, phi, sigma). Inverse of sim3_exp."""
+    sigma = torch.log(s)
+    phi = so3_log(R)
+    rho = torch.linalg.solve_ex(_sim3_w(s, sigma, phi), t[..., None])[0][..., 0]
+    return torch.cat([rho, phi, sigma[..., None]], dim=-1)

@@ -12,7 +12,12 @@ Each frame runs two steps, as the JAX package's ``SlamSystem.track`` does:
   (``SlamSystem(vocabulary=...)``); without one only motion tracking runs;
 - ``background_step``: the local-mapping chain ``_mapping_step`` in the
   reference's order (localMapping.cpp:16-66): map-point culling,
-  triangulation, fuse, local BA, keyframe culling.
+  triangulation, fuse, local BA, keyframe culling; then, with a vocabulary,
+  the LoopClosing pass (``pipeline/loop_closing.py``): loop detection and,
+  for a confirmed candidate, the Sim3 verification and loop correction,
+  serially after detection, as the JAX package's ``_background_one`` runs
+  them (loopClosing.cpp:17-37). ``enable_global_ba`` adds the upstream
+  global BA after each accepted closure.
 
 Relocalization follows the JAX package: by default the top ``RELOC_K``
 candidates are evaluated and the one with the most observed inliers wins
@@ -29,9 +34,9 @@ BA is skipped when a later frame of the chunk also made a keyframe
 (``chunk_ba_stops``, the reference's interruptBA raised by a queued
 keyframe). A partial chunk is tracked frame by frame at ``results()``.
 
-Not ported yet: loop closing. With a vocabulary the JAX package turns it on
-(``enable_loop_closing``); here the background step then raises
-``NotImplementedError`` until the caller sets ``enable_loop_closing = False``.
+Not ported: the JAX package's ``VO_LOOP_DIAG`` path (Sim3 attempts drained
+from the host in batches, ``drain_chunk``); here every attempt's gate values
+are read anyway and kept in ``SlamSystem.loop_gates``.
 
 Host reads per frame: the JAX package branches with ``lax.cond`` on device
 scalars; here every branch that decides which kernels run is a host bool.
@@ -42,8 +47,9 @@ read per local-BA LM iteration (its exit test). Without a vocabulary a lost
 frame's motion attempt runs and is discarded (``torch.where``). With one, the
 frame first reads the motion gate, then ``a1.ok`` and, if it failed, the
 reference-keyframe attempt's ``ok``; only then does the relocalization
-attempt run, which reads its candidates (none: it stops there), their solver
-choice and counts, and the top-up cascade's gates.
+attempt run, which reads its candidates, their solver choice and counts, and
+the top-up cascade's gates. With loop closing on, a keyframe event reads its
+confirmed loop candidates (one read) and each Sim3 attempt its gates (one).
 """
 
 from __future__ import annotations
@@ -67,8 +73,9 @@ from ..slam_map import culling, fuse, local_map, triangulate
 from ..slam_map import insert as map_insert
 from ..slam_map.map_state import (MapCaps, MapState, empty_map, pick, scatter_or,
                                   winner_per_target)
-from ..solvers import epnp, local_ba, pose_only, ransac
+from ..solvers import epnp, global_ba, local_ba, pose_only, ransac
 from ..utils import prng
+from . import loop_closing
 from .tracking import TrackStats, _spawn_temp_points
 
 RELOC_K = 3         # BoW relocalization candidates evaluated per lost frame
@@ -238,16 +245,16 @@ def _attempt_ref(state: SlamTrackState, m: MapState, feats: FrameFeatures, group
 
 
 def _attempt_reloc(m: MapState, feats: FrameFeatures, bow, voc, frame_id: int, reloc_parity: bool,
-                   fail: _Attempt, cam, scale_factors, inv_level_sigma2
+                   cam, scale_factors, inv_level_sigma2
                    ) -> Tuple[_Attempt, bool, Optional[Tuple[int, int, int, int]]]:
     """Relocalization (visualOdometry.cpp:313-395) -> (attempt, ok read back,
     the winner's (slot, n_bow, n_ransac, n_obs) or None without candidates).
 
-    Candidates are read back once; with none the attempt stops (its match
-    count is then 0, where the JAX package reports the BoW count against the
-    slot ``top_k`` returns first, which is no candidate). Candidate i of the
-    BoW ranking draws its RANSAC hypotheses from seed frame_id * K + i, as the
-    JAX package's do."""
+    Candidates are read back once. With none, the slot ``top_k`` returns
+    first is evaluated as the JAX package evaluates it (its BoW matches are
+    the frame's match count and its solve the frame's pose), and the attempt
+    fails. Candidate i of the BoW ranking draws its RANSAC hypotheses from
+    seed frame_id * K + i, as the JAX package's do."""
     uniq_c, wgt_c, groups_c = bow
     N = feats.valid.shape[0]
     P = m.pt_valid.shape[0]
@@ -256,12 +263,15 @@ def _attempt_reloc(m: MapState, feats: FrameFeatures, bow, voc, frame_id: int, r
                                                 m.kf_valid.to(torch.float32))
     cand = bow_ret.reloc_candidates(score, shared, m.covis, m.kf_valid)
     n_cand_k = RELOC_PARITY_K if reloc_parity else RELOC_K
-    c_scores, c_kfs = prng.top_k(torch.where(cand, score, -torch.inf), n_cand_k)
-    c_kfs = torch.where(torch.isfinite(c_scores), c_kfs, -1)
-    kfs, seqs = torch.stack([c_kfs, m.kf_seq[c_kfs.clamp(min=0)].to(torch.int64)]).tolist()
+    c_scores, c_kfs_all = prng.top_k(torch.where(cand, score, -torch.inf), n_cand_k)
+    c_kfs = torch.where(torch.isfinite(c_scores), c_kfs_all, -1)
+    kfs, ranked, seqs = torch.stack(
+        [c_kfs, c_kfs_all, m.kf_seq[c_kfs_all].to(torch.int64)]).tolist()
     live = [i for i in range(n_cand_k) if kfs[i] >= 0]
-    if not live:
-        return fail, False, None
+    any_cand = bool(live)
+    if not any_cand:
+        # the JAX package's winner without a passing candidate: top-k slot 0
+        kfs, live = ranked, [0]
     p_cam = cam.pixel2camera(feats.uv_und, torch.clamp(feats.depth, min=1e-3))
     inv_sig = inv_level_sigma2[feats.octave.long()]
 
@@ -354,16 +364,15 @@ def _attempt_reloc(m: MapState, feats: FrameFeatures, bow, voc, frame_id: int, r
             row, pt_live, _ = matches[win]
             T4, kp4, n_obs4 = cascade(kfs[win], row, pt_live, T4, kp4, n_obs4)
             n_obs_h = int(n_obs4)
-    ok = (n_bow >= 15) & (n_ransac >= 10) & (n_obs4 >= 50)
+    ok = (n_bow >= 15) & (n_ransac >= 10) & (n_obs4 >= 50) & any_cand
     att = _Attempt(T=T4, kp_pt=torch.where(ok, kp4, -1), kp_temp=no_tmp,
                    kp_pw=m.pt_pos[kp4.clamp(min=0).long()], n_match=n_bow, ok=ok)
-    ok_h = n_bow_h >= 15 and n_ransac_h >= 10 and n_obs_h >= 50
-    return att, ok_h, (kfs[win], n_bow_h, n_ransac_h, n_obs_h)
+    ok_h = any_cand and n_bow_h >= 15 and n_ransac_h >= 10 and n_obs_h >= 50
+    return att, ok_h, (kfs[win], n_bow_h, n_ransac_h, n_obs_h) if any_cand else None
 
 
 def _track_attempts_bow(state: SlamTrackState, m: MapState, feats: FrameFeatures, bow, voc,
-                        reloc_parity: bool, T_last, fail: _Attempt, cam, scale_factors,
-                        inv_level_sigma2):
+                        reloc_parity: bool, T_last, cam, scale_factors, inv_level_sigma2):
     """The fallback chain with a vocabulary -> (attempt, relocalized on the
     host, the reloc winner or None). Motion tracking needs an armed motion
     model (visualOdometry.cpp:227-231); each fallback runs only after the
@@ -379,7 +388,7 @@ def _track_attempts_bow(state: SlamTrackState, m: MapState, feats: FrameFeatures
         a2 = _attempt_ref(state, m, feats, bow[2], voc, T_last, cam, inv_level_sigma2)
         if bool(a2.ok):
             return a2, False, None
-    return _attempt_reloc(m, feats, bow, voc, frame_id, reloc_parity, fail, cam, scale_factors,
+    return _attempt_reloc(m, feats, bow, voc, frame_id, reloc_parity, cam, scale_factors,
                           inv_level_sigma2)
 
 
@@ -468,8 +477,7 @@ def _slam_step(
         reloc_frame = state.last_reloc_frame
     else:
         att, reloc_h, reloc_winner = _track_attempts_bow(
-            state, m, feats, bow, voc, reloc_parity, T_last, fail, cam, scale_factors,
-            inv_level_sigma2)
+            state, m, feats, bow, voc, reloc_parity, T_last, cam, scale_factors, inv_level_sigma2)
         relocalized = att.ok if reloc_h else fail.ok
         reloc_frame = frame_id if reloc_h else state.last_reloc_frame
     track_pre = att.ok
@@ -588,15 +596,41 @@ def _mapping_step(m: MapState, did_kf: bool, kf_id: int, caps: MapCaps, cam: Cam
     return m, n1, n2
 
 
-def background_step(m: MapState, did_kf: bool, kf_id: int, interrupt_ba: bool, caps: MapCaps,
-                    cam: Camera, scale_factors: torch.Tensor, with_loop: bool = False,
-                    bow_group_div: int = 0) -> Tuple[MapState, int, int]:
-    """The work the reference runs off the tracking thread. Only the
-    local-mapping chain is ported; loop closing is not."""
-    if with_loop:
-        raise NotImplementedError("loop closing is not ported yet")
-    return _mapping_step(m, did_kf, kf_id, caps, cam, scale_factors, interrupt_ba=interrupt_ba,
-                         bow_group_div=bow_group_div)
+@dataclasses.dataclass
+class BackgroundOut:
+    """What one keyframe event's background work reports to the host."""
+
+    ba_n1: int = 0          # local-BA LM iterations, pass 1
+    ba_n2: int = 0          # pass 2
+    attempted: bool = False  # detection confirmed a loop candidate
+    closed: bool = False     # a Sim3 verification succeeded and corrected the map
+    which: int = -1          # the winning candidate keyframe (-1 none)
+    # (candidate, accepted, gate values) per Sim3 attempt
+    attempts: List[Tuple[int, bool, dict]] = dataclasses.field(default_factory=list)
+
+
+def background_step(m: MapState, loop_state: loop_closing.LoopState, did_kf: bool, kf_id: int,
+                    interrupt_ba: bool, caps: MapCaps, cam: Camera, scale_factors: torch.Tensor,
+                    with_loop: bool = False, bow_group_div: int = 0
+                    ) -> Tuple[MapState, loop_closing.LoopState, BackgroundOut]:
+    """The work the reference runs off the tracking thread, for one frame:
+    the local-mapping chain, then (``with_loop``) loop detection and, for a
+    confirmed candidate, the Sim3 verification and correction of every
+    confirmed candidate in turn until one is accepted, serially after
+    detection (the reference's LoopClosing thread order, loopClosing.cpp:
+    17-37). The confirmed candidates are read back once per keyframe event."""
+    m, n1, n2 = _mapping_step(m, did_kf, kf_id, caps, cam, scale_factors,
+                              interrupt_ba=interrupt_ba, bow_group_div=bow_group_div)
+    out = BackgroundOut(ba_n1=n1, ba_n2=n2)
+    if with_loop and did_kf and kf_id >= 0:
+        loop_state, cand, cand_gen = loop_closing.detect_step(m, loop_state, did_kf, kf_id, caps)
+        cands, gens = torch.stack([cand, cand_gen]).tolist()
+        if cands[0] >= 0:
+            m, loop_state, out.closed, out.which, out.attempts = loop_closing._close_multi(
+                m, loop_state, kf_id, m.kf_valid[kf_id], cands, gens, bow_group_div, caps, cam,
+                scale_factors)
+            out.attempted = True
+    return m, loop_state, out
 
 
 def track_chunk(state: SlamTrackState, m: MapState, frames, cam: Camera, caps: MapCaps,
@@ -629,22 +663,20 @@ def chunk_ba_stops(did_kf) -> torch.Tensor:
     return (later_incl - d) > 0
 
 
-def background_chunk(m: MapState, did_kf: List[bool], kf_id: List[int], interrupt_ba: bool,
-                     caps: MapCaps, cam: Camera, scale_factors: torch.Tensor,
-                     with_loop: bool = False, bow_group_div: int = 0
-                     ) -> Tuple[MapState, List[Tuple[int, int]]]:
-    """The mapping chain for every keyframe a tracked chunk created, in
-    creation order; ``stops = chunk_ba_stops(did_kf) | interrupt_ba``.
-    -> (map, [(BA iterations pass 1, pass 2)] per chunk frame)."""
-    if with_loop:
-        raise NotImplementedError("loop closing is not ported yet")
+def background_chunk(m: MapState, loop_state: loop_closing.LoopState, did_kf: List[bool],
+                     kf_id: List[int], interrupt_ba: bool, caps: MapCaps, cam: Camera,
+                     scale_factors: torch.Tensor, with_loop: bool = False, bow_group_div: int = 0
+                     ) -> Tuple[MapState, loop_closing.LoopState, List[BackgroundOut]]:
+    """``background_step`` for every frame of a tracked chunk, in creation
+    order, with ``stops = chunk_ba_stops(did_kf) | interrupt_ba`` as each
+    event's interruptBA -> (map, loop state, one BackgroundOut per frame)."""
     stops = (chunk_ba_stops(did_kf) | bool(interrupt_ba)).tolist()
-    iters = []
+    outs = []
     for did, kid, stop in zip(did_kf, kf_id, stops):
-        m, n1, n2 = _mapping_step(m, did, kid, caps, cam, scale_factors, interrupt_ba=stop,
-                                  bow_group_div=bow_group_div)
-        iters.append((n1, n2))
-    return m, iters
+        m, loop_state, out = background_step(m, loop_state, did, kid, stop, caps, cam,
+                                             scale_factors, with_loop, bow_group_div)
+        outs.append(out)
+    return m, loop_state, outs
 
 
 def recover_frame_pose(
@@ -672,13 +704,16 @@ def recover_frame_pose(
 class SlamSystem:
     """Tracking + local mapping over an RGB-D stream: one frame at a time
     (``chunk=1``) or in chunks of ``chunk`` frames. ``vocabulary`` turns on
-    BoW tracking against the reference keyframe and relocalization (and the
-    featVec buckets of triangulation); ``reloc_parity`` picks the reference's
-    relocalization loop (module docstring)."""
+    BoW tracking against the reference keyframe, relocalization and loop
+    closing (and the featVec buckets of triangulation); ``reloc_parity``
+    picks the reference's relocalization loop (module docstring);
+    ``enable_global_ba`` runs the upstream global BA (keyframe 0 fixed)
+    after each accepted loop closure."""
 
     def __init__(self, cfg: SlamConfig, caps: MapCaps = MapCaps(),
                  device: Optional[Union[str, torch.device]] = None, chunk: int = 1,
-                 vocabulary: Optional[bow_voc.Vocabulary] = None, reloc_parity: bool = False):
+                 vocabulary: Optional[bow_voc.Vocabulary] = None, reloc_parity: bool = False,
+                 enable_global_ba: bool = False):
         self.cfg = cfg
         self.caps = caps
         self.device = resolve_device(device)
@@ -696,9 +731,18 @@ class SlamSystem:
         self.voc = None if vocabulary is None else vocabulary.to(self.device)
         self.use_bow = vocabulary is not None
         self.reloc_parity = bool(reloc_parity)
-        # the JAX package turns loop closing on with a vocabulary; it is not
-        # ported, so the background step raises until a caller sets False
+        # loop closing runs with a vocabulary, as in the JAX package; the
+        # reference stops at the essential graph (SURVEY §2), so the upstream
+        # global BA after a closure is opt-in
         self.enable_loop_closing = self.use_bow
+        self.enable_global_ba = bool(enable_global_ba)
+        self.loop_state = loop_closing.empty_loop_state(caps, self.device)
+        # (frame, winning candidate or -1, accepted) per keyframe event whose
+        # detection confirmed a candidate, as the JAX package records them;
+        # loop_gates: (frame, candidate, accepted, gate values) per Sim3 attempt
+        self.loop_closures: List[int] = []
+        self.loop_attempts: List[Tuple[int, int, bool]] = []
+        self.loop_gates: List[Tuple[int, int, bool, dict]] = []
         # featVec bucket divisor of triangulation (matcher.cpp:903-965):
         # word // k^levels_up at levels_up = 3
         self._bow_group_div = vocabulary.k ** min(3, vocabulary.levels) if vocabulary else 0
@@ -770,11 +814,10 @@ class SlamSystem:
             self.spec, self.budgets, self.scale_factors, self.inv_level_sigma2,
             self.fast_hi, self.fast_lo, self.max_frame_gap, self.voc, self.reloc_parity,
         )
-        self.map, n1, n2 = background_step(
-            self.map, out.made_kf, new_kf, self._ba_interrupt(), self.caps, self.camera,
-            self.scale_factors, self.enable_loop_closing, self._bow_group_div)
-        if out.made_kf:
-            self.ba_iters.append((self._frame_id, n1, n2))
+        self.map, self.loop_state, bg = background_step(
+            self.map, self.loop_state, out.made_kf, new_kf, self._ba_interrupt(), self.caps,
+            self.camera, self.scale_factors, self.enable_loop_closing, self._bow_group_div)
+        self._fold_background([(self._frame_id, out.made_kf, bg)])
         self._archive(self.state.feats)
         self._outs.append(out)
         self.timestamps.append(timestamp)
@@ -788,16 +831,33 @@ class SlamSystem:
             self.scale_factors, self.inv_level_sigma2, self.fast_hi, self.fast_lo,
             self.max_frame_gap, self.voc, self.reloc_parity)
         did = [o.made_kf for o in outs]
-        self.map, iters = background_chunk(
-            self.map, did, new_kfs, self._ba_interrupt(), self.caps, self.camera,
+        self.map, self.loop_state, bgs = background_chunk(
+            self.map, self.loop_state, did, new_kfs, self._ba_interrupt(), self.caps, self.camera,
             self.scale_factors, self.enable_loop_closing, self._bow_group_div)
-        self.ba_iters += [(self._frame_id + k, n1, n2)
-                          for k, (made, (n1, n2)) in enumerate(zip(did, iters)) if made]
+        self._fold_background([(self._frame_id + k, made, bg)
+                               for k, (made, bg) in enumerate(zip(did, bgs))])
         for f in feats:
             self._archive(f)
         self._outs += outs
         self.timestamps += [t for _, _, t in buf]
         self._frame_id += len(buf)
+
+    def _fold_background(self, events) -> None:
+        """Record (frame, made a keyframe, BackgroundOut) per frame of one
+        background dispatch; after it, the global BA for each closure when
+        enabled (the JAX package runs it when it collects the closure)."""
+        for frame, made, bg in events:
+            if made:
+                self.ba_iters.append((frame, bg.ba_n1, bg.ba_n2))
+            if bg.attempted:
+                self.loop_attempts.append((frame, bg.which, bg.closed))
+                self.loop_gates += [(frame, c, a, g) for c, a, g in bg.attempts]
+            if bg.closed:
+                self.loop_closures.append(frame)
+                if self.enable_global_ba:
+                    self.map = global_ba.global_bundle_adjust(
+                        self.map, self.caps, self.camera, 0,
+                        inv_level_sigma2=self.inv_level_sigma2)
 
     def _flush(self) -> None:
         """Track the frames of an incomplete chunk one at a time."""

@@ -1,1 +1,2 @@
-"""Small helpers without a counterpart module in the JAX package."""
+"""Helpers: the port's random generator (``prng``), the closed-form 3x3
+inverse (``linalg``) and the drift instrument (``drift``)."""
