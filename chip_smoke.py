@@ -82,7 +82,23 @@
    where its steps are taken, at the tests' caps (the card against the CPU
    within 1e-5) and at the default MapCaps: two calls identical, the robust
    cost lower, every keyframe within 1 cm of the truth; timed;
-9. prints one ``{"kernels": [...]}`` line and, last, the ``{"ok": true, ...}``
+9. main path 6, the CLI on files: ``run_slam.main`` in this process on a TUM
+   directory written here (path 2's 40 frames as zlib PNGs, gray as R=G=B and
+   depth as round(d*5000) u16, with a ``configs/tum_fr1.yaml``-keyed config):
+   the frames must decode to the written ones; ``--slam`` with every output
+   flag (HUD and map render only where PIL / matplotlib are installed) must
+   track 40/40 with >= 5 keyframe events and ATE < 1 cm from the written
+   trajectory, and its outputs must read back; ``--slam --vocabulary <that
+   vocabulary> --chunk 4`` must track 40/40; the first run's map is saved,
+   loaded (fields equal) and resumed one frame (ok); ``--synthetic --frames
+   30 --sync`` (FrameToFrameTracker) must keep every frame ok with >= 100
+   matches and >= 50 inliers from frame 1 and ATE < 3 cm; ``--synthetic
+   --frames 30`` must track 30/30; FAST, ORB and the frame-pair top-2 must be
+   launched. Per run: frame ms, decode ms, host quad-tree ms and host syncs a
+   frame and the reader that served. Then the host-path ``OrbExtractor`` on
+   the card against the CPU on path 1's frame 0 (every field equal, angles
+   within 1e-3 deg);
+10. prints one ``{"kernels": [...]}`` line and, last, the ``{"ok": true, ...}``
    line. Every bound is computed from this run's inputs and counts the work
    the function needs, whatever computes it; a kernel timed under its bound
    fails the run (the bound is then wrong). No plain version may see a CUDA
@@ -93,13 +109,18 @@
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import dataclasses
+import io
 import json
+import struct
 import subprocess
 import sys
+import tempfile
 import time
 import warnings
+import zlib
 from pathlib import Path
 
 import numpy as np
@@ -1493,6 +1514,334 @@ def check_same_maps(label, s_a, s_b):
           f"iteration counts identical")
 
 
+def png_bytes(img: np.ndarray) -> bytes:
+    """A non-interlaced PNG of ``img``, rows unfiltered: u8 [H, W, 3] as 8-bit
+    RGB, u16 [H, W] as 16-bit gray (big-endian samples, as PNG stores them)."""
+    if img.dtype == np.uint8 and img.ndim == 3 and img.shape[2] == 3:
+        color, bits, rows = 2, 8, img
+    elif img.dtype == np.uint16 and img.ndim == 2:
+        color, bits, rows = 0, 16, img.astype(">u2")
+    else:
+        raise ValueError(f"png_bytes writes u8 RGB or u16 gray, not {img.dtype} {img.shape}")
+    h, w = img.shape[:2]
+    body = np.ascontiguousarray(rows).reshape(h, -1).view(np.uint8)
+    raw = np.concatenate([np.zeros((h, 1), np.uint8), body], axis=1)  # filter type 0
+
+    def chunk(tag: bytes, data: bytes) -> bytes:
+        return (struct.pack(">I", len(data)) + tag + data
+                + struct.pack(">I", zlib.crc32(tag + data) & 0xFFFFFFFF))
+
+    return (b"\x89PNG\r\n\x1a\n"
+            + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, bits, color, 0, 0, 0))
+            + chunk(b"IDAT", zlib.compress(raw.tobytes(), 1)) + chunk(b"IEND", b""))
+
+
+def write_tum(d: Path, frames, cfg) -> list:
+    """``frames`` (gray u8, depth f32 meters, t) as a TUM RGB-D directory:
+    ``rgb/`` (gray as R=G=B, so BT.601 luma gives it back exactly),
+    ``depth/`` (round(d * 5000) as u16), ``associate.txt``, and ``cfg.yaml``
+    with ``configs/tum_fr1.yaml``'s key set filled from ``cfg`` (the dataset
+    directory is ``d``). Returns the u16 depth images written."""
+    from vo_slam_test_tpu_torch.config import _load_opencv_yaml
+
+    (d / "rgb").mkdir(parents=True)
+    (d / "depth").mkdir()
+    lines, raw = [], []
+    for gray, depth, t in frames:
+        name = f"{t:.6f}.png"
+        scaled = np.round(depth.astype(np.float64) * 5000.0)
+        if scaled.max() > 65535:
+            raise AssertionError("depth beyond the u16 range of a TUM depth image")
+        raw.append(scaled.astype(np.uint16))
+        (d / "rgb" / name).write_bytes(png_bytes(np.repeat(gray[..., None], 3, axis=2)))
+        (d / "depth" / name).write_bytes(png_bytes(raw[-1]))
+        lines.append(f"{t:.6f} rgb/{name} {t:.6f} depth/{name}")
+    (d / "associate.txt").write_text("\n".join(lines) + "\n")
+    keys = _load_opencv_yaml(str(Path(__file__).resolve().parent / "configs" / "tum_fr1.yaml"))
+    vals = dict(dataclasses.asdict(cfg), dataset_dir=str(d))
+    (d / "cfg.yaml").write_text("%YAML:1.0\n" + "".join(
+        f"{k}: {json.dumps(vals[k]) if isinstance(vals[k], str) else repr(vals[k])}\n"
+        for k in keys))
+    return raw
+
+
+def read_tum_trajectory(path):
+    """(times, [N,4,4] T_w_c with the translations; rotation left identity)
+    from a TUM trajectory file: enough for ``ate_rmse``."""
+    rows = np.loadtxt(path, ndmin=2)
+    T = np.tile(np.eye(4), (len(rows), 1, 1))
+    T[:, :3, 3] = rows[:, 1:4]
+    return rows[:, 0], T
+
+
+class CliProbe:
+    """Instruments ``run_slam.main`` calls: each tracker ``track`` call's
+    CUDA-event ms and host syncs (sync debug mode; the frame is synchronized
+    after its call), the host ms of each TUM frame read and the reader that
+    served it, the host ms of each host quad-tree pass; keeps the last
+    tracker. ``reset()`` starts a new run's record."""
+
+    def __init__(self):
+        from vo_slam_test_tpu_torch.datasets import tum
+        from vo_slam_test_tpu_torch.frontend import extractor
+        from vo_slam_test_tpu_torch.pipeline import system, tracking
+
+        self.targets = [(tum.TumDataset, "__getitem__", self._read),
+                        (extractor.OrbExtractor, "_distribute", self._distribute),
+                        (system.SlamSystem, "track", self._track),
+                        (tracking.FusedTracker, "track", self._track),
+                        (tracking.FrameToFrameTracker, "track", self._track)]
+        self.saved = []
+        self.reset()
+
+    def reset(self):
+        self.tracker = None
+        self.frame_ms, self.syncs, self.read_ms, self.dist_ms, self.readers = [], [], [], [], set()
+
+    def _read(self, orig):
+        def read(ds, i):
+            t0 = time.perf_counter()
+            out = orig(ds, i)
+            self.read_ms.append((time.perf_counter() - t0) * 1e3)
+            self.readers.add(ds.reader if ds.reader == "native"
+                             else f"{ds.reader} (native: {ds.native_error})")
+            return out
+        return read
+
+    def _distribute(self, orig):
+        def distribute(ext, cands):
+            t0 = time.perf_counter()
+            out = orig(ext, cands)
+            self.dist_ms.append((time.perf_counter() - t0) * 1e3)
+            return out
+        return distribute
+
+    def _track(self, orig):
+        def track(tracker, gray, depth, ts):
+            self.tracker = tracker
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                torch.cuda.set_sync_debug_mode("warn")
+                try:
+                    out = orig(tracker, gray, depth, ts)
+                finally:
+                    torch.cuda.set_sync_debug_mode("default")
+            end.record()
+            torch.cuda.synchronize()
+            self.frame_ms.append(start.elapsed_time(end))
+            self.syncs.append(sum("synchroniz" in str(w.message) for w in caught))
+            return out
+        return track
+
+    def __enter__(self):
+        for cls, attr, make in self.targets:
+            orig = getattr(cls, attr)
+            self.saved.append((cls, attr, orig))
+            setattr(cls, attr, make(orig))
+        return self
+
+    def __exit__(self, *exc):
+        for cls, attr, orig in self.saved:
+            setattr(cls, attr, orig)
+        self.saved = []
+
+    def run(self, label, argv):
+        """One ``run_slam.main(argv)`` on the card; its output is kept apart and
+        its summary lines printed with this run's per-frame record -> dict."""
+        from vo_slam_test_tpu_torch import run_slam
+
+        self.reset()
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            rc = run_slam.main(argv)
+        wall = time.perf_counter() - t0
+        out = buf.getvalue()
+        if rc != 0:
+            raise AssertionError(f"path 6 {label}: run_slam exited {rc}:\n{out[-2000:]}")
+        n = len(self.frame_ms)
+        rec = dict(frames=n, frame_ms_median=float(np.median(self.frame_ms)),
+                   frame_ms_mean=float(np.mean(self.frame_ms)),
+                   decode_ms_per_frame=float(np.mean(self.read_ms)) if self.read_ms else None,
+                   distribute_ms_per_frame=sum(self.dist_ms) / n if self.dist_ms else None,
+                   host_syncs_per_frame=float(np.mean(self.syncs)), syncs=list(self.syncs),
+                   readers=sorted(self.readers) or ["none (rendered in memory)"], wall_s=wall)
+        print(f"  {label}: run_slam {' '.join(argv)}")
+        for line in out.splitlines():
+            if not line.startswith("frame ") and "saved to" not in line:
+                print(f"    | {line}")
+        print(f"    frame ms (CUDA events around each track call) median "
+              f"{rec['frame_ms_median']:.3f}, mean {rec['frame_ms_mean']:.3f}; decode ms a frame "
+              f"{rec['decode_ms_per_frame']}; host quad-tree ms a frame "
+              f"{rec['distribute_ms_per_frame']}; host syncs a frame {rec['host_syncs_per_frame']:.2f} "
+              f"{self.syncs}; reader {rec['readers']}; {wall:.1f} s in all")
+        rec["stdout"] = out
+        return rec
+
+
+def main_path6(room, room_frames, room_cfg, frames, cfg, gt, all_kernels, plains, dev):
+    """Main path 6: ``run_slam.main`` in this process on TUM files written
+    here from path 2's frames (``--slam`` with every output, then with the
+    scene vocabulary it wrote and ``--chunk 4``), a save/load/resume of the
+    first run's map, then path 1's sequence through ``--sync``
+    (FrameToFrameTracker) and the default mode; the launches of those runs
+    are counted. Then the host-path extractor on ``dev`` against the CPU.
+    Raises on any failed check -> (per-run records, launches)."""
+    import importlib.util
+
+    from vo_slam_test_tpu_torch.bow.vocabulary import Vocabulary
+    from vo_slam_test_tpu_torch.camera import Camera
+    from vo_slam_test_tpu_torch.datasets import TumDataset, ate_rmse
+    from vo_slam_test_tpu_torch.frontend.extractor import OrbExtractor
+    from vo_slam_test_tpu_torch.pipeline import system
+    from vo_slam_test_tpu_torch.slam_map.serialize import load_map, save_map
+
+    t_path = time.perf_counter()
+    n_room = len(room_frames)
+    renderers = {m: importlib.util.find_spec(m) is not None for m in ("PIL", "matplotlib")}
+    cli = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_tum_") as tmp, PlainGuard(plains) as guard6, \
+            CliProbe() as probe:
+        tmp = Path(tmp)
+        t0 = time.perf_counter()
+        written = write_tum(tmp / "room", room_frames, room_cfg)
+        print(f"main path 6 data: path 2's {len(room_frames)} frames written as a TUM directory "
+              f"(zlib PNGs, gray as R=G=B, depth round(d*5000) u16) and cfg.yaml in "
+              f"{time.perf_counter() - t0:.1f} s; renderers on this machine: {renderers}")
+        ds = TumDataset(str(tmp / "room"), width=room_cfg.camera_width,
+                        height=room_cfg.camera_height)
+        inv = np.float32(1.0) / np.float32(5000.0)
+        for i in range(len(ds)):
+            g, d, t = ds[i]
+            want_d = (written[i].astype(np.float32) * inv if ds.reader == "native"
+                      else written[i].astype(np.float32) / 5000.0)
+            if not (np.array_equal(g, room_frames[i][0]) and np.array_equal(d, want_d)
+                    and t == float(f"{room_frames[i][2]:.6f}")):
+                raise AssertionError(f"path 6: frame {i} decoded by {ds.reader} differs from the "
+                                     f"written one")
+        print(f"  decoded frames equal the written ones (gray exactly, depth = the u16 / 5000) "
+              f"through the {ds.reader} reader; native: {ds.native_error or 'served'}")
+
+        torch.cuda.synchronize()
+        for k in all_kernels.values():
+            k.reset()
+        out = {k: str(tmp / v) for k, v in dict(
+            cam="cam.txt", kf="kf.txt", voc="voc.npz", metrics="m.csv", events="ev.json",
+            viewer="v.html", hud="hud", map="map.png", cam3="cam3.txt", ev3="ev3.json",
+            cam5="cam5.txt", cam7="cam7.txt").items()}
+        argv = [str(tmp / "room" / "cfg.yaml"), "--slam", "--camera-out", out["cam"],
+                "--keyframe-out", out["kf"], "--vocabulary-out", out["voc"],
+                "--metrics-out", out["metrics"], "--events-out", out["events"],
+                "--viewer-out", out["viewer"]]
+        for mod, flag in (("PIL", "--hud-out"), ("matplotlib", "--map-out")):
+            if renderers[mod]:
+                argv += [flag, out[flag[2:-4]]]
+            else:
+                print(f"  {flag} left out: {mod} is not installed on this machine")
+        cli["slam"] = probe.run("--slam, every output", argv)
+        s6 = probe.tracker
+        gt_t = [float(f"{t:.6f}") for _, _, t in room_frames]
+        gt6 = np.stack([room.poses[i] for i in range(n_room)])
+        t6, T6 = read_tum_trajectory(out["cam"])
+        ate6 = ate_rmse(gt_t, gt6, t6, T6)
+        ev = json.load(open(out["events"]))
+        kf_rows = np.loadtxt(out["kf"], ndmin=2)
+        html = Path(out["viewer"]).read_text()
+        data = json.loads(html.split("const DATA = ", 1)[1].split(";\n", 1)[0])
+        voc6 = Vocabulary.load(out["voc"])
+        metrics = Path(out["metrics"]).read_text().strip().splitlines()
+        kf_events6 = [i for i, o in enumerate(s6._outs) if o.made_kf]
+        n_hud = len(list(Path(out["hud"]).glob("hud_*.png"))) if renderers["PIL"] else None
+        cli["slam"].update(ate_m=float(ate6), keyframe_frames=kf_events6, events=ev)
+        print(f"  --slam: tracked {ev['n_tracked']}/{ev['n_frames']}, ATE {ate6 * 100:.4f} cm "
+              f"(the written camera trajectory against the render's poses), keyframe events at "
+              f"{kf_events6}, {ev['n_keyframes']} live keyframes = {len(kf_rows)} keyframe rows = "
+              f"{len(data['kf'])} in the viewer; vocabulary k={voc6.k} levels={voc6.levels} "
+              f"{voc6.n_words} words; metrics rows {len(metrics) - 1}; HUD frames {n_hud}")
+        if (ev["n_tracked"] != n_room or len(kf_events6) < 5 or not ate6 < 0.01
+                or not ev["n_keyframes"] == len(kf_rows) == len(data["kf"])
+                or len(metrics) != n_room + 1 or voc6.n_words < 1
+                or len(data["traj"]) != n_room
+                or n_hud not in (None, n_room)
+                or (renderers["matplotlib"] and not Path(out["map"]).stat().st_size > 1000)):
+            raise AssertionError(f"path 6 --slam failed: {ev}, ATE {ate6} m, keyframe events "
+                                 f"{kf_events6}, {len(kf_rows)} keyframe rows, {len(data['kf'])} "
+                                 f"viewer keyframes, {len(metrics)} metrics lines, {n_hud} HUD")
+
+        cli["slam_voc"] = probe.run("--slam --vocabulary (the scene vocabulary) --chunk 4", [
+            str(tmp / "room" / "cfg.yaml"), "--slam", "--vocabulary", out["voc"], "--chunk", "4",
+            "--camera-out", out["cam3"], "--events-out", out["ev3"]])
+        ev3 = json.load(open(out["ev3"]))
+        ate3b = ate_rmse(gt_t, gt6, *read_tum_trajectory(out["cam3"]))
+        cli["slam_voc"].update(ate_m=float(ate3b), events=ev3)
+        print(f"  --slam --vocabulary --chunk 4: tracked {ev3['n_tracked']}/{ev3['n_frames']}, ATE "
+              f"{ate3b * 100:.4f} cm, relocalizations at {ev3['reloc_frames']}, loop closures at "
+              f"{ev3['loop_frames']}, {ev3['n_keyframes']} keyframes")
+        if ev3["n_tracked"] != n_room:
+            raise AssertionError(f"path 6 --slam --vocabulary --chunk 4 failed: {ev3}")
+
+        # save, load and resume the first run's map (tests/test_serialize.py)
+        map_path = str(tmp / "map.npz")
+        save_map(map_path, s6.map, s6.caps)
+        m_loaded, caps_loaded = load_map(map_path)
+        differ = [f for f in s6.map.__dataclass_fields__
+                  if not torch.equal(getattr(m_loaded, f), getattr(s6.map, f))]
+        s_res = system.SlamSystem(s6.cfg, caps=caps_loaded)
+        s_res.map, s_res.state, s_res._frame_id = m_loaded, s6.state, s6._frame_id
+        s_res.track(*room[n_room])
+        st_res = s_res.results()[1][-1]
+        print(f"  save_map / load_map ({Path(map_path).stat().st_size / 1e6:.2f} MB): "
+              f"{len(s6.map.__dataclass_fields__)} fields, differing {differ}; resumed frame "
+              f"{n_room}: ok={st_res.ok} matches {st_res.n_matches} inliers "
+              f"{st_res.n_inliers}")
+        if differ or caps_loaded != s6.caps or not st_res.ok:
+            raise AssertionError(f"path 6 resume failed: fields {differ}, caps {caps_loaded}, "
+                                 f"{st_res}")
+
+        cli["sync"] = probe.run("--synthetic --frames 30 --sync (FrameToFrameTracker)", [
+            "--synthetic", "--frames", "30", "--sync", "--camera-out", out["cam5"]])
+        f2f = probe.tracker
+        ate5 = ate_rmse(f2f.timestamps, gt, f2f.timestamps, np.stack(f2f.trajectory))
+        bad5 = [(i, s) for i, s in enumerate(f2f.stats)
+                if not s.ok or (i > 0 and (s.n_matches < 100 or s.n_inliers < 50))]
+        cli["sync"].update(ate_m=float(ate5), counts=[(s.n_features, s.n_matches, s.n_inliers)
+                                                      for s in f2f.stats])
+        print(f"  --sync: {sum(s.ok for s in f2f.stats)}/{len(f2f.stats)} ok, ATE "
+              f"{ate5 * 100:.4f} cm; (features, matches, inliers) {cli['sync']['counts']}")
+        if len(f2f.stats) != 30 or bad5 or not ate5 < 0.03:
+            raise AssertionError(f"path 6 --sync failed: ATE {ate5} m, frames off the gates {bad5}")
+
+        cli["fused"] = probe.run("--synthetic --frames 30 (FusedTracker)", [
+            "--synthetic", "--frames", "30", "--camera-out", out["cam7"]])
+        _, stats7 = probe.tracker.results()
+        n_ok7 = sum(s.ok for s in stats7)
+        print(f"  default mode: tracked {n_ok7}/{len(stats7)}")
+        if n_ok7 != 30:
+            raise AssertionError(f"path 6 default mode tracked {n_ok7}/30")
+        launches6 = {k: v.launches for k, v in all_kernels.items()}
+    print(f"  kernel launches: {launches6}; plain versions on CUDA: {guard6.cuda_calls}")
+    if guard6.cuda_calls:
+        raise AssertionError(f"plain versions ran on CUDA tensors: {guard6.cuda_calls}")
+
+    # the host-path extractor on the card against the same class on the CPU
+    ext_d = OrbExtractor(Camera.from_config(cfg, dev))
+    ext_c = OrbExtractor(Camera.from_config(cfg, "cpu"))
+    f_d, f_c = ext_d(*frames[0][:2]), ext_c(*frames[0][:2])
+    same = {k: torch.equal(getattr(f_d, k).cpu(), getattr(f_c, k))
+            for k in ("uv", "uv_und", "octave", "valid", "desc", "response", "depth", "u_right")}
+    dang = (f_d.angle.cpu() - f_c.angle).abs()
+    ang6 = float(torch.minimum(dang, 360 - dang).max())
+    print(f"  host-path OrbExtractor, frame 0 of path 1 on the card against the CPU: fields equal "
+          f"{same}, {int(f_d.valid.sum())} keypoints, max angle difference {ang6} deg")
+    if not all(same.values()) or not ang6 <= 1e-3:
+        raise AssertionError(f"path 6: the host-path extractor on the card differs from the CPU: "
+                             f"{same}, angle {ang6}")
+    print(f"  main path 6 in {time.perf_counter() - t_path:.1f} s")
+    return cli, launches6
+
+
 def device_profile(prof, n_frames, wall_ms):
     """Device busy ms per frame, kernels per frame and the top kernels from
     the CUDA kernel events of a profiler window."""
@@ -2225,6 +2574,12 @@ def main() -> int:
           f"{shared[:8].tolist()}, best score {float(score.max()):.6f}); words, weights and scores "
           f"equal to the CPU's; ms per call (CUDA events, launches included): {bow_ms}")
 
+    # -- main path 6: the CLI on files ---------------------------------------
+    cli, launches6 = main_path6(room, room_frames, room_cfg, frames, cfg, gt, all_kernels,
+                                plains, dev)
+    if min(launches6[k] for k in ("fast", "orb", "top2")) < 1:
+        raise AssertionError(f"path 6 launched no FAST, ORB or frame-pair top-2: {launches6}")
+
     for k in ("fast", "orb", "top2"):
         kernels[k]["launches"] = launches1[k]
     for k in ("top2_m4096", "top2_chi2", "top2_nb", "top1_epi") + ba_keys:
@@ -2232,7 +2587,7 @@ def main() -> int:
     for k in kernels:
         kernels[k]["launches_by_path"] = {"1": launches1[k], "2": launches2[k],
                                           "3": launches3[k], "4": launches4[k],
-                                          "5": launches5[k]}
+                                          "5": launches5[k], "6": launches6[k]}
     # ba_accumulate is two launches in a row, the others one
     for k, v in kernels.items():
         v["launch_floor_x"] = v["ms"] / floor["launches_2" if k == "ba_acc" else "launches_1"]
@@ -2257,6 +2612,8 @@ def main() -> int:
         "kidnap": dict(kid, launches=launches4, bow_orbvoc_ms=bow_ms),
         "pan_loop": dict(pan, launches=launches5),
         "global_ba_scene": gba_rows,
+        "cli_on_files": {k: {kk: vv for kk, vv in v.items() if kk != "stdout"}
+                         for k, v in cli.items()},
         "card": smi}}))
     order = ("fast", "orb", "top2", "top2_m4096", "top2_chi2", "top2_nb", "top1_epi") + ba_keys
     print(json.dumps({"kernels": [{key: kernels[k][key] for key in keys if key in kernels[k]}

@@ -106,6 +106,44 @@ def test_fused_tracker_runs_on_card(cuda):
     assert ate_rmse(tr.timestamps, gt, tr.timestamps, traj) < 0.01
 
 
+def test_host_extractor_on_card_matches_cpu(cuda):
+    """The host-path OrbExtractor (FAST and ORB kernels around one host read
+    and the host quad-tree) on the card against the same class on the CPU,
+    on frame 0 of the 30-frame corner sequence: every field equal, angles
+    within 1e-3 deg."""
+    from vo_slam_test_tpu_torch.camera import Camera
+    from vo_slam_test_tpu_torch.frontend.extractor import OrbExtractor
+
+    seq = SyntheticRGBD(n_frames=30, seed=0, motion_scale=0.5)
+    cfg = SlamConfig(camera_fx=seq.fx, camera_fy=seq.fy, camera_cx=seq.cx, camera_cy=seq.cy,
+                     camera_k1=0, camera_k2=0, camera_p1=0, camera_p2=0, camera_k3=0)
+    gray, depth, _ = seq[0]
+    before = [k.KERNEL.launches for k in (fast_cuda, orb_cuda)]
+    got = OrbExtractor(Camera.from_config(cfg, cuda))(gray, depth)
+    torch.cuda.synchronize()
+    assert [k.KERNEL.launches for k in (fast_cuda, orb_cuda)] == [b + 1 for b in before]
+    want = OrbExtractor(Camera.from_config(cfg, "cpu"))(gray, depth)
+    for name in ("uv", "uv_und", "octave", "valid", "desc", "response", "depth", "u_right"):
+        assert torch.equal(getattr(got, name).cpu(), getattr(want, name)), name
+    d = (got.angle.cpu() - want.angle).abs()
+    assert float(torch.minimum(d, 360 - d).max()) <= 1e-3
+    assert int(got.valid.sum()) > 900
+
+
+def test_frame_to_frame_tracker_runs_on_card(cuda):
+    from vo_slam_test_tpu_torch.pipeline.tracking import FrameToFrameTracker
+
+    seq = SyntheticRGBD(n_frames=30, seed=0, motion_scale=0.5)
+    cfg = SlamConfig(camera_fx=seq.fx, camera_fy=seq.fy, camera_cx=seq.cx, camera_cy=seq.cy,
+                     camera_k1=0, camera_k2=0, camera_p1=0, camera_p2=0, camera_k3=0)
+    tr = FrameToFrameTracker(cfg)
+    stats = [tr.track(*seq[i]) for i in range(6)]
+    assert all(s.ok for s in stats)
+    assert all(s.n_matches >= 100 and s.n_inliers >= 50 for s in stats[1:])
+    gt = np.stack([seq.poses[i] for i in range(6)])
+    assert ate_rmse(tr.timestamps, gt, tr.timestamps, np.stack(tr.trajectory)) < 0.03
+
+
 def _equal(got, want):
     torch.cuda.synchronize()
     for g, w in zip(got, want):
@@ -695,7 +733,9 @@ def test_port_modules_import_no_jax(cuda):
                  "pipeline.system", "solvers.local_ba", "ops.ba_cuda", "ops.ba_pallas",
                  "bow.vocabulary", "bow.retrieval", "matching.bow_match", "solvers.ransac",
                  "solvers.epnp", "utils.prng", "utils.linalg", "utils.drift", "solvers.sim3",
-                 "solvers.pose_graph", "solvers.global_ba", "pipeline.loop_closing"):
+                 "solvers.pose_graph", "solvers.global_ba", "pipeline.loop_closing",
+                 "frontend.distribute", "datasets.tum", "datasets.staging", "native.loader",
+                 "slam_map.serialize", "viz.drawer", "viz.webviewer", "run_slam"):
         assert pkg.__name__ + "." + name in sys.modules
     bad = [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "vo_slam_test_tpu")]
     assert not bad, bad

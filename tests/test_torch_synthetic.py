@@ -1,6 +1,7 @@
-"""The port's room scene and room-orbit trajectory against the JAX
-renderer's: the trajectory is numpy on both sides and the scene's textures
-come from the same seeded draws, so poses, gray and depth must be equal."""
+"""The port's scenes and trajectories against the JAX renderer's: the room
+scene, the room orbit and the pan-return trajectory, the texture density and
+the moving patch. Trajectories are numpy on both sides and the textures come
+from the same seeded draws, so poses, gray and depth must be equal."""
 
 import numpy as np
 import pytest
@@ -35,3 +36,33 @@ def test_room_scene_renders_jax_pixels():
 def test_unknown_scene_raises():
     with pytest.raises(ValueError, match="unknown scene"):
         synthetic.SyntheticRGBD(scene="garden")
+
+
+@pytest.mark.parametrize("n,kw", [(60, {}), (37, dict(recede=1.8, yaw_max=1.2, z0=1.1))])
+def test_pan_return_trajectory_matches_jax(n, kw):
+    got = synthetic.pan_return_trajectory(n, **kw)
+    np.testing.assert_array_equal(got, jsynthetic.pan_return_trajectory(n, **kw))
+    assert got.shape == (n, 4, 4) and got.dtype == np.float32
+
+
+@pytest.mark.parametrize("scene,tc,patch", [
+    ("corner", 0.03, None),              # texture-poor (fr3_nstr_tex_near analogue)
+    ("corner", 1.0, (0.6, 0.04)),        # a moving object on the back wall
+    ("room", 0.5, (0.5, 0.03)),          # the patch on the room's far wall
+])
+def test_texture_and_moving_patch_render_jax_pixels(scene, tc, patch):
+    kw = dict(KW, scene=scene, seed=5, texture_corners=tc, moving_patch=patch)
+    traj = (jsynthetic.pan_return_trajectory(30) if scene == "room"
+            else jsynthetic.SyntheticRGBD(n_frames=30, seed=5).poses)
+    js = jsynthetic.SyntheticRGBD(trajectory=traj, **kw)
+    ps = synthetic.SyntheticRGBD(trajectory=traj, **kw)
+    for i in (0, 9, 29):
+        (gj, dj, tj), (gp, dp, tp) = js[i], ps[i]
+        assert tj == tp
+        np.testing.assert_array_equal(gp, gj)
+        np.testing.assert_array_equal(dp, dj)
+    if patch is not None:
+        # the patch is in view at frame 0: the frame differs from the scene's
+        np.testing.assert_array_equal(ps.tex_patch, js.tex_patch)
+        plain = synthetic.SyntheticRGBD(trajectory=traj, **dict(kw, moving_patch=None))
+        assert (plain[0][0] != ps[0][0]).any()

@@ -12,7 +12,11 @@ chunks), with every kernel they run; with a vocabulary (``bow/``) it adds BoW
 tracking against the reference keyframe and relocalization (``solvers/
 ransac.py``, ``solvers/epnp.py``) and loop closing (``pipeline/
 loop_closing.py``, ``solvers/sim3.py``, ``solvers/pose_graph.py``), with
-global BA after a closure on request (``solvers/global_ba.py``).
+global BA after a closure on request (``solvers/global_ba.py``); the
+host-synchronous ``FrameToFrameTracker`` with the host-quadtree
+``OrbExtractor``; and the entry point ``python -m vo_slam_test_tpu_torch.run_slam``
+with the TUM reader (``datasets/tum.py``, ``native/``), map save/load
+(``slam_map/serialize.py``), the drawer and the HTML viewer (``viz/``).
 
 Entry points run on the card unless the caller passes ``device="cpu"``; on a
 CPU tensor every kernel wrapper runs its plain PyTorch version instead.

@@ -112,3 +112,20 @@ class SlamConfig:
         if default is not None:
             return default
         raise KeyError(f"config key not found: {key}")
+
+
+# Reference-style global singleton (config.cpp:6-25): optional sugar so call
+# sites can mirror ``Config::setParameterFile`` / ``Config::get``.
+_GLOBAL: Optional[SlamConfig] = None
+
+
+def set_parameter_file(path: str) -> SlamConfig:
+    global _GLOBAL
+    _GLOBAL = SlamConfig.from_yaml(path)
+    return _GLOBAL
+
+
+def get(key: str, default: Optional[Any] = None) -> Any:
+    if _GLOBAL is None:
+        raise RuntimeError("set_parameter_file() has not been called")
+    return _GLOBAL.get(key, default)

@@ -1,6 +1,7 @@
-"""Synthetic RGB-D renderer, TUM trajectory export and ATE."""
+"""Datasets: the TUM RGB-D reader, the synthetic renderer, TUM trajectory
+export and ATE."""
 
 from .synthetic import SyntheticRGBD
-from .tum import ate_rmse, write_trajectory_tum
+from .tum import TumDataset, ate_rmse, read_associate, write_trajectory_tum
 
-__all__ = ["SyntheticRGBD", "ate_rmse", "write_trajectory_tum"]
+__all__ = ["TumDataset", "read_associate", "write_trajectory_tum", "SyntheticRGBD", "ate_rmse"]

@@ -55,7 +55,7 @@ confirmed loop candidates (one read) and each Sim3 attempt its gates (one).
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Optional, Tuple, Union
+from typing import List, NamedTuple, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -65,7 +65,7 @@ from ..bow import retrieval as bow_ret
 from ..bow import vocabulary as bow_voc
 from ..camera import Camera
 from ..config import SlamConfig
-from ..frontend.extractor import extract_fused
+from ..frontend.extractor import extract_fused, upload
 from ..frontend.frame import FrameFeatures
 from ..matching import bow_match, matcher
 from ..ops.pyramid import PyramidSpec
@@ -119,6 +119,14 @@ class SlamOut:
     # the relocalization attempt's winning candidate as (keyframe slot, BoW
     # matches, RANSAC inliers, observed inliers), when it had candidates
     reloc_winner: Optional[Tuple[int, int, int, int]] = None
+
+
+class HudOut(NamedTuple):
+    """One frame's HUD inputs on the host (``viz.drawer.save_hud_frames``)."""
+
+    kp_uv: np.ndarray     # [N,2] f32 raw pixel coords
+    kp_state: np.ndarray  # [N] i32: 0 untracked, 1 map-tracked, 2 VO-tracked
+    ok: bool
 
 
 @dataclasses.dataclass
@@ -781,20 +789,12 @@ class SlamSystem:
             last_kf_frame=-10_000, last_was_kf=False, last_reloc_frame=-10_000,
         )
 
-    def _upload(self, a: np.ndarray) -> torch.Tensor:
-        """Host array -> device tensor; from pinned memory on the card, so the
-        copy does not block the host."""
-        t = torch.from_numpy(np.ascontiguousarray(a))
-        if self.device.type != "cuda":
-            return t.to(self.device)
-        return t.pin_memory().to(self.device, non_blocking=True)
-
     def track(self, gray: np.ndarray, depth: np.ndarray, timestamp: float) -> None:
         """gray u8 (H, W); depth f32 meters, or u16 raw scaled by the
         config's depth scale on the device. With ``chunk`` > 1 the frame is
         uploaded and buffered; a full chunk is tracked and mapped at once."""
-        gray_d = self._upload(gray)
-        depth_d = self._upload(depth)
+        gray_d = upload(gray, self.device)
+        depth_d = upload(depth, self.device)
         if not torch.is_floating_point(depth_d):
             depth_d = depth_d.to(torch.float32) * (1.0 / float(self.cfg.camera_depthScale))
         if self.chunk > 1:
@@ -887,6 +887,17 @@ class SlamSystem:
         kf_traj = [(float(kf_ts[k]), np.linalg.inv(arrays["kf_pose"][k]))
                    for k in range(arrays["kf_pose"].shape[0]) if arrays["kf_valid"][k]]
         return np.stack(traj), stats, kf_traj
+
+    def hud_outputs(self, frames: Sequence[int]) -> List[HudOut]:
+        """The named frames' HUD inputs (keypoints, their tracking state, ok)
+        read to the host in one copy per field."""
+        if not frames:
+            return []
+        outs = [self._outs[i] for i in frames]
+        uv = torch.stack([o.kp_uv for o in outs]).cpu().numpy()
+        state = torch.stack([o.kp_state for o in outs]).cpu().numpy()
+        ok = torch.stack([o.ok for o in outs]).cpu().numpy()
+        return [HudOut(kp_uv=u, kp_state=k, ok=bool(b)) for u, k, b in zip(uv, state, ok)]
 
     @property
     def n_keyframes(self) -> int:

@@ -1,5 +1,5 @@
-"""Frame-to-frame visual odometry on the device (port of ``FusedTracker`` and
-``track_step`` in ``vo_slam_test_tpu/pipeline/tracking.py``).
+"""Frame-to-frame visual odometry (port of ``FrameToFrameTracker``,
+``FusedTracker`` and ``track_step`` in ``vo_slam_test_tpu/pipeline/tracking.py``).
 
 Each frame: ORB extraction, temporary 3D points from the last frame's depth
 (closest-100-or-thDepth rule), projection search at r=15 with an r=30 retry
@@ -10,7 +10,9 @@ Host synchronization: the JAX package branches with ``lax.cond`` on device
 scalars. Here the first-frame branch is a host bool, and the r=30 retry reads
 the r=15 match count back: one host sync per frame after the first. The
 pose solve's round-2 branch is computed on both sides and selected with
-``torch.where`` (no sync).
+``torch.where`` (no sync). ``FrameToFrameTracker`` is the host-synchronous
+path: the host-quadtree ``OrbExtractor`` and the reference's integer gates
+read on the host, as the JAX package reads them.
 """
 
 from __future__ import annotations
@@ -24,7 +26,7 @@ import torch
 from .. import lie, resolve_device
 from ..camera import Camera
 from ..config import SlamConfig
-from ..frontend.extractor import extract_fused
+from ..frontend.extractor import OrbExtractor, extract_fused, upload
 from ..frontend.frame import FrameFeatures
 from ..matching import matcher
 from ..ops.pyramid import PyramidSpec
@@ -104,6 +106,77 @@ class TrackStats:
     n_matches: int = 0
     n_inliers: int = 0
     ok: bool = False
+
+
+class FrameToFrameTracker:
+    """Frame-to-frame VO over an RGB-D stream with host-synchronous gates:
+    per frame the extractor's candidate read, the feature count, the r=15
+    match count (and the r=30 one on a retry), the inlier count and the pose
+    are read on the host. ``track`` returns the frame's TrackStats."""
+
+    def __init__(self, cfg: SlamConfig, device: Optional[Union[str, torch.device]] = None):
+        self.cfg = cfg
+        self.device = resolve_device(device)
+        self.camera = Camera.from_config(cfg, self.device)
+        self.extractor = OrbExtractor(
+            self.camera,
+            n_features=cfg.num_of_features,
+            scale_factor=cfg.scale_factor,
+            n_levels=cfg.level_pyramid,
+            fast_hi=cfg.ini_fast_threshold,
+            fast_lo=cfg.min_fast_threshold,
+        )
+        spec = self.extractor.spec
+        self.scale_factors = torch.as_tensor(spec.scales, device=self.device)
+        self.inv_level_sigma2 = torch.as_tensor(spec.inv_level_sigma2, device=self.device)
+
+        self.last_feats: Optional[FrameFeatures] = None
+        self.T_last = torch.eye(4, dtype=torch.float32, device=self.device)  # T_c_w of last frame
+        self.T_cl = self.T_last.clone()                                      # motion model
+        self.motion_valid = False
+        self.trajectory: List[np.ndarray] = []  # T_w_c per frame
+        self.timestamps: List[float] = []
+        self.states: List[bool] = []
+        self.stats: List[TrackStats] = []
+
+    def track(self, gray: np.ndarray, depth: np.ndarray, timestamp: float) -> TrackStats:
+        """gray u8 (H, W), depth f32 meters (H, W)."""
+        feats = self.extractor(gray, depth)
+        st = TrackStats(n_features=int(feats.valid.sum()))
+
+        if self.last_feats is None:
+            T = torch.eye(4, dtype=torch.float32, device=self.device)
+            st.ok = True
+        else:
+            T_pred = (self.T_cl @ self.T_last) if self.motion_valid else self.T_last
+            last_points, last_valid = _spawn_temp_points(self.last_feats, self.T_last, self.camera)
+
+            def attempt(radius):
+                return _match_and_solve(feats, self.last_feats, last_points, last_valid, T_pred,
+                                        self.T_last, self.scale_factors, self.inv_level_sigma2,
+                                        self.camera, radius)
+
+            T, _, n_inl, n_match, _ = attempt(15.0)
+            n_match_i = int(n_match)
+            if n_match_i < 20:  # widen the window (visualOdometry.cpp:242-246)
+                T, _, n_inl, n_match, _ = attempt(30.0)
+                n_match_i = int(n_match)
+            st.n_matches = n_match_i
+            st.n_inliers = int(n_inl)
+            st.ok = n_match_i >= 20 and st.n_inliers >= 10
+            if not st.ok:
+                T = T_pred  # hold the prediction: no relocalization here
+
+        if self.last_feats is not None:
+            self.T_cl = T @ lie.se3_inverse(self.T_last)
+            self.motion_valid = st.ok
+        self.T_last = T
+        self.last_feats = feats
+        self.trajectory.append(lie.se3_inverse(T).cpu().numpy())
+        self.timestamps.append(timestamp)
+        self.states.append(st.ok)
+        self.stats.append(st)
+        return st
 
 
 @dataclasses.dataclass
@@ -201,22 +274,14 @@ class FusedTracker:
 
     def track(self, gray: np.ndarray, depth: np.ndarray, timestamp: float) -> None:
         """gray u8 (H, W), depth f32 meters (H, W)."""
-        gray_d = self._upload(np.ascontiguousarray(gray))
-        depth_d = self._upload(np.ascontiguousarray(depth, dtype=np.float32))
+        gray_d = upload(gray, self.device)
+        depth_d = upload(np.asarray(depth, dtype=np.float32), self.device)
         self.state, out = track_step(
             gray_d, depth_d, self.state, self.camera, self.spec, self.budgets,
             self.scale_factors, self.inv_level_sigma2, self.fast_hi, self.fast_lo,
         )
         self._outs.append(out)
         self.timestamps.append(timestamp)
-
-    def _upload(self, a: np.ndarray) -> torch.Tensor:
-        """Host array -> device tensor without a host sync: a copy from pinned
-        memory is asynchronous (a copy from pageable memory blocks)."""
-        t = torch.from_numpy(a)
-        if self.device.type != "cuda":
-            return t.to(self.device)
-        return t.pin_memory().to(self.device, non_blocking=True)
 
     def results(self):
         """Blocks and returns (trajectory T_w_c [F,4,4], stats list)."""
