@@ -114,6 +114,7 @@ import ctypes
 import dataclasses
 import io
 import json
+import os
 import struct
 import subprocess
 import sys
@@ -249,14 +250,21 @@ def fast_live_pixels(levels) -> int:
 FAST_PAIR_OPS = {"alu": 17 + 2 * (16 + 16 + 8)}
 
 
-def fast_bound(levels):
+# the 3x3-NMS mode adds, per pair of live pixels: 8 packed compares against the
+# neighbours' scores, 7 ands of the results and 1 select
+FAST_NMS_PAIR_OPS = {"alu": 8 + 7 + 1}
+
+
+def fast_bound(levels, nms: bool = False):
     """Bound of one FAST launch from this run's input: bytes for every pixel
     read once and its score written once; operations only for the pixels
     whose score can be non-zero (``fast_live_pixels``), two to a word, at the
-    fewest instructions the card's instruction set needs (FAST_PAIR_OPS).
-    -> (ms, bound_by, counts)."""
+    fewest instructions the card's instruction set needs (FAST_PAIR_OPS, and
+    with ``nms`` the comparison's FAST_NMS_PAIR_OPS: a pixel whose score is 0
+    writes 0 whatever its neighbours hold). -> (ms, bound_by, counts)."""
     n, live = levels.numel(), fast_live_pixels(levels)
-    ms, by = bound_ms(8 * n, {k: v * ((live + 1) // 2) for k, v in FAST_PAIR_OPS.items()})
+    ops = {k: v + (FAST_NMS_PAIR_OPS.get(k, 0) if nms else 0) for k, v in FAST_PAIR_OPS.items()}
+    ms, by = bound_ms(8 * n, {k: v * ((live + 1) // 2) for k, v in ops.items()})
     return ms, by, dict(pixels=n, live_pixels=live)
 
 
@@ -1284,8 +1292,261 @@ def run_gba_scene(label, caps, device, cpu_check: bool) -> dict:
     return row
 
 
+def cuda_ms(fn):
+    """(result, ms) of one call of ``fn`` between CUDA events (its host syncs
+    included)."""
+    e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    e0.record()
+    out = fn()
+    e1.record()
+    torch.cuda.synchronize()
+    return out, e0.elapsed_time(e1)
+
+
+def map_copy(m):
+    return m.replace(**{f.name: getattr(m, f.name).clone() for f in dataclasses.fields(m)})
+
+
+def reproj_rmse(m, cam, n_kf: int) -> float:
+    """tests/test_local_ba.py::reproj_rmse on a port map: the monocular
+    reprojection RMSE (px) of the first ``n_kf`` keyframes' bound keypoints."""
+    fx, fy, cx, cy = (float(cam.fx), float(cam.fy), float(cam.cx), float(cam.cy))
+    kf_pose, pt = m.kf_pose.cpu().numpy(), m.pt_pos.cpu().numpy()
+    kf_mp, uv = m.kf_mp.cpu().numpy(), m.kf_uv_und.cpu().numpy()
+    errs = []
+    for k in range(n_kf):
+        sel = kf_mp[k] >= 0
+        pc = pt[kf_mp[k][sel]] @ kf_pose[k][:3, :3].T + kf_pose[k][:3, 3]
+        errs.append(np.stack([fx * pc[:, 0] / pc[:, 2] + cx, fy * pc[:, 1] / pc[:, 2] + cy], -1)
+                    - uv[k][sel])
+    e = np.concatenate(errs)
+    return float(np.sqrt((e ** 2).sum(-1).mean()))
+
+
+MESH_FX, MESH_FY, MESH_CX, MESH_CY, MESH_BF = 517.3, 516.5, 318.6, 255.3, 40.0
+
+
+def pose_obs_instance(n=64, seed=0):
+    """tests/test_parallel.py::make_obs with the port's types: n points seen
+    exactly from a pose T_gt -> (T_gt, PoseObs on the CPU)."""
+    from vo_slam_test_tpu_torch import lie
+    from vo_slam_test_tpu_torch.solvers.pose_only import PoseObs
+
+    rng = np.random.default_rng(seed)
+    pw = rng.uniform([-2, -1.5, 2.0], [2, 1.5, 6.0], size=(n, 3)).astype(np.float32)
+    xi = np.array([0.05, -0.08, 0.12, 0.03, -0.02, 0.04], np.float32)
+    T_gt = lie.se3_exp(torch.as_tensor(xi)).numpy()
+    pc = pw @ T_gt[:3, :3].T + T_gt[:3, 3]
+    uv = np.stack([MESH_FX * pc[:, 0] / pc[:, 2] + MESH_CX,
+                   MESH_FY * pc[:, 1] / pc[:, 2] + MESH_CY], -1).astype(np.float32)
+    return T_gt, PoseObs(torch.as_tensor(pw), torch.as_tensor(uv), torch.full((n,), -1.0),
+                         torch.ones((n,)), torch.ones((n,), dtype=torch.bool))
+
+
+def ba_obs_instance(W=4, L=32, M=64, seed=1):
+    """tests/test_parallel.py::test_ba_normal_equations_reduce's instance:
+    (poses, points, o_kf, o_pt, o_uv, o_w) as numpy."""
+    rng = np.random.default_rng(seed)
+    poses = np.tile(np.eye(4, dtype=np.float32), (W, 1, 1))
+    points = rng.uniform([-1, -1, 2], [1, 1, 5], (L, 3)).astype(np.float32)
+    o_kf = rng.integers(0, W, M).astype(np.int32)
+    o_pt = rng.integers(0, L, M).astype(np.int32)
+    pc = points[o_pt]
+    u = MESH_FX * pc[:, 0] / pc[:, 2] + MESH_CX + rng.normal(0, 1, M)
+    v = MESH_FY * pc[:, 1] / pc[:, 2] + MESH_CY + rng.normal(0, 1, M)
+    return poses, points, o_kf, o_pt, np.stack([u, v], -1).astype(np.float32), \
+        np.ones((M,), np.float32)
+
+
+def schur_instance(W=4, L=32, seed=2):
+    """A well-posed BA window for ``sharded_ba_schur_step``: W keyframes 0.2 m
+    apart, every point seen by every keyframe with 0.5 px noise, the poses but
+    the first and the points perturbed -> numpy arrays as ``ba_obs_instance``."""
+    from vo_slam_test_tpu_torch import lie
+
+    rng = np.random.default_rng(seed)
+    gt = np.tile(np.eye(4, dtype=np.float32), (W, 1, 1))
+    gt[:, 0, 3] = -0.2 * np.arange(W)
+    points = rng.uniform([-1, -1, 2], [1, 1, 5], (L, 3)).astype(np.float32)
+    o_kf = np.repeat(np.arange(W), L).astype(np.int32)
+    o_pt = np.tile(np.arange(L), W).astype(np.int32)
+    pc = points[o_pt] + gt[o_kf, :3, 3]
+    u = MESH_FX * pc[:, 0] / pc[:, 2] + MESH_CX + rng.normal(0, 0.5, W * L)
+    v = MESH_FY * pc[:, 1] / pc[:, 2] + MESH_CY + rng.normal(0, 0.5, W * L)
+    poses = gt.copy()
+    for w in range(1, W):
+        poses[w] = lie.se3_exp(torch.as_tensor(
+            rng.normal(0, 0.01, 6).astype(np.float32))).numpy() @ gt[w]
+    points = (points + rng.normal(0, 0.02, points.shape)).astype(np.float32)
+    return (poses, points, o_kf, o_pt, np.stack([u, v], -1).astype(np.float32),
+            np.ones((W * L,), np.float32))
+
+
+def check_dead_shard(m, kf, caps, cam, inv, mesh, live):
+    """The kernels of local BA on a shard with no live point (n_pts = 0), with
+    the scratch filled with NaN and the mask words with -1: every sum, the
+    cost, bl, Wc, the mask words, the point step and the cost kernel's cost
+    must be exactly zero, and Hinv finite (the damping's inverse), so a dead
+    shard adds nothing stale to the psum."""
+    from vo_slam_test_tpu_torch.ops import ba_cuda
+    from vo_slam_test_tpu_torch.solvers import local_ba
+
+    s = max(i for i, n in enumerate(live) if n == 0)
+    prob = local_ba.build_problem_ol(m, kf, caps, inv)
+    sp = local_ba._shard_problem(prob, mesh)[s]
+    wk = min(local_ba.W_KF, m.kf_valid.shape[0])
+    WF = prob.kf_ids.shape[0]
+    Ls = sp.pt_ids.shape[0]
+    posesT = m.kf_pose[prob.kf_ids.clamp(min=0).long()].reshape(WF, 16).T.contiguous()
+    X = m.pt_pos[sp.pt_ids.clamp(min=0).long()].T.contiguous()
+    obs = (sp.o_slot, sp.o_uv[0].contiguous(), sp.o_uv[1].contiguous(), sp.o_ur,
+           sp.o_inv_sigma2, sp.o_valid.to(torch.float32))
+    n0 = torch.zeros((), dtype=torch.int32, device=m.device)
+    scratch = torch.full((wk, Ls, ba_cuda.REC), float("nan"), device=m.device)
+    mask = torch.full((Ls,), -1, dtype=torch.int32, device=m.device)
+    cam5 = local_ba._cam5(cam)
+    lam = torch.full((), 1e-4, device=m.device)
+    Hpp36, bp, S_red, rhs_red, cost, Hinv, bl, Wc = ba_cuda.ba_accumulate(
+        lam, posesT, X, *obs, sp.o_povar, cam5, wk, True, n_pts=n0, scratch=scratch, mask=mask)
+    dx_pose = torch.as_tensor(np.random.default_rng(5).normal(0, 0.01, (wk, 6)).astype(
+        np.float32), device=m.device)
+    dx = ba_cuda.ba_backsub(Wc, Hinv, bl, dx_pose, n_pts=n0, mask=mask)
+    c2 = ba_cuda.ba_cost(posesT, X, *obs, cam5, True, n_pts=n0)
+    zeros = {"Hpp": Hpp36, "bp": bp, "S_red": S_red, "rhs_red": rhs_red, "cost": cost, "bl": bl,
+             "Wc": Wc, "dx_pt": dx, "cost kernel": c2}
+    if mask.is_cuda:  # the plain versions take no mask buffer
+        zeros["mask"] = mask
+    bad = [k for k, t in zeros.items() if not bool((t == 0).all())]
+    if bad or not bool(torch.isfinite(Hinv).all()):
+        raise AssertionError(f"local BA kernels on dead shard {s}: non-zero {bad}, "
+                             f"Hinv finite {bool(torch.isfinite(Hinv).all())}")
+    return s
+
+
+def run_mesh_phase(s1, dev) -> dict:
+    """The analogue of __graft_entry__.dryrun_multichip at real size, with 8
+    shards on the one card (``parallel.make_obs_mesh(8)`` over every CUDA
+    device: one here). Local BA on main path 2's final map at the default
+    MapCaps (L = 8192: 1024 points a shard) against the one-device solver
+    (tests/test_parallel.py's tolerances: pt_obs_cnt equal, poses within
+    5e-4, live points within 5e-3), each of rows 7-9 launched once per LM
+    iteration on each shard, and a dead shard's launches zero; global BA on
+    ``gba_scene`` at the default MapCaps against the one-device solver
+    under tests/test_global_ba.py:49-80's contract; the three ``sharded_*``
+    functions against the same calls on an 8-shard CPU mesh. Mesh and
+    one-device ms side by side; one card holds every shard, so no scaling is
+    measured."""
+    from vo_slam_test_tpu_torch import parallel
+    from vo_slam_test_tpu_torch.ops import ba_cuda
+    from vo_slam_test_tpu_torch.slam_map.map_state import MapCaps
+    from vo_slam_test_tpu_torch.solvers import global_ba, local_ba
+
+    mesh = parallel.make_obs_mesh(8)
+    cpu = parallel.make_obs_mesh(8, ["cpu"])
+    print(f"phase mesh (8 shards on one card): {mesh.n_shards} shards on {mesh.n_devices} "
+          f"device(s) {[str(d) for d in mesh.devices]}")
+    row = dict(n_shards=mesh.n_shards, n_devices=mesh.n_devices,
+               devices=[str(d) for d in mesh.devices])
+
+    # local BA on main path 2's final map, around its newest keyframe
+    m, caps, cam = s1.map, s1.caps, s1.camera
+    inv = 1.0 / (s1.scale_factors * s1.scale_factors)
+    kf = int(torch.argmax(torch.where(m.kf_valid, m.kf_seq, -1)))
+    prob = local_ba.build_problem_ol(m, kf, caps, inv)
+    live = [int(x.sum()) for x in mesh.split(prob.pt_ids >= 0)]
+    acc = (ba_cuda.KERNEL_ACC, ba_cuda.KERNEL_COST, ba_cuda.KERNEL_BACKSUB)
+    mc = map_copy(m)
+    for k in acc:
+        k.reset()
+    (m_single, n1, n2), ms_single = cuda_ms(
+        lambda: local_ba.local_bundle_adjust_iters(mc, kf, caps, cam, inv))
+    single_launches = [k.launches for k in acc]
+    mc = map_copy(m)
+    for k in acc:
+        k.reset()
+    (m_mesh, k1, k2), ms_mesh = cuda_ms(
+        lambda: local_ba.local_bundle_adjust_mesh_iters(mc, kf, caps, cam, mesh, inv))
+    mesh_launches = [k.launches for k in acc]
+    both = (m_single.pt_valid & m_mesh.pt_valid).cpu().numpy()
+    pose_err = float((m_mesh.kf_pose - m_single.kf_pose).abs().max())
+    pt_err = float(np.abs(m_mesh.pt_pos.cpu().numpy() - m_single.pt_pos.cpu().numpy())[both].max())
+    cnt_equal = torch.equal(m_mesh.pt_obs_cnt, m_single.pt_obs_cnt)
+    dead = check_dead_shard(m, kf, caps, cam, inv, mesh, live) if 0 in live else None
+    row["local_ba"] = dict(
+        keyframe=kf, L=prob.pt_ids.shape[0], live_points_per_shard=live,
+        lm_iterations_single=[n1, n2], lm_iterations_mesh=[k1, k2],
+        launches_single=single_launches, launches_mesh=mesh_launches,
+        launches_per_shard=[k1 + k2] * mesh.n_shards, ms_single=ms_single, ms_mesh=ms_mesh,
+        max_pose_err=pose_err, max_point_err=pt_err, pt_obs_cnt_equal=cnt_equal,
+        dead_shard_checked=dead)
+    print(f"  local BA on main path 2's final map around keyframe {kf} (L = "
+          f"{prob.pt_ids.shape[0]}, live points per shard {live}): LM iterations one device "
+          f"{(n1, n2)}, mesh {(k1, k2)}; rows 7-9 launched {mesh_launches} on the mesh = "
+          f"{k1 + k2} on each of {mesh.n_shards} shards ({single_launches} on one device); "
+          f"ms one device {ms_single:.3f}, 8 shards on one card {ms_mesh:.3f}; largest pose "
+          f"difference {pose_err:.3e}, point {pt_err:.3e}; pt_obs_cnt equal {cnt_equal}; "
+          f"dead shard {dead}'s launches all zero")
+    on_card = torch.device(dev).type == "cuda"  # a CPU rehearsal launches no kernel
+    if not (cnt_equal and pose_err <= 5e-4 and pt_err <= 5e-3 and (not on_card or (
+            single_launches == [n1 + n2] * 3
+            and mesh_launches == [mesh.n_shards * (k1 + k2)] * 3))):
+        raise AssertionError(f"mesh local BA: {row['local_ba']}")
+
+    # global BA on the fabricated scene at the default MapCaps
+    gcaps = MapCaps()
+    gm, gt, gcam = gba_scene(gcaps, dev)
+    g1, gms1 = cuda_ms(lambda: global_ba.global_bundle_adjust(gm, gcaps, gcam, 0))
+    g2, gms2 = cuda_ms(lambda: global_ba.global_bundle_adjust_mesh(gm, gcaps, gcam, 0, mesh))
+    n_kf = gt.shape[0]
+    terr = np.linalg.norm(g2.kf_pose[:n_kf, :3, 3].cpu().numpy() - gt[:, :3, 3], axis=1)
+    r1, r2 = reproj_rmse(g1, gcam, n_kf), reproj_rmse(g2, gcam, n_kf)
+    gpose = float((g2.kf_pose - g1.kf_pose).abs().max())
+    anchor = float(np.abs(g2.kf_pose[0].cpu().numpy() - gt[0]).max())
+    row["global_ba"] = dict(ms_single=gms1, ms_mesh=gms2, max_pose_diff=gpose,
+                            anchor_err=anchor, max_kf_err_m=float(terr.max()),
+                            reproj_rmse_single=r1, reproj_rmse_mesh=r2)
+    print(f"  global BA on the fabricated scene (MapCaps{tuple(dataclasses.astuple(gcaps))}, "
+          f"K*N = {gcaps.max_kf * gcaps.n_feat}): ms one device {gms1:.3f}, 8 shards on one card "
+          f"{gms2:.3f}; poses against one device {gpose:.3e}; anchor {anchor:.1e}; largest "
+          f"keyframe error {terr.max():.6f} m; reprojection RMSE {r1:.6f} / {r2:.6f} px")
+    if not (gpose <= 1e-2 and anchor <= 1e-6 and terr.max() < 0.01 and r2 < 1.0
+            and r2 < r1 * 1.1):
+        raise AssertionError(f"mesh global BA: {row['global_ba']}")
+
+    # the three sharded_* functions against the same calls on the CPU's mesh
+    T_gt, obs = pose_obs_instance()
+    fns = [parallel.sharded_pose_gn_step(msh) for msh in (mesh, cpu)]
+    Ts = []
+    for fn, d in zip(fns, (dev, "cpu")):
+        T = torch.eye(4, device=d)
+        o = type(obs)(*[f.to(d) for f in obs])
+        for _ in range(8):
+            T = fn(T, o, MESH_FX, MESH_FY, MESH_CX, MESH_CY, MESH_BF)
+        Ts.append(T.cpu())
+    gn_err = float((Ts[0] - Ts[1]).abs().max())
+    gn_truth = float(np.abs(Ts[0].numpy() - T_gt).max())
+    ne = [parallel.sharded_ba_normal_equations(msh, 4, 32)(
+        *[torch.as_tensor(a).to(d) for a in ba_obs_instance()], MESH_FX, MESH_FY, MESH_CX,
+        MESH_CY) for msh, d in ((mesh, dev), (cpu, "cpu"))]
+    ne_err = max(float((a.cpu() - b).abs().max()) / max(float(b.abs().max()), 1.0)
+                 for a, b in zip(*ne))
+    sc = [parallel.sharded_ba_schur_step(msh, 4, 32, 100.0)(
+        *[torch.as_tensor(a).to(d) for a in schur_instance()], MESH_FX, MESH_FY, MESH_CX,
+        MESH_CY) for msh, d in ((mesh, dev), (cpu, "cpu"))]
+    sc_err = max(float((a.cpu() - b).abs().max()) for a, b in zip(*sc))
+    row["sharded"] = dict(pose_gn_card_vs_cpu=gn_err, pose_gn_vs_truth=gn_truth,
+                          normal_equations_rel=ne_err, schur_step=sc_err)
+    print(f"  sharded_pose_gn_step (8 steps): card against CPU {gn_err:.2e}, against the truth "
+          f"{gn_truth:.2e}; sharded_ba_normal_equations: {ne_err:.2e} of the largest entry; "
+          f"sharded_ba_schur_step: {sc_err:.2e}")
+    if not (gn_err <= 1e-5 and gn_truth < 1e-3 and ne_err <= 1e-4 and sc_err <= 5e-5):
+        raise AssertionError(f"sharded functions on the card: {row['sharded']}")
+    return row
+
+
 def run_pan(system, cfg, voc, frames, chunk: int, gba: bool, recorder=None, sever_old=True,
-            profile_frames=()):
+            profile_frames=(), diag: bool = False):
     """One main-path-5 run: ``SlamSystem(vocabulary=voc, chunk=chunk,
     enable_global_ba=gba)`` with MapCaps(max_kf=32, max_pt=8192) over the pan
     loop, the drift injected after frame PAN_DRIFT_FRAME with the cut at the
@@ -1297,7 +1558,10 @@ def run_pan(system, cfg, voc, frames, chunk: int, gba: bool, recorder=None, seve
     (a LaunchRecorder) learns the frame and, as its tag, whether the loop
     correction runs; a torch.profiler window over the track calls of
     ``profile_frames`` (consecutive) -> rec["profile"] = (profiler, host wall
-    ms per frame)."""
+    ms per frame). ``diag``: the system is made with ``VO_LOOP_DIAG=1`` and
+    ``drain_chunk=1`` (the host-drained Sim3 attempts with their gate values;
+    a closure then runs in the next frame's track call, not in a background
+    step)."""
     from torch.profiler import ProfilerActivity, profile
 
     from vo_slam_test_tpu_torch.pipeline import loop_closing
@@ -1306,8 +1570,17 @@ def run_pan(system, cfg, voc, frames, chunk: int, gba: bool, recorder=None, seve
     from vo_slam_test_tpu_torch.utils.drift import inject_drift
 
     D = torch.as_tensor(pan_drift()).to("cuda")
-    s = system.SlamSystem(cfg, caps=MapCaps(max_kf=32, max_pt=8192), vocabulary=voc,
-                          chunk=chunk, enable_global_ba=gba)
+    saved = os.environ.get("VO_LOOP_DIAG")
+    os.environ["VO_LOOP_DIAG"] = "1" if diag else "0"
+    try:
+        s = system.SlamSystem(cfg, caps=MapCaps(max_kf=32, max_pt=8192), vocabulary=voc,
+                              chunk=chunk, enable_global_ba=gba,
+                              drain_chunk=1 if diag else system.DRAIN_CHUNK)
+    finally:
+        if saved is None:
+            del os.environ["VO_LOOP_DIAG"]
+        else:
+            os.environ["VO_LOOP_DIAG"] = saved
     rec = dict(call_ms=[], syncs=[], sync_sites={}, events=[], gba=[])
     orig_bg, orig_gba, orig_corr = (system.background_step, global_ba.global_bundle_adjust,
                                     loop_closing._correct)
@@ -1905,9 +2178,12 @@ def main() -> int:
                    "top2_m4096": match_cuda.KERNEL_LOCAL, "top2_chi2": match_cuda.KERNEL_CHI2,
                    "top2_nb": match_cuda.KERNEL_NB, "top1_epi": match_cuda.KERNEL_EPI,
                    "ba_acc": ba_cuda.KERNEL_ACC, "ba_cost": ba_cuda.KERNEL_COST,
-                   "ba_backsub": ba_cuda.KERNEL_BACKSUB}
+                   "ba_backsub": ba_cuda.KERNEL_BACKSUB, "fast_nms": fast_cuda.KERNEL_NMS}
     ba_keys = ("ba_acc", "ba_cost", "ba_backsub")
-    plains = [(fast, "fast_score"), (orientation, "ic_angle"), (brief, "compute_descriptors"),
+    # the FAST kernel's 3x3-NMS mode runs in its own phase only: no path calls it
+    off_path = ("fast_nms",)
+    plains = [(fast, "fast_score"), (fast, "fast_score_nms"), (orientation, "ic_angle"),
+              (brief, "compute_descriptors"),
               (match_pallas, "masked_top2_plain"), (match_pallas, "masked_top2_nb_plain"),
               (match_pallas, "masked_top1_epi_plain"), (ba_pallas, "ba_accumulate_plain"),
               (ba_pallas, "ba_cost_plain"), (ba_pallas, "ba_backsub_plain")]
@@ -1948,6 +2224,37 @@ def main() -> int:
     print(f"phase fast [{L},{H},{W}]: equal on every pixel, candidates equal; counted {counted}; "
           f"kernel {kernels['fast']['ms']:.4f} ms, plain {kernels['fast']['plain_ms']:.4f} ms, "
           f"bound {fb:.4f} ms ({fby})")
+
+    # -- phase 1b: FAST with 3x3 NMS (fast_score(..., with_nms=True)) --------
+    # the main path's pyramid, and random integers in [0, 255] (many ties)
+    rand_levels = torch.as_tensor(np.random.default_rng(11).integers(
+        0, 256, (2, 480, 640)).astype(np.float32)).to(dev)
+    fast_cuda.KERNEL_NMS.reset()
+    for label, lv in (("the main path's pyramid", levels), ("random integers", rand_levels)):
+        got = fast_cuda.fast_score(lv, with_nms=True)
+        want = fast.fast_score_nms(lv)
+        if not torch.equal(got, want):
+            raise AssertionError(f"FAST NMS kernel differs from the plain version on {label}: "
+                                 f"{int((got != want).sum())} pixels")
+        kept = int((got > 0).sum())
+        print(f"phase fast NMS on {label} {list(lv.shape)}: equal on every pixel; {kept} kept, "
+              f"{int((fast.fast_score(lv) > 0).sum())} with a score")
+    nms_phase_launches = fast_cuda.KERNEL_NMS.launches
+    nb, nby, counted = fast_bound(levels, nms=True)
+    kernels["fast_nms"] = dict(
+        name="fast_score_nms", shape=f"{L}x{H}x{W}", route="cuda",
+        source="vo_slam_test_tpu_torch/csrc/fast.cu",
+        replaces="vo_slam_test_tpu/ops/fast_pallas.py:131", max_abs_err=0.0,
+        ms=time_graph_ms(lambda: fast_cuda.fast_score(levels, with_nms=True)),
+        plain_ms=time_eager_ms(lambda: fast.fast_score_nms(levels)),
+        bound_ms=nb, bound_by=nby, library_ms=None, counted=counted,
+        phase_launches=nms_phase_launches,
+        random_ms=time_graph_ms(lambda: fast_cuda.fast_score(rand_levels, with_nms=True)),
+        random_bound_ms=fast_bound(rand_levels, nms=True)[0])
+    print(f"  kernel {kernels['fast_nms']['ms']:.4f} ms (raw mode {kernels['fast']['ms']:.4f}), "
+          f"plain {kernels['fast_nms']['plain_ms']:.4f} ms, bound {nb:.4f} ms ({nby}); on the "
+          f"random batch {kernels['fast_nms']['random_ms']:.4f} ms, bound "
+          f"{kernels['fast_nms']['random_bound_ms']:.4f} ms; {nms_phase_launches} checked launches")
 
     # -- phase 2: IC angle + rBRIEF -----------------------------------------
     n_valid = int(sel.valid.sum())
@@ -2390,8 +2697,9 @@ def main() -> int:
         raise AssertionError(f"main path 4: parity mode relocalized at "
                              f"{kid['reloc_parity']['reloc']}, the default at "
                              f"{kid['default']['reloc']}")
-    if min(launches4.values()) < 1:
-        raise AssertionError(f"main path 4 launched no {[k for k, v in launches4.items() if not v]}")
+    if min(v for k, v in launches4.items() if k not in off_path) < 1:
+        raise AssertionError(f"main path 4 launched no "
+                             f"{[k for k, v in launches4.items() if not v and k not in off_path]}")
     if guard4.cuda_calls:
         raise AssertionError(f"plain versions ran on CUDA tensors: {guard4.cuda_calls}")
 
@@ -2514,10 +2822,34 @@ def main() -> int:
           f"to the plain version")
     print(f"  kernel launches (the three variants): {launches5}; plain versions on CUDA: "
           f"{guard5.cuda_calls}")
-    if min(launches5.values()) < 1:
-        raise AssertionError(f"main path 5 launched no {[k for k, v in launches5.items() if not v]}")
+    if min(v for k, v in launches5.items() if k not in off_path) < 1:
+        raise AssertionError(f"main path 5 launched no "
+                             f"{[k for k, v in launches5.items() if not v and k not in off_path]}")
     if guard5.cuda_calls:
         raise AssertionError(f"plain versions ran on CUDA tensors: {guard5.cuda_calls}")
+
+    # -- main path 5 through the VO_LOOP_DIAG drain path (chunk=1, drain_chunk=1)
+    with PlainGuard(plains) as guard5d:
+        torch.cuda.synchronize()
+        for k in all_kernels.values():
+            k.reset()
+        s5d, r5d = run_pan(system, pcfg, pvoc, pframes, 1, False, diag=True)
+        launches5d = {k: v.launches for k, v in all_kernels.items()}
+    r5d["launches"] = launches5d
+    diag_label = "chunk=1, VO_LOOP_DIAG=1, drain_chunk=1"
+    pan[diag_label] = pan_report(diag_label, s5d, r5d, pgt)
+    no_gates = [a for a in s5d.loop_attempts if len(a) != 4 or not a[3]]
+    med_1, med_d = float(np.median(r5f["call_ms"][1:])), float(np.median(r5d["call_ms"][1:]))
+    pan[diag_label]["frame_ms_median"] = med_d
+    pan["chunk=1"]["frame_ms_median"] = med_1
+    print(f"  {diag_label}: every attempt with its gate values {not no_gates}; frame median "
+          f"{med_d:.3f} ms against chunk=1's {med_1:.3f} ms in this call; plain versions on CUDA: "
+          f"{guard5d.cuda_calls}")
+    if no_gates or guard5d.cuda_calls or min(v for k, v in launches5d.items()
+                                             if k not in off_path) < 1:
+        raise AssertionError(f"main path 5 ({diag_label}): attempts without gate values "
+                             f"{no_gates}, launches {launches5d}, plain versions on CUDA "
+                             f"{guard5d.cuda_calls}")
 
     # -- global BA on a scene where it takes its steps -----------------------
     from vo_slam_test_tpu_torch.slam_map.map_state import MapCaps
@@ -2527,6 +2859,9 @@ def main() -> int:
     gba_rows = {"tests' caps": run_gba_scene("the tests' caps", MapCaps(16, 2048, 12, 256), dev,
                                              True),
                 "default MapCaps": run_gba_scene("the default MapCaps", MapCaps(), dev, False)}
+
+    # -- the multi-device solvers: 8 shards on the one card ------------------
+    mesh_rows = run_mesh_phase(s1, dev)
 
     # -- BoW at ORBvoc scale: transform, bow_vector, scores_vs_keyframes -------
     from vo_slam_test_tpu_torch.bow import retrieval as bow_ret
@@ -2580,14 +2915,19 @@ def main() -> int:
     if min(launches6[k] for k in ("fast", "orb", "top2")) < 1:
         raise AssertionError(f"path 6 launched no FAST, ORB or frame-pair top-2: {launches6}")
 
-    for k in ("fast", "orb", "top2"):
+    for k in ("fast", "orb", "top2") + off_path:
         kernels[k]["launches"] = launches1[k]
     for k in ("top2_m4096", "top2_chi2", "top2_nb", "top1_epi") + ba_keys:
         kernels[k]["launches"] = launches2[k]
     for k in kernels:
         kernels[k]["launches_by_path"] = {"1": launches1[k], "2": launches2[k],
                                           "3": launches3[k], "4": launches4[k],
-                                          "5": launches5[k], "6": launches6[k]}
+                                          "5": launches5[k], "5 VO_LOOP_DIAG": launches5d[k],
+                                          "6": launches6[k]}
+    on_paths = {k: kernels[k]["launches_by_path"] for k in off_path
+                if any(kernels[k]["launches_by_path"].values())}
+    if on_paths:
+        raise AssertionError(f"a path launched a kernel that no path calls: {on_paths}")
     # ba_accumulate is two launches in a row, the others one
     for k, v in kernels.items():
         v["launch_floor_x"] = v["ms"] / floor["launches_2" if k == "ba_acc" else "launches_1"]
@@ -2596,7 +2936,8 @@ def main() -> int:
         raise AssertionError(f"kernels timed under their bounds, so the bounds are wrong: {under}")
     keys = ("name", "shape", "route", "source", "replaces", "launches", "launches_by_path",
             "max_abs_err", "ms", "v1_ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
-            "launch_floor_x", "counted", "kidnap_instances", "loop_fuse_instances")
+            "launch_floor_x", "counted", "kidnap_instances", "loop_fuse_instances",
+            "phase_launches")
     print(f"total {time.perf_counter() - t_start:.1f} s after the card query")
     print(json.dumps({"main_path": {
         "fused_tracker": {"frame_ms_median": float(np.median(steady)), "ate_m": float(ate),
@@ -2612,10 +2953,12 @@ def main() -> int:
         "kidnap": dict(kid, launches=launches4, bow_orbvoc_ms=bow_ms),
         "pan_loop": dict(pan, launches=launches5),
         "global_ba_scene": gba_rows,
+        "mesh_8_shards_one_card": mesh_rows,
         "cli_on_files": {k: {kk: vv for kk, vv in v.items() if kk != "stdout"}
                          for k, v in cli.items()},
         "card": smi}}))
-    order = ("fast", "orb", "top2", "top2_m4096", "top2_chi2", "top2_nb", "top1_epi") + ba_keys
+    order = ("fast", "orb", "top2", "top2_m4096", "top2_chi2", "top2_nb", "top1_epi") + ba_keys \
+        + off_path
     print(json.dumps({"kernels": [{key: kernels[k][key] for key in keys if key in kernels[k]}
                                   for k in order]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -64,6 +64,65 @@ def test_fast_kernel_matches_plain(frame_pyramid):
         assert torch.equal(x, y)
 
 
+def test_fast_nms_kernel_matches_plain(frame_pyramid):
+    spec, pyr = frame_pyramid
+    levels = interior(pyr.raw, spec)
+    before = (fast_cuda.KERNEL.launches, fast_cuda.KERNEL_NMS.launches)
+    got = fast_cuda.fast_score(levels, with_nms=True)
+    torch.cuda.synchronize()
+    assert (fast_cuda.KERNEL.launches, fast_cuda.KERNEL_NMS.launches) == (before[0],
+                                                                          before[1] + 1)
+    assert torch.equal(got, fast.fast_score_nms(levels))
+    assert bool((got > 0).any())
+
+
+@pytest.mark.parametrize("shape", [(2, 480, 640), (1, 4, 4), (2, 17, 29), (1, 33, 65),
+                                   (3, 5, 100)])
+def test_fast_nms_kernel_random_integers(cuda, shape):
+    """Integers in [0, 255] (many ties), tile-ragged shapes, both axes wrapping."""
+    levels = torch.as_tensor(np.random.default_rng(sum(shape)).integers(
+        0, 256, shape).astype(np.float32)).to(cuda)
+    assert torch.equal(fast_cuda.fast_score(levels, with_nms=True), fast.fast_score_nms(levels))
+    assert torch.equal(fast_cuda.fast_score(levels), fast.fast_score(levels))
+
+
+def test_local_ba_mesh_on_card(cuda):
+    """local_bundle_adjust_mesh with 8 shards of the card against
+    local_bundle_adjust on the room orbit's map after frame 5 (tests/
+    test_parallel.py's tolerances), each BA kernel launched once per LM
+    iteration on each shard, and a dead shard's launches all zero."""
+    from vo_slam_test_tpu_torch import parallel
+    from vo_slam_test_tpu_torch.solvers import local_ba
+
+    seq = SyntheticRGBD(trajectory=room_orbit_trajectory(240, loops=1.5), scene="room", seed=7)
+    cfg = SlamConfig(camera_fx=seq.fx, camera_fy=seq.fy, camera_cx=seq.cx, camera_cy=seq.cy,
+                     camera_k1=0, camera_k2=0, camera_p1=0, camera_p2=0, camera_k3=0)
+    s = SlamSystem(cfg)
+    for i in range(6):
+        s.track(*seq[i])
+    m, caps, cam = s.map, s.caps, s.camera
+    inv = 1.0 / (s.scale_factors * s.scale_factors)
+    kf = int(torch.argmax(torch.where(m.kf_valid, m.kf_seq, -1)))
+    mesh = parallel.make_obs_mesh(8)
+    assert (mesh.n_shards, mesh.n_devices) == (8, 1)
+    kernels = (ba_cuda.KERNEL_ACC, ba_cuda.KERNEL_COST, ba_cuda.KERNEL_BACKSUB)
+    single, n1, n2 = local_ba.local_bundle_adjust_iters(chip_smoke.map_copy(m), kf, caps, cam,
+                                                        inv)
+    before = [k.launches for k in kernels]
+    meshed, k1, k2 = local_ba.local_bundle_adjust_mesh_iters(chip_smoke.map_copy(m), kf, caps,
+                                                             cam, mesh, inv)
+    torch.cuda.synchronize()
+    assert [k.launches - b for k, b in zip(kernels, before)] == [8 * (k1 + k2)] * 3
+    assert torch.equal(meshed.pt_obs_cnt, single.pt_obs_cnt)
+    assert float((meshed.kf_pose - single.kf_pose).abs().max()) <= 5e-4
+    live = (meshed.pt_valid & single.pt_valid).cpu()
+    assert float((meshed.pt_pos - single.pt_pos).abs().cpu()[live].max()) <= 5e-3
+    prob = local_ba.build_problem_ol(m, kf, caps, inv)
+    n_live = [int(x.sum()) for x in mesh.split(prob.pt_ids >= 0)]
+    assert n_live[0] > 0 and n_live[-1] == 0
+    chip_smoke.check_dead_shard(m, kf, caps, cam, inv, mesh, n_live)
+
+
 def test_orb_kernel_matches_plain(frame_pyramid):
     spec, pyr = frame_pyramid
     sel = select_keypoints(pyr, spec, spec.budget(1000))

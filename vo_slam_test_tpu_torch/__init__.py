@@ -16,7 +16,10 @@ global BA after a closure on request (``solvers/global_ba.py``); the
 host-synchronous ``FrameToFrameTracker`` with the host-quadtree
 ``OrbExtractor``; and the entry point ``python -m vo_slam_test_tpu_torch.run_slam``
 with the TUM reader (``datasets/tum.py``, ``native/``), map save/load
-(``slam_map/serialize.py``), the drawer and the HTML viewer (``viz/``).
+(``slam_map/serialize.py``), the drawer and the HTML viewer (``viz/``); and
+the multi-device solvers (``parallel/``, ``local_bundle_adjust_mesh``,
+``global_bundle_adjust_mesh``) over shards placed on an ordered list of
+devices.
 
 Entry points run on the card unless the caller passes ``device="cpu"``; on a
 CPU tensor every kernel wrapper runs its plain PyTorch version instead.

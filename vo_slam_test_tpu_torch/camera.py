@@ -5,6 +5,8 @@ Intrinsics are 0-d float32 tensors on the camera's device, so every
 projection runs in float32 on that device exactly as the JAX scalars do.
 ``any_dist`` is decided once on the host from the config: the JAX extractor's
 ``lax.cond`` on the distortion coefficients becomes a Python branch.
+
+Grid constants: FRAME_GRID_COLS=64, FRAME_GRID_ROWS=48 (camera.h:8-9).
 """
 
 from __future__ import annotations
@@ -16,6 +18,9 @@ import torch
 
 from . import lie, resolve_device
 from .config import SlamConfig
+
+FRAME_GRID_COLS = 64
+FRAME_GRID_ROWS = 48
 
 
 @dataclasses.dataclass
@@ -65,6 +70,14 @@ class Camera:
                             torch.stack([z, self.fy, self.cy]),
                             torch.stack([z, z, o])])
 
+    @property
+    def grid_per_pixel_w(self) -> float:
+        return FRAME_GRID_COLS / float(self.width)
+
+    @property
+    def grid_per_pixel_h(self) -> float:
+        return FRAME_GRID_ROWS / float(self.height)
+
     def camera2pixel(self, p3d: torch.Tensor) -> torch.Tensor:
         """(..., 3) camera points -> (..., 2) pixels."""
         z = p3d[..., 2]
@@ -92,3 +105,12 @@ class Camera:
 
     def world2camera(self, pw: torch.Tensor, T_c_w: torch.Tensor) -> torch.Tensor:
         return torch.einsum("ij,...j->...i", T_c_w[:3, :3], pw) + T_c_w[:3, 3]
+
+    def world2pixel(self, pw: torch.Tensor, T_c_w: torch.Tensor) -> torch.Tensor:
+        return self.camera2pixel(self.world2camera(pw, T_c_w))
+
+    def u_right(self, u: torch.Tensor, depth: torch.Tensor) -> torch.Tensor:
+        """Virtual right-image coordinate uR = u - bf/d (frame.cpp:108-133);
+        a missing depth (<= 0) gives the reference's sentinel -1."""
+        valid = depth > 0
+        return torch.where(valid, u - self.bf / torch.where(valid, depth, 1.0), -1.0)

@@ -67,7 +67,7 @@ def _stage_b(
     d = depth_img[vi, ui]
     has_d = (d > 0) & valid
     depth = torch.where(has_d, d, -1.0)
-    u_right = torch.where(has_d, uv_und[:, 0] - cam.bf / torch.where(has_d, d, 1.0), -1.0)
+    u_right = cam.u_right(uv_und[:, 0], depth)
 
     v1 = valid[:, None]
     return FrameFeatures(

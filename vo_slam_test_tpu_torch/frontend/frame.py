@@ -28,6 +28,10 @@ class FrameFeatures:
     desc: torch.Tensor      # [N, 8] i32 bit patterns of the packed 256-bit rBRIEF
     valid: torch.Tensor     # [N] bool
 
+    @property
+    def n(self) -> int:
+        return self.uv.shape[0]
+
     @classmethod
     def empty(cls, device: torch.device, n: int = MAX_FEATURES) -> "FrameFeatures":
         def z(*shape, dtype=torch.float32):

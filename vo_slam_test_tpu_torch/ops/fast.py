@@ -59,6 +59,25 @@ def fast_score(levels: torch.Tensor) -> torch.Tensor:
     return torch.clamp_min(torch.maximum(dark, bright), 0.0)
 
 
+def nms3x3(score: torch.Tensor) -> torch.Tensor:
+    """Keep pixels strictly greater than all 8 neighbours (OpenCV FAST NMS);
+    neighbours wrap in both axes, as ``_shift2d`` does."""
+    keep = torch.ones(score.shape, dtype=torch.bool, device=score.device)
+    for dy in (-1, 0, 1):
+        for dx in (-1, 0, 1):
+            if dy == 0 and dx == 0:
+                continue
+            keep &= score > _shift2d(score, dy, dx)
+    return keep
+
+
+def fast_score_nms(levels: torch.Tensor) -> torch.Tensor:
+    """Plain version of the FAST kernel's 3x3-NMS mode: the raw score where
+    ``nms3x3`` keeps it, else 0."""
+    score = fast_score(levels)
+    return torch.where(nms3x3(score), score, 0.0)
+
+
 @functools.lru_cache(maxsize=None)
 def _cell_geometry(spec: PyramidSpec):
     """Per level: (width, height, nCols, nRows, wCell, hCell), the exact

@@ -28,6 +28,18 @@ def distance_matrix(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return ((256.0 - dot) * 0.5).to(torch.int32)
 
 
+# the package's matmul form under the JAX package's name for it
+distance_matrix_mxu = distance_matrix
+
+
+def unpack_bits(desc: torch.Tensor) -> torch.Tensor:
+    """[N, 8] 32-bit patterns -> [N, 256] {0,1} int8 bit planes (bit b of
+    word w at column 32w+b, brief.py's packing)."""
+    shifts = torch.arange(32, dtype=torch.int32, device=desc.device)
+    bits = (desc.to(torch.int32)[:, :, None] >> shifts) & 1
+    return bits.reshape(desc.shape[0], 256).to(torch.int8)
+
+
 def popcount_u32(v: torch.Tensor) -> torch.Tensor:
     """Set bits of each 32-bit pattern (int32 or int64 lanes) -> int32."""
     v = v.to(torch.int64) & 0xFFFFFFFF

@@ -4,7 +4,9 @@
 ``ic_angle`` is the plain version of the orientation half of the CUDA kernel
 ``csrc/orb.cu`` (see ``ops/orb_cuda.py``): moments m10 = sum(x*I),
 m01 = sum(y*I) over the radius-15 umax disc, angle = cvFastAtan2(m01, m10) in
-degrees [0, 360).
+degrees [0, 360). ``ic_angle_conv`` computes the same moments as two 31x31
+correlations over the whole canvas (``F.conv2d``), then gathers them per
+keypoint; the extractor does not use it.
 """
 
 from __future__ import annotations
@@ -13,6 +15,7 @@ import functools
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from . import pattern
 from .pyramid import HALO
@@ -66,3 +69,25 @@ def ic_angle(canvas: torch.Tensor, level: torch.Tensor, ys: torch.Tensor, xs: to
     m10 = (pm * xw[None, None, :]).sum(dim=(1, 2))
     m01 = (pm * xw[None, :, None]).sum(dim=(1, 2))
     return fast_atan2_deg(m01, m10)
+
+
+@functools.lru_cache()
+def _moment_kernels() -> np.ndarray:
+    """[2,1,31,31] f32: the x- and y-weighted circular-patch kernels, whose
+    correlation with the image gives (m10, m01) at every pixel."""
+    hp = pattern.HALF_PATCH_SIZE
+    mask = pattern.circular_patch_mask().astype(np.float32)
+    offs = np.arange(-hp, hp + 1, dtype=np.float32)
+    return np.stack([mask * offs[None, :], mask * offs[:, None]])[:, None]
+
+
+def ic_angle_conv(canvas: torch.Tensor, level: torch.Tensor, ys: torch.Tensor,
+                  xs: torch.Tensor) -> torch.Tensor:
+    """Orientation via moment maps: the two correlations over the [L, CH, CW]
+    canvas, then a two-value gather per keypoint. The moments are integers
+    below 2**24, so f32 sums are exact in any order (TF32 is off in the
+    package)."""
+    k = torch.as_tensor(_moment_kernels(), device=canvas.device)
+    m = F.conv2d(canvas[:, None], k, padding=pattern.HALF_PATCH_SIZE)  # [L,2,CH,CW]
+    lv, yy, xx = level.long(), ys.long() + HALO, xs.long() + HALO
+    return fast_atan2_deg(m[lv, 1, yy, xx], m[lv, 0, yy, xx])

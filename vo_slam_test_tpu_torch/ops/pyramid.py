@@ -55,6 +55,10 @@ class PyramidSpec:
         return np.array([self.scale_factor**l for l in range(self.n_levels)], np.float32)
 
     @functools.cached_property
+    def inv_scales(self) -> np.ndarray:
+        return (1.0 / self.scales).astype(np.float32)
+
+    @functools.cached_property
     def level_sigma2(self) -> np.ndarray:
         return (self.scales**2).astype(np.float32)
 
@@ -79,6 +83,29 @@ class Pyramid(NamedTuple):
 
     raw: torch.Tensor   # [L, CH, CW] f32 (halo: reflect of raw)
     blur: torch.Tensor  # same, interior blurred, halo still raw-reflect
+
+
+def _resize_linear(img: torch.Tensor, out_hw: Tuple[int, int]) -> torch.Tensor:
+    """Bilinear resize with half-pixel centers, in float (not the pyramid's
+    bit-exact u8 path)."""
+    h_in, w_in = img.shape
+    h_out, w_out = out_hw
+    dev = img.device
+    ys = (torch.arange(h_out, dtype=torch.float32, device=dev) + 0.5) * (h_in / h_out) - 0.5
+    xs = (torch.arange(w_out, dtype=torch.float32, device=dev) + 0.5) * (w_in / w_out) - 0.5
+    ys = torch.clamp(ys, 0.0, h_in - 1.0)
+    xs = torch.clamp(xs, 0.0, w_in - 1.0)
+    y0 = torch.floor(ys).long()
+    x0 = torch.floor(xs).long()
+    y1 = torch.clamp(y0 + 1, max=h_in - 1)
+    x1 = torch.clamp(x0 + 1, max=w_in - 1)
+    wy = (ys - y0)[:, None]
+    wx = (xs - x0)[None, :]
+    a = img[y0][:, x0]
+    b = img[y0][:, x1]
+    c = img[y1][:, x0]
+    d = img[y1][:, x1]
+    return a * (1 - wy) * (1 - wx) + b * (1 - wy) * wx + c * wy * (1 - wx) + d * wy * wx
 
 
 @functools.lru_cache(maxsize=None)
@@ -145,3 +172,11 @@ def build_pyramid(gray_u8: torch.Tensor, spec: PyramidSpec) -> Pyramid:
 def interior(canvas: torch.Tensor, spec: PyramidSpec) -> torch.Tensor:
     """[L, CH, CW] canvas -> [L, H, W] view of the level-0 extent."""
     return canvas[:, HALO : HALO + spec.height, HALO : HALO + spec.width]
+
+
+def level_valid_mask(spec: PyramidSpec, border: int = 0) -> np.ndarray:
+    """[L, H, W] bool: pixels inside each level's true extent minus border."""
+    H, W = spec.sizes[0]
+    ys, xs = np.mgrid[0:H, 0:W]
+    return np.stack([(ys >= border) & (ys < h - border) & (xs >= border) & (xs < w - border)
+                     for h, w in spec.sizes])

@@ -34,9 +34,16 @@ BA is skipped when a later frame of the chunk also made a keyframe
 (``chunk_ba_stops``, the reference's interruptBA raised by a queued
 keyframe). A partial chunk is tracked frame by frame at ``results()``.
 
-Not ported: the JAX package's ``VO_LOOP_DIAG`` path (Sim3 attempts drained
-from the host in batches, ``drain_chunk``); here every attempt's gate values
-are read anyway and kept in ``SlamSystem.loop_gates``.
+With ``VO_LOOP_DIAG=1`` in the environment when a ``SlamSystem`` is made (the
+JAX package's diagnostic switch), the background step only detects: the
+confirmed candidates stay on the device, are packed per frame and copied to
+the host every ``drain_chunk`` frames (and once more at ``results()``), and
+each candidate's Sim3 verification and correction then runs from the host
+(``close_step(..., diag=True)`` behind the keyframe's and the candidate's
+generation guards) until one is accepted; ``loop_attempts`` then holds
+(frame, candidate, accepted, gate values) per attempt. With ``drain_chunk``
+> 1 a batch whose copy has not landed waits for a later drain. Either way
+every attempt's gate values are kept in ``SlamSystem.loop_gates``.
 
 Host reads per frame: the JAX package branches with ``lax.cond`` on device
 scalars; here every branch that decides which kernels run is a host bool.
@@ -55,6 +62,7 @@ confirmed loop candidates (one read) and each Sim3 attempt its gates (one).
 from __future__ import annotations
 
 import dataclasses
+import os
 from typing import List, NamedTuple, Optional, Sequence, Tuple, Union
 
 import numpy as np
@@ -82,6 +90,7 @@ RELOC_K = 3         # BoW relocalization candidates evaluated per lost frame
 RELOC_PARITY_K = 8  # candidate cap in reloc parity mode (the reference iterates
                     # all candidates, visualOdometry.cpp:313-395), evaluated
                     # first-success in keyframe-insertion order
+DRAIN_CHUNK = 8  # frames between loop-candidate readbacks on the VO_LOOP_DIAG path
 DESC_ARCHIVE_CAP = 4096  # frames whose descriptors create_vocabulary may read
 
 
@@ -615,22 +624,32 @@ class BackgroundOut:
     which: int = -1          # the winning candidate keyframe (-1 none)
     # (candidate, accepted, gate values) per Sim3 attempt
     attempts: List[Tuple[int, bool, dict]] = dataclasses.field(default_factory=list)
+    # without the inline close: the detection's confirmed candidates [MAX_CANDS]
+    # and their kf_gen at detection, on the device (-1 rows without an event)
+    cands: Optional[torch.Tensor] = None
+    cand_gens: Optional[torch.Tensor] = None
 
 
 def background_step(m: MapState, loop_state: loop_closing.LoopState, did_kf: bool, kf_id: int,
                     interrupt_ba: bool, caps: MapCaps, cam: Camera, scale_factors: torch.Tensor,
-                    with_loop: bool = False, bow_group_div: int = 0
+                    with_loop: bool = False, bow_group_div: int = 0, inline_close: bool = True
                     ) -> Tuple[MapState, loop_closing.LoopState, BackgroundOut]:
     """The work the reference runs off the tracking thread, for one frame:
     the local-mapping chain, then (``with_loop``) loop detection and, for a
     confirmed candidate, the Sim3 verification and correction of every
     confirmed candidate in turn until one is accepted, serially after
     detection (the reference's LoopClosing thread order, loopClosing.cpp:
-    17-37). The confirmed candidates are read back once per keyframe event."""
+    17-37). The confirmed candidates are read back once per keyframe event.
+    Without ``inline_close`` (the VO_LOOP_DIAG path) detection runs on every
+    frame and its candidates stay on the device in ``cands``/``cand_gens``:
+    nothing is read back and nothing is verified here."""
     m, n1, n2 = _mapping_step(m, did_kf, kf_id, caps, cam, scale_factors,
                               interrupt_ba=interrupt_ba, bow_group_div=bow_group_div)
     out = BackgroundOut(ba_n1=n1, ba_n2=n2)
-    if with_loop and did_kf and kf_id >= 0:
+    if with_loop and not inline_close:
+        loop_state, out.cands, out.cand_gens = loop_closing.detect_step(
+            m, loop_state, did_kf and kf_id >= 0, kf_id, caps)
+    elif with_loop and did_kf and kf_id >= 0:
         loop_state, cand, cand_gen = loop_closing.detect_step(m, loop_state, did_kf, kf_id, caps)
         cands, gens = torch.stack([cand, cand_gen]).tolist()
         if cands[0] >= 0:
@@ -673,7 +692,8 @@ def chunk_ba_stops(did_kf) -> torch.Tensor:
 
 def background_chunk(m: MapState, loop_state: loop_closing.LoopState, did_kf: List[bool],
                      kf_id: List[int], interrupt_ba: bool, caps: MapCaps, cam: Camera,
-                     scale_factors: torch.Tensor, with_loop: bool = False, bow_group_div: int = 0
+                     scale_factors: torch.Tensor, with_loop: bool = False, bow_group_div: int = 0,
+                     inline_close: bool = True
                      ) -> Tuple[MapState, loop_closing.LoopState, List[BackgroundOut]]:
     """``background_step`` for every frame of a tracked chunk, in creation
     order, with ``stops = chunk_ba_stops(did_kf) | interrupt_ba`` as each
@@ -682,7 +702,7 @@ def background_chunk(m: MapState, loop_state: loop_closing.LoopState, did_kf: Li
     outs = []
     for did, kid, stop in zip(did_kf, kf_id, stops):
         m, loop_state, out = background_step(m, loop_state, did, kid, stop, caps, cam,
-                                             scale_factors, with_loop, bow_group_div)
+                                             scale_factors, with_loop, bow_group_div, inline_close)
         outs.append(out)
     return m, loop_state, outs
 
@@ -716,12 +736,13 @@ class SlamSystem:
     closing (and the featVec buckets of triangulation); ``reloc_parity``
     picks the reference's relocalization loop (module docstring);
     ``enable_global_ba`` runs the upstream global BA (keyframe 0 fixed)
-    after each accepted loop closure."""
+    after each accepted loop closure. ``drain_chunk``: frames between the
+    loop-candidate readbacks of the VO_LOOP_DIAG path (module docstring)."""
 
     def __init__(self, cfg: SlamConfig, caps: MapCaps = MapCaps(),
                  device: Optional[Union[str, torch.device]] = None, chunk: int = 1,
                  vocabulary: Optional[bow_voc.Vocabulary] = None, reloc_parity: bool = False,
-                 enable_global_ba: bool = False):
+                 enable_global_ba: bool = False, drain_chunk: int = DRAIN_CHUNK):
         self.cfg = cfg
         self.caps = caps
         self.device = resolve_device(device)
@@ -764,8 +785,17 @@ class SlamSystem:
         # keyframe event runs local BA (in chunks, chunk_ba_stops still
         # skips the events a later keyframe of the chunk overtakes)
         self._force_interrupt_ba: Optional[bool] = None
-        # (frame, LM iterations pass 1, pass 2) per keyframe event
+        # (frame, LM iterations pass 1, pass 2) per keyframe event; events
+        # whose local BA was skipped at its entry (both counts 0)
         self.ba_iters: List[Tuple[int, int, int]] = []
+        self.n_ba_interrupts = 0
+        # VO_LOOP_DIAG=1: no inline close; the detections are drained from
+        # the host every drain_chunk frames and each candidate is verified
+        # with its gate values recorded in loop_attempts
+        self._inline_close = not int(os.environ.get("VO_LOOP_DIAG", "0"))
+        self._drain_every = max(1, int(drain_chunk))
+        self._pending_loop: List = []    # (frame ids, packed [B, 2C+2] i32 on the device)
+        self._inflight_drain: List = []  # (frame ids, host copy, CUDA event or None)
         self._outs: List[SlamOut] = []
         self.timestamps: List[float] = []
         self._frame_id = 0
@@ -816,8 +846,12 @@ class SlamSystem:
         )
         self.map, self.loop_state, bg = background_step(
             self.map, self.loop_state, out.made_kf, new_kf, self._ba_interrupt(), self.caps,
-            self.camera, self.scale_factors, self.enable_loop_closing, self._bow_group_div)
+            self.camera, self.scale_factors, self.enable_loop_closing, self._bow_group_div,
+            self._inline_close)
         self._fold_background([(self._frame_id, out.made_kf, bg)])
+        if self.enable_loop_closing and not self._inline_close:
+            self._queue_loop([self._frame_id], bg.cands[None], bg.cand_gens[None],
+                             out.ref_kf.reshape(1), out.ref_gen.reshape(1))
         self._archive(self.state.feats)
         self._outs.append(out)
         self.timestamps.append(timestamp)
@@ -833,9 +867,15 @@ class SlamSystem:
         did = [o.made_kf for o in outs]
         self.map, self.loop_state, bgs = background_chunk(
             self.map, self.loop_state, did, new_kfs, self._ba_interrupt(), self.caps, self.camera,
-            self.scale_factors, self.enable_loop_closing, self._bow_group_div)
+            self.scale_factors, self.enable_loop_closing, self._bow_group_div, self._inline_close)
         self._fold_background([(self._frame_id + k, made, bg)
                                for k, (made, bg) in enumerate(zip(did, bgs))])
+        if self.enable_loop_closing and not self._inline_close:
+            self._queue_loop(list(range(self._frame_id, self._frame_id + len(buf))),
+                             torch.stack([bg.cands for bg in bgs]),
+                             torch.stack([bg.cand_gens for bg in bgs]),
+                             torch.stack([o.ref_kf for o in outs]),
+                             torch.stack([o.ref_gen for o in outs]))
         for f in feats:
             self._archive(f)
         self._outs += outs
@@ -849,6 +889,8 @@ class SlamSystem:
         for frame, made, bg in events:
             if made:
                 self.ba_iters.append((frame, bg.ba_n1, bg.ba_n2))
+                if not (bg.ba_n1 or bg.ba_n2):
+                    self.n_ba_interrupts += 1
             if bg.attempted:
                 self.loop_attempts.append((frame, bg.which, bg.closed))
                 self.loop_gates += [(frame, c, a, g) for c, a, g in bg.attempts]
@@ -859,6 +901,77 @@ class SlamSystem:
                         self.map, self.caps, self.camera, 0,
                         inv_level_sigma2=self.inv_level_sigma2)
 
+    def _queue_loop(self, frame_ids, cands, cand_gens, ref_kfs, ref_gens) -> None:
+        """Queue one batch of per-frame detections (device tensors with
+        leading dim B) for a later readback; drain every ``drain_chunk``
+        frames."""
+        packed = torch.cat([cands.to(torch.int32), cand_gens.to(torch.int32),
+                            ref_kfs.to(torch.int32)[:, None], ref_gens.to(torch.int32)[:, None]],
+                           dim=1)  # [B, 2 MAX_CANDS + 2]
+        self._pending_loop.append((frame_ids, packed))
+        if sum(len(f) for f, _ in self._pending_loop) >= self._drain_every:
+            self._drain_loop_queue()
+
+    def _drain_loop_queue(self, final: bool = False) -> None:
+        """Verify the candidates of the batches whose copies have landed, then
+        start the copy of the queued batch. With ``drain_chunk`` > 1 (and not
+        ``final``) a batch still copying is left for a later drain rather
+        than waited for; with 1 the previous batch is waited for, so a
+        closure runs one frame after its detection."""
+        may_defer = self._drain_every > 1 and not final
+        while self._inflight_drain:
+            frame_ids, host, landed = self._inflight_drain[0]
+            if may_defer and landed is not None and not landed.query():
+                break
+            self._inflight_drain.pop(0)
+            self._process_drain(frame_ids, host, landed)
+        if self._pending_loop:
+            batch, self._pending_loop = self._pending_loop, []
+            packed = torch.cat([p for _, p in batch])
+            if packed.device.type == "cuda":
+                host = torch.empty(packed.shape, dtype=packed.dtype, pin_memory=True)
+                host.copy_(packed, non_blocking=True)
+                landed = torch.cuda.Event()
+                landed.record()
+            else:
+                host, landed = packed, None
+            self._inflight_drain.append(([f for fids, _ in batch for f in fids], host, landed))
+        if final:
+            for frame_ids, host, landed in self._inflight_drain:
+                self._process_drain(frame_ids, host, landed)
+            self._inflight_drain = []
+
+    def _process_drain(self, frame_ids, host: torch.Tensor, landed) -> None:
+        """Verify each frame's queued candidates (one landed batch)."""
+        if landed is not None:
+            landed.synchronize()
+        arr = host.numpy()
+        k = (arr.shape[1] - 2) // 2
+        for frame, row in zip(frame_ids, arr.tolist()):
+            self._process_one_diag(frame, row[:k], row[k:2 * k], row[2 * k], row[2 * k + 1])
+
+    def _process_one_diag(self, frame: int, cands, gens, kf_id: int, kf_gen: int) -> None:
+        """One frame's candidates in order, each through ``close_step`` with
+        its gate values, until one is accepted (then global BA, if enabled)."""
+        groups_curr = bow_voc.feature_groups(self.voc, self.map.kf_word[max(kf_id, 0)])
+        for cand, gen in zip(cands, gens):
+            if cand < 0:
+                continue
+            self.map, self.loop_state, ok, gates = loop_closing.close_step(
+                self.map, self.loop_state, kf_id, cand, self.caps, self.camera,
+                self.scale_factors, groups_curr,
+                bow_voc.feature_groups(self.voc, self.map.kf_word[cand]),
+                kf_gen_expect=kf_gen, cand_gen_expect=gen, diag=True)
+            self.loop_attempts.append((frame, cand, ok, gates))
+            self.loop_gates.append((frame, cand, ok, gates))
+            if not ok:
+                continue
+            self.loop_closures.append(frame)
+            if self.enable_global_ba:
+                self.map = global_ba.global_bundle_adjust(
+                    self.map, self.caps, self.camera, 0, inv_level_sigma2=self.inv_level_sigma2)
+            break
+
     def _flush(self) -> None:
         """Track the frames of an incomplete chunk one at a time."""
         buf, self._chunk_buf = self._chunk_buf, []
@@ -868,6 +981,8 @@ class SlamSystem:
     def results(self):
         """Blocks; returns (trajectory T_w_c [F,4,4], stats, kf_traj)."""
         self._flush()
+        if self.enable_loop_closing and not self._inline_close:
+            self._drain_loop_queue(final=True)
         keys = ("kf_pose", "kf_valid", "kf_gen", "cull_parent",
                 "cull_parent_gen", "cull_gen", "kf_tcp")
         arrays = {k: getattr(self.map, k).cpu().numpy() for k in keys}

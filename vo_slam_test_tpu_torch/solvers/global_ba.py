@@ -33,18 +33,27 @@ so each point's observations keep that order. Invalid observations stay in
 the table with point 0 and weight 0, as in the JAX package, and in every
 per-keyframe sum; the per-point sums leave them out (they add zeros there,
 and one thread sums a segment, so point 0's would hold every free slot of
-the [K,N] table). The multi-device ``global_bundle_adjust_mesh`` is not
-ported.
+the [K,N] table).
+
+``global_bundle_adjust_mesh`` runs the same core with the [K*N] observation
+axis split over the shards of a ``parallel.ObsMesh``: every sum over
+observations (``sum_kf``, ``sum_pt``, the costs) becomes a shard's partial,
+then a psum in shard order; poses, points and the CG state stay on the
+mesh's first device. A shard boundary may cut through a keyframe's N
+observations, so each shard sums its keyframes over the lengths of its own
+runs. ``global_bundle_adjust`` is the one-shard case.
 """
 
 from __future__ import annotations
 
 from typing import Optional
 
+import numpy as np
 import torch
 
 from .. import lie
 from ..camera import Camera
+from ..parallel.sharded import ObsMesh
 from ..slam_map.map_state import MapCaps, MapState
 from ..utils import linalg
 from .pose_only import CHI2_MONO, CHI2_STEREO
@@ -99,71 +108,94 @@ def _residuals_jacs(poses, points, o_kf, o_pt, uv, ur_obs, cam: Camera):
     return e, dproj @ dpc, dproj @ T[:, :3, :3], stereo
 
 
-def _gba_optimize(poses0, points0, o_kf, o_pt, o_valid, uv, ur_obs, inv_sig2, free, pt_valid,
-                  cam: Camera, iters: int, cg_iters: int):
-    """The LM / CG core -> (poses, points)."""
+def _gba_optimize(poses0, points0, obs, len_kf, free, pt_valid, cams, iters: int,
+                  cg_iters: int, mesh: ObsMesh):
+    """The LM / CG core -> (poses, points). ``obs``: per shard (o_kf, o_pt,
+    o_valid, uv, ur_obs, inv_sig2) on the shard's device; ``len_kf``: per
+    shard the [K] lengths of its keyframe-major runs; ``cams``: the camera on
+    each shard's device. Poses and points live on the mesh's first device."""
     K = free.shape[0]
     P = pt_valid.shape[0]
-    M = o_kf.shape[0]
     dev, dt = poses0.device, poses0.dtype
-    len_kf = torch.full((K,), M // K, dtype=torch.int64, device=dev)
+    shards = range(mesh.n_shards)
     # per point: the bound observations only, in keyframe-major order; the
     # unbound ones (o_pt 0, weight 0) sort last, into a segment P that is
     # cut off, so no segment's length grows with the free slots
-    key = torch.where(o_valid, o_pt, P)
-    by_pt = torch.argsort(key, stable=True)[:int(o_valid.sum())]
-    len_pt = torch.bincount(key, minlength=P + 1)[:P]
+    by_pt, len_pt = [], []
+    for o_kf, o_pt, o_valid, *_ in obs:
+        key = torch.where(o_valid, o_pt, P)
+        by_pt.append(torch.argsort(key, stable=True)[:int(o_valid.sum())])
+        len_pt.append(torch.bincount(key, minlength=P + 1)[:P])
 
-    def sum_kf(x):  # observations are keyframe-major
-        return torch.segment_reduce(x, "sum", lengths=len_kf, axis=0, unsafe=True)
+    def sum_kf(xs):  # each shard's observations are keyframe-major
+        return mesh.psum([torch.segment_reduce(x, "sum", lengths=n, axis=0, unsafe=True)
+                          for x, n in zip(xs, len_kf)])
 
-    def sum_pt(x):
-        return torch.segment_reduce(x[by_pt], "sum", lengths=len_pt, axis=0, unsafe=True)
+    def sum_pt(xs):
+        return mesh.psum([torch.segment_reduce(x[b], "sum", lengths=n, axis=0, unsafe=True)
+                          for x, b, n in zip(xs, by_pt, len_pt)])
 
-    inv_sig = torch.sqrt(inv_sig2)
     d_mono = CHI2_MONO ** 0.5
     d_stereo = CHI2_STEREO ** 0.5
     free_f = free.to(dt)[:, None]
+    free_s = [f[o[0], 0] for f, o in zip(mesh.replicate(free_f), obs)]
+    inv_sig = [torch.sqrt(o[5]) for o in obs]
     eye3, eye6 = torch.eye(3, dtype=dt, device=dev), torch.eye(6, dtype=dt, device=dev)
 
+    def residuals(ps, xs):
+        return [_residuals_jacs(P_s, X_s, o[0], o[1], o[3], o[4], c)
+                for P_s, X_s, o, c in zip(mesh.replicate(ps), mesh.replicate(xs), obs, cams)]
+
     def cost(ps, xs):
-        ee, _, _, st = _residuals_jacs(ps, xs, o_kf, o_pt, uv, ur_obs, cam)
-        ew = ee * inv_sig[:, None]
-        s2 = torch.sum(ew * ew, -1)
-        dd = torch.where(st, d_stereo, d_mono)
-        ss = torch.sqrt(s2 + 1e-12)
-        rho = torch.where(ss <= dd, s2, 2 * dd * ss - dd * dd)
-        return torch.sum(torch.where(o_valid, rho, 0.0))
+        parts = []
+        for (ee, _, _, st), o, isg in zip(residuals(ps, xs), obs, inv_sig):
+            ew = ee * isg[:, None]
+            s2 = torch.sum(ew * ew, -1)
+            dd = torch.where(st, d_stereo, d_mono)
+            ss = torch.sqrt(s2 + 1e-12)
+            rho = torch.where(ss <= dd, s2, 2 * dd * ss - dd * dd)
+            parts.append(torch.sum(torch.where(o[2], rho, 0.0)))
+        return mesh.psum(parts)
 
     poses, points = poses0, points0
     for _ in range(iters):
-        e, Jp, Jl, stereo = _residuals_jacs(poses, points, o_kf, o_pt, uv, ur_obs, cam)
-        ew = e * inv_sig[:, None]
-        nrm = torch.sqrt(torch.sum(ew * ew, -1) + 1e-12)
-        delta = torch.where(stereo, d_stereo, d_mono)
-        w = o_valid.to(e.dtype) * torch.clamp(delta / nrm, max=1.0) * inv_sig2
-        wp = w * free_f[o_kf, 0]
+        res = residuals(poses, points)
+        w, wp = [], []
+        for (e, _, _, stereo), o, isg, fs in zip(res, obs, inv_sig, free_s):
+            ew = e * isg[:, None]
+            nrm = torch.sqrt(torch.sum(ew * ew, -1) + 1e-12)
+            delta = torch.where(stereo, d_stereo, d_mono)
+            w.append(o[2].to(e.dtype) * torch.clamp(delta / nrm, max=1.0) * o[5])
+            wp.append(w[-1] * fs)
+        e, Jp, Jl = ([r[i] for r in res] for i in range(3))
 
         # block-diagonal Hessians and gradients
-        Hpp = sum_kf(wp[:, None, None] * torch.einsum("mri,mrj->mij", Jp, Jp))
-        bp = sum_kf(wp[:, None] * torch.einsum("mri,mr->mi", Jp, e))
-        Hll = sum_pt(w[:, None, None] * torch.einsum("mri,mrj->mij", Jl, Jl))
-        bl = sum_pt(w[:, None] * torch.einsum("mri,mr->mi", Jl, e))
+        Hpp = sum_kf([a[:, None, None] * torch.einsum("mri,mrj->mij", J, J)
+                      for a, J in zip(wp, Jp)])
+        bp = sum_kf([a[:, None] * torch.einsum("mri,mr->mi", J, r) for a, J, r in zip(wp, Jp, e)])
+        Hll = sum_pt([a[:, None, None] * torch.einsum("mri,mrj->mij", J, J)
+                      for a, J in zip(w, Jl)])
+        bl = sum_pt([a[:, None] * torch.einsum("mri,mr->mi", J, r) for a, J, r in zip(w, Jl, e)])
         lam = 1e-3
         Hll_inv = linalg.inv3x3(Hll + (lam + 1e-7) * eye3)
         Hpp_d = Hpp + lam * eye6
 
+        def pose_to_points(x):  # [K,6] -> sum over each point's obs of Jl^T Jp x_kf
+            return sum_pt([a[:, None] * torch.einsum("mri,mr->mi", Jl_s, torch.einsum(
+                "mri,mi->mr", Jp_s, x_s[o[0]])) for a, Jl_s, Jp_s, x_s, o in
+                zip(wp, Jl, Jp, mesh.replicate(x), obs)])
+
+        def points_to_poses(u):  # [P,3] -> sum over each keyframe's obs of Jp^T Jl u_pt
+            return sum_kf([a[:, None] * torch.einsum("mri,mr->mi", Jp_s, torch.einsum(
+                "mri,mi->mr", Jl_s, u_s[o[1]])) for a, Jl_s, Jp_s, u_s, o in
+                zip(wp, Jl, Jp, mesh.replicate(u), obs)])
+
         def schur_matvec(x):  # [K,6] -> [K,6]
-            px = torch.einsum("mri,mi->mr", Jp, x[o_kf])
-            v = sum_pt(wp[:, None] * torch.einsum("mri,mr->mi", Jl, px))
-            u_ = torch.einsum("pij,pj->pi", Hll_inv, v)
-            back = torch.einsum("mri,mi->mr", Jl, u_[o_pt])
-            y = sum_kf(wp[:, None] * torch.einsum("mri,mr->mi", Jp, back))
-            return torch.einsum("kij,kj->ki", Hpp_d, x) - y
+            u_ = torch.einsum("pij,pj->pi", Hll_inv, pose_to_points(x))
+            return torch.einsum("kij,kj->ki", Hpp_d, x) - points_to_poses(u_)
 
         u0 = torch.einsum("pij,pj->pi", Hll_inv, bl)
-        back0 = torch.einsum("mri,mi->mr", Jl, u0[o_pt])
-        r_rhs = bp - sum_kf(wp[:, None] * torch.einsum("mri,mr->mi", Jp, back0))
+        r_rhs = bp - points_to_poses(u0)
         rhs = -r_rhs * free_f
 
         # CG preconditioned by the 6x6 diagonal blocks
@@ -189,8 +221,7 @@ def _gba_optimize(poses0, points0, o_kf, o_pt, o_valid, uv, ur_obs, inv_sig2, fr
         dx_pose = x * free_f
 
         # back-substitute the points: dx_l = -Hll^-1 (bl + W^T dx)
-        px = torch.einsum("mri,mi->mr", Jp, dx_pose[o_kf])
-        wtd = sum_pt(wp[:, None] * torch.einsum("mri,mr->mi", Jl, px))
+        wtd = pose_to_points(dx_pose)
         dx_pt = -torch.einsum("pij,pj->pi", Hll_inv, bl + wtd) * pt_valid.to(dt)[:, None]
 
         poses_new = torch.where(free[:, None, None],
@@ -203,17 +234,49 @@ def _gba_optimize(poses0, points0, o_kf, o_pt, o_valid, uv, ur_obs, inv_sig2, fr
     return poses, points
 
 
+def _global_ba(m: MapState, caps: MapCaps, cam: Camera, fixed_kf: int, iters: int, cg_iters: int,
+               inv_level_sigma2: Optional[torch.Tensor], mesh: Optional[ObsMesh]) -> MapState:
+    f64 = torch.float64
+    o_kf, o_pt, o_valid, uv, ur_obs, inv_sig2 = _prep_obs(m, inv_level_sigma2)
+    free = m.kf_valid & (torch.arange(caps.max_kf, device=m.device) != fixed_kf)
+    K, N = m.kf_mp.shape
+    cols = (o_kf, o_pt, o_valid, uv.to(f64), ur_obs.to(f64), inv_sig2.to(f64))
+    if mesh is None:
+        mesh = ObsMesh(1, [m.device])
+        obs = [cols]
+        len_kf = [torch.full((K,), N, dtype=torch.int64, device=m.device)]
+    else:
+        if (K * N) % mesh.n_shards:
+            raise ValueError(f"global BA: K*N={K * N} observations not divisible by "
+                             f"{mesh.n_shards} shards")
+        obs = list(zip(*[mesh.split(c) for c in cols]))
+        # shard s holds table rows [s M/n, (s+1) M/n): its run of keyframe k is
+        # the overlap with [k N, (k+1) N), computed on the host once per call
+        n = K * N // mesh.n_shards
+        starts = np.arange(mesh.n_shards)[:, None] * n
+        kf0 = np.arange(K)[None, :] * N
+        lens = np.clip(np.minimum(starts + n, kf0 + N) - np.maximum(starts, kf0), 0, None)
+        len_kf = [torch.as_tensor(row).to(dev) for row, dev in zip(lens, mesh.shard_devices)]
+    poses, points = _gba_optimize(m.kf_pose.to(f64), m.pt_pos.to(f64), obs, len_kf, free,
+                                  m.pt_valid, mesh.replicate_fields(cam), iters, cg_iters, mesh)
+    # slots the solve holds fixed keep their f32 values exactly
+    return m.replace(kf_pose=torch.where(free[:, None, None], poses.to(torch.float32), m.kf_pose),
+                     pt_pos=torch.where(m.pt_valid[:, None], points.to(torch.float32), m.pt_pos))
+
+
 def global_bundle_adjust(m: MapState, caps: MapCaps, cam: Camera, fixed_kf: int, iters: int = 10,
                          cg_iters: int = 24, inv_level_sigma2: Optional[torch.Tensor] = None
                          ) -> MapState:
     """Whole-map BA with keyframe ``fixed_kf`` held fixed -> the map with
     new keyframe poses and point positions."""
-    o_kf, o_pt, o_valid, uv, ur_obs, inv_sig2 = _prep_obs(m, inv_level_sigma2)
-    free = m.kf_valid & (torch.arange(caps.max_kf, device=m.device) != fixed_kf)
-    f64 = torch.float64
-    poses, points = _gba_optimize(m.kf_pose.to(f64), m.pt_pos.to(f64), o_kf, o_pt, o_valid,
-                                  uv.to(f64), ur_obs.to(f64), inv_sig2.to(f64), free, m.pt_valid,
-                                  cam, iters, cg_iters)
-    # slots the solve holds fixed keep their f32 values exactly
-    return m.replace(kf_pose=torch.where(free[:, None, None], poses.to(torch.float32), m.kf_pose),
-                     pt_pos=torch.where(m.pt_valid[:, None], points.to(torch.float32), m.pt_pos))
+    return _global_ba(m, caps, cam, fixed_kf, iters, cg_iters, inv_level_sigma2, None)
+
+
+def global_bundle_adjust_mesh(m: MapState, caps: MapCaps, cam: Camera, fixed_kf: int,
+                              mesh: ObsMesh, iters: int = 10, cg_iters: int = 24,
+                              inv_level_sigma2: Optional[torch.Tensor] = None) -> MapState:
+    """``global_bundle_adjust`` with the [K*N] observation table split over
+    ``mesh`` (K*N must divide); the same Huber weights, CG on the Schur
+    complement and cost-gated steps. Only the rounding of the cross-shard
+    sums differs from the one-shard run."""
+    return _global_ba(m, caps, cam, fixed_kf, iters, cg_iters, inv_level_sigma2, mesh)

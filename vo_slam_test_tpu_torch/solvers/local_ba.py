@@ -33,19 +33,23 @@ kernels' plain versions run (``ops/ba_pallas.py``), which compute
 
 The problem carries ``o_povar`` (the JAX problem's ``oh_win`` summed over its
 window axis) in place of the one-hot tensors ``oh_all``/``oh_win``, which
-only the JAX package's einsum path needs. Not ported: the flat
-``build_problem`` and ``local_bundle_adjust_mesh`` (multi-device).
+only the JAX package's einsum path needs. ``local_bundle_adjust_mesh`` runs
+the same solver with the point axis split over the shards of a
+``parallel.ObsMesh``; ``local_bundle_adjust`` is its one-shard case. The flat
+``build_problem`` (one row per observation) is the JAX package's problem
+layout off the solver's path.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional, Tuple
+from typing import List, NamedTuple, Optional, Tuple
 
 import torch
 
 from .. import lie
 from ..camera import Camera
 from ..ops import ba_cuda, ba_pallas
+from ..parallel.sharded import ObsMesh
 from ..slam_map.map_state import (MapCaps, MapState, compact_ids, scatter_add, scatter_or,
                                   scatter_set)
 from .pose_only import CHI2_MONO, CHI2_STEREO
@@ -53,9 +57,24 @@ from .pose_only import CHI2_MONO, CHI2_STEREO
 W_KF = 24       # optimized window keyframes
 F_KF = 40       # fixed keyframes
 L_PT = 8192     # local points
+N_OBS = 24576   # observation slots of the flat problem
 O_BA = 12       # observer slots per point entering BA (valid-first compaction)
 
 _I32, _F32 = torch.int32, torch.float32
+
+
+class BAProblem(NamedTuple):
+    """The flat problem layout: one row per observation."""
+
+    kf_ids: torch.Tensor        # [W+F] i32 (window first; -1 pad)
+    kf_fixed: torch.Tensor      # [W+F] bool
+    pt_ids: torch.Tensor        # [L] i32 (-1 pad)
+    o_kf: torch.Tensor          # [M] i32 index into kf_ids (-1 pad)
+    o_pt: torch.Tensor          # [M] i32 index into pt_ids
+    o_uv: torch.Tensor          # [M,2]
+    o_ur: torch.Tensor          # [M] (-1 mono)
+    o_inv_sigma2: torch.Tensor  # [M]
+    o_valid: torch.Tensor       # [M] bool
 
 
 class BAProblemOL(NamedTuple):
@@ -77,10 +96,18 @@ def _compact(mask: torch.Tensor, size: int) -> Tuple[torch.Tensor, torch.Tensor]
     return compact_ids(mask, size), torch.clamp(mask.sum(dtype=_I32), max=size)
 
 
-def build_problem_ol(m: MapState, center_kf: int, caps: MapCaps,
-                     inv_level_sigma2: Optional[torch.Tensor] = None) -> BAProblemOL:
-    """Window/fixed/point selection; observations from the per-point
-    observer lists (valid-first, capped at O_BA slots)."""
+class _Selection(NamedTuple):
+    kf_ids: torch.Tensor     # [wk+fk] window first, then fixed (-1 pad)
+    kf_fixed: torch.Tensor   # [wk+fk]
+    pt_ids: torch.Tensor     # [l_pt] local points, live first (-1 pad)
+    kf_slot: torch.Tensor    # [K] slot of each keyframe in kf_ids (-1 none)
+    sees_local: torch.Tensor  # [K,N] the keypoint is bound to a local point
+    wk: int
+
+
+def _select(m: MapState, center_kf: int) -> _Selection:
+    """The window (center + covisibles by weight), its local points and the
+    fixed keyframes (other observers of those points)."""
     K = m.kf_valid.shape[0]
     P = m.pt_valid.shape[0]
     dev = m.kf_valid.device
@@ -108,7 +135,42 @@ def build_problem_ol(m: MapState, center_kf: int, caps: MapCaps,
     lowest = torch.argmin(torch.where(win_ids >= 0, win_ids, 1 << 30))
     kf_fixed = (torch.arange(wk + fk, device=dev) >= wk) | (
         (torch.arange(wk + fk, device=dev) == lowest) & ~has_fixed)
-    kf_slot = _slot_of(kf_ids, K)
+    return _Selection(kf_ids, kf_fixed, pt_ids, _slot_of(kf_ids, K), sees_local, wk)
+
+
+def build_problem(m: MapState, center_kf: int, caps: MapCaps,
+                  inv_level_sigma2: Optional[torch.Tensor] = None) -> BAProblem:
+    """The flat problem: every (window or fixed keyframe, keypoint) bound to
+    a local point, keyframe-major, compacted into ``N_OBS`` slots."""
+    K, N = m.kf_mp.shape
+    sel = _select(m, center_kf)
+    pt_slot = _slot_of(sel.pt_ids, m.pt_valid.shape[0])
+    obs_on = (sel.kf_slot[:, None] >= 0) & sel.sees_local
+    o_lin = compact_ids(obs_on.reshape(-1), min(N_OBS, K * N))
+    o_ok = o_lin >= 0
+    o_k = torch.where(o_ok, torch.div(o_lin, N, rounding_mode="floor"), 0).long()
+    o_n = torch.where(o_ok, o_lin % N, 0).long()
+    octave = m.kf_octave[o_k, o_n]
+    return BAProblem(
+        kf_ids=sel.kf_ids, kf_fixed=sel.kf_fixed, pt_ids=sel.pt_ids,
+        o_kf=torch.where(o_ok, sel.kf_slot[o_k], -1),
+        o_pt=torch.where(o_ok, pt_slot[m.kf_mp[o_k, o_n].clamp(min=0).long()], -1),
+        o_uv=m.kf_uv_und[o_k, o_n],
+        o_ur=torch.where(o_ok, m.kf_u_right[o_k, o_n], -1.0),
+        o_inv_sigma2=(1.0 / (1.2 ** (2.0 * octave.to(_F32))) if inv_level_sigma2 is None
+                      else inv_level_sigma2[octave.long()]),
+        o_valid=o_ok,
+    )
+
+
+def build_problem_ol(m: MapState, center_kf: int, caps: MapCaps,
+                     inv_level_sigma2: Optional[torch.Tensor] = None) -> BAProblemOL:
+    """Window/fixed/point selection; observations from the per-point
+    observer lists (valid-first, capped at O_BA slots)."""
+    dev = m.kf_valid.device
+    sel = _select(m, center_kf)
+    kf_ids, kf_fixed, pt_ids, kf_slot, wk = (sel.kf_ids, sel.kf_fixed, sel.pt_ids, sel.kf_slot,
+                                             sel.wk)
 
     # observations from the observer lists, valid-first into O_BA slots
     pid = pt_ids.clamp(min=0).long()
@@ -163,52 +225,75 @@ def _cam5(cam: Camera) -> torch.Tensor:
     return torch.stack([cam.fx, cam.fy, cam.cx, cam.cy, cam.bf]).to(_F32)
 
 
-def _lm_pass(poses0, points0, prob: BAProblemOL, cam5, active, use_huber: bool, iters: int,
-             wk: int, n_pts, wc, scratch, mask):
-    """One LM pass -> (poses, points, iterations run, Wc buffer). ``wc``,
-    ``scratch`` and ``mask`` are the accumulate kernel's buffers, shared by
-    the passes of one BA call; ``mask`` also goes to every back-substitution
-    (the rows of ``Wc`` it names follow ``slot`` and ``povar`` alone, so they
-    are the same in every iteration)."""
-    WF = prob.kf_ids.shape[0]
+def _lm_pass(poses0, points0, probs, cam5, active, use_huber: bool, iters: int, wk: int, n_pts,
+             wcs, scratches, masks, mesh: ObsMesh):
+    """One LM pass over the shards of the point axis -> (poses, points per
+    shard, iterations run, Wc buffer per shard). ``probs``, ``points0``,
+    ``active`` and the kernels' buffers are per shard: ``wcs``, ``scratches``
+    and ``masks``, shared by the passes of one BA call; a shard's ``mask``
+    also goes to every back-substitution (the rows of ``Wc`` it names follow
+    ``slot`` and ``povar`` alone, so they are the same in every iteration).
+    The pose-side sums and both costs are psum-reduced and the max of the
+    point step pmax-reduced (``mesh``); the Cholesky solve runs once."""
+    WF = probs[0].kf_ids.shape[0]
     dev = poses0.device
-    act = active.to(_F32)
-    obs = (prob.o_slot, prob.o_uv[0], prob.o_uv[1], prob.o_ur, prob.o_inv_sigma2, act)
+    obs = [(p.o_slot, p.o_uv[0], p.o_uv[1], p.o_ur, p.o_inv_sigma2, a.to(_F32))
+           for p, a in zip(probs, active)]
+    cam5s = mesh.replicate(cam5)
     eye6 = torch.eye(6, dtype=_F32, device=dev)
     eye_w = torch.eye(wk, dtype=_F32, device=dev)
     eye_s = torch.eye(wk * 6, dtype=_F32, device=dev)
     nan = torch.full((), float("nan"), dtype=_F32, device=dev)
     lam = torch.full((), 1e-4, dtype=_F32, device=dev)
-    poses, points, it = poses0, points0, 0
+    poses, points, wcs, it = poses0, list(points0), list(wcs), 0
+    shards = range(mesh.n_shards)
     while it < iters:
-        Hpp36, bp, S_red, rhs_red, cost_old, Hinv, bl, wc = ba_cuda.ba_accumulate(
-            lam, poses.reshape(WF, 16).T.contiguous(), points.T.contiguous(), *obs,
-            prob.o_povar, cam5, wk, use_huber, n_pts=n_pts, wc=wc, scratch=scratch, mask=mask)
+        lams, posesT = mesh.replicate(lam), mesh.replicate(poses.reshape(WF, 16).T.contiguous())
+        acc = []
+        for s in shards:
+            with mesh.on(s):
+                acc.append(ba_cuda.ba_accumulate(
+                    lams[s], posesT[s], points[s].T.contiguous(), *obs[s], probs[s].o_povar,
+                    cam5s[s], wk, use_huber, n_pts=n_pts[s], wc=wcs[s], scratch=scratches[s],
+                    mask=masks[s]))
+        Hpp36, bp, S_red, rhs_red, cost_old = (mesh.psum([a[i] for a in acc]) for i in range(5))
+        wcs = [a[7] for a in acc]
         Hpp = Hpp36.reshape(wk, 6, 6) + lam * eye6
         S = torch.einsum("wij,wv->wivj", Hpp, eye_w) - S_red.reshape(wk, 6, wk, 6)
         rhs = bp - rhs_red.reshape(wk, 6)
         chol, info = torch.linalg.cholesky_ex(S.reshape(wk * 6, wk * 6) + 1e-7 * eye_s)
         chol = torch.where(info == 0, chol, nan)
         dx_pose = -torch.cholesky_solve(rhs.reshape(-1, 1), chol).reshape(wk, 6)
-        dx_pt = ba_cuda.ba_backsub(wc, Hinv, bl, dx_pose.contiguous(), n_pts=n_pts, mask=mask)
+        dx_poses = mesh.replicate(dx_pose.contiguous())
+        dx_pt = []
+        for s in shards:
+            with mesh.on(s):
+                dx_pt.append(ba_cuda.ba_backsub(wcs[s], acc[s][5], acc[s][6], dx_poses[s],
+                                                n_pts=n_pts[s], mask=masks[s]))
 
         poses_new = torch.cat([lie.se3_exp(dx_pose) @ poses[:wk], poses[wk:]])
-        points_new = points + dx_pt.T
-        cost_new = ba_cuda.ba_cost(poses_new.reshape(WF, 16).T.contiguous(),
-                                   points_new.T.contiguous(), *obs, cam5, use_huber, n_pts=n_pts)
+        points_new = [x + d.T for x, d in zip(points, dx_pt)]
+        posesT_new = mesh.replicate(poses_new.reshape(WF, 16).T.contiguous())
+        costs = []
+        for s in shards:
+            with mesh.on(s):
+                costs.append(ba_cuda.ba_cost(posesT_new[s], points_new[s].T.contiguous(),
+                                             *obs[s], cam5s[s], use_huber, n_pts=n_pts[s]))
+        cost_new = mesh.psum(costs)
         c_old, c_new = cost_old[0, 0], cost_new[0, 0]
         improved = c_new < c_old
         poses = torch.where(improved, poses_new, poses)
-        points = torch.where(improved, points_new, points)
+        points = [torch.where(i, xn, x)
+                  for i, xn, x in zip(mesh.replicate(improved), points_new, points)]
         lam = torch.where(improved, torch.clamp(lam * 0.33, min=1e-8),
                           torch.clamp(lam * 4.0, max=1e8))
-        done = torch.maximum(dx_pose.abs().max(), dx_pt.abs().max()) < 1e-7
+        done = torch.maximum(dx_pose.abs().max(), mesh.pmax([d.abs().max() for d in dx_pt])) < 1e-7
         # Ceres-style function tolerance (1e-6 relative decrease)
         done = done | (improved & ((c_old - c_new) < 1e-6 * torch.clamp(c_old, min=1e-12)))
         it += 1
         if bool(done):  # host read: the loop's exit
             break
-    return poses, points, it, wc
+    return poses, points, it, wcs
 
 
 def _classify_ol(poses, points, prob: BAProblemOL, cam5) -> torch.Tensor:
@@ -227,38 +312,74 @@ def _ba_iters(stop: Optional[bool]) -> Tuple[int, int]:
     return (0, 0) if stop else (5, 10)
 
 
-def _ba_optimize(poses, points, prob: BAProblemOL, cam5, wk: int, it1: int, it2: int):
-    """The two-pass LM optimization -> (poses, points, final inliers,
-    iterations of pass 1, of pass 2)."""
+def _shard_problem(prob: BAProblemOL, mesh: ObsMesh) -> List[BAProblemOL]:
+    """The problem's point axis L split into the mesh's shards (the keyframe
+    fields replicated), as the JAX package's ``P(None, ax)`` specs cut it."""
+    fields = {}
+    for name, x in prob._asdict().items():
+        if name in ("kf_ids", "kf_fixed"):
+            fields[name] = mesh.replicate(x)
+        else:  # the point axis is last
+            fields[name] = mesh.split(x, x.dim() - 1)
+    return [BAProblemOL(**{k: v[s] for k, v in fields.items()}) for s in range(mesh.n_shards)]
+
+
+def _ba_optimize(poses, points, prob: BAProblemOL, cam5, wk: int, it1: int, it2: int,
+                 mesh: ObsMesh):
+    """The two-pass LM optimization with the point axis split over ``mesh``
+    -> (poses, points, final inliers, iterations of pass 1, of pass 2). The
+    kernels take ``n_pts``, the live points at the front of their slice:
+    live points come first in ``pt_ids``, so shard s holds
+    clamp(n_pts - s L/n, 0, L/n) of them and the last shards may hold none."""
     n_pts = (prob.pt_ids >= 0).sum(dtype=_I32)
     L = prob.pt_ids.shape[0]
-    scratch = ba_cuda.ba_scratch(wk, L, poses.device)
-    mask = ba_cuda.ba_mask(L, poses.device)
-    poses, points, n1, wc = _lm_pass(poses, points, prob, cam5, prob.o_valid, True, it1, wk,
-                                     n_pts, None, scratch, mask)
-    inl = _classify_ol(poses, points, prob, cam5)
-    poses, points, n2, _ = _lm_pass(poses, points, prob, cam5, inl, False, it2, wk, n_pts, wc,
-                                    scratch, mask)
-    return poses, points, _classify_ol(poses, points, prob, cam5), n1, n2
+    if L % mesh.n_shards:
+        raise ValueError(f"local BA: L={L} points not divisible by {mesh.n_shards} shards")
+    Ls = L // mesh.n_shards
+    probs = _shard_problem(prob, mesh)
+    pts = mesh.split(points)
+    if mesh.n_shards == 1:  # the one-device solver: no extra op
+        n_pts_s = [n_pts]
+    else:
+        n_pts_s = [torch.clamp(n_pts - s * Ls, 0, Ls).to(dev)
+                   for s, dev in enumerate(mesh.shard_devices)]
+    scratches = [ba_cuda.ba_scratch(wk, Ls, dev) for dev in mesh.shard_devices]
+    masks = [ba_cuda.ba_mask(Ls, dev) for dev in mesh.shard_devices]
+    none = [None] * mesh.n_shards
+
+    def classify(poses, pts):
+        return [_classify_ol(P, X, p, c) for P, X, p, c in
+                zip(mesh.replicate(poses), pts, probs, mesh.replicate(cam5))]
+
+    poses, pts, n1, wcs = _lm_pass(poses, pts, probs, cam5, [p.o_valid for p in probs], True, it1,
+                                   wk, n_pts_s, none, scratches, masks, mesh)
+    inl = classify(poses, pts)
+    poses, pts, n2, _ = _lm_pass(poses, pts, probs, cam5, inl, False, it2, wk, n_pts_s, wcs,
+                                 scratches, masks, mesh)
+    return (poses, mesh.gather(pts), mesh.gather(classify(poses, pts), 1), n1, n2)
 
 
 def _local_ba_impl(m: MapState, center_kf: int, caps: MapCaps, cam: Camera,
-                   inv_level_sigma2=None, stop: Optional[bool] = None):
+                   inv_level_sigma2=None, stop: Optional[bool] = None,
+                   mesh: Optional[ObsMesh] = None):
     # the reference's interruptBA: the stop flag is read at the solver's
     # ENTRY (optimizer_ceres.cpp:594 `if (stopFlag) return;`) and the whole
     # local BA (optimization, outlier erasure, write-back) is skipped
     if stop:
         return m, 0, 0
-    return _local_ba_run(m, center_kf, caps, cam, inv_level_sigma2)
+    return _local_ba_run(m, center_kf, caps, cam, inv_level_sigma2, mesh)
 
 
-def _local_ba_run(m, center_kf, caps, cam, inv_level_sigma2):
+def _local_ba_run(m, center_kf, caps, cam, inv_level_sigma2, mesh: Optional[ObsMesh]):
     prob = build_problem_ol(m, center_kf, caps, inv_level_sigma2)
     poses = m.kf_pose[prob.kf_ids.clamp(min=0).long()]
     points = m.pt_pos[prob.pt_ids.clamp(min=0).long()]
     it1, it2 = _ba_iters(None)
     wk = min(W_KF, m.kf_valid.shape[0])
-    poses, points, final_inl, n1, n2 = _ba_optimize(poses, points, prob, _cam5(cam), wk, it1, it2)
+    if mesh is None:
+        mesh = ObsMesh(1, [m.device])
+    poses, points, final_inl, n1, n2 = _ba_optimize(poses, points, prob, _cam5(cam), wk, it1, it2,
+                                                    mesh)
     return _ba_write_back(m, prob, poses, points, final_inl), n1, n2
 
 
@@ -276,6 +397,30 @@ def local_bundle_adjust_iters(m: MapState, center_kf: int, caps: MapCaps, cam: C
     """``local_bundle_adjust`` that also returns the LM iterations each pass
     ran, (0, 0) when ``stop`` is raised."""
     return _local_ba_impl(m, center_kf, caps, cam, inv_level_sigma2, stop)
+
+
+def local_bundle_adjust_mesh(m: MapState, center_kf: int, caps: MapCaps, cam: Camera,
+                             mesh: ObsMesh, inv_level_sigma2=None,
+                             stop: Optional[bool] = None) -> MapState:
+    """``local_bundle_adjust`` with the LM iterations sharded over ``mesh``:
+    the point axis L of the [O, L] problem is split into ``mesh.n_shards``
+    contiguous slices (L must divide), each shard runs the accumulate,
+    back-substitution and cost kernels on its slice with its own buffers, and
+    only the pose-side sums (Hpp, bp, the Schur reduction, its right side),
+    the costs (psum) and the largest point step (pmax) cross shards. A point's
+    observers all live in its own column, so every point-side term stays on
+    its shard. The problem build, the entry check of ``stop`` and the
+    write-back are ``local_bundle_adjust``'s. The result differs from it only
+    in the rounding of the cross-shard sums."""
+    return _local_ba_impl(m, center_kf, caps, cam, inv_level_sigma2, stop, mesh)[0]
+
+
+def local_bundle_adjust_mesh_iters(m: MapState, center_kf: int, caps: MapCaps, cam: Camera,
+                                   mesh: ObsMesh, inv_level_sigma2=None,
+                                   stop: Optional[bool] = None) -> Tuple[MapState, int, int]:
+    """``local_bundle_adjust_mesh`` that also returns the LM iterations each
+    pass ran (each shard launches each kernel once per iteration)."""
+    return _local_ba_impl(m, center_kf, caps, cam, inv_level_sigma2, stop, mesh)
 
 
 def _ba_write_back(m: MapState, prob: BAProblemOL, poses, points, final_inl) -> MapState:
