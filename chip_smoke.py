@@ -9,9 +9,12 @@
    floor: an empty kernel, and two in a row (``launch_floor_ms``);
 3. holds each kernel against its plain PyTorch version on the card at the
    main paths' shapes and times both with CUDA events:
-   - FAST on a frame's [8,480,640] pyramid, IC angle + rBRIEF on its 1024
-     keypoints, Hamming top-2 at 1024x1024 on a real frame pair and on a
-     seeded instance with ties and empty rows;
+   - FAST on a frame's [8,480,640] pyramid; its 3x3-NMS mode (no path calls
+     it) on that pyramid and on a random [2,480,640] batch, each equal to the
+     plain version on every pixel and to its first design
+     (``perf/fast_nms_v1.cu``) bit for bit, the two timed in turns; IC angle
+     + rBRIEF on its 1024 keypoints, Hamming top-2 at 1024x1024 on a real
+     frame pair and on a seeded instance with ties and empty rows;
    - top-2 at 4096x1024 (the local-map search), chi2 top-2 at 4096x1024
      (fuse into a keyframe), neighbour-batched chi2 top-2 at 16x1024x1024
      (fuse into the neighbours) and the epipolar top-1 at 1024x1024
@@ -607,9 +610,44 @@ def epi_bound(args):
 
 
 PERF_DIR = Path(__file__).resolve().parent / "perf"
-# the first designs of rows 2-6, built beside the current kernels and timed
+# the first designs of rows 1b and 2-6, built beside the current kernels and timed
 # with them (perf/kernel_split.py takes them apart)
-V1_SOURCES = (("orb_v1", PERF_DIR), ("match_v1", PERF_DIR), ("epi_v1", PERF_DIR))
+V1_SOURCES = (("orb_v1", PERF_DIR), ("match_v1", PERF_DIR), ("epi_v1", PERF_DIR),
+              ("fast_nms_v1", PERF_DIR))
+
+
+def fast_nms_v1_launcher(_build):
+    """The first design of the FAST kernel's 3x3-NMS mode
+    (``perf/fast_nms_v1.cu``), a callable taking ``fast_cuda.KERNEL_NMS``'s
+    arguments; ``fast_call`` launches either."""
+    from vo_slam_test_tpu_torch.ops import fast_cuda
+
+    fn = ctypes.CDLL(str(_build.library_path("fast_nms_v1", PERF_DIR))).fast_score_nms_v1_launch
+    fn.argtypes = fast_cuda.KERNEL_NMS.argtypes
+    fn.restype = ctypes.c_int
+
+    def call(*args):
+        rc = fn(*args)
+        if rc != 0:
+            raise RuntimeError(f"fast_score_nms_v1_launch: cudaError {rc}")
+    return call
+
+
+def fast_call(kernel, levels):
+    """Launch ``kernel`` (``fast_cuda.KERNEL_NMS``, the first design or a
+    build variant) on a [L,H,W] batch as ``fast_cuda.fast_score`` does ->
+    [L,H,W] f32."""
+    out = torch.empty(levels.shape, dtype=torch.float32, device=levels.device)
+    kernel(levels.data_ptr(), levels.stride(0), levels.stride(1), out.data_ptr(), *levels.shape,
+           torch.cuda.current_stream().cuda_stream)
+    return out
+
+
+def fast_nms_random_levels(device):
+    """The NMS phase's second input: a [2,480,640] batch of seeded integers
+    in [0, 255] (many ties; every block live)."""
+    return torch.as_tensor(np.random.default_rng(11).integers(
+        0, 256, (2, 480, 640)).astype(np.float32)).to(device)
 
 
 def v1_launchers(_build):
@@ -2226,9 +2264,11 @@ def main() -> int:
           f"bound {fb:.4f} ms ({fby})")
 
     # -- phase 1b: FAST with 3x3 NMS (fast_score(..., with_nms=True)) --------
-    # the main path's pyramid, and random integers in [0, 255] (many ties)
-    rand_levels = torch.as_tensor(np.random.default_rng(11).integers(
-        0, 256, (2, 480, 640)).astype(np.float32)).to(dev)
+    # the main path's pyramid, and random integers in [0, 255] (many ties);
+    # each equal to the plain version on every pixel and to the first design
+    # (perf/fast_nms_v1.cu) bit for bit
+    rand_levels = fast_nms_random_levels(dev)
+    nms_v1 = fast_nms_v1_launcher(_build)
     fast_cuda.KERNEL_NMS.reset()
     for label, lv in (("the main path's pyramid", levels), ("random integers", rand_levels)):
         got = fast_cuda.fast_score(lv, with_nms=True)
@@ -2236,25 +2276,39 @@ def main() -> int:
         if not torch.equal(got, want):
             raise AssertionError(f"FAST NMS kernel differs from the plain version on {label}: "
                                  f"{int((got != want).sum())} pixels")
+        if not bits_equal(got, fast_call(nms_v1, lv)):
+            raise AssertionError(f"FAST NMS kernel differs from its first design "
+                                 f"(perf/fast_nms_v1.cu) on {label}")
         kept = int((got > 0).sum())
-        print(f"phase fast NMS on {label} {list(lv.shape)}: equal on every pixel; {kept} kept, "
-              f"{int((fast.fast_score(lv) > 0).sum())} with a score")
+        print(f"phase fast NMS on {label} {list(lv.shape)}: equal on every pixel, bit-equal to "
+              f"the first design; {kept} kept, {int((fast.fast_score(lv) > 0).sum())} with a "
+              f"score")
     nms_phase_launches = fast_cuda.KERNEL_NMS.launches
     nb, nby, counted = fast_bound(levels, nms=True)
+
+    def in_turns(lv):
+        """(kernel ms, first design ms) on ``lv``, timed in turns: kernel,
+        first design, first design, kernel; each the mean of its two turns."""
+        new = lambda: fast_cuda.fast_score(lv, with_nms=True)  # noqa: E731
+        old = lambda: fast_call(nms_v1, lv)  # noqa: E731
+        t = [time_graph_ms(fn) for fn in (new, old, old, new)]
+        return (t[0] + t[3]) / 2, (t[1] + t[2]) / 2
+
+    ms, v1_ms = in_turns(levels)
+    random_ms, random_v1_ms = in_turns(rand_levels)
     kernels["fast_nms"] = dict(
         name="fast_score_nms", shape=f"{L}x{H}x{W}", route="cuda",
         source="vo_slam_test_tpu_torch/csrc/fast.cu",
         replaces="vo_slam_test_tpu/ops/fast_pallas.py:131", max_abs_err=0.0,
-        ms=time_graph_ms(lambda: fast_cuda.fast_score(levels, with_nms=True)),
-        plain_ms=time_eager_ms(lambda: fast.fast_score_nms(levels)),
+        ms=ms, v1_ms=v1_ms, plain_ms=time_eager_ms(lambda: fast.fast_score_nms(levels)),
         bound_ms=nb, bound_by=nby, library_ms=None, counted=counted,
-        phase_launches=nms_phase_launches,
-        random_ms=time_graph_ms(lambda: fast_cuda.fast_score(rand_levels, with_nms=True)),
+        phase_launches=nms_phase_launches, random_ms=random_ms, random_v1_ms=random_v1_ms,
         random_bound_ms=fast_bound(rand_levels, nms=True)[0])
-    print(f"  kernel {kernels['fast_nms']['ms']:.4f} ms (raw mode {kernels['fast']['ms']:.4f}), "
-          f"plain {kernels['fast_nms']['plain_ms']:.4f} ms, bound {nb:.4f} ms ({nby}); on the "
-          f"random batch {kernels['fast_nms']['random_ms']:.4f} ms, bound "
-          f"{kernels['fast_nms']['random_bound_ms']:.4f} ms; {nms_phase_launches} checked launches")
+    print(f"  kernel {ms:.4f} ms (first design {v1_ms:.4f} ms, raw mode "
+          f"{kernels['fast']['ms']:.4f}), plain {kernels['fast_nms']['plain_ms']:.4f} ms, bound "
+          f"{nb:.4f} ms ({nby}); on the random batch {random_ms:.4f} ms (first design "
+          f"{random_v1_ms:.4f} ms), bound {kernels['fast_nms']['random_bound_ms']:.4f} ms; "
+          f"{nms_phase_launches} checked launches")
 
     # -- phase 2: IC angle + rBRIEF -----------------------------------------
     n_valid = int(sel.valid.sum())
@@ -2937,7 +2991,7 @@ def main() -> int:
     keys = ("name", "shape", "route", "source", "replaces", "launches", "launches_by_path",
             "max_abs_err", "ms", "v1_ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
             "launch_floor_x", "counted", "kidnap_instances", "loop_fuse_instances",
-            "phase_launches")
+            "phase_launches", "random_ms", "random_v1_ms", "random_bound_ms")
     print(f"total {time.perf_counter() - t_start:.1f} s after the card query")
     print(json.dumps({"main_path": {
         "fused_tracker": {"frame_ms_median": float(np.median(steady)), "ate_m": float(ate),

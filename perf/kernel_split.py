@@ -6,6 +6,7 @@ kernels, on the same inputs, in one run on the card.
     python3 perf/kernel_split.py                # from the repository root: every phase
     python3 perf/kernel_split.py ba_tail fast   # named phases: dpx fast ba ba_tail top2 orb epi
     python3 perf/kernel_split.py epi --v1-only  # the first designs' parts alone
+    python3 perf/kernel_split.py fast --fast-against DIR  # and DIR's raw FAST kernel
 
 Prints, after the card's name and power limit:
 
@@ -16,8 +17,14 @@ Prints, after the card's name and power limit:
 - the launch floor (``csrc/noop.cu``): one empty launch and two in a row;
 - FAST on a frame's [8,480,640] pyramid: the first design
   (``perf/fast_v1.cu``) and the current kernel, in turns, both equal to the
-  plain version, and the current kernel on an all-zero batch (staging and
-  stores alone);
+  plain version, and the current kernel on an all-zero batch of the same
+  shape and strides (staging and stores alone); then its 3x3-NMS mode on the
+  pyramid and on ``chip_smoke.py``'s random [2,480,640] batch: the first
+  design (``perf/fast_nms_v1.cu``) and the current kernel in turns, and the
+  current kernel built with other tile heights (``NMS_ROWS``: rows a thread),
+  every output checked bit for bit against the first design's; both designs
+  on the all-zero batch; and the instructions of each FAST kernel
+  (``cuobjdump -sass``);
 - ``ba_accumulate`` on the first LM iteration of the local BA with the most
   live points among frames 0-12 of the room orbit: the first design
   (``perf/ba_v1.cu``) whole, launch 1 alone, launch 1 cut to the live
@@ -68,6 +75,10 @@ Prints, after the card's name and power limit:
   design's.
 
 ``--v1-only`` leaves out the current kernels of ``top2``, ``orb`` and ``epi``.
+``--fast-against DIR`` adds to ``fast`` the raw kernel of another checkout at DIR (for
+example an earlier commit's ``git archive``): each kernel of its ``csrc/fast.cu`` compared
+with the current one's SASS instruction by instruction, the raw outputs bit for bit, and
+the two raw kernels timed in turns.
 Exits 1 if a bit differs.
 
 All times are CUDA-graph replays (``chip_smoke.time_graph_ms``) unless a
@@ -132,34 +143,82 @@ def dpx_phase(_build, dev):
         print(f"  three-input min/max, {label}: {ms:.4f} ms for {ops:.3e} -> "
               f"{per_s / 1e9:.0f} G/s; with the XORs {per_s * 5 / 3 / 132 / 1.98e9:.1f} "
               f"instructions per SM per clock at 1.98 GHz")
+    for fn, c in sass_counts(_build, _build.library_path("dpx_bench", ROOT / "perf")).items():
+        print(f"  sass {fn}: {dict((k, v) for k, v in c.items() if 'MNMX' in k or 'VIM' in k)}")
+
+
+def sass_text(_build, lib) -> dict:
+    """{kernel: [instruction text without its address and encoding]} of a
+    built library, from ``cuobjdump -sass`` ({} where the toolkit has none)."""
     cuobjdump = Path(_build.nvcc_path()).with_name("cuobjdump")
-    if cuobjdump.is_file():
-        sass = subprocess.run([str(cuobjdump), "-sass",
-                               str(_build.library_path("dpx_bench", ROOT / "perf"))],
-                              capture_output=True, text=True).stdout
-        fn, counts = None, {}
-        for line in sass.splitlines():
-            if "Function :" in line:
-                fn = line.split("Function :")[1].strip()
-                counts[fn] = {}
-            elif fn and ("MNMX" in line or "VIM" in line or "VMNMX" in line):
-                op = [t for t in line.replace(";", " ").split() if "MNMX" in t or "VIM" in t][0]
-                counts[fn][op] = counts[fn].get(op, 0) + 1
-        for fn, c in counts.items():
-            print(f"  sass {fn}: {c}")
+    if not cuobjdump.is_file():
+        return {}
+    sass = subprocess.run([str(cuobjdump), "-sass", str(lib)], capture_output=True,
+                          text=True, check=True).stdout
+    fn, out = None, {}
+    for line in sass.splitlines():
+        if "Function :" in line:
+            fn = line.split("Function :")[1].strip()
+            out[fn] = []
+        elif fn and re.match(r"\s*/\*[0-9a-f]{4,}\*/", line):
+            out[fn].append(line.split("*/", 1)[1].split("/*")[0].strip())
+    return out
 
 
-def fast_phase(_build, dev):
+def sass_counts(_build, lib) -> dict:
+    """{kernel: {opcode: count, "total": instructions}} of a built library."""
+    counts = {}
+    for fn, text in sass_text(_build, lib).items():
+        c = counts[fn] = {"total": len(text)}
+        for ins in text:
+            tok = ins.replace(";", " ").split()
+            op = tok[1] if tok[0].startswith("@") else tok[0]
+            c[op] = c.get(op, 0) + 1
+    return counts
+
+
+# rows per thread of the FAST NMS mode's tile variants (csrc/fast.cu NROWS): the
+# kernel's 2 (a 64x16 tile), 4 (64x32) and 1 (64x8, two outputs a thread)
+NMS_ROWS = (4, 1)
+
+
+def fast_against_phase(_build, dev, levels, csrc) -> list:
+    """The raw FAST kernel of another checkout's ``csrc/fast.cu`` (``csrc``)
+    beside the current one: each kernel's SASS compared instruction by
+    instruction, the raw outputs bit for bit, the raw times in turns."""
+    from vo_slam_test_tpu_torch.ops import fast_cuda
+
+    _build.build([], extra=[("fast", csrc)])
+    other, cur = _build.library_path("fast", csrc), _build.library_path("fast")
+    a, b = sass_text(_build, cur), sass_text(_build, other)
+    for fn in sorted(set(a) | set(b)):
+        print(f"  sass {fn}: current {len(a.get(fn, []))} instructions, {csrc} "
+              f"{len(b.get(fn, []))}; identical {a.get(fn) == b.get(fn)}")
+    raw = bind(ctypes.CDLL(str(other)), "fast_score_launch", fast_cuda.KERNEL.argtypes)
+    same = chip_smoke.bits_equal(fast_cuda.fast_score(levels), chip_smoke.fast_call(raw, levels))
+    print(f"  fast raw: current bit-equal to {csrc}'s: {same}")
+    order = [("other checkout", lambda: chip_smoke.fast_call(raw, levels)),
+             ("current", lambda: fast_cuda.fast_score(levels)),
+             ("current", lambda: fast_cuda.fast_score(levels)),
+             ("other checkout", lambda: chip_smoke.fast_call(raw, levels))]
+    for label, fn in order:
+        print(f"  fast raw, {label}: {chip_smoke.time_graph_ms(fn):.4f} ms")
+    return [] if same else ["fast raw against the other checkout"]
+
+
+def fast_phase(_build, dev, against=None) -> list:
     from vo_slam_test_tpu_torch.datasets import SyntheticRGBD
     from vo_slam_test_tpu_torch.ops import fast, fast_cuda
     from vo_slam_test_tpu_torch.ops.pyramid import PyramidSpec, build_pyramid, interior
 
     lib = ctypes.CDLL(str(_build.library_path("fast_v1", ROOT / "perf")))
-    v1 = bind(lib, "fast_v1_launch", [_P, ctypes.c_longlong, ctypes.c_longlong, _P, _I, _I, _I,
-                                      _P])
+    v1 = bind(lib, "fast_v1_launch", fast_cuda.KERNEL.argtypes)
     seq = SyntheticRGBD(n_frames=30, seed=0, motion_scale=0.5)
     spec = PyramidSpec(640, 480, 8, 1.2)
-    levels = interior(build_pyramid(torch.as_tensor(seq[0][0]).to(dev), spec).raw, spec)
+    raw = build_pyramid(torch.as_tensor(seq[0][0]).to(dev), spec).raw
+    levels = interior(raw, spec)
+    # an all-zero batch of the same shape and strides: the interior of a zero canvas
+    zeros = interior(torch.zeros_like(raw), spec)
     L, H, W = levels.shape
     out = torch.empty((L, H, W), dtype=torch.float32, device=dev)
 
@@ -175,14 +234,55 @@ def fast_phase(_build, dev):
           f"equal to plain {torch.equal(got, want)}; live pixels "
           f"{chip_smoke.fast_live_pixels(levels)} of {L * H * W}, level pixels "
           f"{sum(h * w for h, w in spec.sizes)}")
+    differ = [] if torch.equal(out, want) and torch.equal(got, want) else ["fast raw"]
     order = [("first design", run_v1), ("current", lambda: fast_cuda.fast_score(levels)),
              ("current", lambda: fast_cuda.fast_score(levels)), ("first design", run_v1)]
     for label, fn in order:
         print(f"  fast {label}: {chip_smoke.time_graph_ms(fn):.4f} ms")
     # every tile takes the zero exit: staging and stores without the arithmetic
-    zeros = torch.zeros_like(levels)
     print(f"  fast current, all-zero batch of the same shape and strides: "
           f"{chip_smoke.time_graph_ms(lambda: fast_cuda.fast_score(zeros)):.4f} ms")
+
+    # the 3x3-NMS mode (row 1b): the first design (perf/fast_nms_v1.cu), the
+    # current kernel and its tile variants, on the pyramid and on chip_smoke.py's
+    # random batch, every output checked bit for bit against the first design's
+    v1n = bind(ctypes.CDLL(str(_build.library_path("fast_nms_v1", ROOT / "perf"))),
+               "fast_score_nms_v1_launch", fast_cuda.KERNEL_NMS.argtypes)
+    src = (_build.CSRC / "fast.cu").read_text()
+    libs = source_variants(_build, {f"fast_nms_rows{k}": define(src, "NROWS", k)
+                                    for k in NMS_ROWS})
+    variants = {k: bind(libs[f"fast_nms_rows{k}"], "fast_score_nms_launch",
+                        fast_cuda.KERNEL_NMS.argtypes) for k in NMS_ROWS}
+    rand = chip_smoke.fast_nms_random_levels(dev)
+    call = chip_smoke.fast_call
+    for label, lv in (("pyramid", levels), ("random batch", rand)):
+        ref = call(v1n, lv)
+        got = fast_cuda.fast_score(lv, with_nms=True)
+        checks = {"plain": torch.equal(got, fast.fast_score_nms(lv)),
+                  "first design": chip_smoke.bits_equal(got, ref)}
+        checks.update({f"{k} rows a thread": chip_smoke.bits_equal(call(kern, lv), ref)
+                       for k, kern in variants.items()})
+        print(f"  fast NMS {label} {list(lv.shape)}: current equal to {checks}")
+        differ += [f"fast NMS {label}: {k}" for k, ok in checks.items() if not ok]
+        order = [("first design", lambda: call(v1n, lv)),
+                 ("current", lambda: fast_cuda.fast_score(lv, with_nms=True)),
+                 ("current", lambda: fast_cuda.fast_score(lv, with_nms=True)),
+                 ("first design", lambda: call(v1n, lv))]
+        order += [(f"{k} rows a thread (64x{8 * k} tile)", lambda k=k: call(variants[k], lv))
+                  for k in NMS_ROWS]
+        for name, fn in order:
+            print(f"  fast NMS {label}, {name}: {chip_smoke.time_graph_ms(fn):.4f} ms")
+    print(f"  fast NMS current, all-zero batch of the same shape and strides: "
+          f"{chip_smoke.time_graph_ms(lambda: fast_cuda.fast_score(zeros, with_nms=True)):.4f} "
+          f"ms; first design {chip_smoke.time_graph_ms(lambda: call(v1n, zeros)):.4f} ms")
+    for lib_path in (_build.library_path("fast"),
+                     _build.library_path("fast_nms_v1", ROOT / "perf")):
+        for fn, c in sass_counts(_build, lib_path).items():
+            print(f"  sass {lib_path.name} {fn}: {c['total']} instructions; "
+                  f"{dict(sorted(c.items(), key=lambda kv: -kv[1])[1:13])}")
+    if against is not None:
+        differ += fast_against_phase(_build, dev, levels, against)
+    return differ
 
 
 def room_orbit(n_frames):
@@ -813,6 +913,11 @@ def main(argv) -> int:
         print("kernel_split: no CUDA device available", file=sys.stderr)
         return 1
     v1_only = "--v1-only" in argv
+    against = None
+    if "--fast-against" in argv:
+        i = argv.index("--fast-against")
+        against = Path(argv[i + 1]) / "vo_slam_test_tpu_torch" / "csrc"
+        argv = argv[:i] + argv[i + 2:]
     phases = [a for a in argv if a != "--v1-only"] or PHASES
     if set(phases) - set(PHASES):
         print(f"kernel_split: phases are {PHASES}", file=sys.stderr)
@@ -823,8 +928,8 @@ def main(argv) -> int:
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip())
     built = _build.build(extra=[(n, ROOT / "perf") for n in (
-        "dpx_bench", "fast_v1", "ba_v1", "ba_tail_v1", "ba_backsub_variants", "match_v1",
-        "orb_v1", "epi_v1")])
+        "dpx_bench", "fast_v1", "fast_nms_v1", "ba_v1", "ba_tail_v1", "ba_backsub_variants",
+        "match_v1", "orb_v1", "epi_v1")])
     for k, v in built.items():
         for line in v["log"].splitlines():
             if "registers" in line or "spill" in line or "Compiling" in line:
@@ -835,9 +940,11 @@ def main(argv) -> int:
               f"{chip_smoke.time_graph_ms(lambda: noop(n, stream())):.4f} ms")
     if "dpx" in phases:
         dpx_phase(_build, dev)
-    if "fast" in phases:
-        fast_phase(_build, dev)
     differ = []
+    if "fast" in phases:
+        print("FAST (row 1) and its 3x3-NMS mode (row 1b), the first designs (v1) beside the "
+              "current kernels:")
+        differ += fast_phase(_build, dev, against)
     if {"ba", "ba_tail", "top2", "epi"} & set(phases):
         captured = capture()
         if "ba" in phases:

@@ -86,6 +86,73 @@ def test_fast_nms_kernel_random_integers(cuda, shape):
     assert torch.equal(fast_cuda.fast_score(levels), fast.fast_score(levels))
 
 
+@pytest.fixture(scope="module")
+def fast_nms_v1(cuda):
+    """The first design of the NMS mode (``perf/fast_nms_v1.cu``), built
+    beside the current kernel."""
+    from vo_slam_test_tpu_torch.ops import _build
+
+    _build.build(extra=chip_smoke.V1_SOURCES)
+    return chip_smoke.fast_nms_v1_launcher(_build)
+
+
+def _nms_tile_input(kind, cuda):
+    """Inputs at the edges of the NMS mode's 64x16 tile: integers in [0, 255]."""
+    rng = np.random.default_rng(sum(map(ord, kind)))
+    if kind == "w100":
+        x = rng.integers(0, 256, (2, 40, 100))
+    elif kind == "w33":
+        x = rng.integers(0, 256, (1, 24, 33))
+    elif kind == "h_ragged":  # H not a multiple of 16, one row past a tile and one short
+        x = rng.integers(0, 256, (3, 17, 128))
+        x[1:, 16] = 0
+    elif kind == "h47":
+        x = rng.integers(0, 256, (2, 47, 64))
+    elif kind == "4x4":
+        x = rng.integers(0, 256, (3, 4, 4))
+    elif kind == "plateaus":  # flat squares and steps: runs of equal scores
+        x = np.zeros((2, 48, 160))
+        x[0, 8:30, 20:90] = 120
+        x[0, 12:20, 40:70] = 200
+        x[0, 30:40, 100:150] = rng.integers(0, 2, (10, 50)) * 255
+        x[1] = np.repeat(np.repeat(rng.integers(0, 3, (6, 20)) * 100, 8, 0), 8, 1)
+    elif kind == "one_live_block":  # every block dead but one, inside level 2
+        x = np.zeros((4, 64, 192))
+        x[2, 20:28, 72:120] = rng.integers(0, 256, (8, 48))
+    else:  # "strided": the interior of a wider canvas, rows not 16-byte aligned
+        canvas = rng.integers(0, 256, (3, 90, 230)).astype(np.float32)
+        return torch.as_tensor(canvas).to(cuda)[:, 19:19 + 51, 19:19 + 173]
+    return torch.as_tensor(x.astype(np.float32)).to(cuda)
+
+
+@pytest.mark.parametrize("kind", ["w100", "w33", "h_ragged", "h47", "4x4", "strided",
+                                  "plateaus", "one_live_block"])
+def test_fast_nms_kernel_tile_edges(cuda, fast_nms_v1, kind):
+    """The NMS mode at the edges of its tile (W and H not multiples of it, the
+    smallest legal level, a strided view, plateaus where ties suppress both
+    pixels, one live block among dead ones): equal to the plain version on
+    every pixel and to the first design bit for bit."""
+    levels = _nms_tile_input(kind, cuda)
+    before = fast_cuda.KERNEL_NMS.launches
+    got = fast_cuda.fast_score(levels, with_nms=True)
+    torch.cuda.synchronize()
+    assert fast_cuda.KERNEL_NMS.launches == before + 1
+    assert got.is_contiguous() and torch.equal(got, fast.fast_score_nms(levels))
+    assert chip_smoke.bits_equal(got, chip_smoke.fast_call(fast_nms_v1, levels))
+    score = fast.fast_score(levels)
+    if kind == "plateaus":
+        # a scored pixel with an equal neighbour is never kept
+        tied = torch.zeros_like(score, dtype=torch.bool)
+        for dy in (-1, 0, 1):
+            for dx in (-1, 0, 1):
+                if dy or dx:
+                    tied |= score == torch.roll(score, (dy, dx), (-2, -1))
+        assert bool((tied & (score > 0)).any()) and not bool((got[tied] > 0).any())
+    if kind == "one_live_block":
+        assert bool((got[2] > 0).any())
+        assert not bool(got[[0, 1, 3]].any()) and not bool(got[2, :14].any())
+
+
 def test_local_ba_mesh_on_card(cuda):
     """local_bundle_adjust_mesh with 8 shards of the card against
     local_bundle_adjust on the room orbit's map after frame 5 (tests/

@@ -71,6 +71,45 @@ __device__ __forceinline__ int wrap(int g, int n) {
   return g;
 }
 
+// The packed arc extremes of the staged word (cy, cx), two pixels in its two
+// 16-bit lanes: per lane, dark = the largest 9-arc minimum and bright = the
+// smallest 9-arc maximum of d = centre - ring + 256, so the pixel's score is
+// max(0, dark - 256, 256 - bright). Both modes call it on a stage of words
+// packing pixels j and j + 32 of a row, where word (cy, cx)'s ring
+// neighbours are words (cy + dy, cx + dx), lane for lane.
+template <int SW>
+__device__ __forceinline__ void arc_extremes(const unsigned (*tile)[SW], int cy, int cx,
+                                             unsigned& dark, unsigned& bright) {
+  // ring offsets (dx, dy), index 0 at 12 o'clock, clockwise (ops/fast.py CIRCLE16)
+  const int DX[16] = {0, 1, 2, 3, 3, 3, 2, 1, 0, -1, -2, -3, -3, -3, -2, -1};
+  const int DY[16] = {-3, -3, -2, -1, 0, 1, 2, 3, 3, 3, 2, 1, 0, -1, -2, -3};
+  const unsigned c = tile[cy][cx] + BIAS;
+  unsigned d[16];  // per lane: center - ring + 256, in [1, 511]
+#pragma unroll
+  for (int k = 0; k < 16; ++k) d[k] = c - tile[cy + DY[k]][cx + DX[k]];
+
+  // minima and maxima of 3 consecutive ring positions, then of 9 (three runs)
+  unsigned lo3[16], hi3[16];
+#pragma unroll
+  for (int k = 0; k < 16; ++k) {
+    lo3[k] = MIN3(d[k], d[(k + 1) & 15], d[(k + 2) & 15]);
+    hi3[k] = MAX3(d[k], d[(k + 1) & 15], d[(k + 2) & 15]);
+  }
+  // dark arcs: the largest 9-arc minimum of d; bright arcs: min of -d over
+  // an arc is -(max of d), so the smallest 9-arc maximum of d
+  dark = 0u;
+  bright = 0x7fff7fffu;
+#pragma unroll
+  for (int k = 0; k < 16; k += 2) {
+    const unsigned lo_a = MIN3(lo3[k], lo3[(k + 3) & 15], lo3[(k + 6) & 15]);
+    const unsigned lo_b = MIN3(lo3[k + 1], lo3[(k + 4) & 15], lo3[(k + 7) & 15]);
+    const unsigned hi_a = MAX3(hi3[k], hi3[(k + 3) & 15], hi3[(k + 6) & 15]);
+    const unsigned hi_b = MAX3(hi3[k + 1], hi3[(k + 4) & 15], hi3[(k + 7) & 15]);
+    dark = MAX3(dark, lo_a, lo_b);
+    bright = MIN3(bright, hi_a, hi_b);
+  }
+}
+
 __global__ void __launch_bounds__(LANES * TH)
 fast_score_kernel(const float* __restrict__ in, long long s_l, long long s_h,
                   float* __restrict__ out, int H, int W) {
@@ -101,9 +140,6 @@ fast_score_kernel(const float* __restrict__ in, long long s_l, long long s_h,
   const int x = x0 + lane;
   if (x >= W) return;
   const bool second = x + LANES < W;
-  // ring offsets (dx, dy), index 0 at 12 o'clock, clockwise (ops/fast.py CIRCLE16)
-  const int DX[16] = {0, 1, 2, 3, 3, 3, 2, 1, 0, -1, -2, -3, -3, -3, -2, -1};
-  const int DY[16] = {-3, -3, -2, -1, 0, 1, 2, 3, 3, 3, 2, 1, 0, -1, -2, -3};
 #pragma unroll
   for (int h = 0; h < ROWS; ++h) {
     const int y = y0 + ty + h * TH;
@@ -114,31 +150,8 @@ fast_score_kernel(const float* __restrict__ in, long long s_l, long long s_h,
       if (second) dst[LANES] = 0.0f;
       continue;
     }
-    const int cy = ty + h * TH + R, cx = lane + R;
-    const unsigned c = tile[cy][cx] + BIAS;
-    unsigned d[16];  // per lane: center - ring + 256, in [1, 511]
-#pragma unroll
-    for (int k = 0; k < 16; ++k) d[k] = c - tile[cy + DY[k]][cx + DX[k]];
-
-    // minima and maxima of 3 consecutive ring positions, then of 9 (three runs)
-    unsigned lo3[16], hi3[16];
-#pragma unroll
-    for (int k = 0; k < 16; ++k) {
-      lo3[k] = MIN3(d[k], d[(k + 1) & 15], d[(k + 2) & 15]);
-      hi3[k] = MAX3(d[k], d[(k + 1) & 15], d[(k + 2) & 15]);
-    }
-    // dark arcs: the largest 9-arc minimum of d; bright arcs: min of -d over
-    // an arc is -(max of d), so the smallest 9-arc maximum of d
-    unsigned dark = 0u, bright = 0x7fff7fffu;
-#pragma unroll
-    for (int k = 0; k < 16; k += 2) {
-      const unsigned lo_a = MIN3(lo3[k], lo3[(k + 3) & 15], lo3[(k + 6) & 15]);
-      const unsigned lo_b = MIN3(lo3[k + 1], lo3[(k + 4) & 15], lo3[(k + 7) & 15]);
-      const unsigned hi_a = MAX3(hi3[k], hi3[(k + 3) & 15], hi3[(k + 6) & 15]);
-      const unsigned hi_b = MAX3(hi3[k + 1], hi3[(k + 4) & 15], hi3[(k + 7) & 15]);
-      dark = MAX3(dark, lo_a, lo_b);
-      bright = MIN3(bright, hi_a, hi_b);
-    }
+    unsigned dark, bright;
+    arc_extremes(tile, ty + h * TH + R, lane + R, dark, bright);
     // per lane: max(0, dark - 256, 256 - bright)
     const int s0 = max(max((int)(dark & 0xffffu) - 256, 256 - (int)(bright & 0xffffu)), 0);
     const int s1 = max(max((int)(dark >> 16) - 256, 256 - (int)(bright >> 16)), 0);
@@ -165,22 +178,34 @@ extern "C" int fast_score_launch(const float* in, long long s_l, long long s_h, 
 //
 // Bound on this card: bytes, the same as the raw mode's (one f32 read and one
 // f32 write per pixel); the scores of the one-pixel ring around a tile are
-// computed twice. Design, simple first: a block of 32x8 threads writes a 32x16
-// tile. It stages the tile's pixels with a halo of 4 (3 for the ring, 1 for the
-// neighbours' scores) as ints in shared memory, scores the tile and its ring
-// (34x18) into shared memory, one pixel at a time with Hopper's three-input
-// integer minima and maxima (a 9-arc minimum is min3 of three 3-runs), and
-// compares from there. The raw mode's all-zero early exit is kept: every score
-// of an all-zero stage is 0, and 0 > 0 is false.
+// computed twice. The design keeps the raw mode's packing from the staged
+// pixels to the stored scores:
+//   - a block of 32x8 threads writes a 64x16 tile; it stages the tile's
+//     pixels with a halo of 4 (3 for the ring, 1 for the neighbours' scores)
+//     as words packing pixels j and j + 32 of a row (pixel 0 at x0 - 4), with
+//     the raw mode's row and column walk (each index wrapped once);
+//   - the scores of tile columns -1 ... 64 are packed the same way: score word
+//     s holds tile columns s - 1 and s + 31, so word s's left and right
+//     neighbours are words s - 1 and s + 1, lane for lane. Each word is scored
+//     by the raw mode's packed sequence (arc_extremes), two pixels at once;
+//     each thread scores the two words of its own rows, and 100 threads one
+//     word each of the ring (rows -1 and 16, and words 0 and 33);
+//   - the comparison is packed too: the largest of the 8 neighbour words
+//     (three-input packed maxima over each score row, reused by the thread's
+//     two adjacent rows), one signed per-lane compare, and the score ANDed
+//     with that lane mask, unpacked into two f32 stores;
+//   - the raw mode's all-zero early exit is kept: every score of an all-zero
+//     stage is 0, and 0 > 0 is false.
 
-#define NW 32              // tile width: threads along x
-#define NTY 8              // threads along y
-#define NH (2 * NTY)       // tile height: thread y writes rows y and y + NTY
-#define NR (R + 1)         // staged halo
-#define NSW (NW + 2)       // score stage: the tile and a one-pixel ring
-#define NSH (NH + 2)
-#define NPW (NW + 2 * NR)  // pixel stage
-#define NPH (NH + 2 * NR)
+#define NR (R + 1)                     // staged pixel halo
+#define NROWS 2                        // rows per thread: thread y writes rows 2y and 2y + 1
+#define NH (NROWS * TH)                // tile height
+#define NPH (NH + 2 * NR)              // staged pixel rows
+#define NPWORDS (LANES + 2 * NR)       // staged words per row: word k = pixel k | pixel k+32 << 16
+#define NSH (NH + 2)                   // score rows: row r is image row y0 - 1 + r
+#define NSWORDS (LANES + 2)            // score words per row: word s = score s | score s+32 << 16
+#define NRING (2 * NSWORDS + 2 * NH)   // score words of the ring around the tile
+static_assert((NH & (NH - 1)) == 0 && NRING <= LANES * TH, "ring walk needs NH a power of 2");
 
 // g wrapped into [0, n) for g in [-NR, n + NR - 1] and n >= NR; indices
 // further out (stage rows and columns that no written pixel reads) are
@@ -192,85 +217,104 @@ __device__ __forceinline__ int wrap_nms(int g, int n) {
   return g;
 }
 
-// the raw score V of the staged pixel (cy, cx): max(0, best dark arc, best
-// bright arc), in plain ints
-__device__ __forceinline__ int score_at(const int (*px)[NPW], int cy, int cx) {
-  const int DX[16] = {0, 1, 2, 3, 3, 3, 2, 1, 0, -1, -2, -3, -3, -3, -2, -1};
-  const int DY[16] = {-3, -3, -2, -1, 0, 1, 2, 3, 3, 3, 2, 1, 0, -1, -2, -3};
-  const int c = px[cy][cx];
-  int d[16];
-#pragma unroll
-  for (int k = 0; k < 16; ++k) d[k] = c - px[cy + DY[k]][cx + DX[k]];
-  int lo3[16], hi3[16];
-#pragma unroll
-  for (int k = 0; k < 16; ++k) {
-    lo3[k] = __vimin3_s32(d[k], d[(k + 1) & 15], d[(k + 2) & 15]);
-    hi3[k] = __vimax3_s32(d[k], d[(k + 1) & 15], d[(k + 2) & 15]);
-  }
-  // dark: the largest 9-arc minimum of d; bright: the smallest 9-arc maximum
-  // of d (the minimum of -d over an arc is minus its maximum of d)
-  int dark = -256, bright = 256;
-#pragma unroll
-  for (int k = 0; k < 16; ++k) {
-    dark = max(dark, __vimin3_s32(lo3[k], lo3[(k + 3) & 15], lo3[(k + 6) & 15]));
-    bright = min(bright, __vimax3_s32(hi3[k], hi3[(k + 3) & 15], hi3[(k + 6) & 15]));
-  }
-  return max(max(dark, -bright), 0);
+// the packed raw scores of score word (r, s): per lane max(0, dark - 256,
+// 256 - bright) = max(dark, 512 - bright, 256) - 256; every lane stays in
+// [1, 511] before the bias comes off, so nothing borrows across lanes
+__device__ __forceinline__ unsigned score_word(const unsigned (*px)[NPWORDS], int r, int s) {
+  unsigned dark, bright;
+  arc_extremes(px, r + R, s + R, dark, bright);
+  return MAX3(dark, 0x02000200u - bright, BIAS) - BIAS;
 }
 
-__global__ void __launch_bounds__(NW * NTY)
+__global__ void __launch_bounds__(LANES * TH)
 fast_score_nms_kernel(const float* __restrict__ in, long long s_l, long long s_h,
                       float* __restrict__ out, int H, int W) {
-  __shared__ int px[NPH][NPW];
-  __shared__ int sc[NSH][NSW];
-  const int tx = threadIdx.x, ty = threadIdx.y, t = ty * NW + tx;
-  const int x0 = blockIdx.x * NW, y0 = blockIdx.y * NH;
+  __shared__ unsigned px[NPH][NPWORDS];
+  __shared__ unsigned sc[NSH][NSWORDS];
+  const int lane = threadIdx.x, ty = threadIdx.y;
+  const int x0 = blockIdx.x * TW, y0 = blockIdx.y * NH;
   const float* src = in + (long long)blockIdx.z * s_l;
 
-  // stage pixel (r, c) is image pixel (y0 - NR + r, x0 - NR + c), wrapped
-  int any = 0;
-  for (int i = t; i < NPH * NPW; i += NW * NTY) {
-    const int r = i / NPW, c = i - r * NPW;
-    const int v = (int)src[(long long)wrap_nms(y0 - NR + r, H) * s_h + wrap_nms(x0 - NR + c, W)];
-    px[r][c] = v;
-    any |= v;
+  // the thread's staged columns: stage columns lane, lane + 32 and (for the
+  // first 2NR lanes) lane + 64; stage column 0 is pixel x0 - NR
+  const int gx0 = wrap_nms(x0 - NR + lane, W);
+  const int gx1 = wrap_nms(x0 - NR + lane + LANES, W);
+  const int gx2 = wrap_nms(x0 - NR + lane + 2 * LANES, W);
+  unsigned any = 0u;
+#pragma unroll
+  for (int r = ty; r < NPH; r += TH) {
+    const float* row = src + (long long)wrap_nms(y0 - NR + r, H) * s_h;
+    const unsigned p0 = (unsigned)(int)row[gx0], p1 = (unsigned)(int)row[gx1];
+    px[r][lane] = p0 | (p1 << 16);
+    any |= p0 | p1;
+    if (lane < 2 * NR) {
+      const unsigned p2 = (unsigned)(int)row[gx2];
+      px[r][LANES + lane] = p1 | (p2 << 16);
+      any |= p2;
+    }
   }
-  const int live = __syncthreads_or(any != 0);
+  const int live = __syncthreads_or(any != 0u);
+
+  const int x = x0 + lane, ly = ty * NROWS;
   if (live) {
-    // score (r, c) is image pixel (y0 - 1 + r, x0 - 1 + c): stage pixel (r + R, c + R)
-    for (int i = t; i < NSH * NSW; i += NW * NTY) {
-      const int r = i / NSW, c = i - r * NSW;
-      sc[r][c] = score_at(px, r + R, c + R);
+    // the thread's own rows: score rows ly + 1 ..., words 1 ... 32
+#pragma unroll
+    for (int h = 0; h < NROWS; ++h) sc[ly + h + 1][lane + 1] = score_word(px, ly + h + 1, lane + 1);
+    // the ring, one word a thread, warp by warp: rows 0 and NSH - 1 (words
+    // 0 ... 31), then words 0 and NSWORDS - 1 of rows 1 ... NH, then the four
+    // corner words 32 and 33 of rows 0 and NSH - 1
+    const int t = ty * LANES + lane;
+    if (t < NRING) {
+      int r, s;
+      if (t < 2 * LANES) {
+        r = t < LANES ? 0 : NSH - 1;
+        s = lane;
+      } else if (t < 2 * LANES + 2 * NH) {
+        const int k = t - 2 * LANES;
+        r = 1 + (k & (NH - 1));
+        s = k < NH ? 0 : NSWORDS - 1;
+      } else {
+        const int k = t - 2 * LANES - 2 * NH;
+        r = (k & 2) ? NSH - 1 : 0;
+        s = LANES + (k & 1);
+      }
+      sc[r][s] = score_word(px, r, s);
     }
     __syncthreads();
   }
-
-  const int x = x0 + tx;
   if (x >= W) return;
+  // per score row ly ... ly + NROWS + 1: the largest of the three words
+  // around column word lane + 1, and of the two beside it
+  unsigned h3[NROWS + 2], side[NROWS + 2];
+  if (live) {
 #pragma unroll
-  for (int h = 0; h < NH / NTY; ++h) {
-    const int ly = ty + h * NTY, y = y0 + ly;
-    if (y >= H) return;
-    float v = 0.0f;
-    if (live) {
-      const int s = sc[ly + 1][tx + 1];
-      bool keep = true;
-#pragma unroll
-      for (int dy = 0; dy < 3; ++dy)
-#pragma unroll
-        for (int dx = 0; dx < 3; ++dx)
-          if (dy != 1 || dx != 1) keep = keep && s > sc[ly + dy][tx + dx];
-      v = keep ? (float)s : 0.0f;
+    for (int k = 0; k < NROWS + 2; ++k) {
+      const unsigned a = sc[ly + k][lane], b = sc[ly + k][lane + 1], c = sc[ly + k][lane + 2];
+      side[k] = __vmaxs2(a, c);
+      h3[k] = MAX3(a, b, c);
     }
-    out[((long long)blockIdx.z * H + y) * W + x] = v;
+  }
+#pragma unroll
+  for (int h = 0; h < NROWS; ++h) {
+    const int y = y0 + ly + h;
+    if (y >= H) return;
+    unsigned v = 0u;
+    if (live) {
+      const unsigned c = sc[ly + h + 1][lane + 1];
+      // per lane: the score where it is greater than all 8 neighbours', else 0
+      v = c & __vcmpgts2(c, MAX3(h3[h], h3[h + 2], side[h + 1]));
+    }
+    float* dst = out + ((long long)blockIdx.z * H + y) * W + x;
+    dst[0] = (float)(v & 0xffffu);
+    if (x + LANES < W) dst[LANES] = (float)(v >> 16);
   }
 }
 
 extern "C" int fast_score_nms_launch(const float* in, long long s_l, long long s_h, float* out,
                                      int L, int H, int W, void* stream) {
   if (H < NR || W < NR || L < 1 || L > 65535) return (int)cudaErrorInvalidValue;
-  dim3 block(NW, NTY);
-  dim3 grid((W + NW - 1) / NW, (H + NH - 1) / NH, L);
+  dim3 block(LANES, TH);
+  dim3 grid((W + TW - 1) / TW, (H + NH - 1) / NH, L);
   fast_score_nms_kernel<<<grid, block, 0, (cudaStream_t)stream>>>(in, s_l, s_h, out, H, W);
   return (int)cudaGetLastError();
 }
