@@ -101,7 +101,27 @@
    frame and the reader that served. Then the host-path ``OrbExtractor`` on
    the card against the CPU on path 1's frame 0 (every field equal, angles
    within 1e-3 deg);
-10. prints one ``{"kernels": [...]}`` line and, last, the ``{"ok": true, ...}``
+10. main path 7, the off-nominal regimes. 7a: ``SlamSystem`` (no vocabulary,
+   MapCaps(max_kf=32, max_pt=8192)) at 640x480 over the JAX package's moving
+   object (SyntheticRGBD(n_frames=12, seed=41, motion_scale=0.5,
+   moving_patch=(0.9, 0.06)), tests/test_scenarios.py), sparse texture
+   (n_frames=12, seed=43, motion_scale=0.4, texture_corners=0.06) and
+   Milestone B (n_frames=10, seed=21, motion_scale=0.5, tests/test_system.py),
+   held to those tests' gates (every frame ok; ATE < 4 cm, < 2 cm for
+   Milestone B; moving object: median inliers > 80, a rejection > 20; sparse
+   texture: median matches < 600, a keyframe; Milestone B: > 300 points,
+   median inliers > 100), every kernel of the path launched, each BA kernel
+   once per LM iteration, a second moving-object run giving identical maps,
+   and every top-2 launch of the moving-object run bit-equal to the plain
+   version; frame median and host syncs per frame recorded. 7b: local BA past
+   every cap on tests/test_local_ba_saturation.py's seed-3 dense map, built on
+   the card by ``datasets/synth_map.build``: the
+   window keeps the strongest covisibles, observers valid-first, one
+   ``local_bundle_adjust`` at least halves the window's reprojection error and
+   moves nothing outside its problem, and rows 7-9 on its first LM iteration
+   are held against their plain versions (``check_ba``) and timed with their
+   live-point bounds (``saturated_window`` in the kernels line);
+11. prints one ``{"kernels": [...]}`` line and, last, the ``{"ok": true, ...}``
    line. Every bound is computed from this run's inputs and counts the work
    the function needs, whatever computes it; a kernel timed under its bound
    fails the run (the bound is then wrong). No plain version may see a CUDA
@@ -511,6 +531,81 @@ def schur_of(Wc, Hinv, bl):
             torch.einsum("wikl,kl->wi", WHa, bl.abs()).reshape(n, 1))
 
 
+def ba_acc_args(inst):
+    """``ba_accumulate``'s positional arguments from a BA instance dict."""
+    return (inst["lam"], inst["posesT"], inst["X"], inst["slot"], inst["u"], inst["v"],
+            inst["ur"], inst["isig2"], inst["act"], inst["povar"], inst["cam5"], inst["wk"],
+            inst["huber"])
+
+
+def ba_cost_args(inst):
+    return ba_acc_args(inst)[1:9] + (inst["cam5"], inst["huber"])
+
+
+def ba_kernel_specs(ba_cuda, ba_pallas):
+    """Rows 7-9: {key: (name, kernel call, plain call, check kind, TPU kernel)};
+    each call takes (instance, back-substitution arguments)."""
+    return {
+        "ba_acc": ("ba_accumulate",
+                   lambda i, s: ba_cuda.ba_accumulate(*ba_acc_args(i), n_pts=i["n_pts"]),
+                   lambda i, s: ba_pallas.ba_accumulate_plain(*ba_acc_args(i)), "acc",
+                   "vo_slam_test_tpu/ops/ba_pallas.py:285"),
+        "ba_cost": ("ba_cost", lambda i, s: ba_cuda.ba_cost(*ba_cost_args(i), n_pts=i["n_pts"]),
+                    lambda i, s: ba_pallas.ba_cost_plain(*ba_cost_args(i)), "cost",
+                    "vo_slam_test_tpu/ops/ba_pallas.py:338"),
+        "ba_backsub": ("ba_backsub",
+                       lambda i, s: ba_cuda.ba_backsub(*s[:4], n_pts=i["n_pts"], mask=s[4]),
+                       lambda i, s: ba_pallas.ba_backsub_plain(*s[:4]), "backsub",
+                       "vo_slam_test_tpu/ops/ba_pallas.py:365"),
+    }
+
+
+def hold_ba(ba_cuda, spec, where, inst, sub) -> float:
+    """One BA kernel (a ``ba_kernel_specs`` entry) on an instance: two launches
+    bit-equal, within ``check_ba``'s tolerances of the plain version, and for
+    the accumulate its cost bit-equal to ``ba_cost``'s (the LM accept test
+    compares the two) -> max |kernel - plain|."""
+    kname, kfn, pfn, kind, _ = spec
+    got, again = kfn(inst, sub), kfn(inst, sub)
+    want = pfn(inst, sub)
+    torch.cuda.synchronize()
+    outs = got if isinstance(got, tuple) else (got,)
+    if not all(bits_equal(a, b) for a, b in
+               zip(outs, again if isinstance(again, tuple) else (again,))):
+        raise AssertionError(f"{kname} on {where}: two launches differ")
+    err = check_ba(f"{kname} on {where}", kind, got, sub if kind == "backsub" else inst, want)
+    if kind == "acc":
+        cost = ba_cuda.ba_cost(*ba_cost_args(inst), n_pts=inst["n_pts"])
+        if not bits_equal(got[4], cost):
+            raise AssertionError(f"{kname} on {where}: its cost {float(got[4])} is not "
+                                 f"ba_cost's {float(cost)}")
+    return err
+
+
+def ba_carried_acc(ba_cuda, ba_pallas, inst, fresh, dev, where):
+    """``ba_accumulate`` as the solver runs it: ``Wc`` zeroed once per BA call
+    and carried, with the scratch and the mask words, over the call's LM
+    iterations. What is timed is what was checked: the first and a later call
+    on the carried buffers give the bits of ``fresh`` (the call on fresh
+    buffers) -> the carried call."""
+    L = inst["slot"].shape[1]
+    wc = torch.zeros((inst["wk"], 18, L), dtype=torch.float32, device=dev)
+    scratch, mask = ba_cuda.ba_scratch(inst["wk"], L, dev), ba_cuda.ba_mask(L, dev)
+    timed = lambda: ba_cuda.ba_accumulate(  # noqa: E731
+        *ba_acc_args(inst), n_pts=inst["n_pts"], wc=wc, scratch=scratch, mask=mask)
+    n = int(inst["n_pts"])
+    want = ba_pallas.window_mask(inst["slot"][:, :n], inst["povar"][:, :n], inst["wk"])
+    for rep in ("first", "second"):
+        carried = timed()
+        if not (all(bits_equal(a, b) for a, b in zip(carried, fresh))
+                and torch.equal(mask[:n], want) and bool((mask[n:] == 0).all())):
+            raise AssertionError(f"ba_accumulate on {where}: the {rep} call on the carried Wc, "
+                                 f"scratch and mask differs from the call on fresh buffers")
+    print(f"  ba_accumulate on the carried buffers ({where}): two calls bit-equal to the "
+          f"fresh-buffer call, mask words equal to the plain window_mask")
+    return timed
+
+
 def check_equal(label, got, want, names):
     """Every output equal -> max |kernel - plain| (0)."""
     err = 0.0
@@ -753,6 +848,32 @@ def frame_instances(seq, cfg, device):
                 pts_ok=pts_ok, top2_args=top2_args)
 
 
+# the FAST kernel's 3x3-NMS mode runs in its own phase only: no path calls it
+OFF_PATH = ("fast_nms",)
+
+
+def kernel_counters() -> dict:
+    """Every kernel's launch counter by its key in the kernels line."""
+    from vo_slam_test_tpu_torch.ops import ba_cuda, fast_cuda, match_cuda, orb_cuda
+
+    return {"fast": fast_cuda.KERNEL, "orb": orb_cuda.KERNEL, "top2": match_cuda.KERNEL,
+            "top2_m4096": match_cuda.KERNEL_LOCAL, "top2_chi2": match_cuda.KERNEL_CHI2,
+            "top2_nb": match_cuda.KERNEL_NB, "top1_epi": match_cuda.KERNEL_EPI,
+            "ba_acc": ba_cuda.KERNEL_ACC, "ba_cost": ba_cuda.KERNEL_COST,
+            "ba_backsub": ba_cuda.KERNEL_BACKSUB, "fast_nms": fast_cuda.KERNEL_NMS}
+
+
+def plain_versions() -> list:
+    """(module, name) of every kernel's plain version, for ``PlainGuard``."""
+    from vo_slam_test_tpu_torch.ops import ba_pallas, brief, fast, match_pallas, orientation
+
+    return [(fast, "fast_score"), (fast, "fast_score_nms"), (orientation, "ic_angle"),
+            (brief, "compute_descriptors"),
+            (match_pallas, "masked_top2_plain"), (match_pallas, "masked_top2_nb_plain"),
+            (match_pallas, "masked_top1_epi_plain"), (ba_pallas, "ba_accumulate_plain"),
+            (ba_pallas, "ba_cost_plain"), (ba_pallas, "ba_backsub_plain")]
+
+
 class PlainGuard:
     """Wraps plain versions; records any call that gets a CUDA tensor."""
 
@@ -779,6 +900,54 @@ class PlainGuard:
         self.saved = []
 
 
+class BaCapture:
+    """Wraps the local-BA kernel wrappers and keeps a copy of the first LM
+    iteration of the BA with the most live points: the accumulate call's
+    arguments and the first back-substitution whose pose step is finite (a
+    Cholesky of an indefinite system gives NaN), with the mask words of its
+    iteration. ``instance()`` -> (the accumulate inputs as a dict in
+    ``random_ba_instance``'s layout, the back-substitution arguments)."""
+
+    NAMES = ("ba_accumulate", "ba_backsub", "ba_cost")
+
+    def __init__(self, ba_cuda):
+        self.ba_cuda = ba_cuda
+        self.best = {"n": -1}
+        self.orig = {}
+
+    def __enter__(self):
+        best = self.best
+        for name in self.NAMES:
+            fn = self.orig[name] = getattr(self.ba_cuda, name)
+
+            def wrapped(*args, _fn=fn, _name=name, **kw):
+                keep = lambda a: a.clone() if isinstance(a, torch.Tensor) else a  # noqa: E731
+                if _name == "ba_accumulate":
+                    n = int(kw["n_pts"])
+                    if n > best["n"]:
+                        best.clear()
+                        best.update(n=n, acc=([keep(a) for a in args], keep(kw["n_pts"])))
+                elif (_name == "ba_backsub" and "acc" in best and "sub" not in best
+                      and bool(torch.isfinite(args[3]).all())):
+                    best["sub"] = [keep(a) for a in args[:4]] + [keep(kw["mask"])]
+                return _fn(*args, **kw)
+            setattr(self.ba_cuda, name, wrapped)
+        return self
+
+    def __exit__(self, *exc):
+        for name, fn in self.orig.items():
+            setattr(self.ba_cuda, name, fn)
+
+    def instance(self):
+        if "sub" not in self.best:
+            raise AssertionError(f"no full LM iteration was captured ({sorted(self.best)})")
+        (lam, posesT, X, slot, u, v, ur, isig2, act, povar, cam5, wk, huber), n_pts = \
+            self.best["acc"]
+        return (dict(lam=lam, posesT=posesT, X=X, slot=slot, u=u, v=v, ur=ur, isig2=isig2,
+                     act=act, povar=povar, cam5=cam5, wk=wk, huber=huber, n_pts=n_pts),
+                self.best["sub"])
+
+
 def capture_instances(match_cuda, ba_cuda, system, cfg, frames):
     """Drive the SlamSystem path over ``frames`` and keep a copy of the
     arguments of the local-map top-2 (M=4096), chi2 top-2,
@@ -788,9 +957,6 @@ def capture_instances(match_cuda, ba_cuda, system, cfg, frames):
     got, score = {}, {}
     names = ("masked_top2", "masked_top2_nb", "masked_top1_epi")
     orig = {n: getattr(match_cuda, n) for n in names}
-    ba_names = ("ba_accumulate", "ba_backsub", "ba_cost")
-    orig_ba = {n: getattr(ba_cuda, n) for n in ba_names}
-    ba_best = {"n": -1}
 
     def recorder(name):
         def wrapped(*args, **kw):
@@ -809,49 +975,25 @@ def capture_instances(match_cuda, ba_cuda, system, cfg, frames):
             return out
         return wrapped
 
-    def ba_recorder(name):
-        def wrapped(*args, **kw):
-            keep = lambda a: a.clone() if isinstance(a, torch.Tensor) else a  # noqa: E731
-            if name == "ba_accumulate":
-                n = int(kw["n_pts"])
-                if n > ba_best["n"]:
-                    ba_best.clear()
-                    ba_best.update(n=n, acc=([keep(a) for a in args], dict(n_pts=keep(kw["n_pts"]))))
-            elif (name == "ba_backsub" and "acc" in ba_best and name not in ba_best
-                  and bool(torch.isfinite(args[3]).all())):
-                # the first back-substitution of that BA whose pose step is
-                # finite (a Cholesky of an indefinite system gives NaN), with
-                # the mask words of its iteration
-                ba_best[name] = [keep(a) for a in args[:4]] + [keep(kw["mask"])]
-            return orig_ba[name](*args, **kw)
-        return wrapped
-
     for n in names:
         setattr(match_cuda, n, recorder(n))
-    for n in ba_names:
-        setattr(ba_cuda, n, ba_recorder(n))
     try:
-        s = system.SlamSystem(cfg)
-        for f in frames:
-            s.track(*f)
-        torch.cuda.synchronize()
+        with BaCapture(ba_cuda) as cap:
+            s = system.SlamSystem(cfg)
+            for f in frames:
+                s.track(*f)
+            torch.cuda.synchronize()
     finally:
         for n, fn in orig.items():
             setattr(match_cuda, n, fn)
-        for n, fn in orig_ba.items():
-            setattr(ba_cuda, n, fn)
     missing = {"top2_m4096", "top2_chi2", "top2_nb", "top1_epi"} - set(got)
-    if missing or "ba_backsub" not in ba_best:
-        raise AssertionError(f"the capture run launched no {sorted(missing)} or no full LM "
-                             f"iteration ({sorted(ba_best)})")
+    if missing:
+        raise AssertionError(f"the capture run launched no {sorted(missing)}")
     # the batched search shares one source set across neighbours: time it as
     # the path passes it (stride 0)
     args, kw = got["top2_nb"]
     args[0] = args[0][0][None].expand_as(args[0])
-    (lam, posesT, X, slot, u, v, ur, isig2, act, povar, cam5, wk, huber), kw = ba_best["acc"]
-    got["ba"] = dict(lam=lam, posesT=posesT, X=X, slot=slot, u=u, v=v, ur=ur, isig2=isig2,
-                     act=act, povar=povar, cam5=cam5, wk=wk, huber=huber, n_pts=kw["n_pts"])
-    got["ba_backsub"] = ba_best["ba_backsub"]
+    got["ba"], got["ba_backsub"] = cap.instance()
     return got
 
 
@@ -1001,16 +1143,21 @@ def kidnap_vocabulary(seq, cfg, device):
 
 def run_kidnap(system, cfg, voc, frames, parity: bool, recorder=None, profile_frames=()):
     """One SlamSystem run over the kidnap frames with the vocabulary (loop
-    closing on, the default): CUDA events per frame and host syncs per
+    closing on, the default), through ``run_timed``."""
+    from vo_slam_test_tpu_torch.slam_map.map_state import MapCaps
+
+    s = system.SlamSystem(cfg, caps=MapCaps(max_kf=32, max_pt=8192), vocabulary=voc,
+                          reloc_parity=parity)
+    return s, run_timed(s, frames, recorder, profile_frames)
+
+
+def run_timed(s, frames, recorder=None, profile_frames=()):
+    """``s.track`` over ``frames``: CUDA events per frame and host syncs per
     frame (sync debug mode); ``recorder`` (a LaunchRecorder) learns the frame;
     a torch.profiler window over ``profile_frames`` (consecutive) ->
     rec["profile"] = (profiler, host wall ms per frame)."""
     from torch.profiler import ProfilerActivity, profile
 
-    from vo_slam_test_tpu_torch.slam_map.map_state import MapCaps
-
-    s = system.SlamSystem(cfg, caps=MapCaps(max_kf=32, max_pt=8192), vocabulary=voc,
-                          reloc_parity=parity)
     rec = dict(frame_ms=[], syncs=[], sync_sites={}, profile=None)
     prof = None
     for i, (gray, depth, ts) in enumerate(frames):
@@ -1040,7 +1187,7 @@ def run_kidnap(system, cfg, voc, frames, parity: bool, recorder=None, profile_fr
             wall = (time.perf_counter() - t_prof) * 1e3 / len(profile_frames)
             prof.__exit__(None, None, None)
             rec["profile"], prof = (prof, wall), None
-    return s, rec
+    return rec
 
 
 def kidnap_report(label, s, rec):
@@ -1346,14 +1493,14 @@ def map_copy(m):
     return m.replace(**{f.name: getattr(m, f.name).clone() for f in dataclasses.fields(m)})
 
 
-def reproj_rmse(m, cam, n_kf: int) -> float:
+def reproj_rmse(m, cam, kfs) -> float:
     """tests/test_local_ba.py::reproj_rmse on a port map: the monocular
-    reprojection RMSE (px) of the first ``n_kf`` keyframes' bound keypoints."""
+    reprojection RMSE (px) of the keyframes ``kfs``' bound keypoints."""
     fx, fy, cx, cy = (float(cam.fx), float(cam.fy), float(cam.cx), float(cam.cy))
     kf_pose, pt = m.kf_pose.cpu().numpy(), m.pt_pos.cpu().numpy()
     kf_mp, uv = m.kf_mp.cpu().numpy(), m.kf_uv_und.cpu().numpy()
     errs = []
-    for k in range(n_kf):
+    for k in kfs:
         sel = kf_mp[k] >= 0
         pc = pt[kf_mp[k][sel]] @ kf_pose[k][:3, :3].T + kf_pose[k][:3, 3]
         errs.append(np.stack([fx * pc[:, 0] / pc[:, 2] + cx, fy * pc[:, 1] / pc[:, 2] + cy], -1)
@@ -1538,7 +1685,7 @@ def run_mesh_phase(s1, dev) -> dict:
     g2, gms2 = cuda_ms(lambda: global_ba.global_bundle_adjust_mesh(gm, gcaps, gcam, 0, mesh))
     n_kf = gt.shape[0]
     terr = np.linalg.norm(g2.kf_pose[:n_kf, :3, 3].cpu().numpy() - gt[:, :3, 3], axis=1)
-    r1, r2 = reproj_rmse(g1, gcam, n_kf), reproj_rmse(g2, gcam, n_kf)
+    r1, r2 = reproj_rmse(g1, gcam, range(n_kf)), reproj_rmse(g2, gcam, range(n_kf))
     gpose = float((g2.kf_pose - g1.kf_pose).abs().max())
     anchor = float(np.abs(g2.kf_pose[0].cpu().numpy() - gt[0]).max())
     row["global_ba"] = dict(ms_single=gms1, ms_mesh=gms2, max_pose_diff=gpose,
@@ -2153,6 +2300,244 @@ def main_path6(room, room_frames, room_cfg, frames, cfg, gt, all_kernels, plains
     return cli, launches6
 
 
+SCENE_CAPS = dict(max_kf=32, max_pt=8192)
+SAT_CAPS = (64, 4096, 24, 256)   # tests/test_local_ba_saturation.py:32
+SAT_CENTER = 20
+
+
+def scene_sequences():
+    """Main path 7a's sequences at 640x480, the JAX package's off-nominal
+    scenes: the moving object and sparse texture of tests/test_scenarios.py
+    (fr3_sit_halfsph and fr3_nstr_tex_near analogues) and Milestone B of
+    tests/test_system.py -> {label: (sequence, config)}."""
+    from vo_slam_test_tpu_torch.config import SlamConfig
+    from vo_slam_test_tpu_torch.datasets import SyntheticRGBD
+
+    seqs = {"moving object": SyntheticRGBD(n_frames=12, seed=41, motion_scale=0.5,
+                                           moving_patch=(0.9, 0.06)),
+            "sparse texture": SyntheticRGBD(n_frames=12, seed=43, motion_scale=0.4,
+                                            texture_corners=0.06),
+            "Milestone B": SyntheticRGBD(n_frames=10, seed=21, motion_scale=0.5)}
+    return {k: (q, SlamConfig(camera_fx=q.fx, camera_fy=q.fy, camera_cx=q.cx, camera_cy=q.cy,
+                              camera_k1=0, camera_k2=0, camera_p1=0, camera_p2=0, camera_k3=0))
+            for k, q in seqs.items()}
+
+
+def scene_gates(label, s, stats, ate) -> dict:
+    """The JAX tests' gates on one run -> {gate: (value, held)}: every frame
+    ok, and tests/test_scenarios.py:53-83 (moving object), :87-105 (sparse
+    texture) or tests/test_system.py:20-33 (Milestone B)."""
+    tail = stats[1:]
+    inl = float(np.median([x.n_inliers for x in tail]))
+    g = {"frames ok": (sum(x.ok for x in stats), all(x.ok for x in stats))}
+    if label == "moving object":
+        rej = max(x.n_matches - x.n_inliers for x in tail)
+        g.update({"ATE < 4 cm": (ate, ate < 0.04), "median inliers > 80": (inl, inl > 80),
+                  "max rejection > 20": (rej, rej > 20)})
+    elif label == "sparse texture":
+        med = float(np.median([x.n_matches for x in tail]))
+        g.update({"ATE < 4 cm": (ate, ate < 0.04),
+                  "keyframes >= 1": (s.n_keyframes, s.n_keyframes >= 1),
+                  "median matches < 600": (med, med < 600)})
+    else:
+        g.update({"ATE < 2 cm": (ate, ate < 0.02),
+                  "keyframes >= 1": (s.n_keyframes, s.n_keyframes >= 1),
+                  "points > 300": (s.n_points, s.n_points > 300),
+                  "median inliers > 100": (inl, inl > 100)})
+    return g
+
+
+def scene_report(label, s, rec, seq, launches) -> dict:
+    """Print one path-7a run and hold it to its gates, its launches to its
+    frames and keyframe events, and its BA launches to its LM iterations."""
+    from vo_slam_test_tpu_torch.datasets import ate_rmse
+
+    traj, stats, _ = s.results()
+    gt = np.stack([seq.poses[i] for i in range(len(seq))])
+    ate = float(ate_rmse(s.timestamps, gt, s.timestamps, traj))
+    kf_frames = [i for i, o in enumerate(s._outs) if o.made_kf]
+    gates = scene_gates(label, s, stats, ate)
+    fm = np.array(rec["frame_ms"])
+    print(f"  {label}: ATE {ate * 100:.4f} cm; keyframe events at {kf_frames}; live keyframes "
+          f"{s.n_keyframes}, points {s.n_points}; gates {gates}")
+    print(f"    per frame (n_features, n_matches, n_inliers): "
+          f"{[(x.n_features, x.n_matches, x.n_inliers) for x in stats]}; LM iterations "
+          f"{s.ba_iters}")
+    print(f"    frame ms (CUDA events): median {np.median(fm[1:]):.3f} over frames "
+          f"1..{len(fm) - 1}, frame 0 {fm[0]:.3f}; host syncs per frame {rec['syncs']}; by the "
+          f"line that synced {rec['sync_sites']}")
+    print(f"    kernel launches: {launches}")
+    failed = [g for g, (_, ok) in gates.items() if not ok]
+    if failed:
+        raise AssertionError(f"main path 7a ({label}) failed its gates {failed}: {gates}")
+    n, n_ev = len(stats), len(kf_frames)
+    if (launches["fast"] != n or launches["orb"] != n or launches["top2_chi2"] != n_ev
+            or launches["top2_nb"] != n_ev):
+        raise AssertionError(f"kernel launch counts off on main path 7a ({label}): {launches}, "
+                             f"{n} frames, {n_ev} keyframe events")
+    check_ba_launches(f"main path 7a ({label})", s, kf_frames, launches, set())
+    return dict(ate_m=ate, keyframe_frames=kf_frames, n_keyframes=s.n_keyframes,
+                n_points=s.n_points, gates={g: v for g, (v, _) in gates.items()},
+                counts=[(x.n_features, x.n_matches, x.n_inliers) for x in stats],
+                ba_iters=s.ba_iters, frame_ms_median=float(np.median(fm[1:])),
+                frame_ms=rec["frame_ms"], syncs=rec["syncs"], launches=launches)
+
+
+def main_path7a(system, all_kernels, plains) -> tuple:
+    """The three scenes through ``SlamSystem`` on the card (MapCaps(max_kf=32,
+    max_pt=8192), no vocabulary), their launches counted together; a second
+    run of the moving object giving identical maps; every top-2 launch of the
+    moving-object run held bit for bit against the plain version -> (report,
+    launches)."""
+    from vo_slam_test_tpu_torch.ops import match_cuda, match_pallas
+    from vo_slam_test_tpu_torch.slam_map.map_state import MapCaps
+
+    t0 = time.perf_counter()
+    scenes = scene_sequences()
+    frames = {k: [q[i] for i in range(len(q))] for k, (q, _) in scenes.items()}
+    print(f"main path 7a data: the moving object (SyntheticRGBD(n_frames=12, seed=41, "
+          f"motion_scale=0.5, moving_patch=(0.9, 0.06))), sparse texture (n_frames=12, seed=43, "
+          f"motion_scale=0.4, texture_corners=0.06) and Milestone B (n_frames=10, seed=21, "
+          f"motion_scale=0.5) rendered in {time.perf_counter() - t0:.1f} s")
+    on_moving = lambda f, args: lrec.tag == "moving object"  # noqa: E731
+    report, runs = {}, {}
+    with PlainGuard(plains) as guard:
+        torch.cuda.synchronize()
+        for k in all_kernels.values():
+            k.reset()
+        with LaunchRecorder([(match_cuda, "masked_top2", on_moving)]) as lrec:
+            for label, (seq, cfg) in scenes.items():
+                before = {k: v.launches for k, v in all_kernels.items()}
+                lrec.tag = label
+                s = system.SlamSystem(cfg, caps=MapCaps(**SCENE_CAPS))
+                rec = run_timed(s, frames[label], lrec)
+                lrec.tag = None
+                report[label] = scene_report(label, s, rec, seq, {
+                    k: v.launches - before[k] for k, v in all_kernels.items()})
+                runs[label] = s
+        launches = {k: v.launches for k, v in all_kernels.items()}
+        # the determinism check: the moving object again (the most
+        # rounding-sensitive of the three: its patch's matches sit near the gates)
+        again = system.SlamSystem(scenes["moving object"][1], caps=MapCaps(**SCENE_CAPS))
+        for f in frames["moving object"]:
+            again.track(*f)
+    check_same_maps("main path 7a (moving object)", runs["moving object"], again)
+    print(f"  kernel launches (the three scenes): {launches}; plain versions on CUDA: "
+          f"{guard.cuda_calls}")
+    if guard.cuda_calls:
+        raise AssertionError(f"plain versions ran on CUDA tensors: {guard.cuda_calls}")
+    if min(v for k, v in launches.items() if k not in OFF_PATH) < 1:
+        raise AssertionError(f"main path 7a launched no "
+                             f"{[k for k, v in launches.items() if not v and k not in OFF_PATH]}")
+    # the moving-object run's own top-2 launches against the plain version
+    sites = {"frame pair": [], "local map": [], "chi2 fuse": []}
+    for f, args, kw in lrec.got["masked_top2"]:
+        site = ("chi2 fuse" if kw.get("chi2_gate") else
+                "local map" if kw.get("kernel") is match_cuda.KERNEL_LOCAL else "frame pair")
+        check_equal(f"masked_top2 ({site}) at frame {f} of the moving-object run",
+                    match_cuda.masked_top2(*args, **kw),
+                    match_pallas.masked_top2_plain(*args, **{k: v for k, v in kw.items()
+                                                             if k != "kernel"}), TOP2_OUTS)
+        sites[site].append(f)
+    if not (sites["frame pair"] and sites["local map"]):
+        raise AssertionError(f"main path 7a: top-2 launches recorded on the moving object {sites}")
+    print(f"  moving object: every top-2 launch of the run bit-equal to the plain version, by "
+          f"site (frames): {sites}")
+    report["moving_object_top2_bit_equal"] = {k: len(v) for k, v in sites.items()}
+    return report, launches
+
+
+def main_path7b(ba_cuda, ba_pallas, all_kernels, dev) -> tuple:
+    """Local BA past every cap: tests/test_local_ba_saturation.py's seed-3
+    dense map (``datasets/synth_map.build`` on the card: 40 keyframes, 3500
+    points, spans up to 24 keyframes, MapCaps(64, 4096, 24, 256)) around
+    keyframe 20. The window keeps the strongest covisibles, observers enter
+    valid-first; one ``local_bundle_adjust`` on the local points moved by
+    N(0, 2 cm) at least halves the window's reprojection error and moves
+    nothing outside the problem; rows 7-9 on its first LM iteration within
+    ``check_ba``'s tolerances of their plain versions, timed -> (report,
+    {row key: its saturated-window numbers})."""
+    from vo_slam_test_tpu_torch.datasets import synth_map
+    from vo_slam_test_tpu_torch.slam_map.map_state import MapCaps
+    from vo_slam_test_tpu_torch.solvers import local_ba
+
+    caps = MapCaps(*SAT_CAPS)
+    t0 = time.perf_counter()
+    m, cam = synth_map.build(caps, n_kf=40, n_pt=3500, seed=3, span_max=24, device=dev)
+    build_s = time.perf_counter() - t0
+    covis = (m.covis[SAT_CENTER] * m.kf_valid).cpu().numpy()
+    prob = local_ba.build_problem_ol(m, SAT_CENTER, caps)
+    kf_ids, pids = prob.kf_ids.cpu().numpy(), prob.pt_ids.cpu().numpy()
+    win = kf_ids[:local_ba.W_KF]
+    unsel = np.setdiff1d(np.nonzero(covis > 0)[0], win)
+    o_valid = prob.o_valid.cpu().numpy()
+    most_obs = int(m.pt_obs_cnt.max())
+    window = dict(connected=int((covis > 0).sum()), window=win.tolist(),
+                  fixed=int((kf_ids[local_ba.W_KF:] >= 0).sum()),
+                  live_points=int((pids >= 0).sum()), most_observers=most_obs, weakest_selected=int(covis[win[1:]].min()),
+                  strongest_left_out=int(covis[unsel].max()))
+    print(f"main path 7b (local BA past its caps; the map built on the card in {build_s:.1f} s): "
+          f"{window}")
+    if not (window["connected"] > local_ba.W_KF and (win >= 0).all() and win[0] == SAT_CENTER
+            and window["weakest_selected"] >= window["strongest_left_out"]
+            and most_obs > local_ba.O_BA):
+        raise AssertionError(f"main path 7b: the window is not saturated or not the strongest "
+                             f"covisibles: {window}")
+    if (o_valid[1:] & ~o_valid[:-1]).any():
+        raise AssertionError("main path 7b: an observer slot is valid after an invalid one")
+
+    sel = np.sort(pids[pids >= 0])
+    pt = m.pt_pos.cpu().numpy().copy()
+    pt[sel] += np.random.default_rng(0).normal(0, 0.02, (len(sel), 3)).astype(np.float32)
+    m = m.replace(pt_pos=torch.as_tensor(pt).to(dev))
+    before = reproj_rmse(m, cam, win)
+    torch.cuda.synchronize()
+    for k in all_kernels.values():
+        k.reset()
+    with BaCapture(ba_cuda) as cap:
+        (m2, n1, n2), ba_ms = cuda_ms(lambda: local_ba.local_bundle_adjust_iters(
+            m, SAT_CENTER, caps, cam))
+    launches = {k: v.launches for k, v in all_kernels.items()}
+    after = reproj_rmse(m2, cam, win)
+    kf_out = np.ones(caps.max_kf, bool)
+    kf_out[kf_ids[kf_ids >= 0]] = False
+    pt_out = np.ones(caps.max_pt, bool)
+    pt_out[sel] = False
+    moved_out = (int((m2.kf_pose.cpu().numpy()[kf_out] != m.kf_pose.cpu().numpy()[kf_out]).sum()),
+                 int((m2.pt_pos.cpu().numpy()[pt_out] != pt[pt_out]).sum()))
+    print(f"  local_bundle_adjust: LM iterations ({n1}, {n2}) in {ba_ms:.3f} ms; window "
+          f"reprojection RMSE {before:.4f} -> {after:.4f} px; entries moved outside the problem "
+          f"(poses, points) {moved_out}; launches {launches}")
+    if not after < 0.5 * before or moved_out != (0, 0):
+        raise AssertionError(f"main path 7b: reprojection {before} -> {after} px, moved outside "
+                             f"the problem {moved_out}")
+    if any(launches[k] != n1 + n2 for k in ("ba_acc", "ba_cost", "ba_backsub")):
+        raise AssertionError(f"main path 7b: BA launches {launches} != {n1 + n2} LM iterations")
+
+    inst, sub = cap.instance()
+    rows = {}
+    where = "the saturated window's first LM iteration"
+    for key, spec in ba_kernel_specs(ba_cuda, ba_pallas).items():
+        kname, kfn, pfn, kind, _ = spec
+        err = hold_ba(ba_cuda, spec, where, inst, sub)
+        timed = (ba_carried_acc(ba_cuda, ba_pallas, inst, kfn(inst, sub), dev, where)
+                 if key == "ba_acc" else (lambda: kfn(inst, sub)))
+        kb, kby, counted = ba_bound(kind, inst)
+        O, L = inst["slot"].shape
+        rows[key] = dict(shape=f"WF={inst['posesT'].shape[1]} wk={inst['wk']} O={O} L={L}",
+                         launches=launches[key], max_abs_err=err, ms=time_graph_ms(timed),
+                         plain_ms=time_eager_ms(lambda: pfn(inst, sub)), bound_ms=kb,
+                         bound_by=kby, counted=counted)
+        print(f"  {kname} on {where}: within tolerance of the plain version, two launches "
+              f"bit-equal; counted {counted}; kernel {rows[key]['ms']:.4f} ms, plain "
+              f"{rows[key]['plain_ms']:.4f} ms, bound {kb:.6f} ms ({kby})")
+        if rows[key]["ms"] < kb:
+            raise AssertionError(f"{kname} on {where} timed under its bound: {rows[key]}")
+    report = dict(window, lm_iterations=[n1, n2], ba_ms=ba_ms, reproj_px=[before, after],
+                  launches=launches, build_s=build_s)
+    return report, rows
+
+
 def device_profile(prof, n_frames, wall_ms):
     """Device busy ms per frame, kernels per frame and the top kernels from
     the CUDA kernel events of a profiler window."""
@@ -2212,19 +2597,8 @@ def main() -> int:
     # before it): what a kernel of one or two launches costs before any work
     print(json.dumps({"launch_floor_ms": floor}))
     orb_v1, top2_v1, epi_v1 = v1_launchers(_build)
-    all_kernels = {"fast": fast_cuda.KERNEL, "orb": orb_cuda.KERNEL, "top2": match_cuda.KERNEL,
-                   "top2_m4096": match_cuda.KERNEL_LOCAL, "top2_chi2": match_cuda.KERNEL_CHI2,
-                   "top2_nb": match_cuda.KERNEL_NB, "top1_epi": match_cuda.KERNEL_EPI,
-                   "ba_acc": ba_cuda.KERNEL_ACC, "ba_cost": ba_cuda.KERNEL_COST,
-                   "ba_backsub": ba_cuda.KERNEL_BACKSUB, "fast_nms": fast_cuda.KERNEL_NMS}
+    all_kernels, plains = kernel_counters(), plain_versions()
     ba_keys = ("ba_acc", "ba_cost", "ba_backsub")
-    # the FAST kernel's 3x3-NMS mode runs in its own phase only: no path calls it
-    off_path = ("fast_nms",)
-    plains = [(fast, "fast_score"), (fast, "fast_score_nms"), (orientation, "ic_angle"),
-              (brief, "compute_descriptors"),
-              (match_pallas, "masked_top2_plain"), (match_pallas, "masked_top2_nb_plain"),
-              (match_pallas, "masked_top1_epi_plain"), (ba_pallas, "ba_accumulate_plain"),
-              (ba_pallas, "ba_cost_plain"), (ba_pallas, "ba_backsub_plain")]
 
     # -- data: the first main path's sequence -------------------------------
     t0 = time.perf_counter()
@@ -2453,20 +2827,12 @@ def main() -> int:
     # the captured instance: the first LM iteration of the frames 0-12 event
     # with the most live points; the seeded one at the full-width sizes (WF 64,
     # wk 24, O 12, L 8192) with 1500 live points
-    def acc_args(inst):
-        return (inst["lam"], inst["posesT"], inst["X"], inst["slot"], inst["u"], inst["v"],
-                inst["ur"], inst["isig2"], inst["act"], inst["povar"], inst["cam5"], inst["wk"],
-                inst["huber"])
-
-    def cost_args(inst):
-        return acc_args(inst)[1:9] + (inst["cam5"], inst["huber"])
-
     ba_seeded = random_ba_instance(np.random.default_rng(2), 64, 24, 12, 8192, 1500, dev)
     sub_rng = np.random.default_rng(3)
     ba_insts = {}
     for label, inst in (("captured", captured["ba"]), ("seeded", ba_seeded)):
         mask = ba_cuda.ba_mask(inst["slot"].shape[1], dev)
-        acc = ba_cuda.ba_accumulate(*acc_args(inst), n_pts=inst["n_pts"], mask=mask)
+        acc = ba_cuda.ba_accumulate(*ba_acc_args(inst), n_pts=inst["n_pts"], mask=mask)
         if label == "captured":  # as the solver called it, with its iteration's mask
             sub = captured["ba_backsub"]
         else:
@@ -2479,35 +2845,11 @@ def main() -> int:
             raise AssertionError(f"ba_accumulate on the {label} instance: its window mask words "
                                  f"differ from the plain window_mask")
         ba_insts[label] = (inst, sub)
-    ba_specs = {
-        "ba_acc": ("ba_accumulate", lambda i, s: ba_cuda.ba_accumulate(*acc_args(i), n_pts=i["n_pts"]),
-                   lambda i, s: ba_pallas.ba_accumulate_plain(*acc_args(i)), "acc",
-                   "vo_slam_test_tpu/ops/ba_pallas.py:285"),
-        "ba_cost": ("ba_cost", lambda i, s: ba_cuda.ba_cost(*cost_args(i), n_pts=i["n_pts"]),
-                    lambda i, s: ba_pallas.ba_cost_plain(*cost_args(i)), "cost",
-                    "vo_slam_test_tpu/ops/ba_pallas.py:338"),
-        "ba_backsub": ("ba_backsub",
-                       lambda i, s: ba_cuda.ba_backsub(*s[:4], n_pts=i["n_pts"], mask=s[4]),
-                       lambda i, s: ba_pallas.ba_backsub_plain(*s[:4]), "backsub",
-                       "vo_slam_test_tpu/ops/ba_pallas.py:365"),
-    }
+    ba_specs = ba_kernel_specs(ba_cuda, ba_pallas)
     for key, (kname, kfn, pfn, kind, replaces) in ba_specs.items():
         err = 0.0
         for label, (inst, sub) in ba_insts.items():
-            got, again = kfn(inst, sub), kfn(inst, sub)
-            want = pfn(inst, sub)
-            torch.cuda.synchronize()
-            outs = got if isinstance(got, tuple) else (got,)
-            if not all(torch.equal(a.view(torch.int32), b.view(torch.int32)) for a, b in
-                       zip(outs, again if isinstance(again, tuple) else (again,))):
-                raise AssertionError(f"{kname} on the {label} instance: two launches differ")
-            err = max(err, check_ba(f"{kname} on the {label} instance", kind, got,
-                                    sub if kind == "backsub" else inst, want))
-            if kind == "acc":  # the LM accept test compares this cost with ba_cost's
-                cost = ba_cuda.ba_cost(*cost_args(inst), n_pts=inst["n_pts"])
-                if not torch.equal(got[4].view(torch.int32), cost.view(torch.int32)):
-                    raise AssertionError(f"{kname} on the {label} instance: its cost "
-                                         f"{float(got[4])} is not ba_cost's {float(cost)}")
+            err = max(err, hold_ba(ba_cuda, ba_specs[key], f"the {label} instance", inst, sub))
             print(f"phase {kname} {label}: within tolerance of the plain version, two launches "
                   f"bit-equal{', cost bit-equal to ba_cost' if kind == 'acc' else ''}; "
                   f"{ba_counts(inst)}")
@@ -2516,26 +2858,8 @@ def main() -> int:
         O, L = inst["slot"].shape
         timed, note = (lambda: kfn(inst, sub)), ""
         if key == "ba_acc":
-            # as the solver runs it: Wc zeroed once per BA call and carried, with
-            # the scratch and the mask words, over the call's LM iterations
-            wc = torch.zeros((inst["wk"], 18, L), dtype=torch.float32, device=dev)
-            scratch, mask = ba_cuda.ba_scratch(inst["wk"], L, dev), ba_cuda.ba_mask(L, dev)
-            timed = lambda: ba_cuda.ba_accumulate(  # noqa: E731
-                *acc_args(inst), n_pts=inst["n_pts"], wc=wc, scratch=scratch, mask=mask)
-            # what is timed is what was checked: the first and a later call on
-            # the carried buffers give the fresh-buffer call's bits
-            fresh = kfn(inst, sub)
-            n = int(inst["n_pts"])
-            want = ba_pallas.window_mask(inst["slot"][:, :n], inst["povar"][:, :n], inst["wk"])
-            for rep in ("first", "second"):
-                carried = timed()
-                if not (all(bits_equal(a, b) for a, b in zip(carried, fresh))
-                        and torch.equal(mask[:n], want) and bool((mask[n:] == 0).all())):
-                    raise AssertionError(f"{kname} on the captured instance: the {rep} call on "
-                                         f"the carried Wc, scratch and mask differs from the "
-                                         f"call on fresh buffers")
-            print(f"  {kname} on the carried buffers: two calls bit-equal to the fresh-buffer "
-                  f"call, mask words equal to the plain window_mask")
+            timed = ba_carried_acc(ba_cuda, ba_pallas, inst, kfn(inst, sub), dev,
+                                   "the captured instance")
             note = (f" with the solver's carried Wc (with a fresh Wc zeroed in every call: "
                     f"{time_graph_ms(lambda: kfn(inst, sub)):.4f} ms)")
         kernels[key] = dict(
@@ -2751,9 +3075,9 @@ def main() -> int:
         raise AssertionError(f"main path 4: parity mode relocalized at "
                              f"{kid['reloc_parity']['reloc']}, the default at "
                              f"{kid['default']['reloc']}")
-    if min(v for k, v in launches4.items() if k not in off_path) < 1:
+    if min(v for k, v in launches4.items() if k not in OFF_PATH) < 1:
         raise AssertionError(f"main path 4 launched no "
-                             f"{[k for k, v in launches4.items() if not v and k not in off_path]}")
+                             f"{[k for k, v in launches4.items() if not v and k not in OFF_PATH]}")
     if guard4.cuda_calls:
         raise AssertionError(f"plain versions ran on CUDA tensors: {guard4.cuda_calls}")
 
@@ -2876,9 +3200,9 @@ def main() -> int:
           f"to the plain version")
     print(f"  kernel launches (the three variants): {launches5}; plain versions on CUDA: "
           f"{guard5.cuda_calls}")
-    if min(v for k, v in launches5.items() if k not in off_path) < 1:
+    if min(v for k, v in launches5.items() if k not in OFF_PATH) < 1:
         raise AssertionError(f"main path 5 launched no "
-                             f"{[k for k, v in launches5.items() if not v and k not in off_path]}")
+                             f"{[k for k, v in launches5.items() if not v and k not in OFF_PATH]}")
     if guard5.cuda_calls:
         raise AssertionError(f"plain versions ran on CUDA tensors: {guard5.cuda_calls}")
 
@@ -2900,7 +3224,7 @@ def main() -> int:
           f"{med_d:.3f} ms against chunk=1's {med_1:.3f} ms in this call; plain versions on CUDA: "
           f"{guard5d.cuda_calls}")
     if no_gates or guard5d.cuda_calls or min(v for k, v in launches5d.items()
-                                             if k not in off_path) < 1:
+                                             if k not in OFF_PATH) < 1:
         raise AssertionError(f"main path 5 ({diag_label}): attempts without gate values "
                              f"{no_gates}, launches {launches5d}, plain versions on CUDA "
                              f"{guard5d.cuda_calls}")
@@ -2969,7 +3293,15 @@ def main() -> int:
     if min(launches6[k] for k in ("fast", "orb", "top2")) < 1:
         raise AssertionError(f"path 6 launched no FAST, ORB or frame-pair top-2: {launches6}")
 
-    for k in ("fast", "orb", "top2") + off_path:
+    # -- main path 7: the off-nominal scenes, and local BA past its caps -------
+    t7 = time.perf_counter()
+    scenes7, launches7 = main_path7a(system, all_kernels, plains)
+    saturated, sat_rows = main_path7b(ba_cuda, ba_pallas, all_kernels, dev)
+    for k in ba_keys:
+        kernels[k]["saturated_window"] = sat_rows[k]
+    print(f"  main path 7 in {time.perf_counter() - t7:.1f} s")
+
+    for k in ("fast", "orb", "top2") + OFF_PATH:
         kernels[k]["launches"] = launches1[k]
     for k in ("top2_m4096", "top2_chi2", "top2_nb", "top1_epi") + ba_keys:
         kernels[k]["launches"] = launches2[k]
@@ -2977,8 +3309,8 @@ def main() -> int:
         kernels[k]["launches_by_path"] = {"1": launches1[k], "2": launches2[k],
                                           "3": launches3[k], "4": launches4[k],
                                           "5": launches5[k], "5 VO_LOOP_DIAG": launches5d[k],
-                                          "6": launches6[k]}
-    on_paths = {k: kernels[k]["launches_by_path"] for k in off_path
+                                          "6": launches6[k], "7": launches7[k]}
+    on_paths = {k: kernels[k]["launches_by_path"] for k in OFF_PATH
                 if any(kernels[k]["launches_by_path"].values())}
     if on_paths:
         raise AssertionError(f"a path launched a kernel that no path calls: {on_paths}")
@@ -2991,7 +3323,7 @@ def main() -> int:
     keys = ("name", "shape", "route", "source", "replaces", "launches", "launches_by_path",
             "max_abs_err", "ms", "v1_ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
             "launch_floor_x", "counted", "kidnap_instances", "loop_fuse_instances",
-            "phase_launches", "random_ms", "random_v1_ms", "random_bound_ms")
+            "phase_launches", "random_ms", "random_v1_ms", "random_bound_ms", "saturated_window")
     print(f"total {time.perf_counter() - t_start:.1f} s after the card query")
     print(json.dumps({"main_path": {
         "fused_tracker": {"frame_ms_median": float(np.median(steady)), "ate_m": float(ate),
@@ -3010,9 +3342,10 @@ def main() -> int:
         "mesh_8_shards_one_card": mesh_rows,
         "cli_on_files": {k: {kk: vv for kk, vv in v.items() if kk != "stdout"}
                          for k, v in cli.items()},
+        "off_nominal_scenes": scenes7, "saturated_local_ba": saturated,
         "card": smi}}))
     order = ("fast", "orb", "top2", "top2_m4096", "top2_chi2", "top2_nb", "top1_epi") + ba_keys \
-        + off_path
+        + OFF_PATH
     print(json.dumps({"kernels": [{key: kernels[k][key] for key in keys if key in kernels[k]}
                                   for k in order]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -113,6 +113,12 @@ def test_cell_candidates_bit_identical(pyramids):
         np.testing.assert_array_equal(getattr(got, name).numpy(), np.asarray(getattr(want, name)))
 
 
+def _j_distribute(bounds, target, n_ini):
+    """The JAX package's distribute_level compiled, as its extract_fused runs
+    it (XLA folds the constant division of the cell keys into a multiply)."""
+    return jax.jit(lambda x, y, r, v: j_distribute_level(x, y, r, v, bounds, target, n_ini=n_ini))
+
+
 def test_distribute_level_keep_identical(pyramids):
     jspec, spec, jp, pp = pyramids
     cands = fast.detect_pyramid(interior(pp.raw, spec), spec, 20.0, 7.0, 8)
@@ -124,10 +130,34 @@ def test_distribute_level_keep_identical(pyramids):
         n_ini = max(int(round((w - 2 * b) / (h - 2 * b))), 1)
         bounds = (b, w - b, b, h - b)
         got = distribute_level(*args, bounds, budgets[lvl], n_ini=n_ini).numpy()
-        want = np.asarray(j_distribute_level(*[jnp.asarray(a.numpy()) for a in args], bounds,
-                                             budgets[lvl], n_ini=n_ini))
+        want = np.asarray(_j_distribute(bounds, budgets[lvl], n_ini)(
+            *[jnp.asarray(a.numpy()) for a in args]))
         np.testing.assert_array_equal(got, want)
         assert 0 < got.sum() <= budgets[lvl]
+
+
+@pytest.mark.parametrize("size", [(480, 640), (240, 320)])
+def test_distribute_level_cell_boundaries_match_compiled_jax(size):
+    """Every level of a 640x480 and a 320x240 8-level pyramid, a candidate of
+    one response at every integer position of a row and of a column: the
+    keep masks equal the compiled JAX function's, cell boundaries included.
+    At 640x480 level 3 (bounds 16..262 in y), y = 139 lies on a depth-7 cell
+    boundary by division and one cell lower by XLA's folded multiply; the
+    moving-object scene's frame 0 has such a tie."""
+    pspec = PyramidSpec(width=size[1], height=size[0], n_levels=8, scale_factor=1.2)
+    b = int(fast.DETECT_BORDER)
+    for lvl in range(8):
+        h, w = pspec.sizes[lvl]
+        n_ini = max(int(round((w - 2 * b) / (h - 2 * b))), 1)
+        bounds = (float(b), float(w - b), float(b), float(h - b))
+        col, row = np.arange(b, h - b, dtype=np.int32), np.arange(b, w - b, dtype=np.int32)
+        ys = np.concatenate([col, np.full(row.size, b + 7, np.int32)])
+        xs = np.concatenate([np.full(col.size, b + 7, np.int32), row])
+        args = [torch.as_tensor(a) for a in (xs, ys, np.full(xs.size, 80.0, np.float32),
+                                             np.ones(xs.size, bool))]
+        got = distribute_level(*args, bounds, 8, n_ini=n_ini).numpy()
+        want = np.asarray(_j_distribute(bounds, 8, n_ini)(*[jnp.asarray(a.numpy()) for a in args]))
+        np.testing.assert_array_equal(got, want, err_msg=f"level {lvl}")
 
 
 def test_angles_and_descriptors(pyramids):

@@ -1038,3 +1038,52 @@ def test_global_ba_deterministic(cuda):
     before, after = _reproj_rmse(m, cam), _reproj_rmse(a, cam)
     assert after < 0.1 * before and after < 1.0, (before, after)
     assert torch.equal(a.kf_pose[0], m.kf_pose[0])
+
+
+@pytest.fixture(scope="module")
+def saturated_iteration(cuda):
+    """The first LM iteration of one local BA on tests/test_local_ba_saturation.py's
+    seed-3 dense map (every cap of the window exceeded), built on the card by
+    the ported ``datasets/synth_map.build``: (instance, back-substitution
+    arguments), as chip_smoke's main path 7b captures them."""
+    from vo_slam_test_tpu_torch.datasets import synth_map
+    from vo_slam_test_tpu_torch.slam_map.map_state import MapCaps
+    from vo_slam_test_tpu_torch.solvers import local_ba
+
+    caps = MapCaps(*chip_smoke.SAT_CAPS)
+    m, cam = synth_map.build(caps, n_kf=40, n_pt=3500, seed=3, span_max=24, device=cuda)
+    with chip_smoke.BaCapture(ba_cuda) as cap:
+        local_ba.local_bundle_adjust(m, chip_smoke.SAT_CENTER, caps, cam)
+    return cap.instance()
+
+
+@pytest.mark.parametrize("key", ["ba_acc", "ba_cost", "ba_backsub"])
+def test_ba_rows_on_saturated_window(saturated_iteration, key):
+    """Rows 7-9 with 24 window slots and observer lists full: within
+    check_ba's tolerances of the plain versions, two launches bit-equal."""
+    inst, sub = saturated_iteration
+    assert int(inst["n_pts"]) > 500 and inst["slot"].shape == (12, 4096)
+    spec = chip_smoke.ba_kernel_specs(ba_cuda, ba_pallas)[key]
+    chip_smoke.hold_ba(ba_cuda, spec, "the saturated window", inst, sub)
+
+
+def test_distribute_level_cell_boundaries_on_card(cuda):
+    """The quad-tree's cell keys on the card round as on the CPU (one f32
+    multiply by XLA's folded constant): keep masks equal on candidates at
+    every integer position of a row and a column of each 640x480 level."""
+    from vo_slam_test_tpu_torch.ops.distribute_device import distribute_level
+
+    spec = PyramidSpec(640, 480, 8, 1.2)
+    b = fast.DETECT_BORDER
+    for lvl in range(8):
+        h, w = spec.sizes[lvl]
+        col, row = np.arange(b, h - b, dtype=np.int32), np.arange(b, w - b, dtype=np.int32)
+        ys = np.concatenate([col, np.full(row.size, b + 7, np.int32)])
+        xs = np.concatenate([np.full(col.size, b + 7, np.int32), row])
+        args = [torch.as_tensor(a) for a in (xs, ys, np.full(xs.size, 80.0, np.float32),
+                                             np.ones(xs.size, bool))]
+        bounds = (float(b), float(w - b), float(b), float(h - b))
+        n_ini = max(int(round((w - 2 * b) / (h - 2 * b))), 1)
+        want = distribute_level(*args, bounds, 8, n_ini=n_ini)
+        got = distribute_level(*[a.to(cuda) for a in args], bounds, 8, n_ini=n_ini)
+        assert torch.equal(got.cpu(), want), lvl

@@ -3,8 +3,9 @@
 test_torch_local_ba.py, test_torch_reloc.py, test_torch_reloc_run.py): the
 room-orbit sequence at 320x240, its config, the JAX system runs over its first
 24 frames shared by those files (interruptBA forced, and local BA on), the
-kidnap scenario at 320x240 with its vocabulary and its JAX run, and the map
-comparison."""
+kidnap scenario at 320x240 with its vocabulary and its JAX run, the map
+comparison, and both packages' runs over the 640x480 off-nominal scenes
+(test_torch_scenarios.py, test_torch_system_b.py)."""
 
 import fcntl
 import os
@@ -277,3 +278,60 @@ def _jax_kidnap_run(_):
 def jax_kidnap_run(tmp_path_factory):
     """``_jax_kidnap_run`` once per test session (``_shared_run``)."""
     return _shared_run(tmp_path_factory, "jax_kidnap_run", _jax_kidnap_run)
+
+
+# ---------------------------------------------------------------------------
+# the off-nominal scenes and Milestone B (tests/test_scenarios.py,
+# tests/test_system.py) at 640x480
+# ---------------------------------------------------------------------------
+
+
+def scene_runs(seq_kws, caps=(32, 8192)):
+    """Per sequence (keyword dicts of the JAX package's SyntheticRGBD): the
+    JAX SlamSystem and the port's ``SlamSystem(device="cpu")`` (no
+    vocabulary, local BA on, ``MapCaps(max_kf, max_pt)``) over the same JAX
+    frames -> {name: dict(jax=..., port=..., rmse_gt)}; each side: ok,
+    n_matches, n_inliers per frame, keyframe frames, ATE against the JAX
+    sequence's poses, n_keyframes, n_points, the keyframe trajectory's
+    length and first pose."""
+    from vo_slam_test_tpu.datasets.tum import ate_rmse
+    from vo_slam_test_tpu_torch.config import SlamConfig
+    from vo_slam_test_tpu_torch.pipeline.system import SlamSystem
+
+    out = {}
+    for name, kw in seq_kws.items():
+        seq = SyntheticRGBD(**kw)
+        frames = [seq[i] for i in range(len(seq))]
+        gt = np.stack([seq.poses[i] for i in range(len(seq))])
+        ckw = dict(camera_fx=seq.fx, camera_fy=seq.fy, camera_cx=seq.cx, camera_cy=seq.cy,
+                   camera_k1=0, camera_k2=0, camera_p1=0, camera_p2=0, camera_k3=0)
+        runs = {}
+        # the port first: under pytest-xdist another worker may run JAX meanwhile
+        for impl in ("port", "jax"):
+            if impl == "jax":
+                s = JSlamSystem(JConfig(**ckw), caps=JMapCaps(*caps))
+            else:
+                s = SlamSystem(SlamConfig(**ckw), caps=MapCaps(*caps), device="cpu")
+            for g, d, ts in frames:
+                s.track(g, d, ts)
+            traj, stats, kf_traj = s.results()
+            runs[impl] = dict(
+                ok=[bool(x.ok) for x in stats], n_matches=[int(x.n_matches) for x in stats],
+                n_inliers=[int(x.n_inliers) for x in stats],
+                kf_frames=[i for i, o in enumerate(jax.device_get(s._outs)) if bool(o.made_kf)],
+                ate=float(ate_rmse(s.timestamps, gt, s.timestamps, traj)),
+                n_keyframes=s.n_keyframes, n_points=s.n_points, n_kf_traj=len(kf_traj),
+                kf_traj_first=np.asarray(kf_traj[0][1]) if kf_traj else None)
+        out[name] = runs
+    return out
+
+
+def assert_scene_parity(r, match_band, inlier_band):
+    """A ``scene_runs`` entry: the keyframe frames and every frame's ok equal,
+    per-frame matches and inliers within the given bands."""
+    j, p = r["jax"], r["port"]
+    assert p["kf_frames"] == j["kf_frames"], (p["kf_frames"], j["kf_frames"])
+    assert p["ok"] == j["ok"]
+    dm = np.abs(np.subtract(p["n_matches"], j["n_matches"]))
+    di = np.abs(np.subtract(p["n_inliers"], j["n_inliers"]))
+    assert dm.max() <= match_band and di.max() <= inlier_band, (dm.tolist(), di.tolist())

@@ -9,10 +9,18 @@ pairwise XOR matrix of packed depth-7 keys answers "same cell" at every depth
 with a mask test; the per-depth statistics are row reductions over [M, M].
 The final depth is capped to the target by response (documented deviation of
 the JAX package, kept as is).
+
+Cell keys are computed as the JAX package's compiled program computes them:
+XLA rewrites ``(x - min) / w * n`` with constant bounds into one multiply by
+the folded constant ``f32(f32(1 / w) * n)``, which puts a candidate on a cell
+boundary (``(x - min) / w * n`` an exact integer) one cell lower than the
+division does (the moving-object scene's frame 0 at 640x480 has one, at
+level 3).
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 MAX_DEPTH = 7
@@ -20,6 +28,11 @@ MAX_DEPTH = 7
 
 def _int32_mask(m: int) -> int:
     return m - (1 << 32) if m >= (1 << 31) else m
+
+
+def _cell_scale(extent: float, n_cells: int) -> float:
+    """The f32 constant XLA folds ``/ extent * n_cells`` into."""
+    return float(np.float32(np.float32(1.0) / np.float32(extent)) * np.float32(n_cells))
 
 
 def distribute_level(
@@ -39,13 +52,12 @@ def distribute_level(
     M = xs.shape[0]
     dev = xs.device
     idx = torch.arange(M, dtype=torch.int32, device=dev)
-    fx = (xs.to(torch.float32) - min_x) / w
-    fy = (ys.to(torch.float32) - min_y) / h
-
     ncx = n_ini << MAX_DEPTH
     ncy = 1 << MAX_DEPTH
-    cx = torch.clamp((fx * ncx).to(torch.int32), 0, ncx - 1)
-    cy = torch.clamp((fy * ncy).to(torch.int32), 0, ncy - 1)
+    cx = torch.clamp(((xs.to(torch.float32) - min_x) * _cell_scale(w, ncx)).to(torch.int32),
+                     0, ncx - 1)
+    cy = torch.clamp(((ys.to(torch.float32) - min_y) * _cell_scale(h, ncy)).to(torch.int32),
+                     0, ncy - 1)
     # packed pairwise key difference: XOR acts per field (no carries)
     Z = ((cy[:, None] ^ cy[None, :]) << 16) | (cx[:, None] ^ cx[None, :])
 
