@@ -121,7 +121,25 @@
    moves nothing outside its problem, and rows 7-9 on its first LM iteration
    are held against their plain versions (``check_ba``) and timed with their
    live-point bounds (``saturated_window`` in the kernels line);
-11. prints one ``{"kernels": [...]}`` line and, last, the ``{"ok": true, ...}``
+11. main path 8, the JAX package's benchmark configuration (``bench.py``'s two
+   scenarios) through the port's bench module
+   (``vo_slam_test_tpu_torch/bench.py``'s scenario builder, frames staged on
+   the card before ``track``). 8a: kfdense, the 240-frame room orbit
+   (room_orbit_trajectory(240, loops=1.5), scene="room", seed 7) at 640x480
+   with f32 depth, the scene vocabulary (k=10, L=6) and ``SlamSystem(chunk=8)``
+   at the default MapCaps, one pass: every frame tracked, n_kf_ever >= 25 and
+   ATE < 0.35 m (bench.py's gates), every kernel launched, each BA kernel once
+   per LM iteration; per-chunk wall, the background step per keyframe event
+   (the closing event's among them), host syncs per chunk and a profiler
+   window over two chunks (device busy, kernels per frame, idle share, the
+   background device ms counted both by launch time and by
+   ``FunctionEvent.device_time_total``); rows 1-6's launches over the chunk of
+   frames 160-167 held against their plain versions, and rows 7-9 on the
+   first LM iteration of the local BA with the most live points held and timed
+   with their bounds (``dense_window`` in the kernels line). 8b: corner40
+   (SyntheticRGBD(n_frames=40, seed=0, motion_scale=0.4)) with u16 depth
+   staged on the card and synth_vocabulary(k=10, levels=6): 40/40 tracked;
+12. prints one ``{"kernels": [...]}`` line and, last, the ``{"ok": true, ...}``
    line. Every bound is computed from this run's inputs and counts the work
    the function needs, whatever computes it; a kernel timed under its bound
    fails the run (the bound is then wrong). No plain version may see a CUDA
@@ -2538,12 +2556,326 @@ def main_path7b(ba_cuda, ba_pallas, all_kernels, dev) -> tuple:
     return report, rows
 
 
+# the JAX package's benchmark configuration (bench.py) through the port's bench
+# module: a profiler window over two chunks between keyframe bursts, and the
+# launches of rows 1-6 kept over the chunk of the JAX package's closure
+# (f160-168 on a TPU, NOTES.md:576-655) to be held against the plain versions
+PATH8_PROFILE_CHUNKS = (12, 13)
+PATH8_RECORD_FRAMES = range(160, 168)
+
+
+def path8_recorder():
+    """A LaunchRecorder of rows 1-6's wrappers over ``PATH8_RECORD_FRAMES``."""
+    from vo_slam_test_tpu_torch.ops import fast_cuda, match_cuda, orb_cuda
+
+    keep = lambda f, args: f in PATH8_RECORD_FRAMES  # noqa: E731
+    return LaunchRecorder([(fast_cuda, "fast_score", keep), (orb_cuda, "orb_angle_desc", keep),
+                           (match_cuda, "masked_top2", keep),
+                           (match_cuda, "masked_top2_nb", keep),
+                           (match_cuda, "masked_top1_epi", keep)])
+
+
+def hold_recorded(got) -> dict:
+    """Each recorded launch of rows 1-6 again, against its plain version on
+    the same inputs: FAST, the top-2 sites and the epipolar top-1 bit for
+    bit, IC angle within 1e-3 degree and rBRIEF bit for bit -> {site:
+    launches held}."""
+    from vo_slam_test_tpu_torch.ops import (brief, fast, fast_cuda, match_cuda, match_pallas,
+                                            orb_cuda, orientation)
+
+    held = {}
+    for f, (levels,), kw in got["fast_score"]:
+        check_equal(f"fast_score at frame {f}", (fast_cuda.fast_score(levels, **kw),),
+                    (fast.fast_score(levels),), ("score",))
+        held["fast"] = held.get("fast", 0) + 1
+    for f, args, _ in got["orb_angle_desc"]:
+        ang, desc = orb_cuda.orb_angle_desc(*args)
+        raw, blur, level, ys, xs = args
+        ang_ref = orientation.ic_angle(raw, level, ys, xs)
+        d = (ang - ang_ref).abs()
+        if (float(torch.minimum(d, 360.0 - d).max()) > 1e-3
+                or not torch.equal(desc, brief.compute_descriptors(blur, level, ys, xs, ang_ref))):
+            raise AssertionError(f"orb_angle_desc at frame {f} differs from the plain version")
+        held["orb"] = held.get("orb", 0) + 1
+    for f, args, kw in got["masked_top2"]:
+        site = ("top2_chi2" if kw.get("chi2_gate") else
+                "top2_m4096" if kw.get("kernel") is match_cuda.KERNEL_LOCAL else "top2")
+        check_equal(f"masked_top2 ({site}) at frame {f}", match_cuda.masked_top2(*args, **kw),
+                    match_pallas.masked_top2_plain(*args, **{k: v for k, v in kw.items()
+                                                             if k != "kernel"}), TOP2_OUTS)
+        held[site] = held.get(site, 0) + 1
+    for f, args, kw in got["masked_top2_nb"]:
+        check_equal(f"masked_top2_nb at frame {f}", match_cuda.masked_top2_nb(*args, **kw),
+                    match_pallas.masked_top2_nb_plain(*args, **kw), TOP2_OUTS)
+        held["top2_nb"] = held.get("top2_nb", 0) + 1
+    for f, args, _ in got["masked_top1_epi"]:
+        check_equal(f"masked_top1_epi at frame {f}", match_cuda.masked_top1_epi(*args),
+                    match_pallas.masked_top1_epi_plain(*args), ("best_i", "best_d"))
+        held["top1_epi"] = held.get("top1_epi", 0) + 1
+    return held
+
+
+def fe_background_ms(prof) -> float:
+    """Device ms inside the outermost background ranges of a profiler window,
+    as ``FunctionEvent.device_time_total`` counts it (the bench module's
+    count goes by launch times instead; the two are printed side by side)."""
+    from vo_slam_test_tpu_torch import bench
+
+    total = 0.0
+    for e in prof.events():
+        if e.device_type != torch.autograd.DeviceType.CPU or e.name not in bench.BG_RANGES:
+            continue
+        p = e.cpu_parent
+        while p is not None and p.name not in bench.BG_RANGES:
+            p = p.cpu_parent
+        if p is None:
+            total += e.device_time_total / 1e3
+    return total
+
+
+def run_path8a(system, sc, frames_dev, lrec):
+    """One pass of kfdense as the bench stages it (frames on the card), with
+    the chunk's host wall (synchronized), CUDA events around each keyframe
+    event's background step, host syncs per chunk (sync debug mode; the
+    syncs of this script's own wrappers left out) and a profiler window over
+    ``PATH8_PROFILE_CHUNKS`` -> (system, rec)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    s = system.SlamSystem(sc.cfg, vocabulary=sc.voc, chunk=sc.chunk)
+    rec = dict(chunk_ms=[], syncs=[], sync_sites={}, map_events=[], profile=None)
+    orig_bg, cur = system.background_step, [0]
+
+    def timed_bg(m, loop_state, did_kf, kf_id, *a, **k):
+        if not did_kf:
+            return orig_bg(m, loop_state, did_kf, kf_id, *a, **k)
+        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        e0.record()
+        out = orig_bg(m, loop_state, did_kf, kf_id, *a, **k)
+        e1.record()
+        rec["map_events"].append((cur[0], e0, e1))
+        return out
+
+    system.background_step = timed_bg
+    prof = None
+    try:
+        for i, (gray, depth, ts) in enumerate(frames_dev):
+            c, last = divmod(i, sc.chunk)
+            if last == 0:
+                rec["syncs"].append(0)
+                if c == PATH8_PROFILE_CHUNKS[0]:
+                    torch.cuda.synchronize()
+                    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+                    prof.__enter__()
+                    t_prof = time.perf_counter()
+                t0 = time.perf_counter()
+            # the background steps of a chunk run in its last track call
+            cur[0] = i - (sc.chunk - 1)
+            lrec.frame = i
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                torch.cuda.set_sync_debug_mode("warn")
+                s.track(gray, depth, ts)
+                torch.cuda.set_sync_debug_mode("default")
+            for w in caught:
+                if "synchroniz" in str(w.message) and not w.filename.endswith("chip_smoke.py"):
+                    rec["syncs"][-1] += 1
+                    site = f"{w.filename.split('vo_slam_test_tpu_torch/')[-1]}:{w.lineno}"
+                    rec["sync_sites"][site] = rec["sync_sites"].get(site, 0) + 1
+            if last == sc.chunk - 1:
+                torch.cuda.synchronize()
+                rec["chunk_ms"].append((time.perf_counter() - t0) * 1e3)
+                if prof is not None and c == PATH8_PROFILE_CHUNKS[-1]:
+                    wall = (time.perf_counter() - t_prof) * 1e3 / (len(PATH8_PROFILE_CHUNKS)
+                                                                   * sc.chunk)
+                    prof.__exit__(None, None, None)
+                    rec["profile"], prof = (prof, wall), None
+        s._flush()
+        torch.cuda.synchronize()
+    finally:
+        system.background_step = orig_bg
+        if prof is not None:
+            prof.__exit__(None, None, None)
+    # a chunk's events are mapped in frame order: the k-th event of a chunk
+    # belongs to its k-th keyframe frame
+    made = [o.made_kf for o in s._outs]
+    by_chunk = {}
+    for c0, e0, e1 in rec["map_events"]:
+        by_chunk.setdefault(c0, []).append(e0.elapsed_time(e1))
+    rec["map_ms"] = {}
+    for c0, times in by_chunk.items():
+        kfs = [f for f in range(c0, c0 + sc.chunk) if made[f]]
+        rec["map_ms"].update(zip(kfs, times))
+    return s, rec
+
+
+def main_path8(system, ba_cuda, ba_pallas, all_kernels, plains, dev) -> tuple:
+    """The JAX package's benchmark configuration through the port's bench
+    module (``vo_slam_test_tpu_torch/bench.py``). 8a: kfdense, the 240-frame
+    room orbit at 640x480 with the scene vocabulary (k=10, L=6), chunk=8 and
+    the default MapCaps, frames staged on the card; 8b: corner40 with u16
+    depth staged on the card and synth_vocabulary(k=10, levels=6). Each held
+    to bench.py's gates; every kernel launched counted, no plain version on a
+    CUDA tensor, rows 1-6's launches over the chunk of frames 160-167 and
+    rows 7-9 on the densest local-BA window's first LM iteration held against
+    their plain versions (rows 7-9 timed with their bounds) -> (report,
+    launches by sub-path, {row key: densest-window numbers})."""
+    from vo_slam_test_tpu_torch import bench
+
+    t0 = time.perf_counter()
+    sc = bench.build_scenario("kfdense", dev)
+    frames_dev = bench.stage_frames(sc.frames, dev)
+    stage_s = time.perf_counter() - t0
+    print(f"main path 8a data: kfdense ({len(sc.frames)} frames {sc.cfg.camera_width}x"
+          f"{sc.cfg.camera_height} rendered, the scene "
+          f"vocabulary k={sc.voc.k} L={sc.voc.levels} trained, frames staged on the card) in "
+          f"{stage_s:.1f} s")
+    report, launches = {}, {}
+    with PlainGuard(plains) as guard:
+        torch.cuda.synchronize()
+        for k in all_kernels.values():
+            k.reset()
+        t0 = time.perf_counter()
+        with BaCapture(ba_cuda) as cap, path8_recorder() as lrec:
+            s, rec = run_path8a(system, sc, frames_dev, lrec)
+        run_s = time.perf_counter() - t0
+        launches["8a"] = {k: v.launches for k, v in all_kernels.items()}
+    diag = bench.check(sc, s, len(frames_dev))
+    traj, stats, _ = s.results()
+    raw = torch.linalg.inv(torch.stack([o.T_c_w for o in s._outs])).cpu().numpy()
+    made = [o.made_kf for o in s._outs]
+    cms = np.array(rec["chunk_ms"])
+    kf_chunk = np.array([any(made[c * sc.chunk:(c + 1) * sc.chunk]) for c in range(len(cms))])
+    closing_ms = {f: rec["map_ms"].get(f) for f in diag["closures"]}
+    attempt_ms = {f: rec["map_ms"].get(f) for f, _, _ in diag["attempts"]}
+    print(f"main path 8a (bench kfdense: SlamSystem(vocabulary=scene k={sc.voc.k} "
+          f"L={sc.voc.levels}, chunk={sc.chunk}), {len(frames_dev)} frames, default MapCaps) in "
+          f"{run_s:.1f} s: tracked "
+          f"{diag['tracked']}/{diag['frames']}, ATE {diag['ate_m'] * 100:.4f} cm, n_kf_ever "
+          f"{diag['n_kf_ever']} (gate >= {sc.min_kf_ever}); keyframe events at "
+          f"{diag['keyframe_frames']} ({len(diag['keyframe_frames'])}); live keyframes "
+          f"{s.n_keyframes}, points {s.n_points}")
+    print(f"  loop closing: closures {diag['closures']}, attempts (frame, winner, accepted) "
+          f"{diag['attempts']}; gate values per Sim3 attempt {s.loop_gates}")
+    print(f"  LM iterations per event (frame, pass 1, pass 2): {s.ba_iters}; ba_interrupts "
+          f"{s.n_ba_interrupts}")
+    print(f"  per-chunk wall ms (track + map 8 frames, synchronized): "
+          f"{[round(float(x), 3) for x in cms]}")
+    print(f"  chunk median {np.median(cms):.3f} ms; without a keyframe event "
+          f"{np.median(cms[~kf_chunk]) if (~kf_chunk).any() else float('nan'):.3f} ms "
+          f"({int((~kf_chunk).sum())} chunks), with one {np.median(cms[kf_chunk]):.3f} ms "
+          f"({int(kf_chunk.sum())} chunks)")
+    print(f"  background step ms per keyframe event (CUDA events): "
+          f"{ {f: round(v, 3) for f, v in rec['map_ms'].items()} }; closing event ms "
+          f"{closing_ms}; attempt events ms {attempt_ms}")
+    print(f"  host syncs per chunk (sync debug mode): {rec['syncs']}; by the line that "
+          f"synced: {rec['sync_sites']}")
+    print(f"  kernel launches: {launches['8a']}; plain versions on CUDA: {guard.cuda_calls}")
+    busy = n_launch = None
+    if rec["profile"] is not None:
+        prof, wall = rec["profile"]
+        n_prof = len(PATH8_PROFILE_CHUNKS) * sc.chunk
+        busy, n_launch = device_profile(prof, n_prof, wall)
+        bg = bench.background_device_ms(*bench.trace_rows(prof))
+        print(f"  background device ms in the window: {bg['bg_ms']:.3f} by launch time (bench), "
+              f"{fe_background_ms(prof):.3f} by FunctionEvent.device_time_total; device total "
+              f"{bg['device_ms']:.3f} ms in {bg['n_device']} activities "
+              f"({bg['unplaced']} without a launch time); background host wall "
+              f"{bg['bg_host_ms']:.3f} ms")
+        report["profile"] = dict(chunks=list(PATH8_PROFILE_CHUNKS), wall_ms_per_frame=wall,
+                                 busy_ms_per_frame=busy, kernels_per_frame=n_launch,
+                                 idle_share=1 - busy / wall, background=bg,
+                                 fe_background_ms=fe_background_ms(prof))
+    if guard.cuda_calls:
+        raise AssertionError(f"plain versions ran on CUDA tensors: {guard.cuda_calls}")
+    missing = [k for k, v in launches["8a"].items() if not v and k not in OFF_PATH]
+    if missing:
+        raise AssertionError(f"main path 8a launched no {missing}")
+    n_iter = sum(a + b for _, a, b in s.ba_iters)
+    if any(launches["8a"][k] != n_iter for k in ("ba_acc", "ba_cost", "ba_backsub")):
+        raise AssertionError(f"main path 8a: BA launches {launches['8a']} != {n_iter} LM "
+                             f"iterations")
+    if (launches["8a"]["fast"] != len(frames_dev) or launches["8a"]["orb"] != len(frames_dev)
+            or launches["8a"]["top2_nb"] != len(diag["keyframe_frames"])):
+        raise AssertionError(f"kernel launch counts off on main path 8a: {launches['8a']}")
+    held = hold_recorded(lrec.got)
+    print(f"  rows 1-6 over frames {PATH8_RECORD_FRAMES.start}-{PATH8_RECORD_FRAMES.stop - 1}: "
+          f"every recorded launch bit-equal to the plain version (angles within 1e-3 deg), by "
+          f"site {held}")
+    if {"fast", "orb", "top2", "top2_m4096"} - set(held):
+        raise AssertionError(f"main path 8a: launches recorded over frames "
+                             f"{list(PATH8_RECORD_FRAMES)}: {held}")
+    report["8a"] = dict(diag, loop_gates=s.loop_gates, ba_iters=s.ba_iters,
+                        per_frame=[(st.n_features, st.n_matches, st.n_inliers) for st in stats],
+                        position_m=traj[:, :3, 3].tolist(), raw_position_m=raw[:, :3, 3].tolist(),
+                        n_ba_interrupts=s.n_ba_interrupts, chunk_ms=rec["chunk_ms"],
+                        chunk_ms_median=float(np.median(cms)),
+                        chunk_ms_kf_median=float(np.median(cms[kf_chunk])),
+                        map_ms={str(f): v for f, v in rec["map_ms"].items()},
+                        closing_event_ms=closing_ms, syncs_per_chunk=rec["syncs"],
+                        sync_sites=rec["sync_sites"], held=held, n_points=s.n_points,
+                        n_keyframes=s.n_keyframes, staging_s=stage_s, run_s=run_s)
+
+    # rows 7-9 on the densest local-BA window of the run (7k-9k)
+    inst, sub = cap.instance()
+    rows = {}
+    where = "path 8a's densest local-BA window's first LM iteration"
+    for key, spec in ba_kernel_specs(ba_cuda, ba_pallas).items():
+        kname, kfn, pfn, kind, _ = spec
+        err = hold_ba(ba_cuda, spec, where, inst, sub)
+        timed = (ba_carried_acc(ba_cuda, ba_pallas, inst, kfn(inst, sub), dev, where)
+                 if key == "ba_acc" else (lambda: kfn(inst, sub)))
+        kb, kby, counted = ba_bound(kind, inst)
+        O, L = inst["slot"].shape
+        rows[key] = dict(shape=f"WF={inst['posesT'].shape[1]} wk={inst['wk']} O={O} L={L}",
+                         launches=launches["8a"][key], max_abs_err=err,
+                         ms=time_graph_ms(timed), plain_ms=time_eager_ms(lambda: pfn(inst, sub)),
+                         bound_ms=kb, bound_by=kby, counted=counted)
+        print(f"  {kname} on {where}: within tolerance of the plain version, two launches "
+              f"bit-equal; counted {counted}; kernel {rows[key]['ms']:.4f} ms, plain "
+              f"{rows[key]['plain_ms']:.4f} ms, bound {kb:.6f} ms ({kby})")
+        if rows[key]["ms"] < kb:
+            raise AssertionError(f"{kname} on {where} timed under its bound: {rows[key]}")
+
+    # 8b: corner40, u16 depth staged on the card
+    t0 = time.perf_counter()
+    sc_b = bench.build_scenario("corner40", dev)
+    frames_b = bench.stage_frames(sc_b.frames, dev)
+    if frames_b[0][1].dtype != torch.uint16:
+        raise AssertionError(f"main path 8b: depth staged as {frames_b[0][1].dtype}, not u16")
+    print(f"main path 8b data: corner40 ({len(frames_b)} frames, u16 depth, synth_vocabulary("
+          f"k={sc_b.voc.k}, levels={sc_b.voc.levels})) in {time.perf_counter() - t0:.1f} s")
+    with PlainGuard(plains) as guard_b:
+        torch.cuda.synchronize()
+        for k in all_kernels.values():
+            k.reset()
+        s_b, wall_b = bench.track_all(sc_b, frames_b, dev)
+        launches["8b"] = {k: v.launches for k, v in all_kernels.items()}
+    diag_b = bench.check(sc_b, s_b, len(frames_b))
+    print(f"main path 8b (bench corner40, chunk={sc_b.chunk}): tracked {diag_b['tracked']}/"
+          f"{diag_b['frames']}, ATE {diag_b['ate_m'] * 100:.4f} cm, keyframe events at "
+          f"{diag_b['keyframe_frames']}, LM iterations {s_b.ba_iters}, closures "
+          f"{diag_b['closures']}; wall {wall_b * 1e3:.3f} ms "
+          f"({wall_b * 1e3 / len(frames_b):.3f} ms/frame, "
+          f"one pass); kernel launches {launches['8b']}; plain versions on CUDA: "
+          f"{guard_b.cuda_calls}")
+    if guard_b.cuda_calls:
+        raise AssertionError(f"plain versions ran on CUDA tensors: {guard_b.cuda_calls}")
+    if launches["8b"]["fast"] != len(frames_b):
+        raise AssertionError(f"kernel launch counts off on main path 8b: {launches['8b']}")
+    report["8b"] = dict(diag_b, ba_iters=s_b.ba_iters, wall_ms=wall_b * 1e3)
+    return report, launches, rows
+
+
 def device_profile(prof, n_frames, wall_ms):
     """Device busy ms per frame, kernels per frame and the top kernels from
-    the CUDA kernel events of a profiler window."""
+    the CUDA kernel events of a profiler window (the device spans of the
+    system's profiler ranges left out)."""
+    from vo_slam_test_tpu_torch.bench import BG_RANGES
+
     by_kernel = {}
     for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
+        if (e.device_type == torch.autograd.DeviceType.CUDA and not e.is_user_annotation
+                and e.name not in BG_RANGES):
             by_kernel.setdefault(e.name, [0.0, 0])
             by_kernel[e.name][0] += e.time_range.elapsed_us() / 1e3 / n_frames
             by_kernel[e.name][1] += 1
@@ -3301,6 +3633,14 @@ def main() -> int:
         kernels[k]["saturated_window"] = sat_rows[k]
     print(f"  main path 7 in {time.perf_counter() - t7:.1f} s")
 
+    # -- main path 8: the JAX package's benchmark configuration ---------------
+    t8 = time.perf_counter()
+    bench8, launches8, dense_rows = main_path8(system, ba_cuda, ba_pallas, all_kernels, plains,
+                                               dev)
+    for k in ba_keys:
+        kernels[k]["dense_window"] = dense_rows[k]
+    print(f"  main path 8 in {time.perf_counter() - t8:.1f} s")
+
     for k in ("fast", "orb", "top2") + OFF_PATH:
         kernels[k]["launches"] = launches1[k]
     for k in ("top2_m4096", "top2_chi2", "top2_nb", "top1_epi") + ba_keys:
@@ -3309,7 +3649,8 @@ def main() -> int:
         kernels[k]["launches_by_path"] = {"1": launches1[k], "2": launches2[k],
                                           "3": launches3[k], "4": launches4[k],
                                           "5": launches5[k], "5 VO_LOOP_DIAG": launches5d[k],
-                                          "6": launches6[k], "7": launches7[k]}
+                                          "6": launches6[k], "7": launches7[k],
+                                          "8a": launches8["8a"][k], "8b": launches8["8b"][k]}
     on_paths = {k: kernels[k]["launches_by_path"] for k in OFF_PATH
                 if any(kernels[k]["launches_by_path"].values())}
     if on_paths:
@@ -3323,7 +3664,8 @@ def main() -> int:
     keys = ("name", "shape", "route", "source", "replaces", "launches", "launches_by_path",
             "max_abs_err", "ms", "v1_ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
             "launch_floor_x", "counted", "kidnap_instances", "loop_fuse_instances",
-            "phase_launches", "random_ms", "random_v1_ms", "random_bound_ms", "saturated_window")
+            "phase_launches", "random_ms", "random_v1_ms", "random_bound_ms", "saturated_window",
+            "dense_window")
     print(f"total {time.perf_counter() - t_start:.1f} s after the card query")
     print(json.dumps({"main_path": {
         "fused_tracker": {"frame_ms_median": float(np.median(steady)), "ate_m": float(ate),
@@ -3343,7 +3685,7 @@ def main() -> int:
         "cli_on_files": {k: {kk: vv for kk, vv in v.items() if kk != "stdout"}
                          for k, v in cli.items()},
         "off_nominal_scenes": scenes7, "saturated_local_ba": saturated,
-        "card": smi}}))
+        "bench_configuration": bench8, "card": smi}}))
     order = ("fast", "orb", "top2", "top2_m4096", "top2_chi2", "top2_nb", "top1_epi") + ba_keys \
         + OFF_PATH
     print(json.dumps({"kernels": [{key: kernels[k][key] for key in keys if key in kernels[k]}

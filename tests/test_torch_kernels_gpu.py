@@ -861,7 +861,7 @@ def test_port_modules_import_no_jax(cuda):
                  "solvers.epnp", "utils.prng", "utils.linalg", "utils.drift", "solvers.sim3",
                  "solvers.pose_graph", "solvers.global_ba", "pipeline.loop_closing",
                  "frontend.distribute", "datasets.tum", "datasets.staging", "native.loader",
-                 "slam_map.serialize", "viz.drawer", "viz.webviewer", "run_slam"):
+                 "slam_map.serialize", "viz.drawer", "viz.webviewer", "run_slam", "bench"):
         assert pkg.__name__ + "." + name in sys.modules
     bad = [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "vo_slam_test_tpu")]
     assert not bad, bad
@@ -1087,3 +1087,43 @@ def test_distribute_level_cell_boundaries_on_card(cuda):
         want = distribute_level(*args, bounds, 8, n_ini=n_ini)
         got = distribute_level(*[a.to(cuda) for a in args], bounds, 8, n_ini=n_ini)
         assert torch.equal(got.cpu(), want), lvl
+
+
+# ---------------------------------------------------------------------------
+# frames staged on the card before track (the bench's protocol)
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("raw_depth", [False, True])
+def test_track_takes_prestaged_frames_on_card(cuda, raw_depth):
+    """SlamSystem.track with gray and depth already on the card (f32 meters,
+    or u16 raw) gives the states of numpy inputs: per frame ok, the counts,
+    the keyframe decision and the pose, and every map tensor, equal; the
+    staged tensors pass through untouched (chunk=2 buffers them as given)."""
+    seq = SyntheticRGBD(trajectory=room_orbit_trajectory(240, loops=1.5), scene="room", seed=7)
+    cfg = SlamConfig(camera_fx=seq.fx, camera_fy=seq.fy, camera_cx=seq.cx, camera_cy=seq.cy,
+                     camera_k1=0, camera_k2=0, camera_p1=0, camera_p2=0, camera_k3=0)
+    frames = [seq[i] for i in range(4)]
+    if raw_depth:
+        frames = [(g, (d * cfg.camera_depthScale).astype(np.uint16), t) for g, d, t in frames]
+    staged = [(torch.as_tensor(g).to(cuda), torch.as_tensor(d).to(cuda), t) for g, d, t in frames]
+    runs = []
+    for inputs in (frames, staged):
+        s = SlamSystem(cfg, chunk=2)
+        for i, f in enumerate(inputs):
+            s.track(*f)
+            if inputs is staged and i % 2 == 0:
+                assert s._chunk_buf[0][0] is f[0]
+                assert (s._chunk_buf[0][1] is f[1]) != raw_depth
+        s.results()
+        runs.append(s)
+    a, b = runs
+    for x, y in zip(a._outs, b._outs):
+        for k in ("ok", "n_features", "n_matches", "n_inliers", "T_c_w"):
+            assert torch.equal(getattr(x, k), getattr(y, k)), k
+        assert x.made_kf == y.made_kf
+    for f in a.map.__dataclass_fields__:
+        assert torch.equal(getattr(a.map, f), getattr(b.map, f)), f
+    other = torch.zeros(frames[0][0].shape, dtype=torch.uint8)
+    with pytest.raises(ValueError, match="frame tensor"):
+        SlamSystem(cfg).track(other, staged[0][1], 0.0)

@@ -280,10 +280,12 @@ def build_vocabulary(descriptors: np.ndarray, k: int = 10, levels: int = 4, iter
         child_assign = np.zeros(M, np.int64)
         cents = np.zeros((n_child, 8), np.uint32)
         valid = np.zeros(n_child, bool)
-        for p in range(n_parent):
-            sel = np.nonzero(assign == p)[0]
-            if sel.size == 0:
-                continue
+        # each parent's descriptors in ascending index order (a stable sort
+        # by parent): one sort per level, not one scan of all M per parent
+        order = np.argsort(assign, kind="stable")
+        bounds = np.searchsorted(assign[order], np.arange(n_parent + 1))
+        for p in np.nonzero(bounds[1:] > bounds[:-1])[0]:
+            sel = order[bounds[p]: bounds[p + 1]]
             sub = descriptors[sel]
             kk = min(k, sel.size)
             # k-means++ style seeding: first random, rest farthest

@@ -15,7 +15,7 @@ one host read of the candidates, the per-level host quad-tree
 from __future__ import annotations
 
 import functools
-from typing import NamedTuple, Tuple
+from typing import NamedTuple, Tuple, Union
 
 import numpy as np
 import torch
@@ -147,9 +147,28 @@ def extract_fused(
     return _stage_b(pyr, spec, sel, depth_img, cam)
 
 
-def upload(a: np.ndarray, device: torch.device) -> torch.Tensor:
+def _on_device(t: torch.Tensor, device: torch.device) -> bool:
+    """Whether ``t`` lies on ``device`` (``cuda`` without an index names the
+    current card)."""
+    device = torch.device(device)
+    if t.device.type != device.type:
+        return False
+    if device.type == "cuda" and device.index is None:
+        return t.device.index == torch.cuda.current_device()
+    return device.index is None or t.device.index == device.index
+
+
+def upload(a: Union[np.ndarray, torch.Tensor], device: torch.device) -> torch.Tensor:
     """Host array -> tensor on ``device``; on the card from pinned memory, so
-    the copy does not block the host (a copy from pageable memory does)."""
+    the copy does not block the host (a copy from pageable memory does). A
+    tensor already on ``device`` (frames the caller staged there) passes
+    through untouched; a tensor on another device raises rather than being
+    copied."""
+    if isinstance(a, torch.Tensor):
+        if not _on_device(a, device):
+            raise ValueError(f"a frame tensor on {a.device} was given to a system on {device}; "
+                             f"stage it on {device} or pass a numpy array")
+        return a
     t = torch.from_numpy(np.ascontiguousarray(a))
     if device.type != "cuda":
         return t.to(device)

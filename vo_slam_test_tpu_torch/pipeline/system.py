@@ -45,6 +45,13 @@ generation guards) until one is accepted; ``loop_attempts`` then holds
 > 1 a batch whose copy has not landed waits for a later drain. Either way
 every attempt's gate values are kept in ``SlamSystem.loop_gates``.
 
+The work the reference runs off the tracking thread is marked with
+``torch.profiler.record_function`` ranges named as the JAX package's programs
+that ``bench.py`` sums: ``background`` (a frame's or a chunk's background
+step), ``close_step`` (a loop closure's verification and correction) and
+``global_bundle`` (global BA); ``vo_slam_test_tpu_torch.bench`` sums the
+device time of the kernels launched inside them.
+
 Host reads per frame: the JAX package branches with ``lax.cond`` on device
 scalars; here every branch that decides which kernels run is a host bool.
 A tracked frame reads back the r=15 match count (the r=30 retry) and, in
@@ -67,6 +74,7 @@ from typing import List, NamedTuple, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
+from torch.profiler import record_function
 
 from .. import lie, resolve_device
 from ..bow import retrieval as bow_ret
@@ -653,9 +661,10 @@ def background_step(m: MapState, loop_state: loop_closing.LoopState, did_kf: boo
         loop_state, cand, cand_gen = loop_closing.detect_step(m, loop_state, did_kf, kf_id, caps)
         cands, gens = torch.stack([cand, cand_gen]).tolist()
         if cands[0] >= 0:
-            m, loop_state, out.closed, out.which, out.attempts = loop_closing._close_multi(
-                m, loop_state, kf_id, m.kf_valid[kf_id], cands, gens, bow_group_div, caps, cam,
-                scale_factors)
+            with record_function("close_step"):
+                m, loop_state, out.closed, out.which, out.attempts = loop_closing._close_multi(
+                    m, loop_state, kf_id, m.kf_valid[kf_id], cands, gens, bow_group_div, caps,
+                    cam, scale_factors)
             out.attempted = True
     return m, loop_state, out
 
@@ -819,10 +828,14 @@ class SlamSystem:
             last_kf_frame=-10_000, last_was_kf=False, last_reloc_frame=-10_000,
         )
 
-    def track(self, gray: np.ndarray, depth: np.ndarray, timestamp: float) -> None:
+    def track(self, gray: Union[np.ndarray, torch.Tensor], depth: Union[np.ndarray, torch.Tensor],
+              timestamp: float) -> None:
         """gray u8 (H, W); depth f32 meters, or u16 raw scaled by the
-        config's depth scale on the device. With ``chunk`` > 1 the frame is
-        uploaded and buffered; a full chunk is tracked and mapped at once."""
+        config's depth scale on the device. Either may be a tensor already on
+        this system's device (frames the caller staged there): it passes
+        through untouched, as in the JAX package (a tensor on another device
+        raises). With ``chunk`` > 1 the frame is uploaded and buffered; a full
+        chunk is tracked and mapped at once."""
         gray_d = upload(gray, self.device)
         depth_d = upload(depth, self.device)
         if not torch.is_floating_point(depth_d):
@@ -844,10 +857,11 @@ class SlamSystem:
             self.spec, self.budgets, self.scale_factors, self.inv_level_sigma2,
             self.fast_hi, self.fast_lo, self.max_frame_gap, self.voc, self.reloc_parity,
         )
-        self.map, self.loop_state, bg = background_step(
-            self.map, self.loop_state, out.made_kf, new_kf, self._ba_interrupt(), self.caps,
-            self.camera, self.scale_factors, self.enable_loop_closing, self._bow_group_div,
-            self._inline_close)
+        with record_function("background"):
+            self.map, self.loop_state, bg = background_step(
+                self.map, self.loop_state, out.made_kf, new_kf, self._ba_interrupt(), self.caps,
+                self.camera, self.scale_factors, self.enable_loop_closing, self._bow_group_div,
+                self._inline_close)
         self._fold_background([(self._frame_id, out.made_kf, bg)])
         if self.enable_loop_closing and not self._inline_close:
             self._queue_loop([self._frame_id], bg.cands[None], bg.cand_gens[None],
@@ -865,9 +879,11 @@ class SlamSystem:
             self.scale_factors, self.inv_level_sigma2, self.fast_hi, self.fast_lo,
             self.max_frame_gap, self.voc, self.reloc_parity)
         did = [o.made_kf for o in outs]
-        self.map, self.loop_state, bgs = background_chunk(
-            self.map, self.loop_state, did, new_kfs, self._ba_interrupt(), self.caps, self.camera,
-            self.scale_factors, self.enable_loop_closing, self._bow_group_div, self._inline_close)
+        with record_function("background"):
+            self.map, self.loop_state, bgs = background_chunk(
+                self.map, self.loop_state, did, new_kfs, self._ba_interrupt(), self.caps,
+                self.camera, self.scale_factors, self.enable_loop_closing, self._bow_group_div,
+                self._inline_close)
         self._fold_background([(self._frame_id + k, made, bg)
                                for k, (made, bg) in enumerate(zip(did, bgs))])
         if self.enable_loop_closing and not self._inline_close:
@@ -897,9 +913,7 @@ class SlamSystem:
             if bg.closed:
                 self.loop_closures.append(frame)
                 if self.enable_global_ba:
-                    self.map = global_ba.global_bundle_adjust(
-                        self.map, self.caps, self.camera, 0,
-                        inv_level_sigma2=self.inv_level_sigma2)
+                    self._global_ba()
 
     def _queue_loop(self, frame_ids, cands, cand_gens, ref_kfs, ref_gens) -> None:
         """Queue one batch of per-frame detections (device tensors with
@@ -957,20 +971,26 @@ class SlamSystem:
         for cand, gen in zip(cands, gens):
             if cand < 0:
                 continue
-            self.map, self.loop_state, ok, gates = loop_closing.close_step(
-                self.map, self.loop_state, kf_id, cand, self.caps, self.camera,
-                self.scale_factors, groups_curr,
-                bow_voc.feature_groups(self.voc, self.map.kf_word[cand]),
-                kf_gen_expect=kf_gen, cand_gen_expect=gen, diag=True)
+            with record_function("close_step"):
+                self.map, self.loop_state, ok, gates = loop_closing.close_step(
+                    self.map, self.loop_state, kf_id, cand, self.caps, self.camera,
+                    self.scale_factors, groups_curr,
+                    bow_voc.feature_groups(self.voc, self.map.kf_word[cand]),
+                    kf_gen_expect=kf_gen, cand_gen_expect=gen, diag=True)
             self.loop_attempts.append((frame, cand, ok, gates))
             self.loop_gates.append((frame, cand, ok, gates))
             if not ok:
                 continue
             self.loop_closures.append(frame)
             if self.enable_global_ba:
-                self.map = global_ba.global_bundle_adjust(
-                    self.map, self.caps, self.camera, 0, inv_level_sigma2=self.inv_level_sigma2)
+                self._global_ba()
             break
+
+    def _global_ba(self) -> None:
+        """The upstream global BA after an accepted closure (keyframe 0 fixed)."""
+        with record_function("global_bundle"):
+            self.map = global_ba.global_bundle_adjust(
+                self.map, self.caps, self.camera, 0, inv_level_sigma2=self.inv_level_sigma2)
 
     def _flush(self) -> None:
         """Track the frames of an incomplete chunk one at a time."""
