@@ -51,7 +51,24 @@
    and a second run giving identical map tensors;
 6. main path 3: the same frames through ``SlamSystem(chunk=8)``: the same
    checks, with local BA skipped (and no BA launch) on the events a later
-   keyframe of the same chunk overtakes;
+   keyframe of the same chunk overtakes. Paths 1-3 run ``graphs=False``
+   (eager: each wrapper's count is a launch); then the phase graphs: paths
+   1-3 again through their step programs replayed as CUDA graphs with
+   conditional nodes (``graphs=True``, the card's default), every frame staged
+   on the card, each beside a ``graphs=False`` run in this call: trajectories,
+   per-frame counts, keyframes, LM counts and every map tensor equal, no
+   host sync in any ``track`` call of a graph run (sync debug mode
+   ``error``), and from the first frame that only replays to the end the
+   same launches of every kernel as the eager run. A replay does not pass
+   through the wrappers, so a graph run is counted in a run of its own
+   captured inside ``graphs.counting()``: each conditional node counts its
+   executions on the device, and a kernel recorded in a node's body counts
+   once per execution (``StepGraph.launches``); that run's results must
+   equal eager's too. Frame (chunk) ms medians, graph replays and
+   cudaGraphLaunch calls per frame, device busy, kernels per frame and idle
+   share from a profiler window, each beside eager's. The kernels line's
+   ``launches_by_path`` gives each graph run's launches over the whole run,
+   warm-ups included (``1 graphs``, ``2 graphs``, ``3 graphs``);
 7. main path 4, the kidnap: ``SlamSystem(vocabulary=...)`` (loop closing on,
    the default) over the reference's relocalization scenario at 640x480
    (tests/test_reloc.py: frames 0-7 of SyntheticRGBD(n_frames=12, seed=31,
@@ -97,10 +114,12 @@
    30 --sync`` (FrameToFrameTracker) must keep every frame ok with >= 100
    matches and >= 50 inliers from frame 1 and ATE < 3 cm; ``--synthetic
    --frames 30`` must track 30/30; FAST, ORB and the frame-pair top-2 must be
-   launched. Per run: frame ms, decode ms, host quad-tree ms and host syncs a
-   frame and the reader that served. Then the host-path ``OrbExtractor`` on
-   the card against the CPU on path 1's frame 0 (every field equal, angles
-   within 1e-3 deg);
+   launched. ``--slam`` and the default mode run through the step graphs
+   (the card's default) and are counted as the phase graphs counts a graph
+   run (``graphs.counting()``); the other runs by the wrappers. Per run: frame ms, decode ms, host
+   quad-tree ms and host syncs a frame and the reader that served. Then the
+   host-path ``OrbExtractor`` on the card against the CPU on path 1's frame
+   0 (every field equal, angles within 1e-3 deg);
 10. main path 7, the off-nominal regimes. 7a: ``SlamSystem`` (no vocabulary,
    MapCaps(max_kf=32, max_pt=8192)) at 640x480 over the JAX package's moving
    object (SyntheticRGBD(n_frames=12, seed=41, motion_scale=0.5,
@@ -153,6 +172,7 @@ from __future__ import annotations
 import contextlib
 import ctypes
 import dataclasses
+import gc
 import io
 import json
 import os
@@ -847,7 +867,7 @@ def frame_instances(seq, cfg, device):
     from vo_slam_test_tpu_torch.ops.pyramid import build_pyramid
     from vo_slam_test_tpu_torch.pipeline import tracking
 
-    tracker = tracking.FusedTracker(cfg, device=device)
+    tracker = tracking.FusedTracker(cfg, device=device, graphs=False)
     spec, cam = tracker.spec, tracker.camera
     (gray0, depth0, _), (gray1, depth1, _) = seq[0], seq[1]
     gray0 = torch.as_tensor(gray0).to(device)
@@ -997,7 +1017,7 @@ def capture_instances(match_cuda, ba_cuda, system, cfg, frames):
         setattr(match_cuda, n, recorder(n))
     try:
         with BaCapture(ba_cuda) as cap:
-            s = system.SlamSystem(cfg)
+            s = system.SlamSystem(cfg, graphs=False)
             for f in frames:
                 s.track(*f)
             torch.cuda.synchronize()
@@ -1033,7 +1053,7 @@ def run_slice(system, triangulate, cfg, frames, timed: bool, profile_frames=()):
     per frame (sync debug mode). Otherwise: the epipolar searches the path
     should launch, counted apart, and a torch.profiler window over
     ``profile_frames``."""
-    s = system.SlamSystem(cfg)
+    s = system.SlamSystem(cfg, graphs=False)
     rec = dict(frame_ms=[], wall_ms=[], syncs=[], sync_sites={}, map_events=[], epi_expected=0,
                profile=None)
     orig_bg, orig_tri = system.background_step, triangulate.create_new_map_points
@@ -1107,7 +1127,7 @@ def run_chunked(system, cfg, frames, chunk):
     """One SlamSystem(chunk=...) run over ``frames``: host wall ms of each
     ``track`` call that completed a chunk (tracking and mapping of its
     frames), synchronized."""
-    s = system.SlamSystem(cfg, chunk=chunk)
+    s = system.SlamSystem(cfg, chunk=chunk, graphs=False)
     chunk_ms = []
     for i, (gray, depth, ts) in enumerate(frames):
         t0 = time.perf_counter()
@@ -1149,7 +1169,7 @@ def kidnap_vocabulary(seq, cfg, device):
     from vo_slam_test_tpu_torch.frontend.extractor import extract_fused
     from vo_slam_test_tpu_torch.pipeline import tracking
 
-    tr = tracking.FusedTracker(cfg, device=device)
+    tr = tracking.FusedTracker(cfg, device=device, graphs=False)
     descs = []
     for i in range(3):
         g, d, _ = seq[i]
@@ -1307,7 +1327,7 @@ def pan_vocabulary(seq, cfg, device):
     from vo_slam_test_tpu_torch.frontend.extractor import extract_fused
     from vo_slam_test_tpu_torch.pipeline import tracking
 
-    tr = tracking.FusedTracker(cfg, device=device)
+    tr = tracking.FusedTracker(cfg, device=device, graphs=False)
     descs = []
     for i in PAN_VOC_FRAMES:
         g, d, _ = seq[i]
@@ -2123,17 +2143,35 @@ class CliProbe:
             setattr(cls, attr, orig)
         self.saved = []
 
-    def run(self, label, argv):
+    def run(self, label, argv, graphs: bool = False):
         """One ``run_slam.main(argv)`` on the card; its output is kept apart and
-        its summary lines printed with this run's per-frame record -> dict."""
+        its summary lines printed with this run's per-frame record -> dict.
+        Its kernel launches (``launches``): the wrappers' counts; for a run
+        whose tracker replays step graphs (``graphs``, checked against the
+        tracker), captured inside ``graphs.counting()``, the wrappers' counts
+        less the calls the captures recorded plus the replays' launches
+        counted on the device (``graph_run_launches``; a replay does not pass
+        through the wrappers)."""
         from vo_slam_test_tpu_torch import run_slam
+        from vo_slam_test_tpu_torch.utils import graphs as graphs_mod
 
         self.reset()
+        counters = kernel_counters()
+        torch.cuda.synchronize()
+        snap = {k: v.launches for k, v in counters.items()}
         buf = io.StringIO()
         t0 = time.perf_counter()
-        with contextlib.redirect_stdout(buf):
+        with graphs_mod.counting() if graphs else contextlib.nullcontext(), \
+                contextlib.redirect_stdout(buf):
             rc = run_slam.main(argv)
+            torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+        if bool(getattr(self.tracker, "graphs", False)) != graphs:
+            raise AssertionError(f"path 6 {label}: the tracker's graphs flag is not {graphs}")
+        launches = {k: v.launches - snap[k] for k, v in counters.items()}
+        replays = graph_replays(self.tracker) if graphs else 0
+        if graphs:
+            launches = graph_run_launches(self.tracker, launches)
         out = buf.getvalue()
         if rc != 0:
             raise AssertionError(f"path 6 {label}: run_slam exited {rc}:\n{out[-2000:]}")
@@ -2143,7 +2181,10 @@ class CliProbe:
                    decode_ms_per_frame=float(np.mean(self.read_ms)) if self.read_ms else None,
                    distribute_ms_per_frame=sum(self.dist_ms) / n if self.dist_ms else None,
                    host_syncs_per_frame=float(np.mean(self.syncs)), syncs=list(self.syncs),
-                   readers=sorted(self.readers) or ["none (rendered in memory)"], wall_s=wall)
+                   readers=sorted(self.readers) or ["none (rendered in memory)"], wall_s=wall,
+                   launches=launches,
+                   launches_from="device-counted replays" if graphs else "wrappers",
+                   graph_replays=replays)
         print(f"  {label}: run_slam {' '.join(argv)}")
         for line in out.splitlines():
             if not line.startswith("frame ") and "saved to" not in line:
@@ -2152,7 +2193,9 @@ class CliProbe:
               f"{rec['frame_ms_median']:.3f}, mean {rec['frame_ms_mean']:.3f}; decode ms a frame "
               f"{rec['decode_ms_per_frame']}; host quad-tree ms a frame "
               f"{rec['distribute_ms_per_frame']}; host syncs a frame {rec['host_syncs_per_frame']:.2f} "
-              f"{self.syncs}; reader {rec['readers']}; {wall:.1f} s in all")
+              f"{self.syncs}; reader {rec['readers']}; {wall:.1f} s in all; kernel launches "
+              f"({rec['launches_from']}) {launches}"
+              + (f", {replays} graph replays" if graphs else ""))
         rec["stdout"] = out
         return rec
 
@@ -2216,7 +2259,7 @@ def main_path6(room, room_frames, room_cfg, frames, cfg, gt, all_kernels, plains
                 argv += [flag, out[flag[2:-4]]]
             else:
                 print(f"  {flag} left out: {mod} is not installed on this machine")
-        cli["slam"] = probe.run("--slam, every output", argv)
+        cli["slam"] = probe.run("--slam, every output", argv, graphs=True)
         s6 = probe.tracker
         gt_t = [float(f"{t:.6f}") for _, _, t in room_frames]
         gt6 = np.stack([room.poses[i] for i in range(n_room)])
@@ -2266,8 +2309,11 @@ def main_path6(room, room_frames, room_cfg, frames, cfg, gt, all_kernels, plains
                   if not torch.equal(getattr(m_loaded, f), getattr(s6.map, f))]
         s_res = system.SlamSystem(s6.cfg, caps=caps_loaded)
         s_res.map, s_res.state, s_res._frame_id = m_loaded, s6.state, s6._frame_id
+        # one frame: the programs' warm-up, which launches through the wrappers
+        snap = {k: v.launches for k, v in all_kernels.items()}
         s_res.track(*room[n_room])
         st_res = s_res.results()[1][-1]
+        resume_launches = {k: v.launches - snap[k] for k, v in all_kernels.items()}
         print(f"  save_map / load_map ({Path(map_path).stat().st_size / 1e6:.2f} MB): "
               f"{len(s6.map.__dataclass_fields__)} fields, differing {differ}; resumed frame "
               f"{n_room}: ok={st_res.ok} matches {st_res.n_matches} inliers "
@@ -2290,14 +2336,17 @@ def main_path6(room, room_frames, room_cfg, frames, cfg, gt, all_kernels, plains
             raise AssertionError(f"path 6 --sync failed: ATE {ate5} m, frames off the gates {bad5}")
 
         cli["fused"] = probe.run("--synthetic --frames 30 (FusedTracker)", [
-            "--synthetic", "--frames", "30", "--camera-out", out["cam7"]])
+            "--synthetic", "--frames", "30", "--camera-out", out["cam7"]], graphs=True)
         _, stats7 = probe.tracker.results()
         n_ok7 = sum(s.ok for s in stats7)
         print(f"  default mode: tracked {n_ok7}/{len(stats7)}")
         if n_ok7 != 30:
             raise AssertionError(f"path 6 default mode tracked {n_ok7}/30")
-        launches6 = {k: v.launches for k, v in all_kernels.items()}
-    print(f"  kernel launches: {launches6}; plain versions on CUDA: {guard6.cuda_calls}")
+        launches6 = {k: resume_launches[k] + sum(r["launches"][k] for r in cli.values())
+                     for k in all_kernels}
+    print(f"  kernel launches (the graph runs' replays counted on the device, the rest by the "
+          f"wrappers): "
+          f"{launches6}; plain versions on CUDA: {guard6.cuda_calls}")
     if guard6.cuda_calls:
         raise AssertionError(f"plain versions ran on CUDA tensors: {guard6.cuda_calls}")
 
@@ -2427,7 +2476,7 @@ def main_path7a(system, all_kernels, plains) -> tuple:
             for label, (seq, cfg) in scenes.items():
                 before = {k: v.launches for k, v in all_kernels.items()}
                 lrec.tag = label
-                s = system.SlamSystem(cfg, caps=MapCaps(**SCENE_CAPS))
+                s = system.SlamSystem(cfg, caps=MapCaps(**SCENE_CAPS), graphs=False)
                 rec = run_timed(s, frames[label], lrec)
                 lrec.tag = None
                 report[label] = scene_report(label, s, rec, seq, {
@@ -2436,7 +2485,8 @@ def main_path7a(system, all_kernels, plains) -> tuple:
         launches = {k: v.launches for k, v in all_kernels.items()}
         # the determinism check: the moving object again (the most
         # rounding-sensitive of the three: its patch's matches sit near the gates)
-        again = system.SlamSystem(scenes["moving object"][1], caps=MapCaps(**SCENE_CAPS))
+        again = system.SlamSystem(scenes["moving object"][1], caps=MapCaps(**SCENE_CAPS),
+                                  graphs=False)
         for f in frames["moving object"]:
             again.track(*f)
     check_same_maps("main path 7a (moving object)", runs["moving object"], again)
@@ -2866,6 +2916,235 @@ def main_path8(system, ba_cuda, ba_pallas, all_kernels, plains, dev) -> tuple:
     return report, launches, rows
 
 
+GRAPH_PROFILE = {1: range(10, 15), 2: range(10, 15), 3: range(16, 24)}  # frames profiled
+# the first frame from which a path's graph run only replays: path 1's step
+# program is captured at frame 2; path 2's tracking program at frame 2 and its
+# background program at frame 1; path 3's both at the first chunk's dispatch
+GRAPH_COUNT_FROM = {1: 3, 2: 3, 3: CHUNK}
+
+def graph_launch_calls(prof) -> int:
+    """``cudaGraphLaunch`` runtime calls in a finished profiler run (host
+    records of the runtime API)."""
+    from torch.autograd import DeviceType
+
+    return sum(e.device_type() == DeviceType.CPU and e.name().startswith("cudaGraphLaunch")
+               for e in prof.profiler.kineto_results.events())
+
+
+def step_graphs(s) -> list:
+    """A tracker's step programs."""
+    if hasattr(s, "step_graph"):
+        return [s.step_graph]
+    return [s.track_graph, s.background_graph]
+
+
+def graph_counts(s) -> tuple:
+    """(launches of each kernel by the tracker's graph replays so far,
+    counted on the device: ``StepGraph.launches``; the wrapper calls its
+    captures recorded, which launched nothing), by key of kernel_counters."""
+    keys = kernel_counters()
+    sgs = [sg for sg in step_graphs(s) if sg.graph is not None]
+    reps = [sg.launches() for sg in sgs]
+    caps = [sg.capture_calls for sg in sgs]
+    return ({key: sum(r.get(k, 0) for r in reps) for key, k in keys.items()},
+            {key: sum(c.get(k, 0) for c in caps) for key, k in keys.items()})
+
+
+def graph_run_launches(s, wrapper_calls: dict) -> dict:
+    """A graph run's launches of each kernel: the wrappers' calls over the
+    run (the warm-ups launch through them), less the calls its captures
+    recorded, plus the launches of its replays counted on the device."""
+    replayed, captured = graph_counts(s)
+    return {k: wrapper_calls[k] - captured[k] + replayed[k] for k in wrapper_calls}
+
+
+def graph_replays(s) -> int:
+    """Replays of a tracker's step programs so far."""
+    return sum(sg.replays for sg in step_graphs(s))
+
+
+def graphs_run(make, frames, graphs_on: bool, profile_frames=(), count_from=None):
+    """One run of ``make()`` over device-staged ``frames``: CUDA-event ms per
+    ``track`` call (a chunk's on its last frame), host syncs per call (sync
+    debug mode ``warn`` when eager; ``error`` on the graph path, so one sync
+    fails the phase); with ``profile_frames``, a torch.profiler window; with
+    ``count_from``, each kernel's launches from that frame's call to the end
+    and over the whole run, and the programs' replays from it: the wrappers'
+    counts when eager; on the graph path the programs are captured inside
+    ``graphs.counting()`` and their replays' launches counted on the device
+    (``graph_run_launches``) -> (system, record)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from vo_slam_test_tpu_torch.utils import graphs
+
+    counting = graphs_on and count_from is not None
+    s = make()
+    counters = kernel_counters()
+    rec = dict(call_ms=[], syncs=[], profile=None)
+    start = {k: v.launches for k, v in counters.items()}
+    prof = snap = None
+    with graphs.counting() if counting else contextlib.nullcontext():
+        for i, (g, d, t) in enumerate(frames):
+            if i == count_from:
+                torch.cuda.synchronize()
+                snap = {k: v.launches for k, v in counters.items()}
+                replays0 = graph_replays(s) if graphs_on else 0
+                replayed0 = graph_counts(s)[0] if counting else None
+            if profile_frames and i == profile_frames[0]:
+                torch.cuda.synchronize()
+                prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+                prof.__enter__()
+                t_prof = time.perf_counter()
+            e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            e0.record()
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                torch.cuda.set_sync_debug_mode("error" if graphs_on else "warn")
+                try:
+                    s.track(g, d, t)
+                finally:
+                    torch.cuda.set_sync_debug_mode("default")
+            e1.record()
+            if prof is not None and i == profile_frames[-1]:
+                torch.cuda.synchronize()
+                wall = (time.perf_counter() - t_prof) * 1e3 / len(profile_frames)
+                prof.__exit__(None, None, None)
+                rec["profile"] = (prof, wall, len(profile_frames))
+                prof = None
+            torch.cuda.synchronize()
+            rec["call_ms"].append(e0.elapsed_time(e1))
+            rec["syncs"].append(sum("synchroniz" in str(w.message) for w in caught))
+    if snap is not None:
+        wrapped = {k: v.launches - snap[k] for k, v in counters.items()}
+        whole = {k: v.launches - start[k] for k, v in counters.items()}
+        rec["replays"] = (graph_replays(s) if graphs_on else 0) - replays0
+        rec["wrapper_calls_counted"] = wrapped
+        if counting:
+            replayed = graph_counts(s)[0]
+            rec["launches"] = {k: wrapped[k] + replayed[k] - replayed0[k] for k in wrapped}
+            rec["run_launches"] = graph_run_launches(s, whole)
+        else:
+            rec["launches"], rec["run_launches"] = wrapped, whole
+    return s, rec
+
+
+def run_graphs_phase(system, tracking, cfg, frames, room_cfg, room_frames, gt, room_gt,
+                     dev) -> tuple:
+    """Phase graphs: main paths 1, 2 and 3 through the step programs replayed
+    as CUDA graphs with conditional nodes (``graphs=True``, the card's
+    default), each beside ``graphs=False`` in this call, every frame staged on
+    the card first. Fails unless the graph runs' trajectories, per-frame
+    counts, keyframes, LM counts and every map tensor equal the eager runs',
+    no ``track`` call of a graph run synchronizes (sync debug mode
+    ``error``), and, from the first frame that only replays
+    (``GRAPH_COUNT_FROM``) to the end, the graph run launches each kernel as
+    many times as the eager run (a replay does not call the wrappers: in a
+    run of its own, captured inside ``graphs.counting()``, each conditional
+    node counts its executions on the device and each kernel recorded in its
+    body counts once per execution; that run's results equal eager's and
+    the wrappers count nothing in those frames). Records frame (chunk) ms medians, graph
+    launches per frame (profiled cudaGraphLaunch calls and the programs'
+    replays), device busy, kernels per frame and the idle share from a
+    profiler window, each beside eager's -> (report, each graph run's
+    launches of each kernel over the whole run, warm-ups included)."""
+    from vo_slam_test_tpu_torch.datasets import ate_rmse
+
+    def staged(fr):
+        return [(torch.as_tensor(g).to(dev), torch.as_tensor(d).to(dev), t) for g, d, t in fr]
+
+    paths = {
+        1: (lambda on: tracking.FusedTracker(cfg, graphs=on), staged(frames), 1, gt),
+        2: (lambda on: system.SlamSystem(room_cfg, graphs=on), staged(room_frames), 1, room_gt),
+        3: (lambda on: system.SlamSystem(room_cfg, chunk=CHUNK, graphs=on), staged(room_frames),
+            CHUNK, room_gt),
+    }
+    report, run_launches = {}, {}
+    for path, (make, fr, chunk, gtp) in paths.items():
+        c0 = GRAPH_COUNT_FROM[path]
+        runs = {}
+        for on in (False, True):
+            # the eager run counts through its wrappers; the graph run is
+            # counted in a run of its own (the counters add a kernel per body)
+            s, rec = graphs_run(lambda: make(on), fr, on, count_from=None if on else c0)
+            res = s.results()
+            # a second run with a profiler window (its frames' device time)
+            _, rec_p = graphs_run(lambda: make(on), fr, on, GRAPH_PROFILE[path])
+            prof, wall, n_prof = rec_p["profile"]
+            print(f"  path {path}, graphs={on}:", end=" ")
+            busy, kpf = device_profile(prof, n_prof, wall)
+            runs[on] = (s, rec, res, busy, kpf, wall, graph_launch_calls(prof))
+        (a, ra, resa, busy_a, k_a, w_a, _) = runs[False]
+        (b, rb, resb, busy_b, k_b, w_b, win_graph_b) = runs[True]
+        ts = a.timestamps
+        if not np.array_equal(resa[0], resb[0]) or resa[1] != resb[1]:
+            raise AssertionError(f"phase graphs, path {path}: the trajectory or the per-frame "
+                                 f"counts differ from eager")
+        ate = ate_rmse(ts, gtp, ts, resb[0])
+        rows = dict(ate_cm=float(ate * 100), tracked=sum(x.ok for x in resb[1]))
+        if path > 1:
+            kfa = [i for i, o in enumerate(a._outs) if o.made_kf]
+            kfb = [i for i, o in enumerate(b._outs) if o.made_kf]
+            differ = [f.name for f in dataclasses.fields(a.map)
+                      if not torch.equal(getattr(a.map, f.name), getattr(b.map, f.name))]
+            if kfa != kfb or a.ba_iters != b.ba_iters or differ:
+                raise AssertionError(f"phase graphs, path {path}: keyframes {kfa} / {kfb}, LM "
+                                     f"{a.ba_iters} / {b.ba_iters}, map fields differing {differ}")
+            rows.update(keyframe_frames=kfb, ba_iters=b.ba_iters, points=b.n_points)
+        if any(rb["syncs"]):
+            raise AssertionError(f"phase graphs, path {path}: host syncs {rb['syncs']}")
+        # the counting run: its results equal eager's too
+        sc, rc = graphs_run(lambda: make(True), fr, True, count_from=c0)
+        resc = sc.results()
+        if not np.array_equal(resa[0], resc[0]) or resa[1] != resc[1] or any(rc["syncs"]):
+            raise AssertionError(f"phase graphs, path {path}: the counting run differs from "
+                                 f"eager or synchronized ({rc['syncs']})")
+        n_steady = len(fr) - c0
+        if rc["launches"] != ra["launches"] or any(rc["wrapper_calls_counted"].values()):
+            raise AssertionError(f"phase graphs, path {path}: frames {c0}-{len(fr) - 1} launched "
+                                 f"{rc['launches']} through the graphs (the wrappers "
+                                 f"{rc['wrapper_calls_counted']}), {ra['launches']} eager")
+        missing = [k for k, n in ra["launches"].items() if n and not rc["launches"][k]]
+        if missing:
+            raise AssertionError(f"phase graphs, path {path}: no launch of {missing} in the "
+                                 f"replayed frames")
+        run_launches[path] = rc["run_launches"]
+        if chunk == 1:
+            ms_a, ms_b = np.array(ra["call_ms"][3:]), np.array(rb["call_ms"][3:])
+            unit = "frame"
+        else:  # the calls that dispatch a chunk, after the first
+            ms_a = np.array(ra["call_ms"][chunk - 1::chunk][1:])
+            ms_b = np.array(rb["call_ms"][chunk - 1::chunk][1:])
+            unit = f"{chunk}-frame chunk"
+        rows.update(
+            unit=unit, eager_ms=ra["call_ms"], graph_ms=rb["call_ms"],
+            eager_median_ms=float(np.median(ms_a)), graph_median_ms=float(np.median(ms_b)),
+            eager_syncs=ra["syncs"], graph_syncs=rb["syncs"], counted_frames=[c0, len(fr) - 1],
+            eager_launches=ra["launches"], graph_launches=rc["launches"],
+            eager_run_launches=ra["run_launches"], graph_run_launches=rc["run_launches"],
+            replays_per_frame=rc["replays"] / n_steady,
+            window_graph_launches_per_frame=win_graph_b / n_prof,
+            eager_busy_ms=busy_a, graph_busy_ms=busy_b, eager_kernels=k_a, graph_kernels=k_b,
+            eager_wall_ms=w_a, graph_wall_ms=w_b, eager_idle=1 - busy_a / w_a,
+            graph_idle=1 - busy_b / w_b)
+        report[path] = rows
+        del runs, a, b, sc
+        gc.collect()
+        print(f"phase graphs, main path {path}: equal to graphs=False (trajectory, per-frame "
+              "counts" + (", keyframes, LM iterations, every map tensor" if path > 1 else "")
+              + f"); ATE {rows['ate_cm']:.4f} cm; {unit} ms median {rows['graph_median_ms']:.3f}"
+              f" against eager {rows['eager_median_ms']:.3f}; host syncs per call 0 (eager "
+              f"{sum(ra['syncs'])} in all); frames {c0}-{len(fr) - 1}: "
+              f"{rows['replays_per_frame']:.3f} graph replays a frame, kernel launches "
+              f"{rc['launches']} equal to eager's (counted on the device; the wrappers 0); "
+              f"whole runs {rc['run_launches']} (eager {ra['run_launches']}); profile (frames "
+              f"{list(GRAPH_PROFILE[path])[0]}-{list(GRAPH_PROFILE[path])[-1]}): "
+              f"{rows['window_graph_launches_per_frame']:.3f} cudaGraphLaunch calls a frame, "
+              f"device busy {busy_b:.3f} ms/frame in {k_b:.0f} kernels, idle share "
+              f"{rows['graph_idle']:.3f} (eager {busy_a:.3f} in {k_a:.0f}, idle "
+              f"{rows['eager_idle']:.3f})")
+    return report, run_launches
+
+
 def device_profile(prof, n_frames, wall_ms):
     """Device busy ms per frame, kernels per frame and the top kernels from
     the CUDA kernel events of a profiler window (the device spans of the
@@ -3206,7 +3485,7 @@ def main() -> int:
         print(f"  device ms per call by kernel: {launch_times_ms(lambda: kfn(inst, sub))}")
 
     # -- main path 1: FusedTracker -------------------------------------------
-    tracker = tracking.FusedTracker(cfg)
+    tracker = tracking.FusedTracker(cfg, graphs=False)
     with PlainGuard(plains) as guard:
         torch.cuda.synchronize()
         for k in all_kernels.values():
@@ -3363,6 +3642,12 @@ def main() -> int:
         raise AssertionError(f"plain versions ran on CUDA tensors: {guard3.cuda_calls}")
     check_ba_launches("main path 3", s3, kf_frames3, launches3, stops3)
     check_same_maps("main path 3", s3, s4)
+
+    # -- phase graphs: paths 1-3 as replayed CUDA graphs beside graphs=False ---
+    t0 = time.perf_counter()
+    graph_rows, graph_launches = run_graphs_phase(system, tracking, cfg, frames, room_cfg,
+                                                  room_frames, gt, gt2, dev)
+    print(f"  phase graphs in {time.perf_counter() - t0:.1f} s")
 
     # -- main path 4: the kidnap, SlamSystem with a vocabulary ------------------
     t0 = time.perf_counter()
@@ -3622,8 +3907,10 @@ def main() -> int:
     # -- main path 6: the CLI on files ---------------------------------------
     cli, launches6 = main_path6(room, room_frames, room_cfg, frames, cfg, gt, all_kernels,
                                 plains, dev)
-    if min(launches6[k] for k in ("fast", "orb", "top2")) < 1:
-        raise AssertionError(f"path 6 launched no FAST, ORB or frame-pair top-2: {launches6}")
+    if min(launches6[k] for k in ("fast", "orb", "top2")) < 1 or min(
+            cli[r]["launches"][k] for r in ("slam", "fused") for k in ("fast", "orb", "top2")) < 1:
+        raise AssertionError(f"path 6 launched no FAST, ORB or frame-pair top-2 (in all, or in "
+                             f"a graph run): {launches6}")
 
     # -- main path 7: the off-nominal scenes, and local BA past its caps -------
     t7 = time.perf_counter()
@@ -3647,7 +3934,10 @@ def main() -> int:
         kernels[k]["launches"] = launches2[k]
     for k in kernels:
         kernels[k]["launches_by_path"] = {"1": launches1[k], "2": launches2[k],
-                                          "3": launches3[k], "4": launches4[k],
+                                          "3": launches3[k],
+                                          "1 graphs": graph_launches[1][k],
+                                          "2 graphs": graph_launches[2][k],
+                                          "3 graphs": graph_launches[3][k], "4": launches4[k],
                                           "5": launches5[k], "5 VO_LOOP_DIAG": launches5d[k],
                                           "6": launches6[k], "7": launches7[k],
                                           "8a": launches8["8a"][k], "8b": launches8["8b"][k]}
@@ -3678,6 +3968,7 @@ def main() -> int:
         "slam_system_chunk8": {"chunk_ms": chunk_ms, "ate_m": float(ate3),
                                "keyframe_frames": kf_frames3, "ba_iters": s3.ba_iters,
                                "launches": launches3},
+        "graphs": {str(k): v for k, v in graph_rows.items()},
         "kidnap": dict(kid, launches=launches4, bow_orbvoc_ms=bow_ms),
         "pan_loop": dict(pan, launches=launches5),
         "global_ba_scene": gba_rows,

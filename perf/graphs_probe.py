@@ -1,0 +1,284 @@
+"""The graph path on the card, alone: conditional nodes, then main paths 1-3
+through ``utils.graphs.StepGraph`` beside ``graphs=False`` in one process.
+
+    python3 perf/graphs_probe.py [--frames N] [--skip-chunk] [--sites] [--bisect]
+                                 [--smoke-phase]
+
+Prints torch's version and whether ``torch.cuda.CUDAGraph`` has
+``begin_capture_to_if_node``; checks a captured ``cond`` and ``while_capped``
+against eager for both predicate values; then ``FusedTracker`` over main path
+1's 30 corner frames and ``SlamSystem`` over the first ``--frames`` (default
+40) room-orbit frames at 640x480, per frame and with ``chunk=8``, each with
+and without graphs: bit equality of poses, keyframes, LM counts and every map
+tensor, host syncs per ``track`` call (sync debug mode) and per-frame CUDA
+event ms. ``--sites`` prints the Python line of every host sync of the eager
+runs; ``--bisect`` first captures single operations and each mapping-chain stage inside an IF
+body (which ones instantiate); ``--smoke-phase`` runs only
+``chip_smoke.run_graphs_phase``. Needs the card; exits 1 without one.
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import sys
+import time
+import traceback
+import warnings
+from pathlib import Path
+
+import numpy as np
+import torch
+
+sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
+
+
+def capture_selftest(graphs) -> None:
+    """A StepGraph whose step holds a cond and a while_capped, replayed for
+    both predicate values, against eager."""
+    dev = torch.device("cuda")
+
+    def step(inp, st):
+        x, = inp
+        y = graphs.cond(x.sum() > 0, lambda: st * 2 + x, lambda: st - x)
+        z, n = graphs.while_capped(lambda c: c[0].sum() < 100, lambda c: (c[0] * 2, c[1] + 1),
+                                   (y, torch.zeros((), dtype=torch.int32, device=dev)), 8)
+        return z, n
+
+    sg = graphs.StepGraph(step, dev, "selftest")
+    st = torch.ones(4, device=dev)
+    for i, v in enumerate((1.0, -1.0, 1.0, -1.0, 3.0)):
+        x = torch.full((4,), v, device=dev)
+        want_y = st * 2 + x if v > 0 else st - x
+        want = want_y.clone()
+        n = 0
+        while n < 8 and want.sum() < 100:
+            want, n = want * 2, n + 1
+        st, got_n = sg.run((x,), st)
+        if not torch.equal(st, want) or int(got_n) != n:
+            raise AssertionError(f"selftest call {i}: {st.tolist()} / {want.tolist()}, "
+                                 f"{int(got_n)} / {n}")
+        st = st.clone()
+    print(f"selftest: cond + while_capped replayed {sg.replays} times, equal to eager")
+
+
+def tracked(fn, sites: dict | None):
+    """(result, syncs) of ``fn`` under sync debug mode ``warn``."""
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    ws = [w for w in caught if "synchroniz" in str(w.message)]
+    if sites is not None:
+        for w in ws:
+            key = f"{Path(w.filename).name}:{w.lineno}"
+            sites[key] = sites.get(key, 0) + 1
+    return out, len(ws)
+
+
+def run(make, frames, label, sites=None):
+    """Track ``frames`` with a fresh system; CUDA-event ms and syncs per call."""
+    s = make()
+    ms, syncs = [], []
+    for g, d, t in frames:
+        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        e0.record()
+        _, n = tracked(lambda: s.track(g, d, t), sites)
+        e1.record()
+        torch.cuda.synchronize()
+        ms.append(e0.elapsed_time(e1))
+        syncs.append(n)
+    res = s.results()
+    print(f"  {label}: frame ms median {np.median(ms[3:]):.3f} (frames 3..), first three "
+          f"{[round(x, 1) for x in ms[:3]]}; syncs per call {syncs}")
+    return s, res, ms, syncs
+
+
+def same_maps(a, b) -> list:
+    return [f.name for f in dataclasses.fields(a.map)
+            if not torch.equal(getattr(a.map, f.name), getattr(b.map, f.name))]
+
+
+def micro_cases(graphs) -> None:
+    """Single operations inside an IF body, each its own StepGraph: which
+    ones a conditional body instantiates with."""
+    dev = torch.device("cuda")
+    A = torch.randn(144, 144, device=dev)
+    S = A @ A.T + 144 * torch.eye(144, device=dev)
+    b = torch.randn(144, 1, device=dev)
+    M3 = torch.randn(3, 3, device=dev) + 3 * torch.eye(3, device=dev)
+    B4 = torch.randn(1024, 4, 4, device=dev, dtype=torch.float64)
+    x4 = torch.randn(1024, 4, 1, device=dev, dtype=torch.float64)
+    v = torch.randn(4096, device=dev)
+    cases = {
+        "plain": lambda: v * 2,
+        "nested cond": lambda: graphs.cond(v.sum() > 0, lambda: v * 3, lambda: v - 1),
+        "inv_ex 3x3": lambda: torch.linalg.inv_ex(M3)[0],
+        "solve_ex f64 [1024,4,4]": lambda: torch.linalg.solve_ex(B4, x4)[0],
+        "cholesky_ex 144": lambda: torch.linalg.cholesky_ex(S)[0],
+        "cholesky_solve 144": lambda: torch.cholesky_solve(b, torch.linalg.cholesky_ex(S)[0]),
+        "solve_triangular x2 144": lambda: torch.linalg.solve_triangular(
+            torch.linalg.cholesky_ex(S)[0].mT, torch.linalg.solve_triangular(
+                torch.linalg.cholesky_ex(S)[0], b, upper=False), upper=True),
+        "argsort stable": lambda: torch.argsort(v, stable=True).float(),
+        "while_capped": lambda: graphs.while_capped(lambda c: c.sum() < 1e6, lambda c: c * 2,
+                                                    v.abs() + 1, 4),
+        "scatter_reduce amax": lambda: torch.zeros(64, device=dev).scatter_reduce(
+            0, (v.abs() * 10).long().clamp(max=63), v, "amax"),
+    }
+    for name, fn in cases.items():
+        sg = graphs.StepGraph(lambda inp, st: (st, graphs.cond(inp[0], fn, lambda: fn() * 0)),
+                              dev, name)
+        go = torch.ones((), dtype=torch.bool, device=dev)
+        try:
+            for _ in range(3):
+                sg.run((go,), torch.zeros(1, device=dev))
+            torch.cuda.synchronize()
+            print(f"  micro {name}: ok", flush=True)
+        except Exception as e:  # noqa: BLE001 - the probe reports every case
+            print(f"  micro {name}: FAILED {type(e).__name__}: {str(e)[:200]}", flush=True)
+
+
+def bisect_chain(system, graphs, cfg, frames) -> None:
+    """Each stage of the mapping chain captured alone inside a cond, on the
+    map of an eager run of the first 6 frames (keyframe events 0, 1, 5)."""
+    from vo_slam_test_tpu_torch.slam_map import culling, fuse, triangulate
+    from vo_slam_test_tpu_torch.solvers import local_ba
+
+    s = system.SlamSystem(cfg, graphs=False)
+    for g, d, t in frames[:6]:
+        s.track(g, d, t)
+    kf = torch.tensor(2, dtype=torch.int32, device="cuda")
+    sf = s.scale_factors
+    stages = {
+        "cull_map_points": lambda m: culling.cull_map_points(m, kf, s.caps),
+        "create_new_map_points": lambda m: triangulate.create_new_map_points(
+            m, kf, s.caps, s.camera, sf),
+        "search_in_neighbors": lambda m: fuse.search_in_neighbors(m, kf, s.caps, s.camera, sf),
+        "local_ba": lambda m: local_ba.local_bundle_adjust_iters(
+            m, kf, s.caps, s.camera, 1.0 / (sf * sf), stop=torch.zeros((), dtype=torch.bool,
+                                                                       device="cuda"))[0],
+        "cull_keyframes": lambda m: culling.cull_keyframes(m, kf, s.caps, s.camera),
+    }
+    for name, fn in stages.items():
+        go = torch.ones((), dtype=torch.bool, device="cuda")
+        sg = graphs.StepGraph(lambda inp, m: (graphs.cond(inp[0], fn, lambda m: m, (m,)), ()),
+                              "cuda", name)
+        try:
+            m = s.map
+            for _ in range(3):
+                m, _ = sg.run((go,), m)
+            torch.cuda.synchronize()
+            print(f"  bisect {name}: captured and replayed", flush=True)
+        except Exception as e:  # noqa: BLE001 - the probe reports every stage
+            print(f"  bisect {name}: FAILED {type(e).__name__}: {str(e)[:300]}", flush=True)
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("graphs_probe: no CUDA device", file=sys.stderr)
+        return 1
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--frames", type=int, default=40)
+    ap.add_argument("--skip-chunk", action="store_true")
+    ap.add_argument("--sites", action="store_true")
+    ap.add_argument("--bisect", action="store_true",
+                    help="capture each mapping-chain stage alone under a cond first")
+    ap.add_argument("--smoke-phase", action="store_true",
+                    help="run chip_smoke.run_graphs_phase (paths 1-3) and stop")
+    args = ap.parse_args()
+
+    from vo_slam_test_tpu_torch.config import SlamConfig
+    from vo_slam_test_tpu_torch.datasets import SyntheticRGBD
+    from vo_slam_test_tpu_torch.datasets.synthetic import room_orbit_trajectory
+    from vo_slam_test_tpu_torch.ops import _build
+    from vo_slam_test_tpu_torch.pipeline import system, tracking
+    from vo_slam_test_tpu_torch.utils import graphs
+
+    print(f"torch {torch.__version__} cuda {torch.version.cuda}; "
+          f"{torch.cuda.get_device_name(0)}; begin_capture_to_if_node: "
+          f"{hasattr(torch.cuda.CUDAGraph, 'begin_capture_to_if_node')}", flush=True)
+    t0 = time.perf_counter()
+    _build.build()
+    print(f"build {time.perf_counter() - t0:.1f} s", flush=True)
+    try:
+        capture_selftest(graphs)
+    except Exception:
+        traceback.print_exc()
+        return 2
+
+    dev = torch.device("cuda")
+    if args.smoke_phase:
+        import json
+
+        import chip_smoke
+
+        room = SyntheticRGBD(trajectory=room_orbit_trajectory(240, loops=1.5), scene="room",
+                             seed=7)
+        seq = SyntheticRGBD(n_frames=30, seed=0, motion_scale=0.5)
+        cfg = SlamConfig(camera_fx=seq.fx, camera_fy=seq.fy, camera_cx=seq.cx, camera_cy=seq.cy,
+                         camera_k1=0, camera_k2=0, camera_p1=0, camera_p2=0, camera_k3=0)
+        room_cfg = SlamConfig(camera_fx=room.fx, camera_fy=room.fy, camera_cx=room.cx,
+                              camera_cy=room.cy, camera_k1=0, camera_k2=0, camera_p1=0,
+                              camera_p2=0, camera_k3=0)
+        n = chip_smoke.SLICE_FRAMES
+        rows, _ = chip_smoke.run_graphs_phase(
+            system, tracking, cfg, [seq[i] for i in range(30)], room_cfg,
+            [room[i] for i in range(n)], np.stack([seq.poses[i] for i in range(30)]),
+            np.stack([room.poses[i] for i in range(n)]), dev)
+        print(json.dumps({str(k): {kk: vv for kk, vv in v.items()
+                                   if kk not in ("eager_ms", "graph_ms")}
+                          for k, v in rows.items()}))
+        return 0
+    seq = SyntheticRGBD(n_frames=30, seed=0, motion_scale=0.5)
+    frames = [seq[i] for i in range(len(seq))]
+    cfg = SlamConfig(camera_fx=seq.fx, camera_fy=seq.fy, camera_cx=seq.cx, camera_cy=seq.cy,
+                     camera_k1=0, camera_k2=0, camera_p1=0, camera_p2=0, camera_k3=0)
+    staged = [(torch.as_tensor(g).to(dev), torch.as_tensor(d).to(dev), t) for g, d, t in frames]
+    print("path 1 (FusedTracker, 30 corner frames):", flush=True)
+    sites = {} if args.sites else None
+    _, (te, se), _, _ = run(lambda: tracking.FusedTracker(cfg, graphs=False), staged, "eager",
+                            sites)
+    try:
+        _, (tg, sg), _, _ = run(lambda: tracking.FusedTracker(cfg), staged, "graphs")
+    except Exception:
+        traceback.print_exc()
+        return 3
+    print(f"  trajectories equal: {np.array_equal(te, tg)}; stats equal: {se == sg}")
+
+    room = SyntheticRGBD(trajectory=room_orbit_trajectory(240, loops=1.5), scene="room", seed=7)
+    rf = [room[i] for i in range(args.frames)]
+    room_cfg = SlamConfig(camera_fx=room.fx, camera_fy=room.fy, camera_cx=room.cx,
+                          camera_cy=room.cy, camera_k1=0, camera_k2=0, camera_p1=0, camera_p2=0,
+                          camera_k3=0)
+    rstaged = [(torch.as_tensor(g).to(dev), torch.as_tensor(d).to(dev), t) for g, d, t in rf]
+    if args.bisect:
+        micro_cases(graphs)
+        bisect_chain(system, graphs, room_cfg, rstaged)
+    for chunk in ((1,) if args.skip_chunk else (1, 8)):
+        print(f"path {2 if chunk == 1 else 3} (SlamSystem chunk={chunk}, {args.frames} room "
+              f"frames):", flush=True)
+        a, (ta, _, _), _, _ = run(lambda: system.SlamSystem(room_cfg, chunk=chunk, graphs=False),
+                                  rstaged, "eager", sites)
+        try:
+            b, (tb, _, _), _, _ = run(lambda: system.SlamSystem(room_cfg, chunk=chunk), rstaged,
+                                      "graphs")
+        except Exception:
+            traceback.print_exc()
+            return 4
+        ka = [i for i, o in enumerate(a._outs) if o.made_kf]
+        kb = [i for i, o in enumerate(b._outs) if o.made_kf]
+        print(f"  keyframes {ka} / {kb}; LM {a.ba_iters} / {b.ba_iters}; trajectories equal "
+              f"{np.array_equal(ta, tb)}; map fields differing {same_maps(a, b)}; points "
+              f"{a.n_points} / {b.n_points}; replays {b.track_graph.replays} + "
+              f"{b.background_graph.replays}")
+    if sites is not None:
+        print(f"host sync sites of the eager runs: {sites}")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,304 @@
+"""The port's step programs as captured CUDA graphs with conditional nodes
+(``vo_slam_test_tpu_torch/utils/graphs.py``) against the eager runs, on the
+card: each module whose host reads became ``cond``/``while_capped``, then
+``FusedTracker`` and ``SlamSystem(vocabulary=None)`` per frame and in chunks,
+bit for bit and with no host sync across ``track``; the replays' launches
+counted on the device (``graphs.counting``) against eager's; dropped systems
+releasing their graphs' memory.
+
+Run on a machine with a CUDA card (no JAX needed there):
+
+    python -m pytest tests/test_torch_graphs_gpu.py -m gpu --noconftest -q
+
+Without a card every test skips (decided in a fixture, never at import).
+"""
+
+import dataclasses
+import gc
+
+import numpy as np
+import pytest
+import torch
+
+from vo_slam_test_tpu_torch.config import SlamConfig
+from vo_slam_test_tpu_torch.datasets import SyntheticRGBD
+from vo_slam_test_tpu_torch.datasets.synthetic import room_orbit_trajectory
+from vo_slam_test_tpu_torch.pipeline.system import SlamSystem
+from vo_slam_test_tpu_torch.pipeline.tracking import FusedTracker
+from vo_slam_test_tpu_torch.slam_map import insert, triangulate
+from vo_slam_test_tpu_torch.solvers import local_ba, pose_only
+from vo_slam_test_tpu_torch.utils import graphs
+
+pytestmark = pytest.mark.gpu
+
+
+@pytest.fixture(scope="module")
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    return torch.device("cuda")
+
+
+def _cfg(seq):
+    return SlamConfig(camera_fx=seq.fx, camera_fy=seq.fy, camera_cx=seq.cx, camera_cy=seq.cy,
+                      camera_k1=0, camera_k2=0, camera_p1=0, camera_p2=0, camera_k3=0)
+
+
+@pytest.fixture(scope="module")
+def room(cuda):
+    seq = SyntheticRGBD(trajectory=room_orbit_trajectory(240, loops=1.5), scene="room", seed=7)
+    frames = [(torch.as_tensor(g).to(cuda), torch.as_tensor(d).to(cuda), t)
+              for g, d, t in (seq[i] for i in range(12))]
+    return _cfg(seq), frames
+
+
+@pytest.fixture(scope="module")
+def room_map(room):
+    """The eager system after the room orbit's first 6 frames (keyframe
+    events 0, 1 and 5)."""
+    cfg, frames = room
+    s = SlamSystem(cfg, graphs=False)
+    for f in frames[:6]:
+        s.track(*f)
+    s.results()
+    return s
+
+
+def leaf_equal(x: torch.Tensor, y: torch.Tensor) -> bool:
+    """Integer and bool tensors equal; floats equal with NaN in the same
+    places."""
+    if x.dtype != y.dtype or x.shape != y.shape:
+        return False
+    if not x.is_floating_point():
+        return torch.equal(x, y)
+    nx, ny = torch.isnan(x), torch.isnan(y)
+    return torch.equal(nx, ny) and torch.equal(torch.where(nx, 0.0, x), torch.where(ny, 0.0, y))
+
+
+def bit_equal(a, b) -> bool:
+    la, lb = graphs.flatten(a)[0], graphs.flatten(b)[0]
+    return len(la) == len(lb) and all(leaf_equal(x, y) for x, y in zip(la, lb))
+
+
+def replay_matches_eager(fn, calls):
+    """``fn(*args)`` for each args of ``calls``, eagerly and as a StepGraph
+    (warm-up, capture, replays), the outputs bit-equal; the graph replayed."""
+    sg = graphs.StepGraph(lambda inp, st: (st, fn(*inp)), "cuda", "case")
+    dummy = torch.zeros(1, device="cuda")
+    for i, args in enumerate(calls):
+        want = fn(*args)
+        _, got = sg.run(tuple(args), dummy)
+        torch.cuda.synchronize()
+        assert bit_equal(got, want), f"call {i}"
+    assert sg.replays == len(calls) - 1
+
+
+def test_pose_only_lm_replays(cuda):
+    """Module 3: the LM loop of ``solve_pose_only(fast=False)``."""
+    rng = np.random.default_rng(11)
+    calls = []
+    for k in range(4):
+        n = 120
+        p = rng.uniform([-2, -2, 2], [2, 2, 6], (n, 3)).astype(np.float32)
+        uv = (p[:, :2] / p[:, 2:] * 500 + 320 + rng.normal(0, 0.7 + k, (n, 2))).astype(np.float32)
+        obs = pose_only.PoseObs(
+            p_world=torch.as_tensor(p, device=cuda), uv=torch.as_tensor(uv, device=cuda),
+            u_right=torch.full((n,), -1.0, device=cuda), inv_sigma2=torch.ones(n, device=cuda),
+            valid=torch.as_tensor(rng.random(n) < 0.9, device=cuda))
+        T0 = torch.eye(4, device=cuda)
+        T0[:3, 3] = torch.as_tensor(rng.normal(0, 0.05, 3).astype(np.float32), device=cuda)
+        calls.append((T0, obs))
+    replay_matches_eager(
+        lambda T0, obs: pose_only.solve_pose_only(T0, obs, 500.0, 500.0, 320.0, 320.0, 40.0),
+        calls)
+
+
+def test_insert_keyframe_replays(room_map):
+    """Module 5: the predicated insert at a device slot, with the timestamp
+    and frame id as device inputs, taken and not taken."""
+    s = room_map
+    feats = s.state.feats
+    assign = s.state.assign_real
+    create = insert.spawn_mask_depth_sorted(feats, assign >= 0, s.camera.th_depth)
+
+    def step(do, ts, fid):
+        return insert.insert_keyframe(s.map, s.caps, feats, torch.eye(4, device="cuda"), ts, fid,
+                                      assign, create, s.camera, s.scale_factors, do=do)
+
+    def dev(v, dt):
+        return torch.full((), v, dtype=dt, device="cuda")
+
+    calls = [(dev(b, torch.bool), dev(0.5 + i, torch.float32), dev(40 + i, torch.int32))
+             for i, b in enumerate((True, True, False, True, False))]
+    # eager, the flag is read back and the timestamp and frame id are host
+    # values; in the graph all three are device inputs
+    sg = graphs.StepGraph(lambda inp, st: (st, step(*inp)), "cuda", "insert")
+    dummy = torch.zeros(1, device="cuda")
+    for i, (do, ts, fid) in enumerate(calls):
+        want_m, want_kf = insert.insert_keyframe(
+            s.map, s.caps, feats, torch.eye(4, device="cuda"), float(ts), int(fid), assign,
+            create, s.camera, s.scale_factors, do=do)
+        _, (got_m, got_kf) = sg.run((do, ts, fid), dummy)
+        assert int(got_kf) == want_kf, i
+        assert bit_equal(got_m, want_m), i
+
+
+def test_triangulation_replays(room_map):
+    """Module 7: each neighbour slot's search under a cond, the f64 null
+    vector; keyframes 1 and 2 (slot ids as device inputs)."""
+    s = room_map
+    m = s.map
+
+    def tri(kf):
+        return triangulate.create_new_map_points(m, kf, s.caps, s.camera, s.scale_factors)
+
+    calls = [(torch.tensor(k, dtype=torch.int32, device="cuda"),) for k in (2, 1, 2)]
+    sg = graphs.StepGraph(lambda inp, st: (st, tri(*inp)), "cuda", "triangulate")
+    dummy = torch.zeros(1, device="cuda")
+    for i, (kf,) in enumerate(calls):
+        want = tri(int(kf))
+        _, got = sg.run((kf,), dummy)
+        assert bit_equal(got, want), i
+
+
+def test_local_ba_replays(room_map):
+    """Module 8: the LM passes as while_capped, the interruptBA entry as a
+    cond; the LM counts equal the eager loop's."""
+    s = room_map
+    inv = 1.0 / (s.scale_factors * s.scale_factors)
+
+    def lba(kf, stop):
+        return local_ba.local_bundle_adjust_iters(s.map, kf, s.caps, s.camera, inv, stop=stop)
+
+    sg = graphs.StepGraph(lambda inp, st: (st, lba(*inp)), "cuda", "local_ba")
+    dummy = torch.zeros(1, device="cuda")
+    for i, (kf, stop) in enumerate(((2, False), (1, False), (2, True), (2, False))):
+        want_m, w1, w2 = lba(kf, stop)
+        _, (got_m, g1, g2) = sg.run((torch.tensor(kf, dtype=torch.int32, device="cuda"),
+                                     torch.tensor(stop, device="cuda")), dummy)
+        assert (int(g1), int(g2)) == (w1, w2), i
+        assert bit_equal(got_m, want_m), i
+
+
+def test_counted_replays_launch_as_eager(room_map):
+    """``StepGraph.launches`` under ``graphs.counting()``: the BA kernels'
+    launches by the replays, counted per conditional node on the device,
+    equal the same calls' eager launches (the wrappers' counts)."""
+    from vo_slam_test_tpu_torch.ops import ba_cuda
+
+    s = room_map
+    inv = 1.0 / (s.scale_factors * s.scale_factors)
+
+    def lba(kf, stop):
+        return local_ba.local_bundle_adjust_iters(s.map, kf, s.caps, s.camera, inv, stop=stop)
+
+    calls = ((2, False), (1, False), (2, True), (2, False))
+    kernels = (ba_cuda.KERNEL_ACC, ba_cuda.KERNEL_COST, ba_cuda.KERNEL_BACKSUB)
+    sg = graphs.StepGraph(lambda inp, st: (st, lba(*inp)), "cuda", "local_ba")
+    dummy = torch.zeros(1, device="cuda")
+    with graphs.counting():
+        for kf, stop in calls:
+            sg.run((torch.tensor(kf, dtype=torch.int32, device="cuda"),
+                    torch.tensor(stop, device="cuda")), dummy)
+    got = sg.launches()
+    before = [k.launches for k in kernels]
+    for kf, stop in calls[1:]:  # the calls the graph replayed (the first is the warm-up)
+        lba(kf, stop)
+    want = [k.launches - b for k, b in zip(kernels, before)]
+    assert sg.replays == len(calls) - 1
+    assert [got.get(k, 0) for k in kernels] == want and want[0] > 0
+
+
+def _track_all(make, frames, error_on_sync: bool):
+    s = make()
+    for f in frames:
+        if error_on_sync:
+            torch.cuda.set_sync_debug_mode("error")
+        try:
+            s.track(*f)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return s
+
+
+def test_fused_tracker_graph_equals_eager(cuda):
+    """Module 2: FusedTracker over 10 corner frames (main path 1's sequence),
+    no host sync in any ``track`` call."""
+    seq = SyntheticRGBD(n_frames=30, seed=0, motion_scale=0.5)
+    frames = [(torch.as_tensor(g).to(cuda), torch.as_tensor(d).to(cuda), t)
+              for g, d, t in (seq[i] for i in range(10))]
+    a = _track_all(lambda: FusedTracker(_cfg(seq), graphs=False), frames, False)
+    b = _track_all(lambda: FusedTracker(_cfg(seq)), frames, True)
+    assert b.graphs and b.step_graph.replays == len(frames) - 2
+    ra, rb = a.results(), b.results()
+    assert np.array_equal(ra[0], rb[0]) and ra[1] == rb[1]
+
+
+@pytest.mark.parametrize("chunk", [1, 4])
+def test_slam_system_graph_equals_eager(room, chunk):
+    """Modules 4, 6 and 9 (and 5, 7, 8 inside them): SlamSystem(vocabulary=None)
+    over the room orbit's first 12 frames per frame and with chunk=4: every
+    map tensor, the poses, keyframes and LM counts equal, no host sync in any
+    ``track`` call."""
+    cfg, frames = room
+    a = _track_all(lambda: SlamSystem(cfg, chunk=chunk, graphs=False), frames, False)
+    b = _track_all(lambda: SlamSystem(cfg, chunk=chunk), frames, True)
+    assert b.graphs and b.track_graph.replays == len(frames) - 2
+    ta, tb = a.results()[0], b.results()[0]
+    assert np.array_equal(ta, tb)
+    assert [o.made_kf for o in a._outs] == [o.made_kf for o in b._outs]
+    assert a.ba_iters == b.ba_iters and len(a.ba_iters) >= 3
+    for f in dataclasses.fields(a.map):
+        assert torch.equal(getattr(a.map, f.name), getattr(b.map, f.name)), f.name
+
+
+def test_dropped_systems_release_their_graph_pools(room):
+    """A StepGraph's graph and both private pools (the capture's and the IF
+    bodies') are released when it is collected: building and dropping
+    systems that captured both programs leaves the reserved memory flat."""
+    cfg, frames = room
+
+    def cycle():
+        s = SlamSystem(cfg)
+        for f in frames[:4]:
+            s.track(*f)
+        s.results()
+        assert s.track_graph.graph is not None and s.background_graph.graph is not None
+        del s
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        return torch.cuda.memory_reserved()
+
+    first = cycle()
+    later = [cycle() for _ in range(3)]
+    assert max(later) <= first, (first, later)
+
+
+def test_graph_dropped_during_a_capture_is_released_after_it(cuda):
+    """A StepGraph collected while another is being captured (the collector
+    runs at any allocation) releases its graph after that capture: destroying
+    a graph inside a capture would invalidate it."""
+    x, dummy = torch.arange(4.0, device=cuda), torch.zeros(1, device=cuda)
+
+    def captured(fn):
+        sg = graphs.StepGraph(fn, cuda, "case")
+        outs = [sg.run(x, dummy)[1] for _ in range(3)]
+        assert sg.replays == 2
+        return sg, outs
+
+    holder = [captured(lambda inp, st: (st, inp * 2.0))[0]]
+
+    def drop_then_add(inp, st):
+        if graphs.mode() == "capture":
+            holder.clear()  # the last reference: its release runs here
+        return st, inp + 1.0
+
+    _, outs = captured(drop_then_add)
+    assert not holder and all(torch.equal(o, x + 1.0) for o in outs)
+
+
+def test_graphs_refused_with_vocabulary(room):
+    cfg, _ = room
+    with pytest.raises(ValueError, match="vocabulary"):
+        SlamSystem(cfg, vocabulary=object(), graphs=True)

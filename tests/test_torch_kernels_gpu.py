@@ -164,7 +164,7 @@ def test_local_ba_mesh_on_card(cuda):
     seq = SyntheticRGBD(trajectory=room_orbit_trajectory(240, loops=1.5), scene="room", seed=7)
     cfg = SlamConfig(camera_fx=seq.fx, camera_fy=seq.fy, camera_cx=seq.cx, camera_cy=seq.cy,
                      camera_k1=0, camera_k2=0, camera_p1=0, camera_p2=0, camera_k3=0)
-    s = SlamSystem(cfg)
+    s = SlamSystem(cfg, graphs=False)
     for i in range(6):
         s.track(*seq[i])
     m, caps, cam = s.map, s.caps, s.camera
@@ -220,7 +220,7 @@ def test_fused_tracker_runs_on_card(cuda):
     seq = SyntheticRGBD(n_frames=30, seed=0, motion_scale=0.5)
     cfg = SlamConfig(camera_fx=seq.fx, camera_fy=seq.fy, camera_cx=seq.cx, camera_cy=seq.cy,
                      camera_k1=0, camera_k2=0, camera_p1=0, camera_p2=0, camera_k3=0)
-    tr = FusedTracker(cfg)
+    tr = FusedTracker(cfg, graphs=False)
     counts = [k.KERNEL.launches for k in (fast_cuda, orb_cuda, match_cuda)]
     for i in range(6):
         tr.track(*seq[i])
@@ -341,7 +341,7 @@ def test_slam_system_runs_on_card(cuda):
     seq = SyntheticRGBD(trajectory=room_orbit_trajectory(240, loops=1.5), scene="room", seed=7)
     cfg = SlamConfig(camera_fx=seq.fx, camera_fy=seq.fy, camera_cx=seq.cx, camera_cy=seq.cy,
                      camera_k1=0, camera_k2=0, camera_p1=0, camera_p2=0, camera_k3=0)
-    s = SlamSystem(cfg)
+    s = SlamSystem(cfg, graphs=False)
     s._force_interrupt_ba = True
     kernels = (match_cuda.KERNEL_CHI2, match_cuda.KERNEL_NB, match_cuda.KERNEL_LOCAL)
     before = [k.launches for k in kernels]
@@ -364,7 +364,7 @@ def test_slam_system_runs_local_ba_on_card(cuda):
     seq = SyntheticRGBD(trajectory=room_orbit_trajectory(240, loops=1.5), scene="room", seed=7)
     cfg = SlamConfig(camera_fx=seq.fx, camera_fy=seq.fy, camera_cx=seq.cx, camera_cy=seq.cy,
                      camera_k1=0, camera_k2=0, camera_p1=0, camera_p2=0, camera_k3=0)
-    s = SlamSystem(cfg)
+    s = SlamSystem(cfg, graphs=False)
     kernels = (ba_cuda.KERNEL_ACC, ba_cuda.KERNEL_COST, ba_cuda.KERNEL_BACKSUB)
     before = [k.launches for k in kernels]
     for i in range(6):
@@ -861,7 +861,8 @@ def test_port_modules_import_no_jax(cuda):
                  "solvers.epnp", "utils.prng", "utils.linalg", "utils.drift", "solvers.sim3",
                  "solvers.pose_graph", "solvers.global_ba", "pipeline.loop_closing",
                  "frontend.distribute", "datasets.tum", "datasets.staging", "native.loader",
-                 "slam_map.serialize", "viz.drawer", "viz.webviewer", "run_slam", "bench"):
+                 "slam_map.serialize", "viz.drawer", "viz.webviewer", "run_slam", "bench",
+                 "utils.graphs"):
         assert pkg.__name__ + "." + name in sys.modules
     bad = [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "vo_slam_test_tpu")]
     assert not bad, bad

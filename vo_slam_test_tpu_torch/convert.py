@@ -92,17 +92,19 @@ def map_state_to_numpy(m: MapState) -> Dict[str, np.ndarray]:
 
 def slam_track_state_from_numpy(d: Dict[str, Any], device) -> SlamTrackState:
     """The JAX SlamTrackState's fields as numpy -> the port's
-    SlamTrackState (counters and host-known flags become Python values)."""
+    SlamTrackState (the frame counters stay device tensors; the host-known
+    flags ``initialized`` and ``last_reloc_frame`` become Python values)."""
     def dev(a, dtype):
         return torch.as_tensor(np.array(a, dtype=dtype)).to(device)
 
     return SlamTrackState(
-        frame_id=int(d["frame_id"]), feats=frame_features_from_numpy(d["feats"], device),
+        frame_id=dev(d["frame_id"], np.int32), feats=frame_features_from_numpy(d["feats"], device),
         assign_real=dev(d["assign_real"], np.int32), assign_gen=dev(d["assign_gen"], np.int32),
         T_cr=dev(d["T_cr"], np.float32), ref_kf=dev(d["ref_kf"], np.int32),
         T_cl=dev(d["T_cl"], np.float32), motion_valid=dev(d["motion_valid"], np.bool_),
         initialized=bool(d["initialized"]), lost=dev(d["lost"], np.bool_),
-        last_kf_frame=int(d["last_kf_frame"]), last_was_kf=bool(d["last_was_kf"]),
+        last_kf_frame=dev(d["last_kf_frame"], np.int32),
+        last_was_kf=dev(d["last_was_kf"], np.bool_),
         last_reloc_frame=int(d["last_reloc_frame"]),
     )
 

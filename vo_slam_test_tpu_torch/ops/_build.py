@@ -22,7 +22,7 @@ from typing import Dict, Iterable, Sequence, Tuple
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-KERNEL_SOURCES = ("fast", "orb", "match", "epi", "ba", "noop")
+KERNEL_SOURCES = ("fast", "orb", "match", "epi", "ba", "noop", "graph_if")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
@@ -86,13 +86,18 @@ class Kernel:
     """One ``extern "C"`` launch function of a ``csrc`` library, with its
     launch count: ``launches`` goes up by one each time the kernel is launched
     and nowhere else. Two objects may bind one symbol: each call site then
-    keeps its own count."""
+    keeps its own count. ``ALL`` lists every object made (a captured graph
+    records launches without running them: ``utils/graphs.py`` counts them
+    per conditional node)."""
+
+    ALL: list = []
 
     def __init__(self, source: str, symbol: str, argtypes: Sequence):
         self.source = source
         self.symbol = symbol
         self.argtypes = list(argtypes)
         self.launches = 0
+        Kernel.ALL.append(self)
 
     def reset(self) -> None:
         self.launches = 0

@@ -52,18 +52,38 @@ step), ``close_step`` (a loop closure's verification and correction) and
 ``global_bundle`` (global BA); ``vo_slam_test_tpu_torch.bench`` sums the
 device time of the kernels launched inside them.
 
-Host reads per frame: the JAX package branches with ``lax.cond`` on device
-scalars; here every branch that decides which kernels run is a host bool.
-A tracked frame reads back the r=15 match count (the r=30 retry) and, in
-``insert_keyframe``, the keyframe decision with its slot (one read). A
-keyframe event adds the triangulation's neighbour gates (one read) and one
-read per local-BA LM iteration (its exit test). Without a vocabulary a lost
-frame's motion attempt runs and is discarded (``torch.where``). With one, the
-frame first reads the motion gate, then ``a1.ok`` and, if it failed, the
-reference-keyframe attempt's ``ok``; only then does the relocalization
-attempt run, which reads its candidates, their solver choice and counts, and
-the top-up cascade's gates. With loop closing on, a keyframe event reads its
-confirmed loop candidates (one read) and each Sim3 attempt its gates (one).
+Host reads. The JAX package builds each step as one program whose branches
+are ``lax.cond`` on device scalars. Here the branches are
+``utils.graphs.cond`` / ``while_capped``, and what they cost depends on the
+path (the frame counter, the last keyframe's frame and its flag live on the
+device on every path, as in the JAX package):
+
+- without a vocabulary, on the card (``graphs=True``, the default there):
+  ``track`` replays two captured CUDA graphs, the tracking step
+  (``_slam_step``) and the background step (``background_step``), whose
+  branches are conditional nodes: the r=30 retry, the keyframe insert at a
+  device slot, the mapping chain on ``made_kf & (kf_id >= 0)``, each
+  triangulation neighbour slot, local BA's interruptBA entry and its LM
+  passes. Nothing is read back until ``results()``, and the timestamp is a
+  device input of the tracking program. The first
+  frame (which flips the host flag ``initialized``) and the warm-up of each
+  program run in ``select`` mode, also without a read. With ``chunk=K`` the
+  tracking program is replayed K times, then the background program K times
+  with ``chunk_ba_stops`` computed on the device;
+- without a vocabulary, eager (``graphs=False``, the CPU's default): a
+  tracked frame reads back the r=15 match count (the r=30 retry) and, in
+  ``insert_keyframe``, the keyframe decision with its slot (one read). A
+  keyframe event adds the triangulation's neighbour gates (one read) and one
+  read per local-BA LM iteration (its exit test). A lost frame's motion
+  attempt runs and is discarded (``torch.where``);
+- with a vocabulary the step runs eagerly this slice (``graphs=True`` is
+  refused): the frame first reads the motion gate with the frame counter
+  (one read), then ``a1.ok`` and, if it
+  failed, the reference-keyframe attempt's ``ok``; only then does the
+  relocalization attempt run, which reads its candidates, their solver
+  choice and counts, and the top-up cascade's gates. With loop closing on, a
+  keyframe event reads its confirmed loop candidates (one read) and each Sim3
+  attempt its gates (one). ``last_reloc_frame`` stays a host value.
 """
 
 from __future__ import annotations
@@ -90,6 +110,7 @@ from ..slam_map import insert as map_insert
 from ..slam_map.map_state import (MapCaps, MapState, empty_map, pick, scatter_or,
                                   winner_per_target)
 from ..solvers import epnp, global_ba, local_ba, pose_only, ransac
+from ..utils import graphs as graphs_mod
 from ..utils import prng
 from . import loop_closing
 from .tracking import TrackStats, _spawn_temp_points
@@ -104,7 +125,13 @@ DESC_ARCHIVE_CAP = 4096  # frames whose descriptors create_vocabulary may read
 
 @dataclasses.dataclass
 class SlamTrackState:
-    frame_id: int               # host frame counter
+    """The tracking state. ``frame_id``, ``last_kf_frame`` and
+    ``last_was_kf`` are 0-d device tensors on every path, as the JAX package
+    keeps them; ``initialized`` and ``last_reloc_frame`` stay on the host:
+    the first is False only before the first frame, the second changes only
+    by a relocalization (the vocabulary's eager path)."""
+
+    frame_id: torch.Tensor      # i32 frame counter
     feats: FrameFeatures        # last frame features
     assign_real: torch.Tensor   # [N] i32 map point per last-frame kp (-1)
     assign_gen: torch.Tensor    # [N] i32 pt_gen at bind time
@@ -114,8 +141,8 @@ class SlamTrackState:
     motion_valid: torch.Tensor  # bool
     initialized: bool           # host-known: False only before the first frame
     lost: torch.Tensor          # bool: state LOST (visualOdometry.h:18-22)
-    last_kf_frame: int          # frame id of the last inserted KF
-    last_was_kf: bool           # host-known: the insert decision is read back
+    last_kf_frame: torch.Tensor  # i32 frame id of the last inserted KF
+    last_was_kf: torch.Tensor   # bool: the last frame inserted a KF
     last_reloc_frame: int       # -10000 = never (no relocalization yet)
 
 
@@ -129,7 +156,8 @@ class SlamOut:
     n_features: torch.Tensor
     n_matches: torch.Tensor
     n_inliers: torch.Tensor
-    made_kf: bool
+    made_kf: Union[bool, torch.Tensor]  # host bool when eager (read with the insert); a
+                                        # device bool under graphs until results()
     relocalized: torch.Tensor   # bool: the relocalization attempt tracked this frame
     kp_uv: torch.Tensor         # [N,2] raw pixel coords (HUD overlay)
     kp_state: torch.Tensor      # [N] i32: 0 untracked, 1 map-tracked, 2 VO-tracked
@@ -192,7 +220,7 @@ def _attempt_motion(state: SlamTrackState, m: MapState, feats: FrameFeatures, T_
     real_last = ((state.assign_real >= 0) & m.pt_valid[safe_last]
                  & (m.pt_gen[safe_last] == state.assign_gen))
     temp_pw_all, temp_valid = _spawn_temp_points(state.feats, T_last, cam)
-    temp_valid = temp_valid & ~real_last & (not state.last_was_kf)
+    temp_valid = temp_valid & ~real_last & ~state.last_was_kf
     last_pw = torch.where(real_last[:, None], m.pt_pos[safe_last], temp_pw_all)
     last_has = real_last | temp_valid
     src_desc = torch.where(real_last[:, None], m.pt_desc[safe_last], state.feats.desc)
@@ -211,8 +239,9 @@ def _attempt_motion(state: SlamTrackState, m: MapState, feats: FrameFeatures, T_
         )
 
     res = search(15.0)
-    if int(res.count) < 20:  # host read: widen the window
-        res = search(30.0)
+    # widen the window: one host read when eager, a conditional node in a
+    # captured step (the JAX package's lax.cond)
+    res = graphs_mod.cond(res.count < 20, lambda: search(30.0), lambda: res)
     winner = winner_per_target(res.idx, N)
     has_m = winner >= 0
     w_safe = winner.clamp(min=0).long()
@@ -399,22 +428,25 @@ def _attempt_reloc(m: MapState, feats: FrameFeatures, bow, voc, frame_id: int, r
 def _track_attempts_bow(state: SlamTrackState, m: MapState, feats: FrameFeatures, bow, voc,
                         reloc_parity: bool, T_last, cam, scale_factors, inv_level_sigma2):
     """The fallback chain with a vocabulary -> (attempt, relocalized on the
-    host, the reloc winner or None). Motion tracking needs an armed motion
+    host, the reloc winner or None, the frame counter read back). Motion
+    tracking needs an armed motion
     model (visualOdometry.cpp:227-231); each fallback runs only after the
     host has read that the attempts before it failed."""
-    frame_id = state.frame_id
     can_motion = ~state.lost & state.motion_valid
-    lost_h, can_h = torch.stack([state.lost, can_motion]).tolist()
-    if can_h and frame_id >= state.last_reloc_frame + 2:
+    # the frame counter comes back with the gates (the relocalization's seeds
+    # and its frame are host values)
+    lost_h, can_h, frame_h = torch.stack(
+        [state.lost.to(torch.int32), can_motion.to(torch.int32), state.frame_id]).tolist()
+    if can_h and frame_h >= state.last_reloc_frame + 2:
         a1 = _attempt_motion(state, m, feats, T_last, cam, scale_factors, inv_level_sigma2)
         if bool(a1.ok):
-            return a1, False, None
+            return a1, False, None, frame_h
     if not lost_h:
         a2 = _attempt_ref(state, m, feats, bow[2], voc, T_last, cam, inv_level_sigma2)
         if bool(a2.ok):
-            return a2, False, None
-    return _attempt_reloc(m, feats, bow, voc, frame_id, reloc_parity, cam, scale_factors,
-                          inv_level_sigma2)
+            return a2, False, None, frame_h
+    return _attempt_reloc(m, feats, bow, voc, frame_h, reloc_parity, cam, scale_factors,
+                          inv_level_sigma2) + (frame_h,)
 
 
 def _slam_step(
@@ -464,22 +496,23 @@ def _slam_step(
         # map they find nothing and every count is 0.)
         no_pt = torch.full((N,), -1, dtype=torch.int32, device=dev)
         m, new_kf = insert_kf(m, eye, no_pt, True)
-        made = new_kf >= 0
-        ref_kf_out = torch.full((), max(new_kf, 0), dtype=torch.int32, device=dev)
-        assign_out = m.kf_mp[max(new_kf, 0)] if made else no_pt
+        kf_d = graphs_mod.on_device(new_kf, torch.int32, dev)
+        made = kf_d >= 0
+        kf0 = kf_d.clamp(min=0)
+        assign_out = torch.where(made, pick(m.kf_mp, kf0), no_pt)
         false = torch.zeros((), dtype=torch.bool, device=dev)
         st = SlamTrackState(
             frame_id=frame_id + 1, feats=feats, assign_real=assign_out,
             assign_gen=torch.where(assign_out >= 0, m.pt_gen[assign_out.clamp(min=0).long()], -1),
-            T_cr=eye @ lie.se3_inverse(m.kf_pose[max(new_kf, 0)]), ref_kf=ref_kf_out, T_cl=eye,
+            T_cr=eye @ lie.se3_inverse(pick(m.kf_pose, kf0)), ref_kf=kf0, T_cl=eye,
             motion_valid=false, initialized=True, lost=false,
-            last_kf_frame=frame_id if made else state.last_kf_frame,
+            last_kf_frame=torch.where(made, frame_id, state.last_kf_frame),
             last_was_kf=made, last_reloc_frame=state.last_reloc_frame,
         )
         out = SlamOut(
-            T_c_w=eye, T_cr=st.T_cr, ref_kf=ref_kf_out, ref_gen=m.kf_gen[max(new_kf, 0)],
+            T_c_w=eye, T_cr=st.T_cr, ref_kf=kf0, ref_gen=pick(m.kf_gen, kf0),
             ok=torch.ones((), dtype=torch.bool, device=dev), n_features=n_feats,
-            n_matches=zero, n_inliers=zero, made_kf=made, relocalized=false,
+            n_matches=zero, n_inliers=zero, made_kf=new_kf >= 0, relocalized=false,
             kp_uv=feats.uv, kp_state=torch.zeros((N,), dtype=torch.int32, device=dev),
         )
         return st, m, out, new_kf
@@ -501,10 +534,10 @@ def _slam_step(
         relocalized = fail.ok
         reloc_frame = state.last_reloc_frame
     else:
-        att, reloc_h, reloc_winner = _track_attempts_bow(
+        att, reloc_h, reloc_winner, frame_h = _track_attempts_bow(
             state, m, feats, bow, voc, reloc_parity, T_last, cam, scale_factors, inv_level_sigma2)
         relocalized = att.ok if reloc_h else fail.ok
-        reloc_frame = frame_id if reloc_h else state.last_reloc_frame
+        reloc_frame = frame_h if reloc_h else state.last_reloc_frame
     track_pre = att.ok
     kp_pw_cur = torch.where((att.kp_pt >= 0)[:, None], m.pt_pos[att.kp_pt.clamp(min=0).long()],
                             att.kp_pw)
@@ -515,7 +548,7 @@ def _slam_step(
     ref_kf = torch.where(torch.any(att.kp_pt >= 0), ref_kf, state.ref_kf)
     cand_pts = local_map.local_point_mask(m, local_kf) & ~member
     blocked = _observed(m, att.kp_pt)
-    th_rad = 5.0 if frame_id < reloc_frame + 2 else 3.0
+    th_rad = torch.where(frame_id < reloc_frame + 2, 5.0, 3.0)
     lm = local_map.search_local_points(
         m, att.T, cand_pts, feats.uv_und, feats.u_right, feats.octave, feats.desc,
         feats.valid, blocked, scale_factors, th_rad, cam=cam)
@@ -535,7 +568,7 @@ def _slam_step(
     inlier_real = real2 & inl2
     observed_inliers = (inlier_real & (m.pt_obs_cnt[kp_pt2.clamp(min=0).long()] > 0)).sum(
         dtype=torch.int32)
-    gate = 50 if frame_id < reloc_frame + max_frame_gap else 30
+    gate = torch.where(frame_id < reloc_frame + max_frame_gap, 50, 30)
     ok = track_pre & (observed_inliers >= gate)
 
     vis_pts = scatter_or(P, kp_pt2.clamp(min=0), real2) | lm.visible_mask
@@ -567,14 +600,14 @@ def _slam_step(
     need_kf = need_kf & ~((frame_id < reloc_frame + max_frame_gap) & (kf_cnt > max_frame_gap))
     need_kf = need_kf & ((m.n_kf < caps.max_kf) | torch.any(~m.kf_valid))
 
-    # the insert reads the decision back (one host read) and runs only then
+    # eager, the insert reads the decision back (one host read) and runs
+    # only then, and new_kf is a Python int; under graphs it is the JAX
+    # package's predicated insert and new_kf a device int
     m, new_kf = insert_kf(m, T_new, assign_final, need_kf)
-    made = new_kf >= 0
-    if made:
-        ref_kf_out = torch.full((), new_kf, dtype=torch.int32, device=dev)
-        assign_out = m.kf_mp[new_kf]
-    else:
-        ref_kf_out, assign_out = ref_kf, assign_final
+    kf_d = graphs_mod.on_device(new_kf, torch.int32, dev)
+    made = kf_d >= 0
+    ref_kf_out = torch.where(made, kf_d, ref_kf)
+    assign_out = torch.where(made, pick(m.kf_mp, kf_d.clamp(min=0)), assign_final)
 
     T_cr = T_new @ lie.se3_inverse(pick(m.kf_pose, ref_kf_out))
     T_cl = torch.where(ok, T_new @ lie.se3_inverse(T_last), eye)
@@ -582,7 +615,7 @@ def _slam_step(
         frame_id=frame_id + 1, feats=feats, assign_real=assign_out,
         assign_gen=torch.where(assign_out >= 0, m.pt_gen[assign_out.clamp(min=0).long()], -1),
         T_cr=T_cr, ref_kf=ref_kf_out, T_cl=T_cl, motion_valid=ok, initialized=True, lost=~ok,
-        last_kf_frame=frame_id if made else state.last_kf_frame,
+        last_kf_frame=torch.where(made, frame_id, state.last_kf_frame),
         last_was_kf=made, last_reloc_frame=reloc_frame,
     )
     # HUD flags (drawer.cpp:430-459): map-tracked when the point has
@@ -594,31 +627,39 @@ def _slam_step(
                            torch.where(hud_map, 1, torch.where(hud_vo, 2, 0)), 0).to(torch.int32)
     out = SlamOut(
         T_c_w=T_new, T_cr=T_cr, ref_kf=ref_kf_out, ref_gen=pick(m.kf_gen, ref_kf_out), ok=ok,
-        n_features=n_feats, n_matches=att.n_match, n_inliers=observed_inliers, made_kf=made,
+        n_features=n_feats, n_matches=att.n_match, n_inliers=observed_inliers, made_kf=new_kf >= 0,
         relocalized=relocalized, kp_uv=feats.uv, kp_state=kp_state, reloc_winner=reloc_winner,
     )
     return st, m, out, new_kf
 
 
-def _mapping_step(m: MapState, did_kf: bool, kf_id: int, caps: MapCaps, cam: Camera,
-                  scale_factors: torch.Tensor, interrupt_ba: bool = False,
+def _mapping_step(m: MapState, did_kf, kf_id, caps: MapCaps, cam: Camera,
+                  scale_factors: torch.Tensor, interrupt_ba=False,
                   bow_group_div: int = 0) -> Tuple[MapState, int, int]:
     """The local-mapping chain for one new keyframe, in the order of
     LocalMapping::run (localMapping.cpp:16-66): cullingMapPoints ->
     createNewMapPoints -> searchInNeighbors (fuse) -> local BA ->
     cullingKeyFrames. ``bow_group_div``: the triangulation's featVec bucket
     divisor (0 without a vocabulary). Returns (map, BA iterations pass 1,
-    pass 2)."""
-    if not (did_kf and kf_id >= 0):
-        return m, 0, 0
-    m = culling.cull_map_points(m, kf_id, caps)
-    m = triangulate.create_new_map_points(m, kf_id, caps, cam, scale_factors,
-                                          bow_group_div=bow_group_div)
-    m = fuse.search_in_neighbors(m, kf_id, caps, cam, scale_factors)
-    m, n1, n2 = local_ba.local_bundle_adjust_iters(
-        m, kf_id, caps, cam, 1.0 / (scale_factors * scale_factors), stop=interrupt_ba)
-    m = culling.cull_keyframes(m, kf_id, caps, cam)
-    return m, n1, n2
+    pass 2). The chain runs under one ``graphs.cond`` on ``did_kf & (kf_id
+    >= 0)`` (the JAX package's ``lax.cond``): ``did_kf``, ``kf_id`` and
+    ``interrupt_ba`` are host values when eager, device values under graphs,
+    where the counts are device ints."""
+    go = did_kf & (kf_id >= 0)
+    zero = graphs_mod.scalar(0, torch.int32, m.device)
+
+    def work(m):
+        kid = graphs_mod.where(kf_id >= 0, kf_id, 0)
+        m = culling.cull_map_points(m, kid, caps)
+        m = triangulate.create_new_map_points(m, kid, caps, cam, scale_factors,
+                                              bow_group_div=bow_group_div)
+        m = fuse.search_in_neighbors(m, kid, caps, cam, scale_factors)
+        m, n1, n2 = local_ba.local_bundle_adjust_iters(
+            m, kid, caps, cam, 1.0 / (scale_factors * scale_factors), stop=interrupt_ba)
+        m = culling.cull_keyframes(m, kid, caps, cam)
+        return m, n1, n2
+
+    return graphs_mod.cond(go, work, lambda m: (m, zero, zero), (m,))
 
 
 @dataclasses.dataclass
@@ -746,12 +787,27 @@ class SlamSystem:
     picks the reference's relocalization loop (module docstring);
     ``enable_global_ba`` runs the upstream global BA (keyframe 0 fixed)
     after each accepted loop closure. ``drain_chunk``: frames between the
-    loop-candidate readbacks of the VO_LOOP_DIAG path (module docstring)."""
+    loop-candidate readbacks of the VO_LOOP_DIAG path (module docstring).
+
+    ``graphs`` (default: on for the card without a vocabulary, else off):
+    the steps as ``utils.graphs.StepGraph`` programs (module docstring). On
+    the card they are captured CUDA graphs with conditional nodes, and a
+    capture that fails raises; on the CPU they run in ``select`` mode under
+    ``no_host_reads``, the stand-in for a replay. ``graphs=False`` keeps the
+    eager path. With a vocabulary the eager path is the only one this slice
+    has, and ``graphs=True`` raises. Under graphs each frame's ``made_kf``
+    and the ``ba_iters``/``n_ba_interrupts`` records stay on the device until
+    ``results()`` reads them, and ``state``/``map`` are the programs' static
+    buffers, rewritten by the next replay."""
 
     def __init__(self, cfg: SlamConfig, caps: MapCaps = MapCaps(),
                  device: Optional[Union[str, torch.device]] = None, chunk: int = 1,
                  vocabulary: Optional[bow_voc.Vocabulary] = None, reloc_parity: bool = False,
-                 enable_global_ba: bool = False, drain_chunk: int = DRAIN_CHUNK):
+                 enable_global_ba: bool = False, drain_chunk: int = DRAIN_CHUNK,
+                 graphs: Optional[bool] = None):
+        if graphs and vocabulary is not None:
+            raise ValueError("graphs=True needs vocabulary=None: with a vocabulary the step "
+                             "runs eagerly (its fallback chain reads the host)")
         self.cfg = cfg
         self.caps = caps
         self.device = resolve_device(device)
@@ -808,6 +864,15 @@ class SlamSystem:
         self._outs: List[SlamOut] = []
         self.timestamps: List[float] = []
         self._frame_id = 0
+        # the graph path (class docstring): two step programs sharing nothing
+        # but the map they hand over
+        self.graphs = (self.device.type == "cuda" and vocabulary is None if graphs is None
+                       else bool(graphs))
+        self.track_graph = graphs_mod.StepGraph(self._graph_track, self.device, "slam_step")
+        self.background_graph = graphs_mod.StepGraph(self._graph_background, self.device,
+                                                     "background_step")
+        # (frame, index in _outs, made, n1, n2) per background step, on the device
+        self._bg_pending: List[Tuple[int, int, torch.Tensor, torch.Tensor, torch.Tensor]] = []
 
     def _ba_interrupt(self) -> bool:
         """The forced interruptBA value, else lowered (the JAX package's
@@ -820,12 +885,14 @@ class SlamSystem:
         eye = torch.eye(4, dtype=torch.float32, device=dev)
         false = torch.zeros((), dtype=torch.bool, device=dev)
         return SlamTrackState(
-            frame_id=0, feats=FrameFeatures.empty(dev, N),
+            frame_id=torch.zeros((), dtype=torch.int32, device=dev),
+            feats=FrameFeatures.empty(dev, N),
             assign_real=torch.full((N,), -1, dtype=torch.int32, device=dev),
             assign_gen=torch.full((N,), -1, dtype=torch.int32, device=dev),
             T_cr=eye, ref_kf=torch.zeros((), dtype=torch.int32, device=dev), T_cl=eye,
             motion_valid=false, initialized=False, lost=false,
-            last_kf_frame=-10_000, last_was_kf=False, last_reloc_frame=-10_000,
+            last_kf_frame=torch.full((), -10_000, dtype=torch.int32, device=dev),
+            last_was_kf=false, last_reloc_frame=-10_000,
         )
 
     def track(self, gray: Union[np.ndarray, torch.Tensor], depth: Union[np.ndarray, torch.Tensor],
@@ -849,9 +916,85 @@ class SlamSystem:
 
     def _archive(self, feats: FrameFeatures) -> None:
         if len(self._frame_desc) < DESC_ARCHIVE_CAP:
-            self._frame_desc.append((feats.desc, feats.valid))
+            if self.graphs:  # the state's buffers are rewritten by the next replay
+                self._frame_desc.append((feats.desc.clone(), feats.valid.clone()))
+            else:
+                self._frame_desc.append((feats.desc, feats.valid))
+
+    # ---- the graph path ----------------------------------------------------
+
+    def _graph_track(self, frame, carry):
+        """The tracking step program: (gray, depth, timestamp) and (state,
+        map) -> ((state, map), (out, new keyframe id))."""
+        gray_d, depth_d, ts = frame
+        state, m = carry
+        state, m, out, new_kf = _slam_step(
+            state, m, gray_d, depth_d, ts, self.camera, self.caps, self.spec, self.budgets,
+            self.scale_factors, self.inv_level_sigma2, self.fast_hi, self.fast_lo,
+            self.max_frame_gap)
+        return (state, m), (out, new_kf)
+
+    def _graph_background(self, event, m):
+        """The background step program: (made a keyframe, its id, interruptBA)
+        and the map -> (map, (BA iterations pass 1, pass 2))."""
+        did, kid, stop = event
+        m, _, bg = background_step(m, self.loop_state, did, kid, stop, self.caps, self.camera,
+                                   self.scale_factors)
+        return m, (bg.ba_n1, bg.ba_n2)
+
+    def _graph_step(self, gray_d, depth_d, timestamp: float):
+        """One tracking step on the graph path -> (out, new keyframe id). The
+        first frame flips the host flag ``initialized`` and runs outside the
+        program, in select mode (nothing read back)."""
+        ts = torch.full((), float(timestamp), dtype=torch.float32, device=self.device)
+        frame = (gray_d, depth_d, ts)
+        if not self.state.initialized:
+            with graphs_mod.use("select"), graphs_mod.no_host_reads():
+                (self.state, self.map), (out, new_kf) = self._graph_track(
+                    frame, (self.state, self.map))
+            # the outputs must not alias buffers a later capture rewrites
+            out, new_kf = graphs_mod.tree_map(torch.clone, (out, new_kf))
+        else:
+            (self.state, self.map), (out, new_kf) = self.track_graph.run(
+                frame, (self.state, self.map))
+        return out, new_kf
+
+    def _graph_background_steps(self, made, new_kf, stops) -> None:
+        """The background program per event of the frames about to be
+        appended to ``_outs``, in order; the counts stay on the device until
+        results()."""
+        with record_function("background"):
+            for k in range(made.shape[0]):
+                self.map, (n1, n2) = self.background_graph.run(
+                    (made[k], new_kf[k], stops[k]), self.map)
+                self._bg_pending.append((self._frame_id + k, len(self._outs) + k, made[k],
+                                         n1, n2))
+
+    def _settle(self) -> None:
+        """Read the graph path's per-event records back (one read) into
+        ``ba_iters``/``n_ba_interrupts`` and each frame's ``made_kf``."""
+        if not self._bg_pending:
+            return
+        pend, self._bg_pending = self._bg_pending, []
+        vals = torch.stack([torch.stack([m.to(torch.int32), a.to(torch.int32), b.to(torch.int32)])
+                            for _, _, m, a, b in pend]).tolist()
+        for (frame, i, _, _, _), (made, n1, n2) in zip(pend, vals):
+            self._outs[i].made_kf = bool(made)
+            if made:
+                self.ba_iters.append((frame, n1, n2))
+                if not (n1 or n2):
+                    self.n_ba_interrupts += 1
 
     def _track_one(self, gray_d: torch.Tensor, depth_d: torch.Tensor, timestamp: float) -> None:
+        if self.graphs:
+            out, new_kf = self._graph_step(gray_d, depth_d, timestamp)
+            stop = torch.full((1,), self._ba_interrupt(), dtype=torch.bool, device=self.device)
+            self._graph_background_steps(out.made_kf.reshape(1), new_kf.reshape(1), stop)
+            self._archive(self.state.feats)
+            self._outs.append(out)
+            self.timestamps.append(timestamp)
+            self._frame_id += 1
+            return
         self.state, self.map, out, new_kf = _slam_step(
             self.state, self.map, gray_d, depth_d, timestamp, self.camera, self.caps,
             self.spec, self.budgets, self.scale_factors, self.inv_level_sigma2,
@@ -874,6 +1017,21 @@ class SlamSystem:
     def _dispatch_chunk(self) -> None:
         """Track the buffered frames, then map their keyframe events."""
         buf, self._chunk_buf = self._chunk_buf, []
+        if self.graphs:
+            # K tracking replays, then K background replays in
+            # background_chunk's order, the stops computed on the device
+            steps = []
+            for gray_d, depth_d, ts in buf:
+                steps.append(self._graph_step(gray_d, depth_d, ts))
+                self._archive(self.state.feats)
+            made = torch.stack([o.made_kf for o, _ in steps])
+            new_kfs = torch.stack([k for _, k in steps])
+            stops = chunk_ba_stops(made) | self._ba_interrupt()
+            self._graph_background_steps(made, new_kfs, stops)
+            self._outs += [o for o, _ in steps]
+            self.timestamps += [t for _, _, t in buf]
+            self._frame_id += len(buf)
+            return
         self.state, self.map, outs, new_kfs, feats = track_chunk(
             self.state, self.map, buf, self.camera, self.caps, self.spec, self.budgets,
             self.scale_factors, self.inv_level_sigma2, self.fast_hi, self.fast_lo,
@@ -1001,6 +1159,7 @@ class SlamSystem:
     def results(self):
         """Blocks; returns (trajectory T_w_c [F,4,4], stats, kf_traj)."""
         self._flush()
+        self._settle()
         if self.enable_loop_closing and not self._inline_close:
             self._drain_loop_queue(final=True)
         keys = ("kf_pose", "kf_valid", "kf_gen", "cull_parent",

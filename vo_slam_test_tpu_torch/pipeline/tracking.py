@@ -7,12 +7,18 @@ when it finds < 20 matches, and the two-round pose-only solve; the frame is
 tracked with >= 20 matches and >= 10 inliers (visualOdometry.cpp:225-255).
 
 Host synchronization: the JAX package branches with ``lax.cond`` on device
-scalars. Here the first-frame branch is a host bool, and the r=30 retry reads
-the r=15 match count back: one host sync per frame after the first. The
-pose solve's round-2 branch is computed on both sides and selected with
-``torch.where`` (no sync). ``FrameToFrameTracker`` is the host-synchronous
-path: the host-quadtree ``OrbExtractor`` and the reference's integer gates
-read on the host, as the JAX package reads them.
+scalars; here the r=30 retry is ``utils.graphs.cond`` on the r=15 match
+count. The first-frame branch is a host bool (the state's ``initialized``).
+``FusedTracker`` on the card replays a captured CUDA graph of the step from
+its third frame on (the first frame runs outside it and the second is the
+graph's warm-up, both in ``select`` mode): the retry is a conditional node
+and nothing is read back until ``results()``. With ``graphs=False`` (the
+CPU's default) the step runs eagerly and the retry reads the r=15 count
+back: one host sync per frame after the first. The pose solve's round-2
+branch is computed on both sides and selected with ``torch.where`` (no
+sync). ``FrameToFrameTracker`` is the
+host-synchronous path: the host-quadtree ``OrbExtractor`` and the
+reference's integer gates read on the host, as the JAX package reads them.
 """
 
 from __future__ import annotations
@@ -31,6 +37,7 @@ from ..frontend.frame import FrameFeatures
 from ..matching import matcher
 from ..ops.pyramid import PyramidSpec
 from ..solvers import pose_only
+from ..utils import graphs as graphs_mod
 
 
 def _spawn_temp_points(feats: FrameFeatures, T_c_w: torch.Tensor, cam: Camera
@@ -232,9 +239,14 @@ def track_step(
             return _match_and_solve(feats, state.feats, last_pts, last_valid, T_pred, T_last,
                                     scale_factors, inv_level_sigma2, cam, radius)
 
+        def retry():
+            T, _, n_i, n, _ = attempt(30.0)
+            return T, n_i, n
+
         T_new, _, n_inl, n_m, _ = attempt(15.0)
-        if int(n_m) < 20:  # the one host sync per frame: widen the window
-            T_new, _, n_inl, n_m, _ = attempt(30.0)
+        # widen the window (visualOdometry.cpp:242-246): a conditional node
+        # in a captured step, one host read when eager
+        T_new, n_inl, n_m = graphs_mod.cond(n_m < 20, retry, lambda: (T_new, n_inl, n_m))
         ok = (n_m >= 20) & (n_inl >= 10)
         T_new = torch.where(ok, T_new, T_pred)
 
@@ -248,9 +260,16 @@ def track_step(
 
 class FusedTracker:
     """Frame-to-frame VO with the state on the device and an asynchronous
-    host loop: per-frame results are read back only by ``results()``."""
+    host loop: per-frame results are read back only by ``results()``.
 
-    def __init__(self, cfg: SlamConfig, device: Optional[Union[str, torch.device]] = None):
+    ``graphs`` (default: on for the card, off for the CPU): on the card the
+    step is a ``utils.graphs.StepGraph`` (captured at the third frame and
+    replayed from then on; a capture failure raises); on the CPU it runs in
+    ``select`` mode under ``no_host_reads``, the stand-in for a replay.
+    ``graphs=False`` runs the step eagerly (one host read per frame)."""
+
+    def __init__(self, cfg: SlamConfig, device: Optional[Union[str, torch.device]] = None,
+                 graphs: Optional[bool] = None):
         self.cfg = cfg
         self.device = resolve_device(device)
         self.camera = Camera.from_config(cfg, self.device)
@@ -261,6 +280,8 @@ class FusedTracker:
         self.inv_level_sigma2 = torch.as_tensor(self.spec.inv_level_sigma2, device=self.device)
         self.fast_hi = float(cfg.ini_fast_threshold)
         self.fast_lo = float(cfg.min_fast_threshold)
+        self.graphs = self.device.type == "cuda" if graphs is None else bool(graphs)
+        self.step_graph = graphs_mod.StepGraph(self._step, self.device, "track_step")
         self.state = self.empty_state()
         self._outs: List[TrackOut] = []
         self.timestamps: List[float] = []
@@ -272,22 +293,43 @@ class FusedTracker:
             motion_valid=torch.zeros((), dtype=torch.bool, device=self.device), initialized=False,
         )
 
-    def track(self, gray: np.ndarray, depth: np.ndarray, timestamp: float) -> None:
-        """gray u8 (H, W), depth f32 meters (H, W)."""
+    def _step(self, frame, state: TrackState):
+        gray_d, depth_d = frame
+        return track_step(gray_d, depth_d, state, self.camera, self.spec, self.budgets,
+                          self.scale_factors, self.inv_level_sigma2, self.fast_hi, self.fast_lo)
+
+    def track(self, gray: Union[np.ndarray, torch.Tensor], depth: Union[np.ndarray, torch.Tensor],
+              timestamp: float) -> None:
+        """gray u8 (H, W), depth f32 meters (H, W); either may be a tensor
+        already on this tracker's device."""
         gray_d = upload(gray, self.device)
-        depth_d = upload(np.asarray(depth, dtype=np.float32), self.device)
-        self.state, out = track_step(
-            gray_d, depth_d, self.state, self.camera, self.spec, self.budgets,
-            self.scale_factors, self.inv_level_sigma2, self.fast_hi, self.fast_lo,
-        )
+        depth_d = upload(depth if isinstance(depth, torch.Tensor)
+                         else np.asarray(depth, dtype=np.float32), self.device)
+        if not self.graphs:
+            self.state, out = self._step((gray_d, depth_d), self.state)
+        elif not self.state.initialized:
+            # the first frame changes the host flag ``initialized``: it runs
+            # outside the graph, with nothing read back all the same
+            with graphs_mod.use("select"), graphs_mod.no_host_reads():
+                self.state, out = self._step((gray_d, depth_d), self.state)
+        else:
+            self.state, out = self.step_graph.run((gray_d, depth_d), self.state)
         self._outs.append(out)
         self.timestamps.append(timestamp)
 
     def results(self):
-        """Blocks and returns (trajectory T_w_c [F,4,4], stats list)."""
+        """Blocks (one read of every frame's results) and returns
+        (trajectory T_w_c [F,4,4], stats list)."""
+        if not self._outs:
+            return np.zeros((0, 4, 4)), []
+        packed = torch.cat([
+            torch.stack([o.T_c_w for o in self._outs]).reshape(-1, 16).to(torch.float64),
+            torch.stack([torch.stack([o.n_features.to(torch.float64), o.n_matches.to(torch.float64),
+                                      o.n_inliers.to(torch.float64), o.ok.to(torch.float64)])
+                         for o in self._outs])], dim=1).cpu().numpy()
         traj, stats = [], []
-        for o in self._outs:
-            traj.append(np.linalg.inv(o.T_c_w.cpu().numpy()))
-            stats.append(TrackStats(n_features=int(o.n_features), n_matches=int(o.n_matches),
-                                    n_inliers=int(o.n_inliers), ok=bool(o.ok)))
+        for row in packed:
+            traj.append(np.linalg.inv(row[:16].reshape(4, 4).astype(np.float32)))
+            stats.append(TrackStats(n_features=int(row[16]), n_matches=int(row[17]),
+                                    n_inliers=int(row[18]), ok=bool(row[19])))
         return np.stack(traj), stats

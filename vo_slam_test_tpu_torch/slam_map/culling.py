@@ -19,6 +19,7 @@ import torch
 
 from .. import lie
 from ..camera import Camera
+from .insert import Index, row_at
 from .map_state import MapCaps, MapState, compact_ids, pick, scatter_add, scatter_or, scatter_set
 
 
@@ -69,7 +70,7 @@ def erase_points(m: MapState, bad: torch.Tensor, max_erase: int = MAX_ERASE) -> 
     )
 
 
-def cull_keyframes(m: MapState, curr_kf: int, caps: MapCaps, cam: Camera) -> MapState:
+def cull_keyframes(m: MapState, curr_kf: Index, caps: MapCaps, cam: Camera) -> MapState:
     """Erase redundant keyframes connected to curr_kf."""
     K, N = m.kf_mp.shape
     P = caps.max_pt
@@ -77,7 +78,7 @@ def cull_keyframes(m: MapState, curr_kf: int, caps: MapCaps, cam: Camera) -> Map
     min_obs = 3
     kf_ar = torch.arange(K, device=dev)
 
-    connected = (m.covis[curr_kf] > 0) & m.kf_valid
+    connected = (row_at(m.covis, curr_kf) > 0) & m.kf_valid
     connected = connected & (kf_ar != 0) & (kf_ar != curr_kf)  # never KF 0 (:445)
     # keyframes with a loop edge are never erased (keyframe.cpp:528-556)
     connected = connected & ~torch.any(m.loop_edges, dim=1)

@@ -20,7 +20,7 @@ import torch
 from ..camera import Camera
 from ..ops import match_cuda
 from .culling import _drop_last, erase_points
-from .insert import norm3, refresh_points, with_cross, with_row
+from .insert import Index, norm3, refresh_points, row_at, with_cross, with_row
 from .local_map import predict_level
 from .map_state import (MapCaps, MapState, compact_ids, covis_row_for, first_true, scatter_add,
                         scatter_or, scatter_set)
@@ -65,7 +65,7 @@ def _project(pos, normal, min_d, max_d, R, t, cam: Camera, scale_factors):
 
 def fuse_into_keyframe(
     m: MapState,
-    kf_id: int,
+    kf_id: Index,
     cand_mask: torch.Tensor,   # [P] candidate points to fuse into kf_id
     caps: MapCaps,
     cam: Camera,
@@ -80,7 +80,7 @@ def fuse_into_keyframe(
     O = m.pt_obs_kf.shape[1]
     dev = m.device
 
-    T = m.kf_pose[kf_id]
+    T = row_at(m.kf_pose, kf_id)
     # exclude points already observed by this keyframe (matcher.cpp:1029)
     seen_here = torch.any(m.pt_obs_kf == kf_id, dim=1)
     in_view, u, v, ur, pred = _project(m.pt_pos, m.pt_normal, m.pt_min_dist, m.pt_max_dist,
@@ -93,15 +93,15 @@ def fuse_into_keyframe(
     c_pred = pred[sid]
     radius = threshold * scale_factors[c_pred.long()]
     c_ur = ur[sid]
-    kp_oct = m.kf_octave[kf_id]
-    kp_uv = m.kf_uv_und[kf_id]
+    kp_oct = row_at(m.kf_octave, kf_id)
+    kp_uv = row_at(m.kf_uv_und, kf_id)
     inv_sig2 = 1.0 / scale_factors[kp_oct.long()] ** 2
     best, best_d, _, _ = match_cuda.masked_top2(
-        m.pt_desc[sid], m.kf_desc[kf_id],
+        m.pt_desc[sid], row_at(m.kf_desc, kf_id),
         u[sid], v[sid], radius, c_ur, torch.zeros_like(c_ur),
         c_pred - 1, c_pred, ok,
-        kp_uv[:, 0].contiguous(), kp_uv[:, 1].contiguous(), m.kf_u_right[kf_id], kp_oct,
-        m.kf_kp_valid[kf_id], col_isig2=inv_sig2, chi2_gate=True,
+        kp_uv[:, 0].contiguous(), kp_uv[:, 1].contiguous(), row_at(m.kf_u_right, kf_id), kp_oct,
+        row_at(m.kf_kp_valid, kf_id), col_isig2=inv_sig2, chi2_gate=True,
     )
     matched = best_d <= TH_LOW
 
@@ -114,13 +114,13 @@ def fuse_into_keyframe(
 
     cand_pt = ids
     kp_sel = best
-    org = m.kf_mp[kf_id][kp_sel.long()]  # existing binding (-1 empty)
+    org = row_at(m.kf_mp, kf_id)[kp_sel.long()]  # existing binding (-1 empty)
     org_live = (org >= 0) & m.pt_valid[org.clamp(min=0).long()]
 
     # --- case A: empty slot -> bind candidate (dummy lanes write col N) ------
     bindA = matched & ~org_live
     kp_w = torch.where(bindA, kp_sel, N)
-    row_ext = torch.cat([m.kf_mp[kf_id], m.kf_mp.new_full((1,), -1)])
+    row_ext = torch.cat([row_at(m.kf_mp, kf_id), m.kf_mp.new_full((1,), -1)])
     row_new = scatter_set(row_ext, kp_w, cand_pt)[:N]
     m = m.replace(kf_mp=with_row(m.kf_mp, kf_id, row_new))
     free = m.pt_obs_kf[cand_pt.clamp(min=0).long()] < 0
@@ -200,7 +200,7 @@ def _replace_points(m: MapState, loser: torch.Tensor, winner: torch.Tensor,
 
 def fuse_curr_into_neighbors(
     m: MapState,
-    kf_id: int,
+    kf_id: Index,
     nb_ids: torch.Tensor,      # [B] neighbour keyframe ids, -1 padded
     caps: MapCaps,
     cam: Camera,
@@ -217,7 +217,7 @@ def fuse_curr_into_neighbors(
     B = nb_ids.shape[0]
     dev = m.device
 
-    row = m.kf_mp[kf_id]                       # [N] candidate point per slot
+    row = row_at(m.kf_mp, kf_id)               # [N] candidate point per slot
     pid = row.clamp(min=0).long()
     base_ok = (row >= 0) & m.pt_valid[pid]
     p_desc = m.pt_desc[pid]                    # [N,8]
@@ -306,13 +306,13 @@ def fuse_curr_into_neighbors(
                            keep)
 
 
-def two_hop_neighbors(m: MapState, kf_id: int) -> torch.Tensor:
+def two_hop_neighbors(m: MapState, kf_id: Index) -> torch.Tensor:
     """[K] mask: the 10 best covisibles and the 5 best covisibles of each
     (localMapping.cpp:365-390), excluding kf_id. Stable sorts, as JAX's."""
     K = m.kf_valid.shape[0]
     w = torch.where(m.kf_valid[None, :], m.covis, 0)
-    first = torch.argsort(-w[kf_id], stable=True)[:10]
-    first_ok = w[kf_id][first] > 0
+    first = torch.argsort(-row_at(w, kf_id), stable=True)[:10]
+    first_ok = row_at(w, kf_id)[first] > 0
     mask = scatter_or(K, torch.where(first_ok, first, K - 1), first_ok)
     second = torch.argsort(-w[first], dim=1, stable=True)[:, :5]   # [10,5]
     sec_ok = (torch.gather(w[first], 1, second) > 0) & first_ok[:, None]
@@ -321,7 +321,7 @@ def two_hop_neighbors(m: MapState, kf_id: int) -> torch.Tensor:
     return mask & m.kf_valid
 
 
-def search_in_neighbors(m: MapState, kf_id: int, caps: MapCaps, cam: Camera,
+def search_in_neighbors(m: MapState, kf_id: Index, caps: MapCaps, cam: Camera,
                         scale_factors: torch.Tensor) -> MapState:
     """Two-hop fuse around a new keyframe (localMapping.cpp:363-432): the
     KF's points into every neighbour, every neighbour's points into the KF,
@@ -336,7 +336,7 @@ def search_in_neighbors(m: MapState, kf_id: int, caps: MapCaps, cam: Camera,
     nb_pts = scatter_or(P, torch.where(rows_on, m.kf_mp, P - 1), rows_on)
     m = fuse_into_keyframe(m, kf_id, nb_pts, caps, cam, scale_factors)
 
-    row2 = m.kf_mp[kf_id]
+    row2 = row_at(m.kf_mp, kf_id)
     touched = scatter_or(P, row2.clamp(min=0), row2 >= 0)
     m = refresh_points(m, touched, scale_factors)
     w = with_row(covis_row_for(m, touched), kf_id, 0)

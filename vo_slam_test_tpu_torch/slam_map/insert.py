@@ -7,14 +7,17 @@ updateNormalAndDepth / computeDescriptor (mappoint.cpp:86-179) and the
 covisibility/spanning-tree update of updateConnections (keyframe.cpp:69-152),
 as dense masked tensor updates.
 
-The JAX package gates the insert with ``lax.cond`` on a device bool. Here
-``insert_keyframe`` reads that bool and the new slot id back in one host read,
-and the insert runs with the slot as a Python int.
+The JAX package gates the insert with ``lax.cond`` on a device bool and
+writes at a device slot index. Eager, ``insert_keyframe`` reads that bool and
+the new slot id back in one host read and inserts with the slot as a Python
+int; in ``select`` mode and in a captured graph (``utils.graphs``) it is the
+JAX package's predicated insert, with the slot, the timestamp and the frame
+id as device tensors and nothing read back.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Tuple, Union
 
 import torch
 
@@ -22,32 +25,58 @@ from .. import lie
 from ..camera import Camera
 from ..frontend.frame import FrameFeatures
 from ..ops import hamming
-from .map_state import (MapCaps, MapState, add_observations, covis_row_for, first_true,
+from ..utils import graphs
+from .map_state import (MapCaps, MapState, add_observations, covis_row_for, first_true, pick,
                         scatter_add, scatter_or, scatter_set)
 
+Index = Union[int, torch.Tensor]  # a Python int, or a 0-d integer tensor on the map's device
 
-def with_row(arr: torch.Tensor, i: int, val) -> torch.Tensor:
-    """Copy of ``arr`` with ``arr[i] = val``; ``val`` a tensor or a Python
-    scalar (filled on the device: writing a Python scalar through
-    ``__setitem__`` copies it from the host)."""
+
+def row_at(arr: torch.Tensor, i: Index) -> torch.Tensor:
+    """``arr[i]`` for a Python int or a 0-d index tensor (``pick``: indexing
+    with a 0-d tensor on the card reads it back)."""
+    return pick(arr, i) if isinstance(i, torch.Tensor) else arr[i]
+
+
+def with_row(arr: torch.Tensor, i: Index, val) -> torch.Tensor:
+    """Copy of ``arr`` with ``arr[i] = val``; ``i`` a Python int or a 0-d
+    index tensor, ``val`` a tensor or a Python scalar (filled on the device:
+    writing a Python scalar through ``__setitem__`` copies it from the
+    host)."""
     out = arr.clone()
-    if isinstance(val, torch.Tensor):
+    if isinstance(i, torch.Tensor):
+        idx = i.reshape(1).long()
+        if isinstance(val, torch.Tensor):
+            out.index_copy_(0, idx, val.to(arr.dtype).expand(arr.shape[1:]).reshape(
+                (1,) + arr.shape[1:]))
+        else:
+            out.index_fill_(0, idx, val)
+    elif isinstance(val, torch.Tensor):
         out[i] = val
     else:
         out[i].fill_(val)
     return out
 
 
-def with_cross(arr: torch.Tensor, i: int, row) -> torch.Tensor:
-    """Copy of a [K,K] table with row ``i`` and column ``i`` set to ``row``
-    (a [K] tensor, or a scalar)."""
+def with_cross(arr: torch.Tensor, i: Index, row_val) -> torch.Tensor:
+    """Copy of a [K,K] table with row ``i`` and column ``i`` set to
+    ``row_val`` (a [K] tensor, or a scalar)."""
     out = arr.clone()
-    if isinstance(row, torch.Tensor):
-        out[i, :] = row
-        out[:, i] = row
+    if isinstance(i, torch.Tensor):
+        idx = i.reshape(1).long()
+        if isinstance(row_val, torch.Tensor):
+            r = row_val.to(arr.dtype)
+            out.index_copy_(0, idx, r[None, :])
+            out.index_copy_(1, idx, r[:, None])
+        else:
+            out.index_fill_(0, idx, row_val)
+            out.index_fill_(1, idx, row_val)
+    elif isinstance(row_val, torch.Tensor):
+        out[i, :] = row_val
+        out[:, i] = row_val
     else:
-        out[i, :].fill_(row)
-        out[:, i].fill_(row)
+        out[i, :].fill_(row_val)
+        out[:, i].fill_(row_val)
     return out
 
 
@@ -104,25 +133,29 @@ def insert_keyframe(
 ) -> Tuple[MapState, int]:
     """Returns (new map, kf_id); kf_id = -1 (map untouched) when ``do`` is
     False or every slot is live. ``do``: None, a Python bool or a device
-    bool. One host read (the insert flag and the slot id together) unless
-    ``do`` is the Python bool False."""
+    bool. The insert runs under ``graphs.cond`` at the slot ``graphs.fetch``
+    gives: eager, one host read (the insert flag and the slot id together)
+    unless ``do`` is the Python bool False, and kf_id is a Python int; in
+    ``select``/``capture`` mode the JAX package's predicated insert at a
+    device slot, kf_id a 0-d int32 tensor, and ``timestamp`` and
+    ``frame_id`` may be device tensors (a graph's static inputs)."""
     if do is False:
         return m, -1
     K = m.kf_valid.shape[0]
     can = (m.n_kf < K) | torch.any(~m.kf_valid)
     if isinstance(do, torch.Tensor):
         can = can & do
-    kf_id_t = torch.where(m.n_kf < K, torch.clamp(m.n_kf, max=K - 1), first_true(~m.kf_valid, 0))
-    go, kf_id = torch.stack([can.to(torch.int32), kf_id_t.to(torch.int32)]).tolist()
-    if not go:
-        return m, -1
-    m = _insert_keyframe(m, caps, feats, T_c_w, timestamp, frame_id, assign, create_mask, cam,
-                         scale_factors, words, bow_word, bow_weight, kf_id)
-    return m, kf_id
+    kf_id_t = torch.where(m.n_kf < K, torch.clamp(m.n_kf, max=K - 1),
+                          first_true(~m.kf_valid, 0)).to(torch.int32)
+    go, kf_id = graphs.fetch(can, kf_id_t)
+    m = graphs.cond(go, lambda m: _insert_keyframe(
+        m, caps, feats, T_c_w, timestamp, frame_id, assign, create_mask, cam, scale_factors,
+        words, bow_word, bow_weight, kf_id), lambda m: m, (m,))
+    return m, graphs.where(go, kf_id, -1)
 
 
 def _insert_keyframe(m, caps, feats, T_c_w, timestamp, frame_id, assign, create_mask, cam,
-                     scale_factors, words, bow_word, bow_weight, kf_id: int):
+                     scale_factors, words, bow_word, bow_weight, kf_id: Index):
     N = caps.n_feat
     P = caps.max_pt
     K = m.kf_valid.shape[0]
@@ -132,12 +165,12 @@ def _insert_keyframe(m, caps, feats, T_c_w, timestamp, frame_id, assign, create_
     m = m.replace(
         kf_pose=with_row(m.kf_pose, kf_id, T_c_w),
         kf_valid=with_row(m.kf_valid, kf_id, True),
-        kf_gen=with_row(m.kf_gen, kf_id, m.kf_gen[kf_id] + 1),
+        kf_gen=with_row(m.kf_gen, kf_id, row_at(m.kf_gen, kf_id) + 1),
         kf_seq=with_row(m.kf_seq, kf_id, m.n_kf_ever),
         n_kf_ever=m.n_kf_ever + 1,
         loop_edges=with_cross(m.loop_edges, kf_id, False),
-        kf_timestamp=with_row(m.kf_timestamp, kf_id, float(timestamp)),
-        kf_frame_id=with_row(m.kf_frame_id, kf_id, int(frame_id)),
+        kf_timestamp=with_row(m.kf_timestamp, kf_id, _host_or_tensor(timestamp, float)),
+        kf_frame_id=with_row(m.kf_frame_id, kf_id, _host_or_tensor(frame_id, int)),
         kf_uv_und=with_row(m.kf_uv_und, kf_id, feats.uv_und),
         kf_octave=with_row(m.kf_octave, kf_id, feats.octave),
         kf_angle=with_row(m.kf_angle, kf_id, feats.angle),
@@ -178,7 +211,7 @@ def _insert_keyframe(m, caps, feats, T_c_w, timestamp, frame_id, assign, create_
         pt_desc=put(m.pt_desc, feats.desc),
         pt_min_dist=put(m.pt_min_dist, min_d),
         pt_max_dist=put(m.pt_max_dist, max_d),
-        pt_ref_kf=put(m.pt_ref_kf, torch.full_like(m.pt_ref_kf[rows], kf_id)),
+        pt_ref_kf=put(m.pt_ref_kf, torch.zeros_like(m.pt_ref_kf[rows]) + kf_id),
         pt_valid=put(m.pt_valid, torch.ones_like(in_cap)),
         pt_gen=scatter_add(m.pt_gen, rows, in_cap.to(torch.int32)),
         pt_found=put(m.pt_found, torch.ones_like(m.pt_found[rows])),
@@ -204,6 +237,12 @@ def _insert_keyframe(m, caps, feats, T_c_w, timestamp, frame_id, assign, create_
     # ---- refresh normals/depth/descriptor of touched pre-existing points --
     touched = scatter_or(P, assign.clamp(min=0), assign >= 0)
     return refresh_points(m, touched, scale_factors)
+
+
+def _host_or_tensor(v, cast):
+    """A per-frame value: a device tensor passes through, a host value is
+    cast (``float``/``int``)."""
+    return v if isinstance(v, torch.Tensor) else cast(v)
 
 
 MAX_REFRESH = 2048  # touched points per refresh call (a KF touches <= ~1k)

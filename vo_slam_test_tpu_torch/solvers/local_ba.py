@@ -21,10 +21,14 @@ package redesigned it:
   outlier observations and the obs<=2 point invalidation (:757-804,
   mappoint.cpp:353).
 
-The LM loop is a Python loop that reads its ``done`` flag back once per
-iteration (one host sync per LM iteration), so the iteration counts, and the
-kernels' launches, are the ones the JAX package's ``lax.while_loop`` runs:
-``ba_accumulate``, ``ba_backsub`` and ``ba_cost`` once each per iteration.
+The LM loop is ``utils.graphs.while_capped``: eager, a Python loop that
+reads its ``done`` flag back once per iteration (one host sync per LM
+iteration); in ``select`` mode and in a captured graph, the cap's bodies each
+under a conditional on the device flag, with nothing read back. Either way
+the iteration counts, and the kernels' launches, are the ones the JAX
+package's ``lax.while_loop`` runs: ``ba_accumulate``, ``ba_backsub`` and
+``ba_cost`` once each per iteration. The interruptBA skip at the solver's
+entry is a ``graphs.cond`` on a device flag, or a host bool.
 JAX's Cholesky gives NaN on a matrix that is not positive definite and the
 step is then rejected (NaN < c is false); ``cholesky_ex`` gives a partial
 factor, which is replaced by NaN for the same outcome. On CPU tensors the
@@ -50,8 +54,10 @@ from .. import lie
 from ..camera import Camera
 from ..ops import ba_cuda, ba_pallas
 from ..parallel.sharded import ObsMesh
+from ..slam_map.insert import Index, row_at
 from ..slam_map.map_state import (MapCaps, MapState, compact_ids, scatter_add, scatter_or,
                                   scatter_set)
+from ..utils import graphs
 from .pose_only import CHI2_MONO, CHI2_STEREO
 
 W_KF = 24       # optimized window keyframes
@@ -105,7 +111,7 @@ class _Selection(NamedTuple):
     wk: int
 
 
-def _select(m: MapState, center_kf: int) -> _Selection:
+def _select(m: MapState, center_kf: Index) -> _Selection:
     """The window (center + covisibles by weight), its local points and the
     fixed keyframes (other observers of those points)."""
     K = m.kf_valid.shape[0]
@@ -114,7 +120,7 @@ def _select(m: MapState, center_kf: int) -> _Selection:
     wk, fk, l_pt = min(W_KF, K), min(F_KF, K), min(L_PT, P)
 
     # window: center + covisibles by weight; JAX's argsort is stable
-    w_row = m.covis[center_kf] * m.kf_valid.to(_I32)
+    w_row = row_at(m.covis, center_kf) * m.kf_valid.to(_I32)
     w_row = torch.where(torch.arange(K, device=dev) == center_kf, 1 << 20, w_row)
     order = torch.argsort(-w_row, stable=True)
     win_ids = torch.where(w_row[order][:wk] > 0, order[:wk], -1).to(_I32)
@@ -138,7 +144,7 @@ def _select(m: MapState, center_kf: int) -> _Selection:
     return _Selection(kf_ids, kf_fixed, pt_ids, _slot_of(kf_ids, K), sees_local, wk)
 
 
-def build_problem(m: MapState, center_kf: int, caps: MapCaps,
+def build_problem(m: MapState, center_kf: Index, caps: MapCaps,
                   inv_level_sigma2: Optional[torch.Tensor] = None) -> BAProblem:
     """The flat problem: every (window or fixed keyframe, keypoint) bound to
     a local point, keyframe-major, compacted into ``N_OBS`` slots."""
@@ -163,7 +169,7 @@ def build_problem(m: MapState, center_kf: int, caps: MapCaps,
     )
 
 
-def build_problem_ol(m: MapState, center_kf: int, caps: MapCaps,
+def build_problem_ol(m: MapState, center_kf: Index, caps: MapCaps,
                      inv_level_sigma2: Optional[torch.Tensor] = None) -> BAProblemOL:
     """Window/fixed/point selection; observations from the per-point
     observer lists (valid-first, capped at O_BA slots)."""
@@ -225,16 +231,30 @@ def _cam5(cam: Camera) -> torch.Tensor:
     return torch.stack([cam.fx, cam.fy, cam.cx, cam.cy, cam.bf]).to(_F32)
 
 
+def schur_solve(chol: torch.Tensor, rhs: torch.Tensor) -> torch.Tensor:
+    """``L Lᵀ x = rhs`` for the lower Cholesky factor ``chol``, as the two
+    triangular solves of ``torch.cholesky_solve`` (LAPACK's potrs; bit-equal
+    to it on the CPU): ``torch.cholesky_solve`` does not instantiate inside a
+    conditional node's body on the card. How far the two differ there is
+    measured by ``perf/schur_solve_split.py``."""
+    half = torch.linalg.solve_triangular(chol, rhs, upper=False)
+    return torch.linalg.solve_triangular(chol.mT, half, upper=True)
+
+
 def _lm_pass(poses0, points0, probs, cam5, active, use_huber: bool, iters: int, wk: int, n_pts,
              wcs, scratches, masks, mesh: ObsMesh):
     """One LM pass over the shards of the point axis -> (poses, points per
     shard, iterations run, Wc buffer per shard). ``probs``, ``points0``,
-    ``active`` and the kernels' buffers are per shard: ``wcs``, ``scratches``
-    and ``masks``, shared by the passes of one BA call; a shard's ``mask``
-    also goes to every back-substitution (the rows of ``Wc`` it names follow
-    ``slot`` and ``povar`` alone, so they are the same in every iteration).
-    The pose-side sums and both costs are psum-reduced and the max of the
-    point step pmax-reduced (``mesh``); the Cholesky solve runs once."""
+    ``active`` and the kernels' buffers are per shard: ``wcs`` (None on the
+    CPU), ``scratches`` and ``masks``, shared by the passes of one BA call; a
+    shard's ``mask`` also goes to every back-substitution (the rows of ``Wc``
+    it names follow ``slot`` and ``povar`` alone, so they are the same in
+    every iteration). The pose-side sums and both costs are psum-reduced and
+    the max of the point step pmax-reduced (``mesh``); the Cholesky solve runs
+    once. The loop is ``utils.graphs.while_capped`` (the JAX package's
+    ``lax.while_loop`` with the ``iters`` cap): eager it reads its exit test
+    once per iteration; in ``select`` mode and in a captured graph nothing is
+    read and the count is a device int."""
     WF = probs[0].kf_ids.shape[0]
     dev = poses0.device
     obs = [(p.o_slot, p.o_uv[0], p.o_uv[1], p.o_ur, p.o_inv_sigma2, a.to(_F32))
@@ -244,10 +264,10 @@ def _lm_pass(poses0, points0, probs, cam5, active, use_huber: bool, iters: int, 
     eye_w = torch.eye(wk, dtype=_F32, device=dev)
     eye_s = torch.eye(wk * 6, dtype=_F32, device=dev)
     nan = torch.full((), float("nan"), dtype=_F32, device=dev)
-    lam = torch.full((), 1e-4, dtype=_F32, device=dev)
-    poses, points, wcs, it = poses0, list(points0), list(wcs), 0
     shards = range(mesh.n_shards)
-    while it < iters:
+
+    def body(carry):
+        poses, points, lam, it, _ = carry
         lams, posesT = mesh.replicate(lam), mesh.replicate(poses.reshape(WF, 16).T.contiguous())
         acc = []
         for s in shards:
@@ -257,18 +277,17 @@ def _lm_pass(poses0, points0, probs, cam5, active, use_huber: bool, iters: int, 
                     cam5s[s], wk, use_huber, n_pts=n_pts[s], wc=wcs[s], scratch=scratches[s],
                     mask=masks[s]))
         Hpp36, bp, S_red, rhs_red, cost_old = (mesh.psum([a[i] for a in acc]) for i in range(5))
-        wcs = [a[7] for a in acc]
         Hpp = Hpp36.reshape(wk, 6, 6) + lam * eye6
         S = torch.einsum("wij,wv->wivj", Hpp, eye_w) - S_red.reshape(wk, 6, wk, 6)
         rhs = bp - rhs_red.reshape(wk, 6)
         chol, info = torch.linalg.cholesky_ex(S.reshape(wk * 6, wk * 6) + 1e-7 * eye_s)
         chol = torch.where(info == 0, chol, nan)
-        dx_pose = -torch.cholesky_solve(rhs.reshape(-1, 1), chol).reshape(wk, 6)
+        dx_pose = -schur_solve(chol, rhs.reshape(-1, 1)).reshape(wk, 6)
         dx_poses = mesh.replicate(dx_pose.contiguous())
         dx_pt = []
         for s in shards:
             with mesh.on(s):
-                dx_pt.append(ba_cuda.ba_backsub(wcs[s], acc[s][5], acc[s][6], dx_poses[s],
+                dx_pt.append(ba_cuda.ba_backsub(acc[s][7], acc[s][5], acc[s][6], dx_poses[s],
                                                 n_pts=n_pts[s], mask=masks[s]))
 
         poses_new = torch.cat([lie.se3_exp(dx_pose) @ poses[:wk], poses[wk:]])
@@ -290,9 +309,14 @@ def _lm_pass(poses0, points0, probs, cam5, active, use_huber: bool, iters: int, 
         done = torch.maximum(dx_pose.abs().max(), mesh.pmax([d.abs().max() for d in dx_pt])) < 1e-7
         # Ceres-style function tolerance (1e-6 relative decrease)
         done = done | (improved & ((c_old - c_new) < 1e-6 * torch.clamp(c_old, min=1e-12)))
-        it += 1
-        if bool(done):  # host read: the loop's exit
-            break
+        return poses, points, lam, it + 1, done
+
+    lam = torch.full((), 1e-4, dtype=_F32, device=dev)
+    it0 = graphs.scalar(0, _I32, dev)
+    not_done = torch.zeros((), dtype=torch.bool, device=dev)
+    poses, points, _, it, _ = graphs.while_capped(
+        lambda c: ~c[4], body, (poses0, list(points0), lam, it0, not_done), iters,
+        active=iters > 0)
     return poses, points, it, wcs
 
 
@@ -345,29 +369,34 @@ def _ba_optimize(poses, points, prob: BAProblemOL, cam5, wk: int, it1: int, it2:
                    for s, dev in enumerate(mesh.shard_devices)]
     scratches = [ba_cuda.ba_scratch(wk, Ls, dev) for dev in mesh.shard_devices]
     masks = [ba_cuda.ba_mask(Ls, dev) for dev in mesh.shard_devices]
-    none = [None] * mesh.n_shards
+    # the Wc buffers, zeroed once per BA call (the kernel writes only the
+    # rows of observing window slots); the CPU's plain version makes its own
+    wcs = [None if dev.type == "cpu" else torch.zeros((wk, 18, Ls), dtype=_F32, device=dev)
+           for dev in map(torch.device, mesh.shard_devices)]
 
     def classify(poses, pts):
         return [_classify_ol(P, X, p, c) for P, X, p, c in
                 zip(mesh.replicate(poses), pts, probs, mesh.replicate(cam5))]
 
     poses, pts, n1, wcs = _lm_pass(poses, pts, probs, cam5, [p.o_valid for p in probs], True, it1,
-                                   wk, n_pts_s, none, scratches, masks, mesh)
+                                   wk, n_pts_s, wcs, scratches, masks, mesh)
     inl = classify(poses, pts)
     poses, pts, n2, _ = _lm_pass(poses, pts, probs, cam5, inl, False, it2, wk, n_pts_s, wcs,
                                  scratches, masks, mesh)
     return (poses, mesh.gather(pts), mesh.gather(classify(poses, pts), 1), n1, n2)
 
 
-def _local_ba_impl(m: MapState, center_kf: int, caps: MapCaps, cam: Camera,
-                   inv_level_sigma2=None, stop: Optional[bool] = None,
+def _local_ba_impl(m: MapState, center_kf: Index, caps: MapCaps, cam: Camera,
+                   inv_level_sigma2=None, stop=None,
                    mesh: Optional[ObsMesh] = None):
     # the reference's interruptBA: the stop flag is read at the solver's
     # ENTRY (optimizer_ceres.cpp:594 `if (stopFlag) return;`) and the whole
-    # local BA (optimization, outlier erasure, write-back) is skipped
-    if stop:
-        return m, 0, 0
-    return _local_ba_run(m, center_kf, caps, cam, inv_level_sigma2, mesh)
+    # local BA (optimization, outlier erasure, write-back) is skipped; a
+    # device flag is the JAX package's lax.cond
+    zero = graphs.scalar(0, _I32, m.device)
+    return graphs.cond(stop, lambda m: (m, zero, zero),
+                       lambda m: _local_ba_run(m, center_kf, caps, cam, inv_level_sigma2, mesh),
+                       (m,))
 
 
 def _local_ba_run(m, center_kf, caps, cam, inv_level_sigma2, mesh: Optional[ObsMesh]):
@@ -383,15 +412,16 @@ def _local_ba_run(m, center_kf, caps, cam, inv_level_sigma2, mesh: Optional[ObsM
     return _ba_write_back(m, prob, poses, points, final_inl), n1, n2
 
 
-def local_bundle_adjust(m: MapState, center_kf: int, caps: MapCaps, cam: Camera,
+def local_bundle_adjust(m: MapState, center_kf: Index, caps: MapCaps, cam: Camera,
                         inv_level_sigma2=None, stop: Optional[bool] = None) -> MapState:
     """Run windowed local BA around ``center_kf`` and write the results into
-    the map. ``stop`` (host bool): the reference's interruptBA, read at the
-    solver's entry; raised, the map passes through untouched."""
+    the map. ``stop``: the reference's interruptBA, read at the solver's
+    entry (a host bool, or a device bool in ``select``/``capture`` mode);
+    raised, the map passes through untouched."""
     return _local_ba_impl(m, center_kf, caps, cam, inv_level_sigma2, stop)[0]
 
 
-def local_bundle_adjust_iters(m: MapState, center_kf: int, caps: MapCaps, cam: Camera,
+def local_bundle_adjust_iters(m: MapState, center_kf: Index, caps: MapCaps, cam: Camera,
                               inv_level_sigma2=None, stop: Optional[bool] = None
                               ) -> Tuple[MapState, int, int]:
     """``local_bundle_adjust`` that also returns the LM iterations each pass
@@ -399,7 +429,7 @@ def local_bundle_adjust_iters(m: MapState, center_kf: int, caps: MapCaps, cam: C
     return _local_ba_impl(m, center_kf, caps, cam, inv_level_sigma2, stop)
 
 
-def local_bundle_adjust_mesh(m: MapState, center_kf: int, caps: MapCaps, cam: Camera,
+def local_bundle_adjust_mesh(m: MapState, center_kf: Index, caps: MapCaps, cam: Camera,
                              mesh: ObsMesh, inv_level_sigma2=None,
                              stop: Optional[bool] = None) -> MapState:
     """``local_bundle_adjust`` with the LM iterations sharded over ``mesh``:
@@ -415,7 +445,7 @@ def local_bundle_adjust_mesh(m: MapState, center_kf: int, caps: MapCaps, cam: Ca
     return _local_ba_impl(m, center_kf, caps, cam, inv_level_sigma2, stop, mesh)[0]
 
 
-def local_bundle_adjust_mesh_iters(m: MapState, center_kf: int, caps: MapCaps, cam: Camera,
+def local_bundle_adjust_mesh_iters(m: MapState, center_kf: Index, caps: MapCaps, cam: Camera,
                                    mesh: ObsMesh, inv_level_sigma2=None,
                                    stop: Optional[bool] = None) -> Tuple[MapState, int, int]:
     """``local_bundle_adjust_mesh`` that also returns the LM iterations each

@@ -7,8 +7,10 @@ two-round structure (Huber round, chi2 reclassification, plain round from the
 input pose again). ``fast=True`` runs fixed 4-iteration damped Gauss-Newton
 rounds with no host read-back: round 2 is always computed and selected with
 ``torch.where`` when round 1 kept >= 10 inliers, which gives the same result
-as the JAX package's ``lax.cond``. The LM path (``fast=False``) exits its loop
-early on convergence, which reads one scalar back per iteration.
+as the JAX package's ``lax.cond``. The LM path (``fast=False``) is
+``utils.graphs.while_capped``, the JAX package's ``lax.while_loop``: it exits
+early on convergence, reading one scalar back per iteration when eager and
+none in ``select`` mode or a captured graph.
 """
 
 from __future__ import annotations
@@ -20,6 +22,7 @@ import math
 import torch
 
 from .. import lie
+from ..utils import graphs
 
 CHI2_MONO = 5.991
 CHI2_STEREO = 7.815
@@ -102,9 +105,8 @@ def _solve_round(T0, obs: PoseObs, active, fx, fy, cx, cy, bf, use_huber: bool,
         ew = e * inv_sigma[:, None]
         return torch.sum(torch.where(active, _rho(torch.sum(ew * ew, dim=-1), stereo, use_huber), 0.0))
 
-    T = T0
-    lam = torch.tensor(1e-4, dtype=T0.dtype, device=T0.device)
-    for _ in range(max_iters):
+    def body(carry):
+        T, lam, _ = carry
         H, g, ew, stereo = _normal_equations(T, obs, active, fx, fy, cx, cy, bf, use_huber)
         Hd = H + lam * torch.diag(torch.diagonal(H)) + 1e-10 * eye6
         step = -torch.linalg.solve_ex(Hd, g)[0]
@@ -113,8 +115,14 @@ def _solve_round(T0, obs: PoseObs, active, fx, fy, cx, cy, bf, use_huber: bool,
         improved = cost_of(T_new) < c_old
         T = torch.where(improved, T_new, T)
         lam = torch.where(improved, torch.clamp(lam * 0.3, min=1e-8), torch.clamp(lam * 4.0, max=1e6))
-        if bool(torch.max(torch.abs(step)) < 1e-8):
-            break
+        return T, lam, torch.max(torch.abs(step)) < 1e-8
+
+    lam = torch.full((), 1e-4, dtype=T0.dtype, device=T0.device)
+    converged = torch.zeros((), dtype=torch.bool, device=T0.device)
+    # the JAX package's lax.while_loop with its trip cap: a host read per
+    # iteration when eager, a conditional node per iteration in a capture
+    T, _, _ = graphs.while_capped(lambda c: ~c[2], body, (T0, lam, converged), max_iters,
+                                  active=max_iters > 0)
     return T
 
 

@@ -1,2 +1,3 @@
 """Helpers: the port's random generator (``prng``), the closed-form 3x3
-inverse (``linalg``) and the drift instrument (``drift``)."""
+inverse (``linalg``), the drift instrument (``drift``) and the device-side
+control flow and captured step programs (``graphs``)."""

@@ -1,0 +1,678 @@
+"""Device-side control flow and captured step programs: the port's
+counterparts of ``lax.cond``, ``lax.while_loop`` and ``jax.jit``.
+
+The JAX package compiles each step into one program whose branches are
+``lax.cond`` on device scalars, so a step never waits for the host. Here a
+step runs in one of three modes (``use(mode)``):
+
+- ``eager``: ``cond`` reads its predicate back and runs one branch (one host
+  read). This is the default, and the CPU's mode;
+- ``select``: both branches run and their outputs are merged with
+  ``torch.where`` (how ``lax.cond`` acts under ``vmap``). Nothing is read
+  back; on the CPU it stands in for a conditional node, and on the card it
+  is the warm-up pass that runs every branch once before a capture;
+- ``capture``: inside ``StepGraph``'s CUDA-graph capture, each ``cond``
+  becomes two IF nodes, the second on the negated predicate; the taken side
+  writes the outputs. The card's PyTorch (2.11) has no
+  ``CUDAGraph.begin_capture_to_if_node``, so ``csrc/graph_if.cu`` makes the
+  same CUDA calls (a conditional handle, a kernel that sets it from the
+  predicate, ``cudaGraphAddNode`` and a capture of the body into the node's
+  graph on a stream of its own), with the bodies' allocations routed to a
+  second private pool of the capture.
+
+A predicate that is a Python bool branches on the host in every mode (no
+read). Branch functions are pure functions of their operands and return
+pytrees (tuples, lists, dicts, dataclasses, NamedTuples) of tensors with the
+same structure, shapes and dtypes on both sides.
+
+``while_capped`` is ``lax.while_loop`` with a trip cap; ``StepGraph`` owns a
+step's static inputs and carried state, warms it up, captures it and replays
+it; ``no_host_reads`` raises on every operation that reads a device value
+back to the host (or could not be captured for that reason).
+
+Whether a value lives on the host or on the device is decided here and
+nowhere else: ``fetch`` reads the values a step branches on back when eager
+(one read) and leaves them on the device otherwise; ``where`` selects with a
+host or a device predicate; ``scalar`` makes a count in the mode's form;
+``on_device`` fills a host value on the device.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import ctypes
+import dataclasses
+import weakref
+from typing import Any, Callable, List, Optional, Sequence, Tuple
+
+import torch
+from torch.overrides import TorchFunctionMode
+
+MODES = ("eager", "select", "capture")
+_MODE = ["eager"]
+
+
+@dataclasses.dataclass
+class _Capture:
+    """The capture under way: its device and the nesting depth of the IF
+    nodes open (each depth captures its bodies on a stream of its own). When
+    counting (``counting``): the device counters of the IF nodes' executions,
+    the kernel wrapper calls recorded in each node's own body, and a stack of
+    (wrapper calls at entry, calls recorded in the inner nodes) per open
+    node, the capture itself at the bottom."""
+
+    device: torch.device
+    depth: int = 0
+    counts: Optional[torch.Tensor] = None
+    nodes: list = dataclasses.field(default_factory=list)
+    stack: list = dataclasses.field(default_factory=list)
+
+
+_CAPTURING: List[Optional[_Capture]] = [None]
+_COUNTING = [False]
+MAX_COUNTED_NODES = 4096  # IF nodes a counted StepGraph may hold
+_BODY_STREAMS: dict = {}  # (device, depth) -> stream for IF-node body captures
+# device -> the stream every StepGraph captures on (one per device, as
+# torch.cuda.graph's default capture stream: cuBLAS keeps a workspace for each
+# stream it meets, for the process's lifetime)
+_CAPTURE_STREAMS: dict = {}
+
+
+@contextlib.contextmanager
+def use(mode: str):
+    """Run the enclosed steps in ``mode`` (one of ``MODES``)."""
+    if mode not in MODES:
+        raise ValueError(f"unknown graph mode {mode!r}; expected one of {MODES}")
+    prev = _MODE[0]
+    _MODE[0] = mode
+    try:
+        yield
+    finally:
+        _MODE[0] = prev
+
+
+def mode() -> str:
+    """The current mode."""
+    return _MODE[0]
+
+
+def traced() -> bool:
+    """True in ``select`` and ``capture``: values stay on the device."""
+    return _MODE[0] != "eager"
+
+
+# ---------------------------------------------------------------------------
+# pytrees
+# ---------------------------------------------------------------------------
+
+
+def flatten(tree) -> Tuple[list, Any]:
+    """(leaves, spec): tensors are leaves; tuples, lists, dicts, dataclasses
+    and NamedTuples are walked; any other value is part of the spec (a
+    static, compared when two trees are matched)."""
+    leaves: list = []
+
+    def walk(x):
+        if isinstance(x, torch.Tensor):
+            leaves.append(x)
+            return ("T",)
+        if dataclasses.is_dataclass(x) and not isinstance(x, type):
+            names = [f.name for f in dataclasses.fields(x)]
+            return ("D", type(x), tuple(names), tuple(walk(getattr(x, n)) for n in names))
+        if isinstance(x, tuple) and hasattr(x, "_fields"):
+            return ("N", type(x), tuple(walk(v) for v in x))
+        if isinstance(x, (tuple, list)):
+            return ("L", type(x), tuple(walk(v) for v in x))
+        if isinstance(x, dict):
+            keys = tuple(x)
+            return ("M", keys, tuple(walk(x[k]) for k in keys))
+        return ("S", x)
+
+    spec = walk(tree)
+    return leaves, spec
+
+
+def unflatten(spec, leaves: Sequence[torch.Tensor]):
+    """The inverse of ``flatten``."""
+    it = iter(leaves)
+
+    def build(s):
+        kind = s[0]
+        if kind == "T":
+            return next(it)
+        if kind == "D":
+            _, cls, names, subs = s
+            return cls(**{n: build(c) for n, c in zip(names, subs)})
+        if kind == "N":
+            return s[1](*[build(c) for c in s[2]])
+        if kind == "L":
+            return s[1](build(c) for c in s[2])
+        if kind == "M":
+            return {k: build(c) for k, c in zip(s[1], s[2])}
+        return s[1]
+
+    return build(spec)
+
+
+def _same_spec(a, b) -> bool:
+    try:
+        return bool(a == b)
+    except Exception:  # a static without a plain ``==`` (never expected)
+        return False
+
+
+def tree_map(fn: Callable, tree):
+    """``fn`` on every tensor leaf."""
+    leaves, spec = flatten(tree)
+    return unflatten(spec, [fn(x) for x in leaves])
+
+
+def _storage_span(t: torch.Tensor) -> Tuple[int, int]:
+    s = t.untyped_storage()
+    return s.data_ptr(), s.data_ptr() + s.nbytes()
+
+
+def copy_into(dst: Sequence[torch.Tensor], src: Sequence[torch.Tensor]) -> None:
+    """``d.copy_(s)`` for each pair, safe when a source shares memory with a
+    destination (such a source is cloned before the first write)."""
+    spans = [_storage_span(d) for d in dst]
+    pairs = []
+    for d, s in zip(dst, src):
+        if s is d or (s.data_ptr() == d.data_ptr() and s.shape == d.shape
+                      and s.stride() == d.stride() and s.dtype == d.dtype):
+            continue
+        lo, hi = _storage_span(s)
+        if any(lo < b and a < hi for a, b in spans):
+            s = s.clone()
+        pairs.append((d, s))
+    for d, s in pairs:
+        d.copy_(s)
+
+
+# ---------------------------------------------------------------------------
+# host or device values
+# ---------------------------------------------------------------------------
+
+
+def fetch(*tensors: torch.Tensor):
+    """The integer or bool ``tensors`` a step branches on, as the mode takes
+    them: eager, Python values (a scalar per 0-d tensor, a list per 1-d one)
+    from one host read; in ``select``/``capture`` mode the tensors
+    themselves, nothing read."""
+    if _MODE[0] != "eager":
+        return tensors if len(tensors) > 1 else tensors[0]
+    for t in tensors:
+        if t.is_floating_point() or t.is_complex():
+            raise TypeError(f"fetch takes integer or bool tensors, not {t.dtype}")
+    flat = torch.cat([t.reshape(-1).to(torch.int64) for t in tensors]).tolist()
+    out, at = [], 0
+    for t in tensors:
+        vals = flat[at:at + t.numel()]
+        at += t.numel()
+        if t.dtype == torch.bool:
+            vals = [bool(v) for v in vals]
+        out.append(vals[0] if t.dim() == 0 else vals)
+    return tuple(out) if len(out) > 1 else out[0]
+
+
+def where(c, a, b):
+    """``a if c else b`` for a host bool ``c``; ``torch.where(c, a, b)`` for
+    a device one (``jnp.where``'s counterpart for both forms)."""
+    if isinstance(c, torch.Tensor):
+        return torch.where(c, a, b)
+    return a if c else b
+
+
+def scalar(v, dtype: torch.dtype, device):
+    """A count in the mode's form: the Python value when eager, a 0-d device
+    tensor (filled there) in ``select``/``capture`` mode."""
+    if _MODE[0] == "eager":
+        return v
+    return torch.full((), v, dtype=dtype, device=device)
+
+
+def on_device(v, dtype: torch.dtype, device) -> torch.Tensor:
+    """``v`` as a 0-d device tensor: a tensor is cast, a Python value filled
+    on the device (no host copy, so no sync)."""
+    if isinstance(v, torch.Tensor):
+        return v.to(dtype)
+    return torch.full((), v, dtype=dtype, device=device)
+
+
+# ---------------------------------------------------------------------------
+# cond / while_capped
+# ---------------------------------------------------------------------------
+
+
+def host_bool(pred) -> bool:
+    """``pred`` as a Python bool: a host read of a tensor (eager only)."""
+    if isinstance(pred, torch.Tensor):
+        if traced():
+            raise RuntimeError(f"host read of a predicate in {mode()} mode")
+        return bool(pred)
+    return bool(pred)
+
+
+def cond(pred, true_fn: Callable, false_fn: Callable, operands: tuple = ()):
+    """``lax.cond(pred, true_fn, false_fn, *operands)`` (module docstring)."""
+    if not isinstance(pred, torch.Tensor):
+        return true_fn(*operands) if pred else false_fn(*operands)
+    m = _MODE[0]
+    if m == "eager":
+        return true_fn(*operands) if bool(pred) else false_fn(*operands)
+    pred = pred.reshape(()).to(torch.bool)
+    if m == "select":
+        t_leaves, t_spec = flatten(true_fn(*operands))
+        f_leaves, f_spec = flatten(false_fn(*operands))
+        _check_match(t_spec, f_spec, t_leaves, f_leaves)
+        return unflatten(t_spec, [torch.where(pred, a, b) for a, b in zip(t_leaves, f_leaves)])
+    cap = _CAPTURING[0]
+    if cap is None:
+        raise RuntimeError("cond in capture mode outside a StepGraph capture")
+    # two IF nodes, the second on the negated predicate (torch's
+    # if_else_node); the taken side's results land in buffers made inside
+    # the first body
+    with _if_body(cap, pred, negate=False):
+        t_leaves, t_spec = flatten(true_fn(*operands))
+        outs = [x.clone() for x in t_leaves]
+    with _if_body(cap, pred, negate=True):
+        f_leaves, f_spec = flatten(false_fn(*operands))
+        _check_match(t_spec, f_spec, t_leaves, f_leaves)
+        copy_into(outs, f_leaves)
+    return unflatten(t_spec, outs)
+
+
+def _check_match(t_spec, f_spec, t_leaves, f_leaves) -> None:
+    if not _same_spec(t_spec, f_spec):
+        raise TypeError(f"cond: the branches return different structures:\n{t_spec}\n{f_spec}")
+    for i, (a, b) in enumerate(zip(t_leaves, f_leaves)):
+        if a.shape != b.shape or a.dtype != b.dtype:
+            raise TypeError(f"cond: output {i} differs between branches: "
+                            f"{a.dtype}{tuple(a.shape)} / {b.dtype}{tuple(b.shape)}")
+
+
+def _if_kernels():
+    from ..ops import _build
+
+    P = ctypes.c_void_p
+    return (_build.Kernel("graph_if", "graph_if_begin", [P, P, P, ctypes.c_int]),
+            _build.Kernel("graph_if", "graph_if_end", [P]),
+            _build.Kernel("graph_if", "graph_stream_create", [ctypes.POINTER(P)]),
+            _build.Kernel("graph_if", "graph_if_count", [P, P, ctypes.c_int]))
+
+
+@contextlib.contextmanager
+def counting():
+    """StepGraphs captured inside count their kernels' launches
+    (``StepGraph.launches``): each IF body gets a one-thread kernel that
+    counts the node's executions on the device. Off by default: it adds that
+    kernel to every body."""
+    prev = _COUNTING[0]
+    _COUNTING[0] = True
+    try:
+        yield
+    finally:
+        _COUNTING[0] = prev
+
+
+def _wrapper_calls() -> dict:
+    """Every kernel wrapper's call count (``ops._build.Kernel``), the IF
+    nodes' own helpers left out."""
+    from ..ops import _build
+
+    return {k: k.launches for k in _build.Kernel.ALL if k.source != "graph_if"}
+
+
+def _minus(a: dict, b: dict) -> dict:
+    return {k: v - b.get(k, 0) for k, v in a.items()}
+
+
+def _add_into(into: dict, calls: dict) -> None:
+    for k, v in calls.items():
+        into[k] = into.get(k, 0) + v
+
+
+_IF_KERNELS: list = []  # graph_if.cu's functions, bound at the first capture
+
+
+def _body_stream(dev: torch.device, depth: int):
+    key = (dev, depth)
+    if key not in _BODY_STREAMS:
+        out = ctypes.c_void_p()
+        with torch.cuda.device(dev):
+            _IF_KERNELS[2](ctypes.byref(out))
+        _BODY_STREAMS[key] = torch.cuda.ExternalStream(out.value, device=dev)
+    return _BODY_STREAMS[key]
+
+
+@contextlib.contextmanager
+def _if_body(cap: _Capture, pred: torch.Tensor, negate: bool):
+    """Capture the enclosed work into an IF node on ``pred`` (negated when
+    ``negate``): the body is captured on a stream of its own, whose
+    allocations go to the StepGraph's body pool."""
+    if not _IF_KERNELS:
+        _IF_KERNELS.extend(_if_kernels())
+    begin, end = _IF_KERNELS[:2]
+    dev = cap.device
+    parent = torch.cuda.current_stream(dev)
+    body = _body_stream(dev, cap.depth)
+    pred = pred.contiguous()
+    begin(parent.cuda_stream, body.cuda_stream, pred.data_ptr(), int(negate))
+    cap.depth += 1
+    slot = None
+    if cap.counts is not None:
+        slot = len(cap.nodes)
+        if slot >= cap.counts.numel():
+            raise RuntimeError(f"more than {cap.counts.numel()} IF nodes to count")
+        cap.nodes.append({})
+        _IF_KERNELS[3](body.cuda_stream, cap.counts.data_ptr(), slot)
+        cap.stack.append((_wrapper_calls(), {}))
+    try:
+        with torch.cuda.stream(body):
+            yield
+    finally:
+        if slot is not None:
+            entry, inner = cap.stack.pop()
+            calls = _minus(_wrapper_calls(), entry)
+            cap.nodes[slot] = _minus(calls, inner)
+            _add_into(cap.stack[-1][1], calls)
+        cap.depth -= 1
+        end(body.cuda_stream)
+
+
+def while_capped(cond_fn: Callable, body_fn: Callable, state, max_iters: int, active=None):
+    """``lax.while_loop(cond_fn, body_fn, state)`` cut at ``max_iters`` trips:
+    ``max_iters`` bodies, each run under ``cond`` on a device flag ``active``
+    that ``cond_fn`` of the new state clears. ``active`` is the first test
+    (default ``cond_fn(state)``); a Python bool there needs no read. Eager
+    reads ``active`` once per trip and stops at the first False; ``select``
+    runs every body and keeps the state of the active ones; ``capture``
+    records one IF node per trip, so a skipped trip runs nothing."""
+    if active is None:
+        active = cond_fn(state)
+    m = _MODE[0]
+    if m == "eager":
+        for _ in range(max_iters):
+            if not host_bool(active):
+                break
+            state = body_fn(state)
+            active = cond_fn(state)
+        return state
+    leaves, spec = flatten(state)
+    if not leaves:
+        raise ValueError("while_capped: the state holds no tensor")
+    dev = leaves[0].device
+    if not isinstance(active, torch.Tensor):
+        active = torch.full((), bool(active), dtype=torch.bool, device=dev)
+    active = active.reshape(()).to(torch.bool)
+    if m == "select":
+        for _ in range(max_iters):
+            new = body_fn(state)
+            n_leaves, n_spec = flatten(new)
+            _check_match(spec, n_spec, leaves, n_leaves)
+            leaves = [torch.where(active, a, b) for a, b in zip(n_leaves, leaves)]
+            state = unflatten(spec, leaves)
+            active = active & cond_fn(state)
+        return state
+    cap = _CAPTURING[0]
+    if cap is None:
+        raise RuntimeError("while_capped in capture mode outside a StepGraph capture")
+    # the carried state lives in buffers owned by the loop; a trip writes
+    # them in place inside its IF body, so a skipped trip copies nothing
+    carry = [x.clone() for x in leaves]
+    flag = active.clone()
+    for _ in range(max_iters):
+        with _if_body(cap, flag, negate=False):
+            new = body_fn(unflatten(spec, carry))
+            n_leaves, n_spec = flatten(new)
+            _check_match(spec, n_spec, carry, n_leaves)
+            nxt = cond_fn(new).reshape(()).to(torch.bool)
+            copy_into(carry, n_leaves)
+            flag.copy_(nxt)
+    return unflatten(spec, carry)
+
+
+# ---------------------------------------------------------------------------
+# host-read guard
+# ---------------------------------------------------------------------------
+
+
+class HostReadError(RuntimeError):
+    """An operation that reads a device value to the host ran where a step
+    must not read."""
+
+
+_T = torch.Tensor
+_READS = {
+    _T.item: "Tensor.item", _T.tolist: "Tensor.tolist", _T.__bool__: "Tensor.__bool__",
+    _T.__int__: "Tensor.__int__", _T.__float__: "Tensor.__float__",
+    _T.__index__: "Tensor.__index__", _T.numpy: "Tensor.numpy", _T.cpu: "Tensor.cpu",
+    _T.__format__: "Tensor.__format__",
+    # data-dependent output shapes: the card syncs to size the result
+    torch.nonzero: "torch.nonzero", _T.nonzero: "Tensor.nonzero", torch.argwhere: "torch.argwhere",
+    torch.masked_select: "torch.masked_select", _T.masked_select: "Tensor.masked_select",
+    torch.unique: "torch.unique", _T.unique: "Tensor.unique",
+    torch.unique_consecutive: "torch.unique_consecutive", torch.bincount: "torch.bincount",
+    _T.bincount: "Tensor.bincount",
+    # library solvers that check their status on the host (the _ex forms do not)
+    torch.linalg.svd: "torch.linalg.svd", torch.svd: "torch.svd",
+    torch.linalg.eigh: "torch.linalg.eigh", torch.linalg.eig: "torch.linalg.eig",
+    torch.linalg.solve: "torch.linalg.solve", torch.linalg.inv: "torch.linalg.inv",
+    torch.linalg.cholesky: "torch.linalg.cholesky", torch.linalg.lstsq: "torch.linalg.lstsq",
+    torch.linalg.pinv: "torch.linalg.pinv", torch.linalg.matrix_rank: "torch.linalg.matrix_rank",
+}
+
+
+def _bad_index(idx) -> Optional[str]:
+    items = idx if isinstance(idx, tuple) else (idx,)
+    for i in items:
+        if isinstance(i, torch.Tensor):
+            if i.dtype == torch.bool:
+                return "a bool mask index (sized on the host)"
+            if i.dim() == 0:
+                return "a 0-d tensor index (read back as a Python int)"
+    return None
+
+
+class _NoHostReads(TorchFunctionMode):
+    def __torch_function__(self, func, types, args=(), kwargs=None):
+        kwargs = kwargs or {}
+        name = _READS.get(func)
+        if name is not None:
+            raise HostReadError(f"{name}: a host read inside a step")
+        if func is torch.where and len(args) + len(kwargs) == 1:
+            raise HostReadError("torch.where(cond): a host read inside a step (nonzero)")
+        if func in (_T.__getitem__, _T.__setitem__) and len(args) > 1:
+            why = _bad_index(args[1])
+            if why:
+                raise HostReadError(f"Tensor.{func.__name__} with {why}: a host read inside a step")
+        return func(*args, **kwargs)
+
+
+@contextlib.contextmanager
+def no_host_reads():
+    """Raise ``HostReadError`` on any operation that reads a device value
+    back to the host: ``item``, ``tolist``, ``bool``/``int``/``float``/
+    ``index`` of a tensor (``if t:`` among them), ``numpy``, ``cpu``,
+    formatting, operations whose output size depends on the data, indexing
+    with a bool mask or a 0-d tensor, and the library solvers that check
+    their status on the host."""
+    with _NoHostReads():
+        yield
+
+
+# ---------------------------------------------------------------------------
+# StepGraph
+# ---------------------------------------------------------------------------
+
+
+class StepGraph:
+    """A step ``fn(inputs, state) -> (state, outputs)`` as a captured CUDA
+    graph (the counterpart of ``jax.jit`` with the state donated).
+
+    On the card the first call is the warm-up: ``fn`` runs in ``select`` mode
+    under ``no_host_reads``, so every branch of every ``cond`` builds its
+    kernels, library handles and cached tables once, and its result is the
+    step's (select equals eager). The second call copies
+    its inputs and state into static buffers and captures ``fn`` in
+    ``capture`` mode into a private memory pool, with the new state copied
+    back into the static state at the end; that call and every later one
+    then replays the graph. ``run`` returns the static state (rewritten by the
+    next replay: clone what must outlive it) and the outputs, which are
+    cloned after each replay. A capture failure raises; nothing falls back
+    to eager.
+
+    The state's non-tensor values are statics: a step whose output state
+    changes one, or a call whose state differs in one from the captured
+    state, raises. On the CPU every call runs the warm-up form (``select``
+    under ``no_host_reads``), the stand-in for a replay.
+
+    When the StepGraph is collected, its graph is reset and both private
+    pools are released (the IF bodies' pool is opened here, so the graph's
+    own ``reset`` does not release it); ``torch.cuda.empty_cache`` then
+    returns their memory."""
+
+    def __init__(self, fn: Callable, device, name: str = "step"):
+        self.fn = fn
+        self.device = torch.device(device)
+        if self.device.type == "cuda" and self.device.index is None:
+            self.device = torch.device("cuda", torch.cuda.current_device())
+        self.name = name
+        self.graph: Optional[torch.cuda.CUDAGraph] = None
+        self._release: Optional[weakref.finalize] = None
+        self.warmed = False
+        self.replays = 0
+        self._in = self._state = self._outs = None
+        self._in_spec = self._state_spec = self._out_spec = None
+        self._pool = self._body_pool = None
+        # counted captures (``counting``): the wrapper calls recorded while
+        # capturing (not launches), those outside every IF node, those in each
+        # node's own body, and the nodes' execution counters
+        self.capture_calls: dict = {}
+        self._top_calls: dict = {}
+        self._node_calls: Optional[list] = None
+        self._counts: Optional[torch.Tensor] = None
+
+    def launches(self) -> dict:
+        """Launches of each kernel wrapper (``ops._build.Kernel`` -> count)
+        by this graph's replays so far, counted on the device: a call recorded
+        outside every IF node once per replay, one recorded in a node's own
+        body (not an inner node's) once per execution of the node. Needs a
+        capture made inside ``counting()``; reads the counters back (one host
+        read). Launches made through the wrappers (the warm-up) are theirs."""
+        if self._node_calls is None:
+            raise RuntimeError(f"{self.name}: not captured inside graphs.counting()")
+        runs = self._counts[:len(self._node_calls)].tolist() if self._node_calls else []
+        out = {k: v * self.replays for k, v in self._top_calls.items()}
+        for calls, n in zip(self._node_calls, runs):
+            _add_into(out, {k: v * n for k, v in calls.items()})
+        return out
+
+    def _select(self, inputs, state):
+        with use("select"), no_host_reads():
+            return self.fn(inputs, state)
+
+    def run(self, inputs, state):
+        _release_deferred()
+        if self.device.type != "cuda" or not self.warmed:
+            self.warmed = True
+            return self._select(inputs, state)
+        if self.graph is None:
+            self._capture(inputs, state)
+        else:
+            self._load(inputs, state)
+        self.graph.replay()
+        self.replays += 1
+        return (unflatten(self._state_spec, self._state),
+                unflatten(self._out_spec, [x.clone() for x in self._outs]))
+
+    def _load(self, inputs, state) -> None:
+        in_leaves, in_spec = flatten(inputs)
+        st_leaves, st_spec = flatten(state)
+        if not _same_spec(in_spec, self._in_spec):
+            raise ValueError(f"{self.name}: inputs differ in structure from the captured ones")
+        if not _same_spec(st_spec, self._state_spec):
+            raise ValueError(f"{self.name}: the state differs in a static value or in structure "
+                             f"from the captured one")
+        copy_into(self._in, in_leaves)
+        copy_into(self._state, st_leaves)
+
+    def _capture(self, inputs, state) -> None:
+        in_leaves, self._in_spec = flatten(inputs)
+        st_leaves, self._state_spec = flatten(state)
+        self._in = [x.clone() for x in in_leaves]
+        self._state = [x.clone() for x in st_leaves]
+        dev = self.device
+        graph = torch.cuda.CUDAGraph()
+        self._pool = torch.cuda.graph_pool_handle()
+        self._body_pool = torch.cuda.graph_pool_handle()
+        # registered before the capture, so a failed capture releases too
+        self._release = weakref.finalize(self, _release_graph, graph, dev.index, self._body_pool)
+        self._release.atexit = False  # the CUDA context may be gone at exit
+        if dev not in _CAPTURE_STREAMS:
+            _CAPTURE_STREAMS[dev] = torch.cuda.Stream(dev)
+        side = _CAPTURE_STREAMS[dev]
+        side.wait_stream(torch.cuda.current_stream(dev))
+        cap = _Capture(dev)
+        if _COUNTING[0]:
+            cap.counts = torch.zeros(MAX_COUNTED_NODES, dtype=torch.int64, device=dev)
+            cap.stack.append((_wrapper_calls(), {}))
+        _CAPTURING[0] = cap
+        try:
+            # capture_begin/end rather than torch.cuda.graph, whose entry
+            # synchronizes the device: the capture makes no host sync
+            with torch.cuda.stream(side):
+                graph.capture_begin(pool=self._pool)
+                # the IF bodies are captured on streams of their own: their
+                # allocations go to a second private pool (the allocator
+                # records one pool per capture, and the first filter that
+                # takes a stream wins: the capture's own stream stays in the
+                # first), released with the graph (_release_graph)
+                torch._C._cuda_beginAllocateToPool(dev.index, self._body_pool)
+                try:
+                    with use("capture"), no_host_reads():
+                        new_state, outs = self.fn(unflatten(self._in_spec, self._in),
+                                                  unflatten(self._state_spec, self._state))
+                        n_leaves, n_spec = flatten(new_state)
+                        if not _same_spec(n_spec, self._state_spec):
+                            raise ValueError(f"{self.name}: the step changes a static of its "
+                                             f"state (a host value a graph would freeze)")
+                        o_leaves, self._out_spec = flatten(outs)
+                        # outputs first: the state copy may rewrite what they alias
+                        self._outs = [x.clone() for x in o_leaves]
+                        copy_into(self._state, n_leaves)
+                finally:
+                    torch._C._cuda_endAllocateToPool(dev.index, self._body_pool)
+                    graph.capture_end()
+        finally:
+            _CAPTURING[0] = None
+        _release_deferred()
+        torch.cuda.current_stream(dev).wait_stream(side)
+        self.graph = graph
+        if cap.counts is not None:
+            entry, inner = cap.stack.pop()
+            self.capture_calls = _minus(_wrapper_calls(), entry)
+            self._top_calls = _minus(self.capture_calls, inner)
+            self._node_calls, self._counts = cap.nodes, cap.counts
+
+
+_DEFERRED: list = []  # releases that fell inside a capture
+
+
+def _release_graph(graph: torch.cuda.CUDAGraph, device_index: int, body_pool) -> None:
+    """Free a StepGraph's graph and its pools: ``reset`` releases the
+    capture's pool, ``_cuda_releasePool`` the IF bodies' pool that
+    ``_cuda_beginAllocateToPool`` opened. The collector may run this in the
+    middle of another capture, where destroying a graph invalidates that
+    capture: there it is deferred to the capture's end (or the next
+    ``StepGraph.run``)."""
+    if _CAPTURING[0] is not None or torch.cuda.is_current_stream_capturing():
+        _DEFERRED.append((graph, device_index, body_pool))
+        return
+    graph.reset()
+    torch._C._cuda_releasePool(device_index, body_pool)
+
+
+def _release_deferred() -> None:
+    while _DEFERRED:
+        _release_graph(*_DEFERRED.pop())
