@@ -37,6 +37,11 @@
      the solver carries over a BA call's iterations (its ``Wc`` zeroed once),
      after two calls on them are checked bit for bit against the call on
      fresh buffers, and once with a fresh ``Wc`` as earlier runs timed it;
+   - the port's own small symmetric eigensolver (``csrc/symeig.cu``, Horn's
+     quaternion and EPnP's eigenproblems; no TPU kernel: the JAX package
+     calls XLA's ``eigh``/``svd``) on seeded batches at the vocabulary path's
+     shapes and edge cases, equal to its plain version element by element
+     (``SYMEIG_TOL_ABS``, a zero's sign aside), timed beside ``torch.linalg.eigh``;
 4. main path 1: the port's FusedTracker over the synthetic corner sequence
    (30 frames, 1000 features, 8 levels: the fr1 extraction settings, as
    ``run_slam --synthetic`` uses): 30/30 tracked frames, ATE < 1 cm, every
@@ -82,7 +87,18 @@
    default's frame; a second default run gives identical maps; every kernel
    is launched. Every epipolar search of the path (live featVec groups) and
    FAST and the top-2 on the black frames are held bit for bit against their
-   plain versions. Then transform, bow_vector and scores_vs_keyframes at
+   plain versions, and every eigensolver launch equal to its plain version
+   element by element (``SYMEIG_TOL_ABS``).
+   Then the phase graphs of path 4 (``run_graphs_kidnap``): each variant
+   through the step programs (``graphs=True``: the vocabulary's fallback
+   chain, relocalization and loop detection as conditional nodes) beside
+   ``graphs=False``: equal (trajectory, per-frame counts, keyframes,
+   relocalization frames and winners, LM counts, every map and loop-state
+   tensor), no host sync inside a tracking replay (sync debug mode
+   ``error``), one read per frame after the background replay, and from
+   frame 3 a counting run's launches of every kernel equal to eager's; frame
+   ms, replays a frame, idle share, capture time and graph nodes recorded.
+   Then transform, bow_vector and scores_vs_keyframes at
    ORBvoc scale (synth_vocabulary(k=10, levels=6), 10^6 words) on one frame's
    1000 descriptors against the CPU's results;
 8. main path 5, the pan loop of tests/test_loop_e2e.py at 640x480 (60 frames,
@@ -98,6 +114,8 @@
    give identical maps; every loop-fuse launch of the chi2 top-2 is held bit for bit against
    the plain version; the chunk=4 run with the JAX package's own (one-sided)
    instrument must reproduce the JAX package's CPU outcome (no closure);
+   the chunk=4 variant once more through the step programs
+   (``graphs=True``), held to the same gates and equal to its eager run;
    then global BA on tests/test_global_ba.py's fabricated scene (gba_scene),
    where its steps are taken, at the tests' caps (the card against the CPU
    within 1e-5) and at the default MapCaps: two calls identical, the robust
@@ -148,7 +166,10 @@
    with f32 depth, the scene vocabulary (k=10, L=6) and ``SlamSystem(chunk=8)``
    at the default MapCaps, one pass: every frame tracked, n_kf_ever >= 25 and
    ATE < 0.35 m (bench.py's gates), every kernel launched, each BA kernel once
-   per LM iteration; per-chunk wall, the background step per keyframe event
+   per LM iteration; then one pass through the step programs
+   (``graphs=True``, no profiler, no count) with the same gates, equal to the
+   eager pass, its chunk ms and host syncs per chunk recorded; per-chunk
+   wall, the background step per keyframe event
    (the closing event's among them), host syncs per chunk and a profiler
    window over two chunks (device busy, kernels per frame, idle share, the
    background device ms counted both by launch time and by
@@ -202,7 +223,10 @@ F32_FLOPS = 67e12
 # 32-bit integer add, compare/min/max (f32 too) and logic, 16 for popc; four
 # schedulers issue at most 128 lanes' instructions per SM per clock in all
 FMA_PER_S = F32_FLOPS / 2
-OP_RATES = {"f32": FMA_PER_S, "alu": FMA_PER_S / 2, "popc": FMA_PER_S / 8}
+# f64 add/mul/FMA: 64 lanes per SM per clock, half the f32 rate (the data
+# sheet's 34 TFLOP/s f64 outside the tensor cores, an FMA counted as two)
+OP_RATES = {"f32": FMA_PER_S, "alu": FMA_PER_S / 2, "popc": FMA_PER_S / 8,
+            "f64": FMA_PER_S / 2}
 DISPATCH_PER_S = FMA_PER_S
 TOP2_OUTS = ("best_i", "best_d", "second_i", "second_d")
 SLICE_FRAMES = 40
@@ -886,30 +910,155 @@ def frame_instances(seq, cfg, device):
                 pts_ok=pts_ok, top2_args=top2_args)
 
 
+# the small symmetric eigensolver against the plain version: the same f64
+# arithmetic in the same order, so every f32 output equal (a zero's sign may
+# differ); element by element, no scaling
+SYMEIG_TOL_ABS = 0.0  # max |kernel - plain| over eigenvalues and eigenvectors
+
+
+def symeig_instances(device) -> dict:
+    """Seeded batches at the shapes the vocabulary path gives the
+    eigensolver: EPnP's 128 minimal-sample 12x12 ``M^T M`` (rank 8, entries
+    up to ~1e11) and their 3x3 control-point covariances, Horn's 4x4 N of the
+    128 RANSAC triples and of EPnP's 3 x 128 cases, the refinement's single
+    12x12; and edge cases (zero, identity, repeated eigenvalues, a NaN entry,
+    an indefinite matrix) -> {label: [b, n, n] f32 on ``device``}."""
+    rng = np.random.default_rng(16)
+
+    def gram(b, n, rank, scale):
+        X = rng.normal(size=(b, rank, n)) * scale
+        return np.einsum("bri,brj->bij", X, X)
+
+    def horn_n(b):
+        S = rng.normal(size=(b, 3, 3))
+        xx, xy, xz, yx, yy, yz, zx, zy, zz = (S[:, i, j] for i in range(3) for j in range(3))
+        return np.stack([
+            np.stack([xx + yy + zz, yz - zy, zx - xz, xy - yx], -1),
+            np.stack([yz - zy, xx - yy - zz, xy + yx, zx + xz], -1),
+            np.stack([zx - xz, xy + yx, yy - xx - zz, yz + zy], -1),
+            np.stack([xy - yx, zx + xz, yz + zy, zz - xx - yy], -1)], -2)
+
+    edge = np.zeros((6, 4, 4))
+    edge[1] = np.eye(4)
+    edge[2] = np.diag([1.0, 2.0, 2.0, 1.0])
+    edge[3, 0, 0] = np.nan
+    edge[4] = horn_n(1)[0]
+    edge[5] = np.diag([3.0, -1.0, 0.0, 3.0]) + 1e-9
+    out = {"epnp_mtm [128,12,12]": gram(128, 12, 8, 3e4),
+           "epnp_cov [128,3,3]": gram(128, 3, 3, 1.0), "horn [128,4,4]": horn_n(128), "horn epnp cases [384,4,4]": horn_n(384),
+           "epnp refine [1,12,12]": gram(1, 12, 12, 3e4), "edge [6,4,4]": edge}
+    return {k: torch.as_tensor(v, dtype=torch.float32).to(device) for k, v in out.items()}
+
+
+def symeig_error(got, want) -> float:
+    """The largest |kernel - plain| over every eigenvalue and eigenvector
+    component, element by element and unscaled (a zero's sign counts as
+    equal); NaN must meet NaN."""
+    err = 0.0
+    for g, w in zip(got, want):
+        nan = torch.isnan(w)
+        if not torch.equal(torch.isnan(g), nan):
+            raise AssertionError("symeig: NaN where the plain version has none, or the reverse")
+        if g.numel():
+            err = max(err, float(torch.where(nan, 0.0, g - w).abs().max()))
+    return err
+
+
+def symeig_bound(A, sweeps) -> tuple:
+    """The least time for the eigensolver's work on ``A`` [b, n, n]: each
+    input read and each output (values, vectors) written once, f32; f64
+    instructions: the symmetrization (2 n^2) and, per sweep a matrix ran
+    (``sweeps``, from the plain version on the same inputs), n(n-1)/2
+    rotations of 13 operations (division and square root counted as one)
+    and their row and column updates (6 n and 12 n) -> (ms, bounded by)."""
+    b, n, _ = A.shape
+    n_bytes = 4 * b * (n * n + n + n * n)
+    per_sweep = n * (n - 1) // 2 * (13 + 18 * n)
+    ops = b * 2 * n * n + int(sweeps.sum()) * per_sweep
+    return bound_ms(n_bytes, {"f64": ops})
+
+
+def run_symeig_phase(dev) -> dict:
+    """Phase symeig: the kernel (``ops/symeig_cuda.py``) against its plain
+    version (``utils/linalg.py::symeig_jacobi``) on ``symeig_instances``,
+    both on the card, equal element by element (``SYMEIG_TOL_ABS``); each instance's eigenpairs
+    also satisfy A v = lambda v to f32 rounding. Times the kernel (graph replay), the plain version and
+    ``torch.linalg.eigh`` on the EPnP batch, the main path's largest ->
+    the kernels line's row."""
+    from vo_slam_test_tpu_torch.ops import symeig_cuda
+    from vo_slam_test_tpu_torch.utils import linalg
+
+    errs, rows = {}, {}
+    for label, A in symeig_instances(dev).items():
+        got = symeig_cuda.symeig(A)
+        want = linalg.symeig_jacobi(A)
+        errs[label] = symeig_error(got, want)
+        vals, vecs = got
+        ok = torch.isfinite(vals).all(-1)
+        As = 0.5 * (A + A.mT)
+        res = (As @ vecs - vecs * vals[:, None, :]).abs().amax((-1, -2))
+        scale = torch.clamp(vals.abs().amax(-1), min=1.0)
+        resid = float((res / scale)[ok].max()) if bool(ok.any()) else 0.0
+        rows[label] = dict(max_abs_err=errs[label], residual=resid,
+                           nan_rows=int((~ok).sum()))
+        if errs[label] > SYMEIG_TOL_ABS or resid > 1e-4:
+            raise AssertionError(f"phase symeig {label}: |kernel - plain| {errs[label]}, "
+                                 f"residual {resid}")
+    A = symeig_instances(dev)["epnp_mtm [128,12,12]"]
+    launches0 = symeig_cuda.KERNEL.launches
+    ms = time_graph_ms(lambda: symeig_cuda.symeig(A))
+    plain_ms = time_eager_ms(lambda: linalg.symeig_jacobi(A), iters=3)
+    library_ms = time_eager_ms(lambda: torch.linalg.eigh(A))
+    symeig_cuda.KERNEL.launches = launches0  # timing launches are no path's
+    sweeps = linalg.symeig_jacobi(A, return_sweeps=True)[2]
+    bound, by = symeig_bound(A, sweeps)
+    print(f"phase symeig (the port's own kernel: parallel-order Jacobi in f64, one block a "
+          f"matrix): every instance within {SYMEIG_TOL_ABS} of the plain version, element by "
+          f"element, unscaled "
+          f"{ {k: (v['max_abs_err'], v['residual'], v['nan_rows']) for k, v in rows.items()} } "
+          f"(|err|, residual |Av - lv| / max(1, |l|), NaN rows); EPnP "
+          f"batch [128,12,12]: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, torch.linalg.eigh "
+          f"{library_ms:.4f} ms, bound {bound:.6f} ms ({by}; sweeps {int(sweeps.min())}-"
+          f"{int(sweeps.max())}, {int(sweeps.sum())} in all)")
+    return dict(name="symeig_f32_launch", shape="[128,12,12] f32 (EPnP's M^T M)", route="cuda",
+                source="vo_slam_test_tpu_torch/csrc/symeig.cu",
+                replaces="none (the port's own: jnp.linalg.eigh/svd in "
+                         "vo_slam_test_tpu/solvers/epnp.py:47,169 and ransac.py:40 are XLA "
+                         "library calls)",
+                max_abs_err=max(errs.values()), ms=ms, plain_ms=plain_ms, bound_ms=bound,
+                bound_by=by, library_ms=library_ms, instances=rows)
+
+
 # the FAST kernel's 3x3-NMS mode runs in its own phase only: no path calls it
 OFF_PATH = ("fast_nms",)
+# the small symmetric eigensolver runs only where a vocabulary is (Horn and
+# EPnP in relocalization, Horn in the Sim3 RANSAC of a loop attempt)
+VOCAB_ONLY = ("symeig",)
 
 
 def kernel_counters() -> dict:
     """Every kernel's launch counter by its key in the kernels line."""
-    from vo_slam_test_tpu_torch.ops import ba_cuda, fast_cuda, match_cuda, orb_cuda
+    from vo_slam_test_tpu_torch.ops import ba_cuda, fast_cuda, match_cuda, orb_cuda, symeig_cuda
 
     return {"fast": fast_cuda.KERNEL, "orb": orb_cuda.KERNEL, "top2": match_cuda.KERNEL,
             "top2_m4096": match_cuda.KERNEL_LOCAL, "top2_chi2": match_cuda.KERNEL_CHI2,
             "top2_nb": match_cuda.KERNEL_NB, "top1_epi": match_cuda.KERNEL_EPI,
             "ba_acc": ba_cuda.KERNEL_ACC, "ba_cost": ba_cuda.KERNEL_COST,
-            "ba_backsub": ba_cuda.KERNEL_BACKSUB, "fast_nms": fast_cuda.KERNEL_NMS}
+            "ba_backsub": ba_cuda.KERNEL_BACKSUB, "fast_nms": fast_cuda.KERNEL_NMS,
+            "symeig": symeig_cuda.KERNEL}
 
 
 def plain_versions() -> list:
     """(module, name) of every kernel's plain version, for ``PlainGuard``."""
     from vo_slam_test_tpu_torch.ops import ba_pallas, brief, fast, match_pallas, orientation
+    from vo_slam_test_tpu_torch.utils import linalg
 
     return [(fast, "fast_score"), (fast, "fast_score_nms"), (orientation, "ic_angle"),
             (brief, "compute_descriptors"),
             (match_pallas, "masked_top2_plain"), (match_pallas, "masked_top2_nb_plain"),
             (match_pallas, "masked_top1_epi_plain"), (ba_pallas, "ba_accumulate_plain"),
-            (ba_pallas, "ba_cost_plain"), (ba_pallas, "ba_backsub_plain")]
+            (ba_pallas, "ba_cost_plain"), (ba_pallas, "ba_backsub_plain"),
+            (linalg, "symeig_jacobi")]
 
 
 class PlainGuard:
@@ -1769,7 +1918,7 @@ def run_mesh_phase(s1, dev) -> dict:
 
 
 def run_pan(system, cfg, voc, frames, chunk: int, gba: bool, recorder=None, sever_old=True,
-            profile_frames=(), diag: bool = False):
+            profile_frames=(), diag: bool = False, graphs: bool = False):
     """One main-path-5 run: ``SlamSystem(vocabulary=voc, chunk=chunk,
     enable_global_ba=gba)`` with MapCaps(max_kf=32, max_pt=8192) over the pan
     loop, the drift injected after frame PAN_DRIFT_FRAME with the cut at the
@@ -1784,7 +1933,10 @@ def run_pan(system, cfg, voc, frames, chunk: int, gba: bool, recorder=None, seve
     ms per frame). ``diag``: the system is made with ``VO_LOOP_DIAG=1`` and
     ``drain_chunk=1`` (the host-drained Sim3 attempts with their gate values;
     a closure then runs in the next frame's track call, not in a background
-    step)."""
+    step). ``graphs``: through the step programs; a keyframe event's
+    background step runs inside a replay, so only the eager close of a
+    confirmed candidate (``close_confirmed``) is timed, as the closing
+    event's ms."""
     from torch.profiler import ProfilerActivity, profile
 
     from vo_slam_test_tpu_torch.pipeline import loop_closing
@@ -1798,7 +1950,7 @@ def run_pan(system, cfg, voc, frames, chunk: int, gba: bool, recorder=None, seve
     try:
         s = system.SlamSystem(cfg, caps=MapCaps(max_kf=32, max_pt=8192), vocabulary=voc,
                               chunk=chunk, enable_global_ba=gba,
-                              drain_chunk=1 if diag else system.DRAIN_CHUNK)
+                              drain_chunk=1 if diag else system.DRAIN_CHUNK, graphs=graphs)
     finally:
         if saved is None:
             del os.environ["VO_LOOP_DIAG"]
@@ -1807,6 +1959,15 @@ def run_pan(system, cfg, voc, frames, chunk: int, gba: bool, recorder=None, seve
     rec = dict(call_ms=[], syncs=[], sync_sites={}, events=[], gba=[])
     orig_bg, orig_gba, orig_corr = (system.background_step, global_ba.global_bundle_adjust,
                                     loop_closing._correct)
+    orig_close = system.close_confirmed
+
+    def timed_close(*a, **k):
+        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        e0.record()
+        out = orig_close(*a, **k)
+        e1.record()
+        rec["events"].append((e0, e1, a[5]))
+        return out
 
     def timed_bg(*a, **k):
         if not (a[2] and a[3] >= 0):  # no keyframe event
@@ -1835,7 +1996,11 @@ def run_pan(system, cfg, voc, frames, chunk: int, gba: bool, recorder=None, seve
             if recorder is not None:
                 recorder.tag = None
 
-    system.background_step, global_ba.global_bundle_adjust = timed_bg, timed_gba
+    if graphs:
+        system.close_confirmed = timed_close
+    else:
+        system.background_step = timed_bg
+    global_ba.global_bundle_adjust = timed_gba
     loop_closing._correct = tagged_correct
     kf_cut = pre_poses = pre_valid = prof = None
     rec["profile"] = None
@@ -1881,14 +2046,17 @@ def run_pan(system, cfg, voc, frames, chunk: int, gba: bool, recorder=None, seve
         torch.cuda.synchronize()
     finally:
         system.background_step, global_ba.global_bundle_adjust = orig_bg, orig_gba
+        system.close_confirmed = orig_close
         loop_closing._correct = orig_corr
         if prof is not None:
             prof.__exit__(None, None, None)
+    s.results()  # folds the graph path's per-frame records
     # keyframe events run in frame order, one background step each
     kf_frames = [i for i, o in enumerate(s._outs) if o.made_kf]
-    assert len(kf_frames) == len(rec["events"])
+    assert graphs or len(kf_frames) == len(rec["events"])
     rec.update(kf_cut=kf_cut, pre_poses=pre_poses, pre_valid=pre_valid,
-               map_ms={f: e0.elapsed_time(e1) for f, (e0, e1, _) in zip(kf_frames, rec["events"])},
+               map_ms={} if graphs else {f: e0.elapsed_time(e1)
+                                         for f, (e0, e1, _) in zip(kf_frames, rec["events"])},
                closing_ms=[e0.elapsed_time(e1) for e0, e1, out in rec.pop("events") if out.closed],
                gba_ms=[e0.elapsed_time(e1) for e0, e1 in rec.pop("gba")])
     return s, rec
@@ -1928,8 +2096,10 @@ def pan_report(label, s, rec, gt):
           f"without a keyframe event median "
           f"{np.median([cm[i] for i in work if i not in kf_calls and i > 0]):.3f}, with one "
           f"median {np.median([cm[i] for i in kf_calls if i > 0]):.3f}; keyframe events' "
-          f"background step ms median {np.median(plain_ev):.3f} over {len(plain_ev)}, the closing "
-          f"event's {close_ms if close_ms is None else round(close_ms, 3)}; global BA ms "
+          f"background step ms median "
+          f"{f'{np.median(plain_ev):.3f}' if plain_ev else 'not measured (replayed)'} over "
+          f"{len(plain_ev)}, the closing event's "
+          f"{close_ms if close_ms is None else round(close_ms, 3)}; global BA ms "
           f"{[round(x, 3) for x in rec['gba_ms']]}")
     print(f"    host syncs per track call: {rec['syncs']}; by the line that synced: "
           f"{rec['sync_sites']}")
@@ -2494,9 +2664,10 @@ def main_path7a(system, all_kernels, plains) -> tuple:
           f"{guard.cuda_calls}")
     if guard.cuda_calls:
         raise AssertionError(f"plain versions ran on CUDA tensors: {guard.cuda_calls}")
-    if min(v for k, v in launches.items() if k not in OFF_PATH) < 1:
+    idle = OFF_PATH + VOCAB_ONLY  # no vocabulary on this path
+    if min(v for k, v in launches.items() if k not in idle) < 1:
         raise AssertionError(f"main path 7a launched no "
-                             f"{[k for k, v in launches.items() if not v and k not in OFF_PATH]}")
+                             f"{[k for k, v in launches.items() if not v and k not in idle]}")
     # the moving-object run's own top-2 launches against the plain version
     sites = {"frame pair": [], "local map": [], "chi2 fuse": []}
     for f, args, kw in lrec.got["masked_top2"]:
@@ -2683,15 +2854,17 @@ def fe_background_ms(prof) -> float:
     return total
 
 
-def run_path8a(system, sc, frames_dev, lrec):
+def run_path8a(system, sc, frames_dev, lrec, graphs: bool = False):
     """One pass of kfdense as the bench stages it (frames on the card), with
     the chunk's host wall (synchronized), CUDA events around each keyframe
     event's background step, host syncs per chunk (sync debug mode; the
     syncs of this script's own wrappers left out) and a profiler window over
-    ``PATH8_PROFILE_CHUNKS`` -> (system, rec)."""
+    ``PATH8_PROFILE_CHUNKS`` -> (system, rec). ``graphs``: through the step
+    programs, with no profiler and no per-event events (the background steps
+    run inside replays); ``lrec`` may be None."""
     from torch.profiler import ProfilerActivity, profile
 
-    s = system.SlamSystem(sc.cfg, vocabulary=sc.voc, chunk=sc.chunk)
+    s = system.SlamSystem(sc.cfg, vocabulary=sc.voc, chunk=sc.chunk, graphs=graphs)
     rec = dict(chunk_ms=[], syncs=[], sync_sites={}, map_events=[], profile=None)
     orig_bg, cur = system.background_step, [0]
 
@@ -2705,14 +2878,15 @@ def run_path8a(system, sc, frames_dev, lrec):
         rec["map_events"].append((cur[0], e0, e1))
         return out
 
-    system.background_step = timed_bg
+    if not graphs:
+        system.background_step = timed_bg
     prof = None
     try:
         for i, (gray, depth, ts) in enumerate(frames_dev):
             c, last = divmod(i, sc.chunk)
             if last == 0:
                 rec["syncs"].append(0)
-                if c == PATH8_PROFILE_CHUNKS[0]:
+                if c == PATH8_PROFILE_CHUNKS[0] and not graphs:
                     torch.cuda.synchronize()
                     prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
                     prof.__enter__()
@@ -2720,7 +2894,8 @@ def run_path8a(system, sc, frames_dev, lrec):
                 t0 = time.perf_counter()
             # the background steps of a chunk run in its last track call
             cur[0] = i - (sc.chunk - 1)
-            lrec.frame = i
+            if lrec is not None:
+                lrec.frame = i
             with warnings.catch_warnings(record=True) as caught:
                 warnings.simplefilter("always")
                 torch.cuda.set_sync_debug_mode("warn")
@@ -2745,6 +2920,7 @@ def run_path8a(system, sc, frames_dev, lrec):
         system.background_step = orig_bg
         if prof is not None:
             prof.__exit__(None, None, None)
+    s.results()  # folds the graph path's per-frame records
     # a chunk's events are mapped in frame order: the k-th event of a chunk
     # belongs to its k-th keyframe frame
     made = [o.made_kf for o in s._outs]
@@ -2865,6 +3041,35 @@ def main_path8(system, ba_cuda, ba_pallas, all_kernels, plains, dev) -> tuple:
                         sync_sites=rec["sync_sites"], held=held, n_points=s.n_points,
                         n_keyframes=s.n_keyframes, staging_s=stage_s, run_s=run_s)
 
+    # 8a through the step programs, beside the eager pass: bench.py's gates,
+    # equal to it, chunk ms and host syncs per chunk (no profiler, no count)
+    t0 = time.perf_counter()
+    sg, rg = run_path8a(system, sc, frames_dev, None, graphs=True)
+    run_g = time.perf_counter() - t0
+    diag_g = bench.check(sc, sg, len(frames_dev))
+    same_system_runs("main path 8a (graphs=True)", s, sg, s.results(), sg.results())
+    cg = np.array(rg["chunk_ms"])
+    report["8a graphs"] = dict(
+        tracked=diag_g["tracked"], n_kf_ever=diag_g["n_kf_ever"], ate_m=diag_g["ate_m"],
+        closures=diag_g["closures"], chunk_ms=rg["chunk_ms"],
+        chunk_ms_median=float(np.median(cg[1:])), eager_chunk_ms_median=float(np.median(cms[1:])),
+        syncs_per_chunk=rg["syncs"], sync_sites=rg["sync_sites"], run_s=run_g,
+        capture_s=dict(track=sg.track_graph.capture_s, background=sg.background_graph.capture_s),
+        graph_nodes=dict(track=sg.track_graph.n_nodes, background=sg.background_graph.n_nodes))
+    print(f"main path 8a through the step programs (graphs=True) in {run_g:.1f} s: tracked "
+          f"{diag_g['tracked']}/{diag_g['frames']}, n_kf_ever {diag_g['n_kf_ever']}, ATE "
+          f"{diag_g['ate_m'] * 100:.4f} cm, closures {diag_g['closures']}; equal to the eager "
+          f"pass (trajectory, per-frame counts, keyframes, winners, LM iterations, loop "
+          f"records, every map and loop-state tensor); chunk median (after the first) "
+          f"{report['8a graphs']['chunk_ms_median']:.3f} ms against eager "
+          f"{report['8a graphs']['eager_chunk_ms_median']:.3f}; host syncs per chunk "
+          f"{rg['syncs']} (eager {rec['syncs']}), by the line that synced: {rg['sync_sites']}; "
+          f"capture {sg.track_graph.capture_s:.3f} s (tracking, {sg.track_graph.n_nodes} nodes) "
+          f"and {sg.background_graph.capture_s:.3f} s (background, "
+          f"{sg.background_graph.n_nodes} nodes)")
+    del sg
+    gc.collect()
+
     # rows 7-9 on the densest local-BA window of the run (7k-9k)
     inst, sub = cap.instance()
     rows = {}
@@ -2963,11 +3168,15 @@ def graph_replays(s) -> int:
     return sum(sg.replays for sg in step_graphs(s))
 
 
-def graphs_run(make, frames, graphs_on: bool, profile_frames=(), count_from=None):
+def graphs_run(make, frames, graphs_on: bool, profile_frames=(), count_from=None,
+               reads_after_replay: bool = False):
     """One run of ``make()`` over device-staged ``frames``: CUDA-event ms per
     ``track`` call (a chunk's on its last frame), host syncs per call (sync
     debug mode ``warn`` when eager; ``error`` on the graph path, so one sync
-    fails the phase); with ``profile_frames``, a torch.profiler window; with
+    fails the phase; with ``reads_after_replay``, the vocabulary path's,
+    ``error`` around each tracking replay and ``warn`` around the rest, which
+    counts the reads after the background replays); with ``profile_frames``,
+    a torch.profiler window; with
     ``count_from``, each kernel's launches from that frame's call to the end
     and over the whole run, and the programs' replays from it: the wrappers'
     counts when eager; on the graph path the programs are captured inside
@@ -2979,6 +3188,17 @@ def graphs_run(make, frames, graphs_on: bool, profile_frames=(), count_from=None
 
     counting = graphs_on and count_from is not None
     s = make()
+    strict = graphs_on and not reads_after_replay
+    if graphs_on and reads_after_replay:
+        replay = s.track_graph.run
+
+        def strict_replay(*a):
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                return replay(*a)
+            finally:
+                torch.cuda.set_sync_debug_mode("warn")
+        s.track_graph.run = strict_replay
     counters = kernel_counters()
     rec = dict(call_ms=[], syncs=[], profile=None)
     start = {k: v.launches for k, v in counters.items()}
@@ -2999,7 +3219,7 @@ def graphs_run(make, frames, graphs_on: bool, profile_frames=(), count_from=None
             e0.record()
             with warnings.catch_warnings(record=True) as caught:
                 warnings.simplefilter("always")
-                torch.cuda.set_sync_debug_mode("error" if graphs_on else "warn")
+                torch.cuda.set_sync_debug_mode("error" if strict else "warn")
                 try:
                     s.track(g, d, t)
                 finally:
@@ -3145,19 +3365,157 @@ def run_graphs_phase(system, tracking, cfg, frames, room_cfg, room_frames, gt, r
     return report, run_launches
 
 
+KIDNAP_COUNT_FROM = 3          # both programs only replay from frame 3 on
+KIDNAP_PROFILE = range(10, 13)  # lost 10, relocalized 11, tracked 12
+
+
+def same_system_runs(label, a, b, res_a, res_b) -> None:
+    """Two SlamSystem runs with a vocabulary are equal: trajectory and
+    per-frame counts, keyframe decisions, relocalization frames and winners,
+    LM counts, every map tensor, the loop state, the tracking state's
+    relocalization frame and the loop records."""
+    differ = [f.name for f in dataclasses.fields(a.map)
+              if not torch.equal(getattr(a.map, f.name), getattr(b.map, f.name))]
+    differ += [f"loop_state.{f.name}" for f in dataclasses.fields(a.loop_state)
+               if not torch.equal(getattr(a.loop_state, f.name), getattr(b.loop_state, f.name))]
+    checks = {
+        "trajectory": np.array_equal(res_a[0], res_b[0]), "per-frame counts": res_a[1] == res_b[1],
+        "keyframes": [o.made_kf for o in a._outs] == [o.made_kf for o in b._outs],
+        "reloc_frames": a.reloc_frames == b.reloc_frames,
+        "winners": [o.reloc_winner for o in a._outs] == [o.reloc_winner for o in b._outs],
+        "LM iterations": a.ba_iters == b.ba_iters,
+        "last_reloc_frame": torch.equal(a.state.last_reloc_frame, b.state.last_reloc_frame),
+        "loop records": (a.loop_closures, a.loop_attempts) == (b.loop_closures, b.loop_attempts),
+        "tensors": not differ}
+    bad = [k for k, ok in checks.items() if not ok]
+    if bad:
+        raise AssertionError(f"{label}: graphs=True differs from graphs=False in {bad} "
+                             f"(tensors {differ})")
+
+
+def run_graphs_kidnap(system, kcfg, voc, kframes, kframes_poor, dev) -> tuple:
+    """Phase graphs, main path 4: the kidnap's three variants (default,
+    depth-poor return frames, ``reloc_parity=True``) through the step
+    programs (``graphs=True``: the tracking program with the vocabulary's
+    fallback chain, the background program with loop detection) beside
+    ``graphs=False`` in this call, frames staged on the card. Fails unless
+    each graph run equals the eager run (``same_system_runs``), no tracking
+    replay synchronizes (sync debug mode ``error`` around it), each frame
+    makes exactly one read after its background replay (no loop closes), and
+    from frame ``KIDNAP_COUNT_FROM`` on a counting run (``graphs.counting``)
+    launches each kernel as often as the eager run, the relocalization
+    bodies' first executions (frames 8-11) among them. Records frame ms
+    medians, graph replays a frame, device busy, kernels a frame and idle
+    share over ``KIDNAP_PROFILE`` beside eager's, and the tracking program's
+    capture time and graph nodes -> (report, each counting run's launches
+    over the whole run, warm-ups included)."""
+    from vo_slam_test_tpu_torch.slam_map.map_state import MapCaps
+
+    def staged(fr):
+        return [(torch.as_tensor(g).to(dev), torch.as_tensor(d).to(dev), t) for g, d, t in fr]
+
+    variants = {"default": (staged(kframes), False), "depth_poor": (staged(kframes_poor), False),
+                "reloc_parity": (staged(kframes), True)}
+    c0, P = KIDNAP_COUNT_FROM, list(KIDNAP_PROFILE)
+    report, run_launches = {}, {}
+    for label, (fr, parity) in variants.items():
+        def make(on, parity=parity):
+            return system.SlamSystem(kcfg, caps=MapCaps(max_kf=32, max_pt=8192), vocabulary=voc,
+                                     reloc_parity=parity, graphs=on)
+
+        a, ra = graphs_run(lambda: make(False), fr, False, count_from=c0)
+        res_a = a.results()
+        b, rb = graphs_run(lambda: make(True), fr, True, reads_after_replay=True)
+        res_b = b.results()
+        same_system_runs(f"phase graphs, main path 4 ({label})", a, b, res_a, res_b)
+        c, rc = graphs_run(lambda: make(True), fr, True, count_from=c0, reads_after_replay=True)
+        res_c = c.results()
+        same_system_runs(f"phase graphs, main path 4 ({label}, counting run)", a, c, res_a, res_c)
+        if rb["syncs"] != [1] * len(fr) or rc["syncs"] != [1] * len(fr):
+            raise AssertionError(f"phase graphs, main path 4 ({label}): reads per frame "
+                                 f"{rb['syncs']} / {rc['syncs']}, not one after each "
+                                 f"background replay")
+        if rc["launches"] != ra["launches"] or any(rc["wrapper_calls_counted"].values()):
+            raise AssertionError(f"phase graphs, main path 4 ({label}): frames {c0}-{len(fr) - 1} "
+                                 f"launched {rc['launches']} through the graphs (the wrappers "
+                                 f"{rc['wrapper_calls_counted']}), {ra['launches']} eager")
+        missing = [k for k, n in ra["launches"].items() if n and not rc["launches"][k]]
+        if missing or not ra["launches"]["symeig"]:
+            raise AssertionError(f"phase graphs, main path 4 ({label}): no launch of "
+                                 f"{missing or ['symeig']} in the replayed frames")
+        run_launches[label] = rc["run_launches"]
+        prof_rows = {}
+        for on in (False, True):
+            _, rp = graphs_run(lambda: make(on), fr, on, P, reads_after_replay=True)
+            prof, wall, n_prof = rp["profile"]
+            print(f"  path 4 ({label}), graphs={on}:", end=" ")
+            busy, kpf = device_profile(prof, n_prof, wall)
+            prof_rows[on] = (busy, kpf, wall, graph_launch_calls(prof))
+        tracked = [i for i, st in enumerate(res_a[1]) if st.ok and i >= c0 and i not in
+                   a.reloc_frames]
+        tg, bg = b.track_graph, b.background_graph
+        rows = dict(
+            reloc_frames=b.reloc_frames, winners={str(i): o.reloc_winner for i, o in
+                                                  enumerate(b._outs) if o.reloc_winner},
+            eager_ms=ra["call_ms"], graph_ms=rb["call_ms"],
+            eager_tracked_median_ms=float(np.median([ra["call_ms"][i] for i in tracked])),
+            graph_tracked_median_ms=float(np.median([rb["call_ms"][i] for i in tracked])),
+            eager_lost_ms=[ra["call_ms"][i] for i in (8, 9, 10)],
+            graph_lost_ms=[rb["call_ms"][i] for i in (8, 9, 10)],
+            eager_reloc_ms=[ra["call_ms"][i] for i in a.reloc_frames],
+            graph_reloc_ms=[rb["call_ms"][i] for i in b.reloc_frames],
+            eager_syncs=ra["syncs"], graph_syncs=rb["syncs"], counted_frames=[c0, len(fr) - 1],
+            eager_launches=ra["launches"], graph_launches=rc["launches"],
+            replays_per_frame=rc["replays"] / (len(fr) - c0),
+            capture_s=dict(track=tg.capture_s, background=bg.capture_s),
+            graph_nodes=dict(track=tg.n_nodes, background=bg.n_nodes),
+            if_nodes=dict(track=tg.n_if, background=bg.n_if),
+            eager_busy_ms=prof_rows[False][0], graph_busy_ms=prof_rows[True][0],
+            eager_kernels=prof_rows[False][1], graph_kernels=prof_rows[True][1],
+            eager_wall_ms=prof_rows[False][2], graph_wall_ms=prof_rows[True][2],
+            eager_idle=1 - prof_rows[False][0] / prof_rows[False][2],
+            graph_idle=1 - prof_rows[True][0] / prof_rows[True][2],
+            window_graph_launches_per_frame=prof_rows[True][3] / len(P))
+        report[label] = rows
+        print(f"phase graphs, main path 4 ({label}): equal to graphs=False (trajectory, per-frame "
+              f"counts, keyframes, reloc_frames {rows['reloc_frames']}, winners "
+              f"{rows['winners']}, LM iterations, every map and loop-state tensor); tracking "
+              f"replays 0 host syncs, reads per frame {rb['syncs']} (eager {ra['syncs']}); "
+              f"tracked frame median {rows['graph_tracked_median_ms']:.3f} ms against eager "
+              f"{rows['eager_tracked_median_ms']:.3f}; lost frames 8-10 "
+              f"{[round(x, 3) for x in rows['graph_lost_ms']]} against "
+              f"{[round(x, 3) for x in rows['eager_lost_ms']]}; relocalized "
+              f"{[round(x, 3) for x in rows['graph_reloc_ms']]} against "
+              f"{[round(x, 3) for x in rows['eager_reloc_ms']]}; frames {c0}-{len(fr) - 1}: "
+              f"{rows['replays_per_frame']:.3f} graph replays a frame, kernel launches "
+              f"{rc['launches']} equal to eager's (counted on the device; the wrappers 0); "
+              f"capture {tg.capture_s:.3f} s (tracking, {tg.n_nodes} nodes, {tg.n_if} IF nodes) "
+              f"and {bg.capture_s:.3f} s (background, {bg.n_nodes} nodes, {bg.n_if} IF nodes); "
+              f"profile (frames {P[0]}-{P[-1]}): {rows['window_graph_launches_per_frame']:.3f} "
+              f"cudaGraphLaunch calls a frame, device busy {rows['graph_busy_ms']:.3f} ms/frame "
+              f"in {rows['graph_kernels']:.0f} kernels, idle share {rows['graph_idle']:.3f} "
+              f"(eager {rows['eager_busy_ms']:.3f} in {rows['eager_kernels']:.0f}, idle "
+              f"{rows['eager_idle']:.3f})")
+        del a, b, c
+        gc.collect()
+    return report, run_launches
+
+
 def device_profile(prof, n_frames, wall_ms):
     """Device busy ms per frame, kernels per frame and the top kernels from
     the CUDA kernel events of a profiler window (the device spans of the
     system's profiler ranges left out)."""
     from vo_slam_test_tpu_torch.bench import BG_RANGES
 
+    # the kineto records directly: prof.events() builds a Python object (and
+    # the op tree) per event, the slow part of a window's processing
     by_kernel = {}
-    for e in prof.events():
-        if (e.device_type == torch.autograd.DeviceType.CUDA and not e.is_user_annotation
-                and e.name not in BG_RANGES):
-            by_kernel.setdefault(e.name, [0.0, 0])
-            by_kernel[e.name][0] += e.time_range.elapsed_us() / 1e3 / n_frames
-            by_kernel[e.name][1] += 1
+    for e in prof.profiler.kineto_results.events():
+        if (e.device_type() == torch.autograd.DeviceType.CUDA and not e.is_user_annotation()
+                and e.name() not in BG_RANGES):
+            row = by_kernel.setdefault(e.name(), [0.0, 0])
+            row[0] += e.duration_ns() / 1e6 / n_frames
+            row[1] += 1
     busy = sum(v[0] for v in by_kernel.values())
     n_launch = sum(v[1] for v in by_kernel.values()) / n_frames
     print(f"profile of {n_frames} frames: wall {wall_ms:.3f} ms/frame (profiler on), device busy "
@@ -3177,7 +3535,8 @@ def main() -> int:
     from vo_slam_test_tpu_torch.datasets.synthetic import room_orbit_trajectory
     from vo_slam_test_tpu_torch.ops import (
         _build, ba_cuda, ba_pallas, brief, fast, fast_cuda, match_cuda, match_pallas, orb_cuda,
-        orientation, pattern)
+        orientation, pattern, symeig_cuda)
+    from vo_slam_test_tpu_torch.utils import linalg
     from vo_slam_test_tpu_torch.ops.pyramid import interior
     from vo_slam_test_tpu_torch.matching import matcher
     from vo_slam_test_tpu_torch.pipeline import system, tracking
@@ -3484,6 +3843,9 @@ def main() -> int:
         # device time of each launch inside the call (torch.profiler kernel events)
         print(f"  device ms per call by kernel: {launch_times_ms(lambda: kfn(inst, sub))}")
 
+    # -- phase symeig: the small symmetric eigensolver (Horn, EPnP) -----------
+    kernels["symeig"] = run_symeig_phase(dev)
+
     # -- main path 1: FusedTracker -------------------------------------------
     tracker = tracking.FusedTracker(cfg, graphs=False)
     with PlainGuard(plains) as guard:
@@ -3661,7 +4023,8 @@ def main() -> int:
           f"{time.perf_counter() - t0:.1f} s")
     on_black = lambda f, args: 8 <= f <= 10  # noqa: E731
     recorded = [(fast_cuda, "fast_score", on_black), (match_cuda, "masked_top2", on_black),
-                (match_cuda, "masked_top1_epi", lambda f, args: True)]
+                (match_cuda, "masked_top1_epi", lambda f, args: True),
+                (symeig_cuda, "symeig", lambda f, args: True)]
     # the path is its three variants; their launches are counted together
     with PlainGuard(plains) as guard4:
         torch.cuda.synchronize()
@@ -3737,6 +4100,28 @@ def main() -> int:
           f"{black['fast_score']}, "
           f"top-2 searches with no target (frame, M, live source rows) {black['masked_top2']}; "
           f"each bit-equal to its plain version")
+
+    # every eigensolver launch of the path (Horn and EPnP in relocalization)
+    # against the plain version
+    eig_calls = lrec.got["symeig"]
+    eig_err = max((symeig_error(symeig_cuda.symeig(A), linalg.symeig_jacobi(A))
+                   for _, (A,), _ in eig_calls), default=0.0)
+    if not eig_calls or eig_err > SYMEIG_TOL_ABS:
+        raise AssertionError(f"main path 4: {len(eig_calls)} eigensolver launches recorded, "
+                             f"|kernel - plain| {eig_err}")
+    kernels["symeig"]["max_abs_err"] = max(kernels["symeig"]["max_abs_err"], eig_err)
+    kernels["symeig"]["kidnap_instances"] = dict(
+        launches=len(eig_calls), max_abs_err=eig_err,
+        shapes=sorted({str(list(A.shape)) for _, (A,), _ in eig_calls}))
+    print(f"  symeig: all {len(eig_calls)} launches of the path (shapes "
+          f"{kernels['symeig']['kidnap_instances']['shapes']}) within {SYMEIG_TOL_ABS} of the "
+          f"plain version, element by element, unscaled (max {eig_err})")
+
+    # -- phase graphs, main path 4: the vocabulary path through its programs ----
+    t0 = time.perf_counter()
+    graph_kidnap, graph_launches4 = run_graphs_kidnap(system, kcfg, voc, kframes, kframes_poor,
+                                                      dev)
+    print(f"  phase graphs (main path 4) in {time.perf_counter() - t0:.1f} s")
 
     # -- main path 5: the pan loop; loop closing and global BA -----------------
     t0 = time.perf_counter()
@@ -3822,6 +4207,24 @@ def main() -> int:
                              f"{[k for k, v in launches5.items() if not v and k not in OFF_PATH]}")
     if guard5.cuda_calls:
         raise AssertionError(f"plain versions ran on CUDA tensors: {guard5.cuda_calls}")
+
+    # -- main path 5 (chunk=4) through the step programs --------------------------
+    graph_label = f"chunk={PAN_CHUNK}, graphs=True"
+    s5x, r5x = run_pan(system, pcfg, pvoc, pframes, PAN_CHUNK, False, graphs=True)
+    pan[graph_label] = pan_report(graph_label, s5x, r5x, pgt)
+    same_system_runs(f"main path 5 ({graph_label})", s5, s5x, s5.results(), s5x.results())
+    calls = [i for i in range(len(pframes)) if (i + 1) % PAN_CHUNK == 0]
+    med_e = float(np.median([r5["call_ms"][i] for i in calls[1:]]))
+    med_g = float(np.median([r5x["call_ms"][i] for i in calls[1:]]))
+    pan[graph_label].update(chunk_ms_median=med_g, eager_chunk_ms_median=med_e,
+                            capture_s=dict(track=s5x.track_graph.capture_s,
+                                           background=s5x.background_graph.capture_s),
+                            graph_nodes=dict(track=s5x.track_graph.n_nodes,
+                                             background=s5x.background_graph.n_nodes))
+    print(f"  {graph_label}: equal to the eager chunk={PAN_CHUNK} run (trajectory, per-frame "
+          f"counts, keyframes, LM iterations, loop records, every map and loop-state tensor); "
+          f"chunk ms median {med_g:.3f} against eager {med_e:.3f} (chunks after the first); "
+          f"host syncs per track call {r5x['syncs']} (eager {r5['syncs']})")
 
     # -- main path 5 through the VO_LOOP_DIAG drain path (chunk=1, drain_chunk=1)
     with PlainGuard(plains) as guard5d:
@@ -3932,12 +4335,14 @@ def main() -> int:
         kernels[k]["launches"] = launches1[k]
     for k in ("top2_m4096", "top2_chi2", "top2_nb", "top1_epi") + ba_keys:
         kernels[k]["launches"] = launches2[k]
+    kernels["symeig"]["launches"] = launches4["symeig"]
     for k in kernels:
         kernels[k]["launches_by_path"] = {"1": launches1[k], "2": launches2[k],
                                           "3": launches3[k],
                                           "1 graphs": graph_launches[1][k],
                                           "2 graphs": graph_launches[2][k],
                                           "3 graphs": graph_launches[3][k], "4": launches4[k],
+                                          "4 graphs": sum(v[k] for v in graph_launches4.values()),
                                           "5": launches5[k], "5 VO_LOOP_DIAG": launches5d[k],
                                           "6": launches6[k], "7": launches7[k],
                                           "8a": launches8["8a"][k], "8b": launches8["8b"][k]}
@@ -3953,7 +4358,7 @@ def main() -> int:
         raise AssertionError(f"kernels timed under their bounds, so the bounds are wrong: {under}")
     keys = ("name", "shape", "route", "source", "replaces", "launches", "launches_by_path",
             "max_abs_err", "ms", "v1_ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
-            "launch_floor_x", "counted", "kidnap_instances", "loop_fuse_instances",
+            "launch_floor_x", "counted", "kidnap_instances", "loop_fuse_instances", "instances",
             "phase_launches", "random_ms", "random_v1_ms", "random_bound_ms", "saturated_window",
             "dense_window")
     print(f"total {time.perf_counter() - t_start:.1f} s after the card query")
@@ -3969,7 +4374,7 @@ def main() -> int:
                                "keyframe_frames": kf_frames3, "ba_iters": s3.ba_iters,
                                "launches": launches3},
         "graphs": {str(k): v for k, v in graph_rows.items()},
-        "kidnap": dict(kid, launches=launches4, bow_orbvoc_ms=bow_ms),
+        "kidnap": dict(kid, launches=launches4, bow_orbvoc_ms=bow_ms, graphs=graph_kidnap),
         "pan_loop": dict(pan, launches=launches5),
         "global_ba_scene": gba_rows,
         "mesh_8_shards_one_card": mesh_rows,
@@ -3978,7 +4383,7 @@ def main() -> int:
         "off_nominal_scenes": scenes7, "saturated_local_ba": saturated,
         "bench_configuration": bench8, "card": smi}}))
     order = ("fast", "orb", "top2", "top2_m4096", "top2_chi2", "top2_nb", "top1_epi") + ba_keys \
-        + OFF_PATH
+        + OFF_PATH + VOCAB_ONLY
     print(json.dumps({"kernels": [{key: kernels[k][key] for key in keys if key in kernels[k]}
                                   for k in order]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

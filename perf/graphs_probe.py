@@ -2,7 +2,7 @@
 through ``utils.graphs.StepGraph`` beside ``graphs=False`` in one process.
 
     python3 perf/graphs_probe.py [--frames N] [--skip-chunk] [--sites] [--bisect]
-                                 [--smoke-phase]
+                                 [--smoke-phase] [--vocab]
 
 Prints torch's version and whether ``torch.cuda.CUDAGraph`` has
 ``begin_capture_to_if_node``; checks a captured ``cond`` and ``while_capped``
@@ -12,9 +12,13 @@ against eager for both predicate values; then ``FusedTracker`` over main path
 and without graphs: bit equality of poses, keyframes, LM counts and every map
 tensor, host syncs per ``track`` call (sync debug mode) and per-frame CUDA
 event ms. ``--sites`` prints the Python line of every host sync of the eager
-runs; ``--bisect`` first captures single operations and each mapping-chain stage inside an IF
-body (which ones instantiate); ``--smoke-phase`` runs only
-``chip_smoke.run_graphs_phase``. Needs the card; exits 1 without one.
+runs; ``--bisect`` first captures single operations, the vocabulary path's
+operations and each mapping-chain stage inside an IF body (which ones
+instantiate); ``--smoke-phase`` runs only
+``chip_smoke.run_graphs_phase``; ``--vocab`` captures the vocabulary path's
+operations inside an IF body one by one, then runs the smoke's eigensolver
+phase and main path 4 through graphs (``chip_smoke.run_graphs_kidnap``).
+Needs the card; exits 1 without one.
 """
 
 from __future__ import annotations
@@ -142,6 +146,95 @@ def micro_cases(graphs) -> None:
             print(f"  micro {name}: FAILED {type(e).__name__}: {str(e)[:200]}", flush=True)
 
 
+def vocab_cases(graphs) -> None:
+    """The vocabulary path's operations inside an IF body, each its own
+    StepGraph (which ones a conditional body instantiates with): the stable
+    sort of ``prng.top_k``, ``bow_vector`` (sort, ``index_add_``),
+    ``vocabulary.transform``, ``search_by_bow_kf_frame``, EPnP's small solves
+    (``solve_ex`` at its batch shapes, ``inv_ex``), the eigensolver kernel,
+    and whole Horn and EPnP RANSAC calls with a device seed."""
+    from vo_slam_test_tpu_torch.bow import retrieval as bow_ret
+    from vo_slam_test_tpu_torch.bow import vocabulary as bow_voc
+    from vo_slam_test_tpu_torch.camera import Camera
+    from vo_slam_test_tpu_torch.config import SlamConfig
+    from vo_slam_test_tpu_torch.matching import bow_match
+    from vo_slam_test_tpu_torch.ops import symeig_cuda
+    from vo_slam_test_tpu_torch.solvers import epnp, ransac
+    from vo_slam_test_tpu_torch.utils import prng
+
+    dev = torch.device("cuda")
+    g = torch.Generator().manual_seed(5)
+    N = 1000
+    voc = bow_voc.synth_vocabulary(k=8, levels=3, device=dev)
+    desc = torch.randint(-2**31, 2**31 - 1, (N, 8), generator=g, dtype=torch.int32).to(dev)
+    valid = (torch.rand(N, generator=g) < 0.9).to(dev)
+    words = bow_voc.transform(voc, desc, valid)
+    groups = bow_voc.feature_groups(voc, words)
+    angle = (torch.rand(N, generator=g) * 360).to(dev)
+    mp = torch.where(torch.rand(N, generator=g) < 0.5, torch.arange(N), -1).to(torch.int32).to(dev)
+    cam = Camera.from_config(SlamConfig(camera_k1=0, camera_k2=0, camera_p1=0, camera_p2=0,
+                                        camera_k3=0), dev)
+    Xw = (torch.randn(200, 3, generator=g) + torch.tensor([0.0, 0.0, 4.0])).to(dev)
+    uv = (Xw[:, :2] / Xw[:, 2:] * 500 + 320).to(dev)
+    pc = Xw.clone()
+    ones = torch.ones(200, dtype=torch.bool, device=dev)
+    seed = torch.full((), 7 * 3 + 1, dtype=torch.int64, device=dev)
+    B3 = torch.randn(384, 3, 3, generator=g).to(dev) + 3 * torch.eye(3, device=dev)
+    B4 = torch.randn(384, 4, 4, generator=g).to(dev) + 4 * torch.eye(4, device=dev)
+    B5 = torch.randn(384, 5, 5, generator=g).to(dev) + 5 * torch.eye(5, device=dev)
+    M12 = torch.randn(128, 12, 12, generator=g).to(dev)
+    M12 = M12 @ M12.mT
+    G = torch.randn(128, N, generator=g).to(dev)
+    cases = {
+        "top_k stable sort [128,1000]": lambda: prng.top_k(G, 4)[1].float(),
+        "bow_vector": lambda: bow_ret.bow_vector(words, voc.idf)[1],
+        "transform": lambda: bow_voc.transform(voc, desc, valid).float(),
+        "search_by_bow_kf_frame": lambda: bow_match.search_by_bow_kf_frame(
+            desc, groups, mp, angle, mp >= 0, desc.flip(0), groups.flip(0), angle.flip(0),
+            valid, 0.75).assign.float(),
+        "solve_ex f32 [384,3,3]": lambda: epnp._solve(B3, B3[..., 0]),
+        "solve_ex f32 [384,4,4]": lambda: epnp._solve(B4, B4[..., 0]),
+        "solve_ex f32 [384,5,5]": lambda: epnp._solve(B5, B5[..., 0]),
+        "inv_ex f32 [128,3,3]": lambda: torch.linalg.inv_ex(B3[:128])[0],
+        "symeig kernel [128,12,12]": lambda: symeig_cuda.symeig(M12)[1],
+        "symeig kernel [384,4,4]": lambda: symeig_cuda.symeig(B4)[1],
+        "horn ransac, device seed": lambda: ransac.ransac_pose_3d3d(
+            Xw, pc, uv, ones, ones, cam.fx, cam.fy, cam.cx, cam.cy, seed)[0],
+        "epnp ransac, device key": lambda: epnp.ransac_pnp(
+            prng.prng_key(seed), Xw, uv, ones, torch.ones(200, device=dev), cam)[0],
+    }
+    for name, fn in cases.items():
+        sg = graphs.StepGraph(lambda inp, st, fn=fn: (st, graphs.cond(inp[0], fn,
+                                                                       lambda: fn() * 0)),
+                              dev, name)
+        go = torch.ones((), dtype=torch.bool, device=dev)
+        try:
+            outs = [sg.run((go,), torch.zeros(1, device=dev))[1] for _ in range(3)]
+            torch.cuda.synchronize()
+            want = fn()
+            same = all(torch.equal(torch.nan_to_num(o), torch.nan_to_num(want)) for o in outs)
+            print(f"  vocab {name}: ok, replays equal eager {same}", flush=True)
+        except Exception as e:  # noqa: BLE001 - the probe reports every case
+            print(f"  vocab {name}: FAILED {type(e).__name__}: {str(e)[:200]}", flush=True)
+
+
+def vocab_paths(system, dev) -> None:
+    """The smoke's eigensolver phase, then main path 4 through the step
+    programs (``chip_smoke.run_graphs_kidnap``)."""
+    import json
+
+    import chip_smoke
+
+    print(json.dumps({"symeig": chip_smoke.run_symeig_phase(dev)}, default=str), flush=True)
+    kseq, kcfg = chip_smoke.kidnap_sequence()
+    voc = chip_smoke.kidnap_vocabulary(kseq, kcfg, dev)
+    rows, launches = chip_smoke.run_graphs_kidnap(
+        system, kcfg, voc, chip_smoke.kidnap_frames(kseq, False),
+        chip_smoke.kidnap_frames(kseq, True), dev)
+    print(json.dumps({k: {kk: vv for kk, vv in v.items() if kk not in ("eager_ms", "graph_ms")}
+                      for k, v in rows.items()}, default=str))
+
+
 def bisect_chain(system, graphs, cfg, frames) -> None:
     """Each stage of the mapping chain captured alone inside a cond, on the
     map of an eager run of the first 6 frames (keyframe events 0, 1, 5)."""
@@ -189,6 +282,9 @@ def main() -> int:
                     help="capture each mapping-chain stage alone under a cond first")
     ap.add_argument("--smoke-phase", action="store_true",
                     help="run chip_smoke.run_graphs_phase (paths 1-3) and stop")
+    ap.add_argument("--vocab", action="store_true",
+                    help="the vocabulary path's operations inside an IF body, the eigensolver "
+                         "phase and main path 4 through graphs, then stop")
     args = ap.parse_args()
 
     from vo_slam_test_tpu_torch.config import SlamConfig
@@ -211,6 +307,10 @@ def main() -> int:
         return 2
 
     dev = torch.device("cuda")
+    if args.vocab:
+        vocab_cases(graphs)
+        vocab_paths(system, dev)
+        return 0
     if args.smoke_phase:
         import json
 
@@ -257,6 +357,7 @@ def main() -> int:
     rstaged = [(torch.as_tensor(g).to(dev), torch.as_tensor(d).to(dev), t) for g, d, t in rf]
     if args.bisect:
         micro_cases(graphs)
+        vocab_cases(graphs)
         bisect_chain(system, graphs, room_cfg, rstaged)
     for chunk in ((1,) if args.skip_chunk else (1, 8)):
         print(f"path {2 if chunk == 1 else 3} (SlamSystem chunk={chunk}, {args.frames} room "

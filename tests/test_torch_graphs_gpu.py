@@ -4,7 +4,10 @@ card: each module whose host reads became ``cond``/``while_capped``, then
 ``FusedTracker`` and ``SlamSystem(vocabulary=None)`` per frame and in chunks,
 bit for bit and with no host sync across ``track``; the replays' launches
 counted on the device (``graphs.counting``) against eager's; dropped systems
-releasing their graphs' memory.
+releasing their graphs' memory; the vocabulary path: a captured
+relocalization attempt, and ``SlamSystem(vocabulary=...)`` over the kidnap
+(chip_smoke.py's main path 4), bit for bit with no host sync inside a
+tracking replay.
 
 Run on a machine with a CUDA card (no JAX needed there):
 
@@ -298,7 +301,101 @@ def test_graph_dropped_during_a_capture_is_released_after_it(cuda):
     assert not holder and all(torch.equal(o, x + 1.0) for o in outs)
 
 
-def test_graphs_refused_with_vocabulary(room):
-    cfg, _ = room
-    with pytest.raises(ValueError, match="vocabulary"):
-        SlamSystem(cfg, vocabulary=object(), graphs=True)
+@pytest.fixture(scope="module")
+def kidnap(cuda):
+    """chip_smoke.py's main path 4: the kidnap at 640x480, its vocabulary,
+    its frames (and the depth-poor ones) staged on the card."""
+    import os
+    import sys
+
+    sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+    import chip_smoke
+
+    seq, cfg = chip_smoke.kidnap_sequence()
+    voc = chip_smoke.kidnap_vocabulary(seq, cfg, cuda)
+
+    def staged(fr):
+        return [(torch.as_tensor(g).to(cuda), torch.as_tensor(d).to(cuda), t) for g, d, t in fr]
+
+    return cfg, voc, staged(chip_smoke.kidnap_frames(seq, False)), staged(
+        chip_smoke.kidnap_frames(seq, True))
+
+
+def test_relocalization_attempt_replays(kidnap):
+    """Module 6's relocalization (``_attempt_reloc``) captured as a StepGraph
+    and replayed on the eager system's map after the kidnap's lost frames,
+    against the eager attempt, bit for bit: black frame 9 (no candidate),
+    return frames 11-13 with depth (Horn) and without (EPnP), in the default
+    mode (candidate slots, the solver cond, the winner's cascade) and in
+    parity mode (the insertion-order loop, a cascade per candidate)."""
+    from vo_slam_test_tpu_torch.bow import retrieval as bow_ret
+    from vo_slam_test_tpu_torch.bow import vocabulary as bow_voc
+    from vo_slam_test_tpu_torch.frontend.extractor import extract_fused
+    from vo_slam_test_tpu_torch.pipeline import system
+    from vo_slam_test_tpu_torch.slam_map.map_state import MapCaps
+
+    cfg, voc, frames, poor = kidnap
+    s = SlamSystem(cfg, caps=MapCaps(max_kf=32, max_pt=8192), vocabulary=voc, graphs=False)
+    for f in frames[:11]:
+        s.track(*f)
+    calls = []
+    for i, (g, d, _) in [(9, frames[9]), (11, frames[11]), (12, poor[12]), (13, frames[13])]:
+        feats = extract_fused(g, d, s.camera, s.spec, s.budgets, s.fast_hi, s.fast_lo)
+        words = bow_voc.transform(s.voc, feats.desc, feats.valid)
+        uniq, wgt = bow_ret.bow_vector(words, s.voc.idf)
+        bow = (uniq, wgt, bow_voc.feature_groups(s.voc, words))
+        calls.append((s.map, feats, bow, torch.full((), i, dtype=torch.int32, device="cuda")))
+    for parity in (False, True):
+        replay_matches_eager(
+            lambda m, feats, bow, fid, parity=parity: system._attempt_reloc(
+                m, feats, bow, s.voc, fid, parity, s.camera, s.scale_factors,
+                s.inv_level_sigma2), calls)
+
+
+@pytest.mark.parametrize("parity", [False, True])
+def test_vocabulary_system_graph_equals_eager(kidnap, parity):
+    """Module 8: SlamSystem(vocabulary=..., graphs=True) over the kidnap:
+    every map and loop-state tensor, the poses, keyframes, relocalization
+    frames and winners equal eager's; no host sync inside any tracking
+    replay, and one read after each background replay."""
+    import warnings
+
+    from vo_slam_test_tpu_torch.slam_map.map_state import MapCaps
+
+    cfg, voc, frames, _ = kidnap
+
+    def make(on):
+        return SlamSystem(cfg, caps=MapCaps(max_kf=32, max_pt=8192), vocabulary=voc,
+                          reloc_parity=parity, graphs=on)
+
+    a = _track_all(lambda: make(False), frames, False)
+    b = make(True)
+    replay = b.track_graph.run
+
+    def strict(*args):
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            return replay(*args)
+        finally:
+            torch.cuda.set_sync_debug_mode("warn")
+    b.track_graph.run = strict
+    reads = []
+    for f in frames:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                b.track(*f)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        reads.append(sum("synchroniz" in str(w.message) for w in caught))
+    assert reads == [1] * len(frames) and b.track_graph.replays == len(frames) - 2
+    ra, rb = a.results(), b.results()
+    assert np.array_equal(ra[0], rb[0]) and ra[1] == rb[1]
+    assert a.reloc_frames == b.reloc_frames and a.reloc_frames[0] == 11
+    assert [o.reloc_winner for o in a._outs] == [o.reloc_winner for o in b._outs]
+    assert [o.made_kf for o in a._outs] == [o.made_kf for o in b._outs]
+    for f in dataclasses.fields(a.map):
+        assert torch.equal(getattr(a.map, f.name), getattr(b.map, f.name)), f.name
+    for f in dataclasses.fields(a.loop_state):
+        assert torch.equal(getattr(a.loop_state, f.name), getattr(b.loop_state, f.name)), f.name

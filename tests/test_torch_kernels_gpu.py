@@ -860,6 +860,7 @@ def test_port_modules_import_no_jax(cuda):
                  "bow.vocabulary", "bow.retrieval", "matching.bow_match", "solvers.ransac",
                  "solvers.epnp", "utils.prng", "utils.linalg", "utils.drift", "solvers.sim3",
                  "solvers.pose_graph", "solvers.global_ba", "pipeline.loop_closing",
+                 "ops.symeig_cuda",
                  "frontend.distribute", "datasets.tum", "datasets.staging", "native.loader",
                  "slam_map.serialize", "viz.drawer", "viz.webviewer", "run_slam", "bench",
                  "utils.graphs"):
@@ -1128,3 +1129,27 @@ def test_track_takes_prestaged_frames_on_card(cuda, raw_depth):
     other = torch.zeros(frames[0][0].shape, dtype=torch.uint8)
     with pytest.raises(ValueError, match="frame tensor"):
         SlamSystem(cfg).track(other, staged[0][1], 0.0)
+
+
+def test_symeig_kernel_matches_plain(cuda):
+    """csrc/symeig.cu against utils/linalg.py::symeig_jacobi on the card, on
+    chip_smoke.py's instances at the vocabulary path's shapes (EPnP's
+    [128,12,12] and [128,3,3], Horn's [128,4,4] and [384,4,4], the edge
+    cases: zero, identity, repeated eigenvalues, NaN, indefinite): the same
+    f64 arithmetic in the same order, so every eigenvalue and eigenvector
+    component equal to the sign of a zero (chip_smoke.SYMEIG_TOL_ABS, element
+    by element, unscaled); NaN where the plain version has NaN. The kernel
+    takes f32 only."""
+    from vo_slam_test_tpu_torch.ops import symeig_cuda
+    from vo_slam_test_tpu_torch.utils import linalg
+
+    for label, A in chip_smoke.symeig_instances(cuda).items():
+        before = symeig_cuda.KERNEL.launches
+        got = symeig_cuda.symeig(A)
+        torch.cuda.synchronize()
+        assert symeig_cuda.KERNEL.launches == before + 1
+        assert got[0].dtype == torch.float32 and got[1].shape == A.shape
+        err = chip_smoke.symeig_error(got, linalg.symeig_jacobi(A))
+        assert err <= chip_smoke.SYMEIG_TOL_ABS, (label, err)
+    with pytest.raises(ValueError):
+        symeig_cuda.symeig(A.double())

@@ -335,3 +335,57 @@ def assert_scene_parity(r, match_band, inlier_band):
     dm = np.abs(np.subtract(p["n_matches"], j["n_matches"]))
     di = np.abs(np.subtract(p["n_inliers"], j["n_inliers"]))
     assert dm.max() <= match_band and di.max() <= inlier_band, (dm.tolist(), di.tolist())
+
+
+SLAM_OUT_KEYS = ("T_c_w", "T_cr", "ref_kf", "ref_gen", "ok", "n_features", "n_matches",
+                 "n_inliers", "relocalized", "kp_uv", "kp_state")
+
+
+def kidnap_graph_vs_eager(depth_poor=False, reloc_parity=False, chunk=1):
+    """The 320x240 kidnap (``kidnap_small``) through the port's SlamSystem
+    with its vocabulary, eagerly and with ``graphs=True`` (on the CPU every
+    step runs StepGraph's select form under ``no_host_reads``, the stand-in
+    for a replay with conditional nodes): both must agree bit for bit on
+    every MapState and LoopState tensor, every frame's outputs and keyframe
+    decision, the relocalization frames and winners, the tracking state and
+    the LM and loop records. -> (eager system, graph system)."""
+    import dataclasses
+
+    from vo_slam_test_tpu_torch.bow import vocabulary as V
+    from vo_slam_test_tpu_torch.config import SlamConfig
+    from vo_slam_test_tpu_torch.pipeline.system import SlamSystem
+
+    k = kidnap_small()
+    voc = V.build_vocabulary(k["descs"], k=8, levels=3, seed=2, device="cpu")
+    frames = kidnap_frames(k["seq"], depth_poor=depth_poor)
+    runs = {}
+    for on in (False, True):
+        s = SlamSystem(SlamConfig(**k["kw"]), caps=P_CAPS, device="cpu", vocabulary=voc,
+                       reloc_parity=reloc_parity, chunk=chunk, graphs=on)
+        assert s.graphs is on
+        for g, d, ts in frames:
+            s.track(g, d, ts)
+        runs[on] = (s, s.results())
+    (a, ra), (b, rb) = runs[False], runs[True]
+    assert np.array_equal(ra[0], rb[0]) and ra[1] == rb[1]
+    assert [o.made_kf for o in a._outs] == [o.made_kf for o in b._outs]
+    assert a.reloc_frames == b.reloc_frames
+    assert [o.reloc_winner for o in a._outs] == [o.reloc_winner for o in b._outs]
+    assert a.ba_iters == b.ba_iters and a.n_ba_interrupts == b.n_ba_interrupts
+    assert (a.loop_closures, a.loop_attempts) == (b.loop_closures, b.loop_attempts)
+    for i, (x, y) in enumerate(zip(a._outs, b._outs)):
+        for key in SLAM_OUT_KEYS:
+            assert torch.equal(getattr(x, key), getattr(y, key)), (i, key)
+    for f in dataclasses.fields(a.map):
+        assert torch.equal(getattr(a.map, f.name), getattr(b.map, f.name)), f.name
+    for f in dataclasses.fields(a.loop_state):
+        assert torch.equal(getattr(a.loop_state, f.name), getattr(b.loop_state, f.name)), f.name
+    for key in ("assign_real", "assign_gen", "T_cr", "ref_kf", "T_cl", "motion_valid", "lost",
+                "frame_id", "last_kf_frame", "last_was_kf", "last_reloc_frame"):
+        assert torch.equal(getattr(a.state, key), getattr(b.state, key)), key
+    # the scenario itself (tests/test_reloc.py's asserts)
+    oks = [st.ok for st in ra[1]]
+    assert all(oks[:8]) and not any(oks[8:11]) and any(oks[11:]), oks
+    assert a.reloc_frames and a.reloc_frames[0] >= 11
+    assert int(b.state.last_reloc_frame) == a.reloc_frames[-1]
+    return a, b

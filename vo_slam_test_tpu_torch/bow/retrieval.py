@@ -15,7 +15,8 @@ from typing import Tuple
 
 import torch
 
-from ..slam_map.map_state import scatter_or
+from ..slam_map.map_state import pick, scatter_or
+from ..utils import graphs
 
 PAD_WORD = 1 << 30  # sort-to-the-end sentinel for word arrays
 
@@ -92,14 +93,14 @@ def reloc_candidates(scores: torch.Tensor, shared: torch.Tensor, covis: torch.Te
 
 
 def loop_candidates(scores: torch.Tensor, shared: torch.Tensor, covis: torch.Tensor,
-                    kf_valid: torch.Tensor, query_kf: int, min_score: torch.Tensor
-                    ) -> torch.Tensor:
+                    kf_valid: torch.Tensor, query_kf, min_score: torch.Tensor) -> torch.Tensor:
     """Loop candidate mask [K] (map.cpp:210-333): the relocalization cascade
     with the query's connected keyframes excluded and candidates scoring at
     least ``min_score`` (the query's worst covisible score)."""
     K = scores.shape[0]
     ids = torch.arange(K, device=scores.device)
-    connected = covis[query_kf] > 0
+    query_kf = graphs.on_device(query_kf, torch.int64, covis.device)
+    connected = pick(covis, query_kf) > 0
     eligible = kf_valid & ~connected & (ids != query_kf)
     sharing = (shared > 0) & eligible
     max_common = torch.where(sharing, shared, 0).max()

@@ -93,7 +93,7 @@ def map_state_to_numpy(m: MapState) -> Dict[str, np.ndarray]:
 def slam_track_state_from_numpy(d: Dict[str, Any], device) -> SlamTrackState:
     """The JAX SlamTrackState's fields as numpy -> the port's
     SlamTrackState (the frame counters stay device tensors; the host-known
-    flags ``initialized`` and ``last_reloc_frame`` become Python values)."""
+    flag ``initialized`` becomes a Python value)."""
     def dev(a, dtype):
         return torch.as_tensor(np.array(a, dtype=dtype)).to(device)
 
@@ -105,7 +105,7 @@ def slam_track_state_from_numpy(d: Dict[str, Any], device) -> SlamTrackState:
         initialized=bool(d["initialized"]), lost=dev(d["lost"], np.bool_),
         last_kf_frame=dev(d["last_kf_frame"], np.int32),
         last_was_kf=dev(d["last_was_kf"], np.bool_),
-        last_reloc_frame=int(d["last_reloc_frame"]),
+        last_reloc_frame=dev(d["last_reloc_frame"], np.int32),
     )
 
 

@@ -63,10 +63,31 @@ extern "C" int graph_if_count(void* stream, void* counts, int slot) {
   return (int)cudaGetLastError();
 }
 
-// End the body capture that graph_if_begin started on `body_stream`.
-extern "C" int graph_if_end(void* body_stream) {
+// End the body capture that graph_if_begin started on `body_stream`; the
+// body graph's node count (an inner IF node counts as one) into *n_nodes.
+extern "C" int graph_if_end(void* body_stream, unsigned long long* n_nodes) {
   cudaGraph_t body;
-  return (int)cudaStreamEndCapture((cudaStream_t)body_stream, &body);
+  cudaError_t e = cudaStreamEndCapture((cudaStream_t)body_stream, &body);
+  if (e != cudaSuccess) return (int)e;
+  size_t n = 0;
+  e = cudaGraphGetNodes(body, nullptr, &n);
+  *n_nodes = (unsigned long long)n;
+  return (int)e;
+}
+
+// The node count of the graph `stream` is capturing (its top level: an IF
+// node counts as one) into *n_nodes.
+extern "C" int graph_capture_nodes(void* stream, unsigned long long* n_nodes) {
+  cudaStreamCaptureStatus status;
+  cudaGraph_t graph;
+  cudaError_t e = cudaStreamGetCaptureInfo((cudaStream_t)stream, &status, nullptr, &graph,
+                                           nullptr, nullptr);
+  if (e != cudaSuccess) return (int)e;
+  if (status != cudaStreamCaptureStatusActive) return (int)cudaErrorStreamCaptureImplicit;
+  size_t n = 0;
+  e = cudaGraphGetNodes(graph, nullptr, &n);
+  *n_nodes = (unsigned long long)n;
+  return (int)e;
 }
 
 // A non-blocking stream of its own for body captures (never one of the

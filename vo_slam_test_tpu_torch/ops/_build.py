@@ -22,7 +22,7 @@ from typing import Dict, Iterable, Sequence, Tuple
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-KERNEL_SOURCES = ("fast", "orb", "match", "epi", "ba", "noop", "graph_if")
+KERNEL_SOURCES = ("fast", "orb", "match", "epi", "ba", "noop", "graph_if", "symeig")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",

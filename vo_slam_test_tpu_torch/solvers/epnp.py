@@ -13,10 +13,14 @@ refinement.
 
 The small solves are ``torch.linalg.solve_ex``/``inv_ex``: like the JAX
 package they return non-finite values for a singular system where the checked
-forms would raise, and they read no error flag back to the host. A minimal
-sample's projection system has a null space of dimension four, whose basis
-``eigh`` picks by rounding: its hypotheses differ from the JAX package's in
-the last bits or more, while the all-inlier refinement is well posed.
+forms would raise, and they read no error flag back to the host. The
+eigenproblems (the control points' 3x3 covariance, the 12x12 ``M^T M``) go to
+``ops/symeig_cuda.py`` (f64 Jacobi, NaN for a non-finite matrix) where the JAX
+package calls ``jnp.linalg.eigh``, whose torch counterpart checks its status on
+the host. A minimal sample's projection system has a null space of dimension
+four, whose basis the solver picks by rounding: its hypotheses differ from the
+JAX package's in the last bits or more, while the all-inlier refinement is
+well posed.
 """
 
 from __future__ import annotations
@@ -26,9 +30,10 @@ from typing import Tuple
 import torch
 
 from ..camera import Camera
+from ..ops import symeig_cuda
 from ..slam_map.map_state import pick
 from ..utils import prng
-from .ransac import N_HYP, REPROJ_GATE, finite_or_zero, horn_align
+from .ransac import N_HYP, REPROJ_GATE, horn_align
 
 _PAIRS = ((0, 1), (0, 2), (0, 3), (1, 2), (1, 3), (2, 3))
 GN_ITERS = 6
@@ -43,14 +48,6 @@ def _solve(A: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return torch.linalg.solve_ex(A, b[..., None])[0][..., 0]
 
 
-def _eigh(A: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """``torch.linalg.eigh`` (ascending), NaN for a non-finite matrix."""
-    A, bad = finite_or_zero(A)
-    vals, vecs = torch.linalg.eigh(A)
-    return (torch.where(bad[..., None], torch.nan, vals),
-            torch.where(bad[..., None, None], torch.nan, vecs))
-
-
 def _control_points(Xw: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """[..., n, 3] world points (weights w) -> [..., 4, 3] control points:
     centroid + principal directions scaled by the std along each."""
@@ -58,7 +55,7 @@ def _control_points(Xw: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     c0 = (Xw * wn[..., None]).sum(-2)
     d = (Xw - c0[..., None, :]) * torch.sqrt(wn)[..., None]
     cov = torch.einsum("...ni,...nj->...ij", d, d)
-    eval_, evec = _eigh(cov)
+    eval_, evec = symeig_cuda.symeig(cov)
     s = torch.sqrt(torch.clamp(eval_, min=1e-12))
     axes = evec * s[..., None, :]         # columns scaled
     return torch.cat([c0[..., None, :], axes.transpose(-1, -2) + c0[..., None, :]], dim=-2)
@@ -153,7 +150,7 @@ def epnp_pose(Xw: torch.Tensor, uv: torch.Tensor, w: torch.Tensor, cam: Camera) 
     row_v = torch.stack([zero, aw * fv, aw * (vc - uv[..., 1:2])], -1)
     M = torch.cat([row_u.reshape(*batch, n, 12), row_v.reshape(*batch, n, 12)], dim=-2)
     MtM = torch.einsum("...ni,...nj->...ij", M, M)
-    _, evec = _eigh(MtM)
+    _, evec = symeig_cuda.symeig(MtM)
     V = evec[..., :, :4].transpose(-1, -2).reshape(*batch, 4, 4, 3)
 
     rho = _dist2(C)
@@ -184,7 +181,8 @@ def ransac_pnp(key: prng.Key, Xw: torch.Tensor, uv: torch.Tensor, valid: torch.T
                inv_sigma2: torch.Tensor, cam: Camera
                ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """(T_c_w [4,4], inlier mask [N], n_inliers): 128 parallel 4-point EPnP
-    hypotheses drawn with ``key`` (``utils.prng.prng_key``), the 8 px gate
+    hypotheses drawn with ``key`` (``utils.prng.prng_key``, whose words may
+    be device tensors), the 8 px gate
     weighted by ``inv_sigma2``, one all-inlier EPnP refinement."""
     N = Xw.shape[0]
     logits = torch.where(valid, 0.0, -torch.inf)

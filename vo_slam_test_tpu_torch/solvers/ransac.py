@@ -6,16 +6,20 @@ visualOdometry.cpp:806-826). With RGB-D depth the JAX package solves the
 3D-3D problem instead: each of 128 hypotheses is a closed-form Horn alignment
 of a 3-point sample, all scored at once by the reference's 8 px reprojection
 gate. The samples come from ``utils/prng.py``, so the port draws the JAX
-package's samples for the same seed.
+package's samples for the same seed. Horn's alignment takes its rotation
+from a unit quaternion (an eigenvector of a symmetric 4x4 matrix) where the
+JAX package takes an SVD: torch's SVD checks its status on the host, which a
+captured step cannot do.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Tuple, Union
 
 import torch
 
 from .. import lie
+from ..ops import symeig_cuda
 from ..slam_map.map_state import pick
 from ..utils import prng
 
@@ -23,38 +27,39 @@ N_HYP = 128          # reference uses 100 sequential iterations
 REPROJ_GATE = 8.0    # px (visualOdometry.cpp:806)
 
 
-def det3(A: torch.Tensor) -> torch.Tensor:
-    """Determinant of (..., 3, 3) by cofactors (no LAPACK call, no host sync)."""
-    return (A[..., 0, 0] * (A[..., 1, 1] * A[..., 2, 2] - A[..., 1, 2] * A[..., 2, 1])
-            - A[..., 0, 1] * (A[..., 1, 0] * A[..., 2, 2] - A[..., 1, 2] * A[..., 2, 0])
-            + A[..., 0, 2] * (A[..., 1, 0] * A[..., 2, 1] - A[..., 1, 1] * A[..., 2, 0]))
-
-
-def finite_or_zero(A: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(..., n, n) -> (A with its non-finite matrices zeroed, [...] bool
-    mask of those). ``torch.linalg.svd``/``eigh`` raise on a non-finite
-    input where the JAX package's return NaN; the callers put NaN back."""
-    bad = ~torch.isfinite(A).all(-1).all(-1)
-    return torch.where(bad[..., None, None], 0.0, A), bad
-
-
 def horn_align(p_src: torch.Tensor, p_dst: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """Weighted closed-form SE3, R from the SVD of the cross-covariance.
+    """Weighted closed-form SE3, R from Horn's unit quaternion.
 
     p_src/p_dst: [..., n, 3]; w: [..., n]. Returns [..., 4, 4] T with
-    p_dst ~= R p_src + t. The singular vectors' signs are the library's, but
-    R = U diag(1, 1, det(U V^T)) V^T does not depend on them."""
+    p_dst ~= R p_src + t. The quaternion is the eigenvector of the largest
+    eigenvalue of Horn's symmetric 4x4 matrix N of the cross-covariance
+    (``ops/symeig_cuda.py``: f64 inside, nothing read back to the host). Where the
+    cross-covariance's singular values are distinct this is the proper
+    rotation U diag(1, 1, det(U V^T)) V^T of its SVD, which the JAX package
+    computes; a non-finite input gives NaN, as there."""
     wn = w / torch.clamp(w.sum(-1, keepdim=True), min=1e-9)
     c_src = (p_src * wn[..., None]).sum(-2)
     c_dst = (p_dst * wn[..., None]).sum(-2)
     src_c = p_src - c_src[..., None, :]
     dst_c = p_dst - c_dst[..., None, :]
-    H, bad = finite_or_zero(torch.einsum("...ni,...nj,...n->...ij", dst_c, src_c, wn))
-    U, _, Vt = torch.linalg.svd(H)
-    det = det3(U @ Vt)
-    ones = torch.ones_like(det)
-    D = torch.diag_embed(torch.stack([ones, ones, det], -1))
-    R = torch.where(bad[..., None, None], torch.nan, U @ D @ Vt)
+    S = torch.einsum("...ni,...nj,...n->...ij", src_c, dst_c, wn)
+    (xx, xy, xz), (yx, yy, yz), (zx, zy, zz) = [[S[..., i, j] for j in range(3)] for i in range(3)]
+    N = torch.stack([
+        torch.stack([xx + yy + zz, yz - zy, zx - xz, xy - yx], -1),
+        torch.stack([yz - zy, xx - yy - zz, xy + yx, zx + xz], -1),
+        torch.stack([zx - xz, xy + yx, yy - xx - zz, yz + zy], -1),
+        torch.stack([xy - yx, zx + xz, yz + zy, zz - xx - yy], -1),
+    ], -2)
+    q = symeig_cuda.symeig(N)[1][..., 3]          # the largest eigenvalue's vector
+    q0, qx, qy, qz = q.unbind(-1)
+    R = torch.stack([
+        torch.stack([q0 * q0 + qx * qx - qy * qy - qz * qz, 2 * (qx * qy - q0 * qz),
+                     2 * (qx * qz + q0 * qy)], -1),
+        torch.stack([2 * (qx * qy + q0 * qz), q0 * q0 - qx * qx + qy * qy - qz * qz,
+                     2 * (qy * qz - q0 * qx)], -1),
+        torch.stack([2 * (qx * qz - q0 * qy), 2 * (qy * qz + q0 * qx),
+                     q0 * q0 - qx * qx - qy * qy + qz * qz], -1),
+    ], -2)
     t = c_dst - torch.einsum("...ij,...j->...i", R, c_src)
     return lie.rt_to_mat(R, t)
 
@@ -66,7 +71,7 @@ def ransac_pose_3d3d(
     valid3d: torch.Tensor,    # [N] has depth (can be sampled)
     valid: torch.Tensor,      # [N] participates in scoring
     fx, fy, cx, cy,
-    seed: int,                # deterministic per frame and candidate
+    seed: Union[int, torch.Tensor],  # per frame and candidate; a 0-d tensor stays on the device
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """-> (T_c_w [4,4], inlier mask [N], n_inliers)."""
     N = p_world.shape[0]

@@ -42,6 +42,7 @@ from __future__ import annotations
 import contextlib
 import ctypes
 import dataclasses
+import time
 import weakref
 from typing import Any, Callable, List, Optional, Sequence, Tuple
 
@@ -63,6 +64,8 @@ class _Capture:
 
     device: torch.device
     depth: int = 0
+    n_if: int = 0          # IF nodes made
+    body_nodes: int = 0    # nodes of their bodies (an inner IF node counts as one)
     counts: Optional[torch.Tensor] = None
     nodes: list = dataclasses.field(default_factory=list)
     stack: list = dataclasses.field(default_factory=list)
@@ -194,19 +197,24 @@ def copy_into(dst: Sequence[torch.Tensor], src: Sequence[torch.Tensor]) -> None:
 # ---------------------------------------------------------------------------
 
 
-def fetch(*tensors: torch.Tensor):
+def fetch(*tensors):
     """The integer or bool ``tensors`` a step branches on, as the mode takes
     them: eager, Python values (a scalar per 0-d tensor, a list per 1-d one)
     from one host read; in ``select``/``capture`` mode the tensors
-    themselves, nothing read."""
+    themselves, nothing read. A value that is not a tensor (already on the
+    host) passes through unchanged in every mode."""
     if _MODE[0] != "eager":
         return tensors if len(tensors) > 1 else tensors[0]
-    for t in tensors:
+    dev = [t for t in tensors if isinstance(t, torch.Tensor)]
+    for t in dev:
         if t.is_floating_point() or t.is_complex():
             raise TypeError(f"fetch takes integer or bool tensors, not {t.dtype}")
-    flat = torch.cat([t.reshape(-1).to(torch.int64) for t in tensors]).tolist()
+    flat = torch.cat([t.reshape(-1).to(torch.int64) for t in dev]).tolist() if dev else []
     out, at = [], 0
     for t in tensors:
+        if not isinstance(t, torch.Tensor):
+            out.append(t)
+            continue
         vals = flat[at:at + t.numel()]
         at += t.numel()
         if t.dtype == torch.bool:
@@ -295,10 +303,12 @@ def _if_kernels():
     from ..ops import _build
 
     P = ctypes.c_void_p
+    N = ctypes.POINTER(ctypes.c_ulonglong)
     return (_build.Kernel("graph_if", "graph_if_begin", [P, P, P, ctypes.c_int]),
-            _build.Kernel("graph_if", "graph_if_end", [P]),
+            _build.Kernel("graph_if", "graph_if_end", [P, N]),
             _build.Kernel("graph_if", "graph_stream_create", [ctypes.POINTER(P)]),
-            _build.Kernel("graph_if", "graph_if_count", [P, P, ctypes.c_int]))
+            _build.Kernel("graph_if", "graph_if_count", [P, P, ctypes.c_int]),
+            _build.Kernel("graph_if", "graph_capture_nodes", [P, N]))
 
 
 @contextlib.contextmanager
@@ -359,6 +369,7 @@ def _if_body(cap: _Capture, pred: torch.Tensor, negate: bool):
     pred = pred.contiguous()
     begin(parent.cuda_stream, body.cuda_stream, pred.data_ptr(), int(negate))
     cap.depth += 1
+    cap.n_if += 1
     slot = None
     if cap.counts is not None:
         slot = len(cap.nodes)
@@ -377,7 +388,9 @@ def _if_body(cap: _Capture, pred: torch.Tensor, negate: bool):
             cap.nodes[slot] = _minus(calls, inner)
             _add_into(cap.stack[-1][1], calls)
         cap.depth -= 1
-        end(body.cuda_stream)
+        n = ctypes.c_ulonglong()
+        end(body.cuda_stream, ctypes.byref(n))
+        cap.body_nodes += n.value
 
 
 def while_capped(cond_fn: Callable, body_fn: Callable, state, max_iters: int, active=None):
@@ -489,6 +502,17 @@ class _NoHostReads(TorchFunctionMode):
         return func(*args, **kwargs)
 
 
+def cpu_flag(t: torch.Tensor) -> bool:
+    """A CPU tensor's truth value, read under ``no_host_reads`` too: for the
+    plain versions of the kernels, which run only on CPU tensors (a CPU read
+    synchronizes nothing and no capture holds it), to stop a loop early; a
+    tensor on another device raises ``HostReadError``."""
+    if t.device.type != "cpu":
+        raise HostReadError(f"cpu_flag of a {t.device.type} tensor: a host read inside a step")
+    with torch._C.DisableTorchFunction():
+        return bool(t)
+
+
 @contextlib.contextmanager
 def no_host_reads():
     """Raise ``HostReadError`` on any operation that reads a device value
@@ -552,6 +576,10 @@ class StepGraph:
         self._top_calls: dict = {}
         self._node_calls: Optional[list] = None
         self._counts: Optional[torch.Tensor] = None
+        # the capture's size and cost: graph nodes (the top level plus every
+        # IF body's), IF nodes, and the capture call's host wall seconds
+        self.n_nodes = self.n_if = 0
+        self.capture_s = 0.0
 
     def launches(self) -> dict:
         """Launches of each kernel wrapper (``ops._build.Kernel`` -> count)
@@ -598,6 +626,7 @@ class StepGraph:
         copy_into(self._state, st_leaves)
 
     def _capture(self, inputs, state) -> None:
+        t0 = time.perf_counter()
         in_leaves, self._in_spec = flatten(inputs)
         st_leaves, self._state_spec = flatten(state)
         self._in = [x.clone() for x in in_leaves]
@@ -641,6 +670,12 @@ class StepGraph:
                         # outputs first: the state copy may rewrite what they alias
                         self._outs = [x.clone() for x in o_leaves]
                         copy_into(self._state, n_leaves)
+                    if not _IF_KERNELS:
+                        _IF_KERNELS.extend(_if_kernels())
+                    top = ctypes.c_ulonglong()
+                    _IF_KERNELS[4](side.cuda_stream, ctypes.byref(top))
+                    self.n_nodes = top.value + cap.body_nodes
+                    self.n_if = cap.n_if
                 finally:
                     torch._C._cuda_endAllocateToPool(dev.index, self._body_pool)
                     graph.capture_end()
@@ -649,6 +684,7 @@ class StepGraph:
         _release_deferred()
         torch.cuda.current_stream(dev).wait_stream(side)
         self.graph = graph
+        self.capture_s = time.perf_counter() - t0
         if cap.counts is not None:
             entry, inner = cap.stack.pop()
             self.capture_calls = _minus(_wrapper_calls(), entry)

@@ -19,13 +19,15 @@ hypotheses, so this module reproduces JAX's generator bit for bit:
   does not promise the order of ties).
 
 Integer work runs in int64 with explicit 32-bit masks: ``uint32`` tensors lack
-``>>`` on the CPU. A key is a pair of Python ints, so drawing reads nothing
-back from the card and copies nothing to it.
+``>>`` on the CPU. A key is a pair of words, each a Python int or a 0-d int64
+tensor: a seed computed on the device (the relocalization's ``frame_id * K +
+i`` from the device frame counter) gives a key on the device, and drawing
+reads nothing back from the card and copies nothing to it either way.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Tuple, Union
 
 import numpy as np
 import torch
@@ -34,11 +36,17 @@ MASK32 = 0xFFFFFFFF
 _ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
 _F32_TINY = float(np.finfo(np.float32).tiny)
 
-Key = Tuple[int, int]
+Word = Union[int, torch.Tensor]
+Key = Tuple[Word, Word]
 
 
-def prng_key(seed: int) -> Key:
-    """``jax.random.PRNGKey(uint32(seed))``: the key words (0, seed)."""
+def prng_key(seed: Word) -> Key:
+    """``jax.random.PRNGKey(seed.astype(uint32))``: the key words (0, seed
+    mod 2^32). ``seed`` is a Python int or a 0-d integer tensor (an int32
+    seed that wrapped, as JAX's int32 arithmetic wraps, maps to the same
+    word as the unwrapped int64 value)."""
+    if isinstance(seed, torch.Tensor):
+        return 0, seed.reshape(()).to(torch.int64) & MASK32
     return 0, int(seed) & MASK32
 
 
@@ -49,9 +57,10 @@ def _rotl(x: torch.Tensor, r: int) -> torch.Tensor:
 def threefry2x32(key: Key, x0: torch.Tensor, x1: torch.Tensor
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Threefry-2x32 of the int64 counter pairs (x0, x1) under ``key``;
-    int64 words in [0, 2^32)."""
+    int64 words in [0, 2^32). The key words broadcast: Python ints, or 0-d
+    int64 tensors on the counters' device."""
     k0, k1 = key
-    ks = (k0, k1, k0 ^ k1 ^ 0x1BD11BDA)
+    ks = (k0, k1, (k0 ^ k1) ^ 0x1BD11BDA)
     x0 = (x0 + ks[0]) & MASK32
     x1 = (x1 + ks[1]) & MASK32
     for i in range(5):
