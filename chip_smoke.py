@@ -91,13 +91,13 @@
    element by element (``SYMEIG_TOL_ABS``).
    Then the phase graphs of path 4 (``run_graphs_kidnap``): each variant
    through the step programs (``graphs=True``: the vocabulary's fallback
-   chain, relocalization and loop detection as conditional nodes) beside
-   ``graphs=False``: equal (trajectory, per-frame counts, keyframes,
-   relocalization frames and winners, LM counts, every map and loop-state
-   tensor), no host sync inside a tracking replay (sync debug mode
-   ``error``), one read per frame after the background replay, and from
-   frame 3 a counting run's launches of every kernel equal to eager's; frame
-   ms, replays a frame, idle share, capture time and graph nodes recorded.
+   chain, relocalization, loop detection and the loop close as conditional
+   nodes) beside ``graphs=False``: equal (trajectory, per-frame counts,
+   keyframes, relocalization frames and winners, LM counts, every map and
+   loop-state tensor), no host sync in any ``track`` call (sync debug mode
+   ``error``), and from frame 3 a counting run's launches of every kernel
+   equal to eager's; frame ms, replays a frame, idle share, capture time and
+   graph nodes recorded.
    Then transform, bow_vector and scores_vs_keyframes at
    ORBvoc scale (synth_vocabulary(k=10, levels=6), 10^6 words) on one frame's
    1000 descriptors against the CPU's results;
@@ -115,7 +115,12 @@
    the plain version; the chunk=4 run with the JAX package's own (one-sided)
    instrument must reproduce the JAX package's CPU outcome (no closure);
    the chunk=4 variant once more through the step programs
-   (``graphs=True``), held to the same gates and equal to its eager run;
+   (``graphs=True``, the close inside the background program), held to the
+   same gates, equal to its eager run, with 0 host syncs a chunk and, from
+   the second chunk on, each kernel's launches counted on the device
+   (``graphs.counting``) equal to the eager run's (the loop fuse's row 4
+   and the eigensolver among them); the closing chunk's ms, capture time and
+   graph nodes recorded;
    then global BA on tests/test_global_ba.py's fabricated scene (gba_scene),
    where its steps are taken, at the tests' caps (the card against the CPU
    within 1e-5) and at the default MapCaps: two calls identical, the robust
@@ -167,8 +172,11 @@
    at the default MapCaps, one pass: every frame tracked, n_kf_ever >= 25 and
    ATE < 0.35 m (bench.py's gates), every kernel launched, each BA kernel once
    per LM iteration; then one pass through the step programs
-   (``graphs=True``, no profiler, no count) with the same gates, equal to the
-   eager pass, its chunk ms and host syncs per chunk recorded; per-chunk
+   (``graphs=True``, the close inside the background program, no profiler)
+   with the same gates, equal to the eager pass, with 0 host syncs a chunk
+   and from the second chunk on each kernel's launches counted on the device
+   equal to the eager pass's, its chunk ms (the chunks with a rejected Sim3
+   attempt and the closing chunk apart) recorded; per-chunk
    wall, the background step per keyframe event
    (the closing event's among them), host syncs per chunk and a profiler
    window over two chunks (device busy, kernels per frame, idle share, the
@@ -1334,7 +1342,7 @@ def run_kidnap(system, cfg, voc, frames, parity: bool, recorder=None, profile_fr
     from vo_slam_test_tpu_torch.slam_map.map_state import MapCaps
 
     s = system.SlamSystem(cfg, caps=MapCaps(max_kf=32, max_pt=8192), vocabulary=voc,
-                          reloc_parity=parity)
+                          reloc_parity=parity, graphs=False)
     return s, run_timed(s, frames, recorder, profile_frames)
 
 
@@ -1926,22 +1934,25 @@ def run_pan(system, cfg, voc, frames, chunk: int, gba: bool, recorder=None, seve
     ``sever_old``) ``pan_sever_old``.
     CUDA events around each track call (per frame, or per chunk where the
     chunk's work runs), around each keyframe event's background step and
-    each global BA; host syncs per track call (sync debug mode). ``recorder``
+    each global BA; host syncs per track call (sync debug mode); each
+    kernel's launches over the run and from the second chunk on
+    (``LaunchCount``). ``recorder``
     (a LaunchRecorder) learns the frame and, as its tag, whether the loop
     correction runs; a torch.profiler window over the track calls of
     ``profile_frames`` (consecutive) -> rec["profile"] = (profiler, host wall
     ms per frame). ``diag``: the system is made with ``VO_LOOP_DIAG=1`` and
     ``drain_chunk=1`` (the host-drained Sim3 attempts with their gate values;
     a closure then runs in the next frame's track call, not in a background
-    step). ``graphs``: through the step programs; a keyframe event's
-    background step runs inside a replay, so only the eager close of a
-    confirmed candidate (``close_confirmed``) is timed, as the closing
-    event's ms."""
+    step). ``graphs``: through the step programs, captured inside
+    ``graphs.counting()``: a keyframe event's background step, its close
+    included, runs inside a replay, so no event is timed apart (the closing
+    chunk's track call is), and the launches are counted on the device."""
     from torch.profiler import ProfilerActivity, profile
 
     from vo_slam_test_tpu_torch.pipeline import loop_closing
     from vo_slam_test_tpu_torch.slam_map.map_state import MapCaps
     from vo_slam_test_tpu_torch.solvers import global_ba
+    from vo_slam_test_tpu_torch.utils import graphs as graphs_mod
     from vo_slam_test_tpu_torch.utils.drift import inject_drift
 
     D = torch.as_tensor(pan_drift()).to("cuda")
@@ -1959,15 +1970,6 @@ def run_pan(system, cfg, voc, frames, chunk: int, gba: bool, recorder=None, seve
     rec = dict(call_ms=[], syncs=[], sync_sites={}, events=[], gba=[])
     orig_bg, orig_gba, orig_corr = (system.background_step, global_ba.global_bundle_adjust,
                                     loop_closing._correct)
-    orig_close = system.close_confirmed
-
-    def timed_close(*a, **k):
-        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        e0.record()
-        out = orig_close(*a, **k)
-        e1.record()
-        rec["events"].append((e0, e1, a[5]))
-        return out
 
     def timed_bg(*a, **k):
         if not (a[2] and a[3] >= 0):  # no keyframe event
@@ -1996,16 +1998,18 @@ def run_pan(system, cfg, voc, frames, chunk: int, gba: bool, recorder=None, seve
             if recorder is not None:
                 recorder.tag = None
 
-    if graphs:
-        system.close_confirmed = timed_close
-    else:
+    if not graphs:
         system.background_step = timed_bg
     global_ba.global_bundle_adjust = timed_gba
     loop_closing._correct = tagged_correct
     kf_cut = pre_poses = pre_valid = prof = None
     rec["profile"] = None
+    count = LaunchCount(s, graphs, PAN_CHUNK)
+    counting = graphs_mod.counting() if graphs else contextlib.nullcontext()
     try:
+        counting.__enter__()
         for i, (gray, depth, ts) in enumerate(frames):
+            count.frame(i)
             if recorder is not None:
                 recorder.frame = i
             if profile_frames and i == profile_frames[0]:
@@ -2045,12 +2049,14 @@ def run_pan(system, cfg, voc, frames, chunk: int, gba: bool, recorder=None, seve
                                              for k, v in pan_sever_old(s.map, kf_cut).items()})
         torch.cuda.synchronize()
     finally:
+        counting.__exit__(None, None, None)
         system.background_step, global_ba.global_bundle_adjust = orig_bg, orig_gba
-        system.close_confirmed = orig_close
         loop_closing._correct = orig_corr
         if prof is not None:
             prof.__exit__(None, None, None)
     s.results()  # folds the graph path's per-frame records
+    rec["run_launches"], rec["launches_from_chunk_2"], rec["wrapper_calls_from_chunk_2"] = \
+        count.result()
     # keyframe events run in frame order, one background step each
     kf_frames = [i for i, o in enumerate(s._outs) if o.made_kf]
     assert graphs or len(kf_frames) == len(rec["events"])
@@ -2461,7 +2467,7 @@ def main_path6(room, room_frames, room_cfg, frames, cfg, gt, all_kernels, plains
 
         cli["slam_voc"] = probe.run("--slam --vocabulary (the scene vocabulary) --chunk 4", [
             str(tmp / "room" / "cfg.yaml"), "--slam", "--vocabulary", out["voc"], "--chunk", "4",
-            "--camera-out", out["cam3"], "--events-out", out["ev3"]])
+            "--camera-out", out["cam3"], "--events-out", out["ev3"]], graphs=True)
         ev3 = json.load(open(out["ev3"]))
         ate3b = ate_rmse(gt_t, gt6, *read_tum_trajectory(out["cam3"]))
         cli["slam_voc"].update(ate_m=float(ate3b), events=ev3)
@@ -2859,13 +2865,20 @@ def run_path8a(system, sc, frames_dev, lrec, graphs: bool = False):
     the chunk's host wall (synchronized), CUDA events around each keyframe
     event's background step, host syncs per chunk (sync debug mode; the
     syncs of this script's own wrappers left out) and a profiler window over
-    ``PATH8_PROFILE_CHUNKS`` -> (system, rec). ``graphs``: through the step
-    programs, with no profiler and no per-event events (the background steps
-    run inside replays); ``lrec`` may be None."""
+    ``PATH8_PROFILE_CHUNKS``, each kernel's launches over the run and from
+    the second chunk on (``LaunchCount``) -> (system, rec). ``graphs``:
+    through the step programs captured inside ``graphs.counting()`` (the
+    launches counted on the device), with no profiler and no per-event
+    events (the background steps, their closes included, run inside
+    replays); ``lrec`` may be None."""
     from torch.profiler import ProfilerActivity, profile
+
+    from vo_slam_test_tpu_torch.utils import graphs as graphs_mod
 
     s = system.SlamSystem(sc.cfg, vocabulary=sc.voc, chunk=sc.chunk, graphs=graphs)
     rec = dict(chunk_ms=[], syncs=[], sync_sites={}, map_events=[], profile=None)
+    count = LaunchCount(s, graphs, sc.chunk)
+    counting = graphs_mod.counting() if graphs else contextlib.nullcontext()
     orig_bg, cur = system.background_step, [0]
 
     def timed_bg(m, loop_state, did_kf, kf_id, *a, **k):
@@ -2882,7 +2895,9 @@ def run_path8a(system, sc, frames_dev, lrec, graphs: bool = False):
         system.background_step = timed_bg
     prof = None
     try:
+        counting.__enter__()
         for i, (gray, depth, ts) in enumerate(frames_dev):
+            count.frame(i)
             c, last = divmod(i, sc.chunk)
             if last == 0:
                 rec["syncs"].append(0)
@@ -2917,10 +2932,13 @@ def run_path8a(system, sc, frames_dev, lrec, graphs: bool = False):
         s._flush()
         torch.cuda.synchronize()
     finally:
+        counting.__exit__(None, None, None)
         system.background_step = orig_bg
         if prof is not None:
             prof.__exit__(None, None, None)
     s.results()  # folds the graph path's per-frame records
+    rec["run_launches"], rec["launches_from_chunk_2"], rec["wrapper_calls_from_chunk_2"] = \
+        count.result()
     # a chunk's events are mapped in frame order: the k-th event of a chunk
     # belongs to its k-th keyframe frame
     made = [o.made_kf for o in s._outs]
@@ -3042,31 +3060,61 @@ def main_path8(system, ba_cuda, ba_pallas, all_kernels, plains, dev) -> tuple:
                         n_keyframes=s.n_keyframes, staging_s=stage_s, run_s=run_s)
 
     # 8a through the step programs, beside the eager pass: bench.py's gates,
-    # equal to it, chunk ms and host syncs per chunk (no profiler, no count)
+    # equal to it, chunk ms, 0 host syncs per chunk, and from the second chunk
+    # each kernel's launches counted on the device equal to the eager pass's
+    # (no profiler)
     t0 = time.perf_counter()
     sg, rg = run_path8a(system, sc, frames_dev, None, graphs=True)
     run_g = time.perf_counter() - t0
     diag_g = bench.check(sc, sg, len(frames_dev))
     same_system_runs("main path 8a (graphs=True)", s, sg, s.results(), sg.results())
+    launches["8a graphs"] = rg["run_launches"]
     cg = np.array(rg["chunk_ms"])
+    # chunks whose keyframe events ran a rejected Sim3 attempt, apart
+    rejected = sorted({f // sc.chunk for f, _, acc, _ in sg.loop_gates if not acc})
+    closing = sorted({f // sc.chunk for f in diag_g["closures"]})
+    plain = [c for c in range(1, len(cg)) if c not in rejected and c not in closing]
+    bgg = sg.background_graph
     report["8a graphs"] = dict(
         tracked=diag_g["tracked"], n_kf_ever=diag_g["n_kf_ever"], ate_m=diag_g["ate_m"],
         closures=diag_g["closures"], chunk_ms=rg["chunk_ms"],
-        chunk_ms_median=float(np.median(cg[1:])), eager_chunk_ms_median=float(np.median(cms[1:])),
+        chunk_ms_median=float(np.median(cg[plain])),
+        eager_chunk_ms_median=float(np.median(cms[plain])),
+        rejected_attempt_chunks=rejected,
+        rejected_chunk_ms=[float(cg[c]) for c in rejected],
+        eager_rejected_chunk_ms=[float(cms[c]) for c in rejected],
+        closing_chunks=closing, closing_chunk_ms=[float(cg[c]) for c in closing],
+        eager_closing_chunk_ms=[float(cms[c]) for c in closing],
         syncs_per_chunk=rg["syncs"], sync_sites=rg["sync_sites"], run_s=run_g,
-        capture_s=dict(track=sg.track_graph.capture_s, background=sg.background_graph.capture_s),
-        graph_nodes=dict(track=sg.track_graph.n_nodes, background=sg.background_graph.n_nodes))
+        launches_from_chunk_2=rg["launches_from_chunk_2"],
+        eager_launches_from_chunk_2=rec["launches_from_chunk_2"],
+        capture_s=dict(track=sg.track_graph.capture_s, background=bgg.capture_s),
+        graph_nodes=dict(track=sg.track_graph.n_nodes, background=bgg.n_nodes),
+        if_nodes=dict(track=sg.track_graph.n_if, background=bgg.n_if))
     print(f"main path 8a through the step programs (graphs=True) in {run_g:.1f} s: tracked "
           f"{diag_g['tracked']}/{diag_g['frames']}, n_kf_ever {diag_g['n_kf_ever']}, ATE "
           f"{diag_g['ate_m'] * 100:.4f} cm, closures {diag_g['closures']}; equal to the eager "
           f"pass (trajectory, per-frame counts, keyframes, winners, LM iterations, loop "
-          f"records, every map and loop-state tensor); chunk median (after the first) "
-          f"{report['8a graphs']['chunk_ms_median']:.3f} ms against eager "
-          f"{report['8a graphs']['eager_chunk_ms_median']:.3f}; host syncs per chunk "
-          f"{rg['syncs']} (eager {rec['syncs']}), by the line that synced: {rg['sync_sites']}; "
-          f"capture {sg.track_graph.capture_s:.3f} s (tracking, {sg.track_graph.n_nodes} nodes) "
-          f"and {sg.background_graph.capture_s:.3f} s (background, "
-          f"{sg.background_graph.n_nodes} nodes)")
+          f"records, every map and loop-state tensor); chunk median (after the first, without "
+          f"a Sim3 attempt) {report['8a graphs']['chunk_ms_median']:.3f} ms against eager "
+          f"{report['8a graphs']['eager_chunk_ms_median']:.3f}; chunks with a rejected attempt "
+          f"{rejected}: {[round(float(cg[c]), 3) for c in rejected]} ms against eager "
+          f"{[round(float(cms[c]), 3) for c in rejected]}; the closing chunk {closing}: "
+          f"{[round(float(cg[c]), 3) for c in closing]} against "
+          f"{[round(float(cms[c]), 3) for c in closing]}; host syncs per chunk {rg['syncs']} "
+          f"(eager {rec['syncs']}), by the line that synced: {rg['sync_sites']}; from frame "
+          f"{sc.chunk} on, launches counted on the device {rg['launches_from_chunk_2']} (the "
+          f"wrappers {rg['wrapper_calls_from_chunk_2']}), eager {rec['launches_from_chunk_2']}; "
+          f"capture {sg.track_graph.capture_s:.3f} s (tracking, {sg.track_graph.n_nodes} nodes, "
+          f"{sg.track_graph.n_if} IF nodes) and {bgg.capture_s:.3f} s (background, "
+          f"{bgg.n_nodes} nodes, {bgg.n_if} IF nodes)")
+    missing = [k for k in ("top2_chi2", "symeig") if not rec["launches_from_chunk_2"][k]]
+    if (any(rg["syncs"]) or rg["launches_from_chunk_2"] != rec["launches_from_chunk_2"]
+            or missing or any(rg["wrapper_calls_from_chunk_2"].values())):
+        raise AssertionError(f"main path 8a (graphs=True): host syncs per chunk {rg['syncs']} "
+                             f"({rg['sync_sites']}); launches {rg['launches_from_chunk_2']} "
+                             f"(the wrappers {rg['wrapper_calls_from_chunk_2']}), eager "
+                             f"{rec['launches_from_chunk_2']}; none of {missing}")
     del sg
     gc.collect()
 
@@ -3103,7 +3151,7 @@ def main_path8(system, ba_cuda, ba_pallas, all_kernels, plains, dev) -> tuple:
         torch.cuda.synchronize()
         for k in all_kernels.values():
             k.reset()
-        s_b, wall_b = bench.track_all(sc_b, frames_b, dev)
+        s_b, wall_b = bench.track_all(sc_b, frames_b, dev, graphs=False)
         launches["8b"] = {k: v.launches for k, v in all_kernels.items()}
     diag_b = bench.check(sc_b, s_b, len(frames_b))
     print(f"main path 8b (bench corner40, chunk={sc_b.chunk}): tracked {diag_b['tracked']}/"
@@ -3168,15 +3216,44 @@ def graph_replays(s) -> int:
     return sum(sg.replays for sg in step_graphs(s))
 
 
-def graphs_run(make, frames, graphs_on: bool, profile_frames=(), count_from=None,
-               reads_after_replay: bool = False):
+class LaunchCount:
+    """Each kernel's launches over a tracker's run and from its frame
+    ``start`` on (``frame(i)`` before each track call): the wrappers' calls
+    when eager; for a graph run captured inside ``graphs.counting()``, the
+    wrappers' calls less those its captures recorded plus its replays'
+    launches counted on the device. ``result()`` -> (whole run, from
+    ``start``, the wrappers' calls from ``start``: 0 on a graph run whose
+    programs only replay by then)."""
+
+    def __init__(self, s, graphs_on: bool, start: int):
+        self.s, self.on, self.start = s, graphs_on, start
+        self.counters = kernel_counters()
+        self.first, self.at_start = self._snap(), None
+
+    def _snap(self):
+        calls = {k: v.launches for k, v in self.counters.items()}
+        return calls, graph_counts(self.s)[0] if self.on else None
+
+    def frame(self, i: int) -> None:
+        if i == self.start:
+            torch.cuda.synchronize()
+            self.at_start = self._snap()
+
+    def result(self) -> tuple:
+        calls, replayed = self._snap()
+        whole = {k: v - self.first[0][k] for k, v in calls.items()}
+        wrapped = {k: v - self.at_start[0][k] for k, v in calls.items()}
+        if not self.on:
+            return whole, wrapped, wrapped
+        window = {k: v + replayed[k] - self.at_start[1][k] for k, v in wrapped.items()}
+        return graph_run_launches(self.s, whole), window, wrapped
+
+
+def graphs_run(make, frames, graphs_on: bool, profile_frames=(), count_from=None):
     """One run of ``make()`` over device-staged ``frames``: CUDA-event ms per
     ``track`` call (a chunk's on its last frame), host syncs per call (sync
     debug mode ``warn`` when eager; ``error`` on the graph path, so one sync
-    fails the phase; with ``reads_after_replay``, the vocabulary path's,
-    ``error`` around each tracking replay and ``warn`` around the rest, which
-    counts the reads after the background replays); with ``profile_frames``,
-    a torch.profiler window; with
+    fails the phase); with ``profile_frames``, a torch.profiler window; with
     ``count_from``, each kernel's launches from that frame's call to the end
     and over the whole run, and the programs' replays from it: the wrappers'
     counts when eager; on the graph path the programs are captured inside
@@ -3188,17 +3265,6 @@ def graphs_run(make, frames, graphs_on: bool, profile_frames=(), count_from=None
 
     counting = graphs_on and count_from is not None
     s = make()
-    strict = graphs_on and not reads_after_replay
-    if graphs_on and reads_after_replay:
-        replay = s.track_graph.run
-
-        def strict_replay(*a):
-            torch.cuda.set_sync_debug_mode("error")
-            try:
-                return replay(*a)
-            finally:
-                torch.cuda.set_sync_debug_mode("warn")
-        s.track_graph.run = strict_replay
     counters = kernel_counters()
     rec = dict(call_ms=[], syncs=[], profile=None)
     start = {k: v.launches for k, v in counters.items()}
@@ -3219,7 +3285,7 @@ def graphs_run(make, frames, graphs_on: bool, profile_frames=(), count_from=None
             e0.record()
             with warnings.catch_warnings(record=True) as caught:
                 warnings.simplefilter("always")
-                torch.cuda.set_sync_debug_mode("error" if strict else "warn")
+                torch.cuda.set_sync_debug_mode("error" if graphs_on else "warn")
                 try:
                     s.track(g, d, t)
                 finally:
@@ -3397,18 +3463,19 @@ def run_graphs_kidnap(system, kcfg, voc, kframes, kframes_poor, dev) -> tuple:
     """Phase graphs, main path 4: the kidnap's three variants (default,
     depth-poor return frames, ``reloc_parity=True``) through the step
     programs (``graphs=True``: the tracking program with the vocabulary's
-    fallback chain, the background program with loop detection) beside
-    ``graphs=False`` in this call, frames staged on the card. Fails unless
-    each graph run equals the eager run (``same_system_runs``), no tracking
-    replay synchronizes (sync debug mode ``error`` around it), each frame
-    makes exactly one read after its background replay (no loop closes), and
-    from frame ``KIDNAP_COUNT_FROM`` on a counting run (``graphs.counting``)
-    launches each kernel as often as the eager run, the relocalization
-    bodies' first executions (frames 8-11) among them. Records frame ms
-    medians, graph replays a frame, device busy, kernels a frame and idle
-    share over ``KIDNAP_PROFILE`` beside eager's, and the tracking program's
-    capture time and graph nodes -> (report, each counting run's launches
-    over the whole run, warm-ups included)."""
+    fallback chain, the background program with loop detection and the
+    close) beside ``graphs=False`` in this call, frames staged on the card.
+    Fails unless each graph run equals the eager run (``same_system_runs``),
+    no ``track`` call synchronizes (sync debug mode ``error`` around it: the
+    background program holds the close, so nothing is read after its
+    replay), and from frame ``KIDNAP_COUNT_FROM`` on the graph run, captured
+    inside ``graphs.counting``, launches each kernel as often as the eager
+    run, the relocalization bodies' first executions (frames 8-11) among
+    them. Records frame ms (of that counting run) medians, graph replays a
+    frame, device busy, kernels a frame and idle share over
+    ``KIDNAP_PROFILE`` beside eager's (a run of each more), and the programs'
+    capture time and graph nodes -> (report, each graph run's launches over
+    the whole run, warm-ups included)."""
     from vo_slam_test_tpu_torch.slam_map.map_state import MapCaps
 
     def staged(fr):
@@ -3425,16 +3492,15 @@ def run_graphs_kidnap(system, kcfg, voc, kframes, kframes_poor, dev) -> tuple:
 
         a, ra = graphs_run(lambda: make(False), fr, False, count_from=c0)
         res_a = a.results()
-        b, rb = graphs_run(lambda: make(True), fr, True, reads_after_replay=True)
+        # one graph run: counted on the device (the counters add a one-thread
+        # kernel to each IF body executed) and timed
+        b, rb = graphs_run(lambda: make(True), fr, True, count_from=c0)
+        c, rc = b, rb
         res_b = b.results()
         same_system_runs(f"phase graphs, main path 4 ({label})", a, b, res_a, res_b)
-        c, rc = graphs_run(lambda: make(True), fr, True, count_from=c0, reads_after_replay=True)
-        res_c = c.results()
-        same_system_runs(f"phase graphs, main path 4 ({label}, counting run)", a, c, res_a, res_c)
-        if rb["syncs"] != [1] * len(fr) or rc["syncs"] != [1] * len(fr):
-            raise AssertionError(f"phase graphs, main path 4 ({label}): reads per frame "
-                                 f"{rb['syncs']} / {rc['syncs']}, not one after each "
-                                 f"background replay")
+        if rb["syncs"] != [0] * len(fr):
+            raise AssertionError(f"phase graphs, main path 4 ({label}): host syncs per frame "
+                                 f"{rb['syncs']}, not 0")
         if rc["launches"] != ra["launches"] or any(rc["wrapper_calls_counted"].values()):
             raise AssertionError(f"phase graphs, main path 4 ({label}): frames {c0}-{len(fr) - 1} "
                                  f"launched {rc['launches']} through the graphs (the wrappers "
@@ -3446,7 +3512,7 @@ def run_graphs_kidnap(system, kcfg, voc, kframes, kframes_poor, dev) -> tuple:
         run_launches[label] = rc["run_launches"]
         prof_rows = {}
         for on in (False, True):
-            _, rp = graphs_run(lambda: make(on), fr, on, P, reads_after_replay=True)
+            _, rp = graphs_run(lambda: make(on), fr, on, P)
             prof, wall, n_prof = rp["profile"]
             print(f"  path 4 ({label}), graphs={on}:", end=" ")
             busy, kpf = device_profile(prof, n_prof, wall)
@@ -3479,8 +3545,8 @@ def run_graphs_kidnap(system, kcfg, voc, kframes, kframes_poor, dev) -> tuple:
         report[label] = rows
         print(f"phase graphs, main path 4 ({label}): equal to graphs=False (trajectory, per-frame "
               f"counts, keyframes, reloc_frames {rows['reloc_frames']}, winners "
-              f"{rows['winners']}, LM iterations, every map and loop-state tensor); tracking "
-              f"replays 0 host syncs, reads per frame {rb['syncs']} (eager {ra['syncs']}); "
+              f"{rows['winners']}, LM iterations, every map and loop-state tensor); host syncs "
+              f"per frame {rb['syncs']} (eager {ra['syncs']}); "
               f"tracked frame median {rows['graph_tracked_median_ms']:.3f} ms against eager "
               f"{rows['eager_tracked_median_ms']:.3f}; lost frames 8-10 "
               f"{[round(x, 3) for x in rows['graph_lost_ms']]} against "
@@ -3529,6 +3595,11 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 1
+    # detach CUPTI when each profiler window ends: left attached, every later
+    # graph launch costs host time in proportion to the graph's nodes (78 ms a
+    # launch of the 180,507-node background program; perf/graphs_probe.py
+    # --launch), which the graph runs after a window would time
+    os.environ.setdefault("TEARDOWN_CUPTI", "1")
 
     from vo_slam_test_tpu_torch.config import SlamConfig
     from vo_slam_test_tpu_torch.datasets import SyntheticRGBD, ate_rmse
@@ -4214,17 +4285,40 @@ def main() -> int:
     pan[graph_label] = pan_report(graph_label, s5x, r5x, pgt)
     same_system_runs(f"main path 5 ({graph_label})", s5, s5x, s5.results(), s5x.results())
     calls = [i for i in range(len(pframes)) if (i + 1) % PAN_CHUNK == 0]
-    med_e = float(np.median([r5["call_ms"][i] for i in calls[1:]]))
-    med_g = float(np.median([r5x["call_ms"][i] for i in calls[1:]]))
+    close_call = [i for i in calls if i - PAN_CHUNK < s5x.loop_closures[0] <= i][0]
+    med_e = float(np.median([r5["call_ms"][i] for i in calls[1:] if i != close_call]))
+    med_g = float(np.median([r5x["call_ms"][i] for i in calls[1:] if i != close_call]))
+    launches5x = r5x["launches_from_chunk_2"]
+    launches5e = by_variant[f"chunk={PAN_CHUNK}"][1]["launches_from_chunk_2"]
+    bgx = s5x.background_graph
     pan[graph_label].update(chunk_ms_median=med_g, eager_chunk_ms_median=med_e,
+                            closing_chunk_ms=r5x["call_ms"][close_call],
+                            eager_closing_chunk_ms=r5["call_ms"][close_call],
+                            launches=launches5x, eager_launches=launches5e,
                             capture_s=dict(track=s5x.track_graph.capture_s,
-                                           background=s5x.background_graph.capture_s),
+                                           background=bgx.capture_s),
                             graph_nodes=dict(track=s5x.track_graph.n_nodes,
-                                             background=s5x.background_graph.n_nodes))
+                                             background=bgx.n_nodes),
+                            if_nodes=dict(track=s5x.track_graph.n_if, background=bgx.n_if))
     print(f"  {graph_label}: equal to the eager chunk={PAN_CHUNK} run (trajectory, per-frame "
           f"counts, keyframes, LM iterations, loop records, every map and loop-state tensor); "
-          f"chunk ms median {med_g:.3f} against eager {med_e:.3f} (chunks after the first); "
-          f"host syncs per track call {r5x['syncs']} (eager {r5['syncs']})")
+          f"chunk ms median {med_g:.3f} against eager {med_e:.3f} (chunks after the first, the "
+          f"closing one apart); the closing chunk (frames {close_call - PAN_CHUNK + 1}-"
+          f"{close_call}) {r5x['call_ms'][close_call]:.3f} ms against eager "
+          f"{r5['call_ms'][close_call]:.3f}; host syncs per track call {r5x['syncs']} (eager "
+          f"{r5['syncs']}); from frame {PAN_CHUNK} on, launches counted on the device "
+          f"{launches5x} (the wrappers {r5x['wrapper_calls_from_chunk_2']}), eager "
+          f"{launches5e}; over the whole run {r5x['run_launches']}; "
+          f"capture {s5x.track_graph.capture_s:.3f} s (tracking, {s5x.track_graph.n_nodes} "
+          f"nodes) and {bgx.capture_s:.3f} s (background, {bgx.n_nodes} nodes, {bgx.n_if} IF "
+          f"nodes)")
+    missing = [k for k in ("top2_chi2", "symeig") if not launches5e[k]]
+    if (any(r5x["syncs"]) or launches5x != launches5e or missing
+            or any(r5x["wrapper_calls_from_chunk_2"].values())):
+        raise AssertionError(f"main path 5 ({graph_label}): host syncs {r5x['syncs']}; "
+                             f"launches {launches5x} through the graphs (the wrappers "
+                             f"{r5x['wrapper_calls_from_chunk_2']}), {launches5e} eager; none of "
+                             f"{missing} from frame {PAN_CHUNK}")
 
     # -- main path 5 through the VO_LOOP_DIAG drain path (chunk=1, drain_chunk=1)
     with PlainGuard(plains) as guard5d:
@@ -4344,8 +4438,11 @@ def main() -> int:
                                           "3 graphs": graph_launches[3][k], "4": launches4[k],
                                           "4 graphs": sum(v[k] for v in graph_launches4.values()),
                                           "5": launches5[k], "5 VO_LOOP_DIAG": launches5d[k],
+                                          "5 graphs": r5x["run_launches"][k],
                                           "6": launches6[k], "7": launches7[k],
-                                          "8a": launches8["8a"][k], "8b": launches8["8b"][k]}
+                                          "8a": launches8["8a"][k],
+                                          "8a graphs": launches8["8a graphs"][k],
+                                          "8b": launches8["8b"][k]}
     on_paths = {k: kernels[k]["launches_by_path"] for k in OFF_PATH
                 if any(kernels[k]["launches_by_path"].values())}
     if on_paths:

@@ -2,7 +2,8 @@
 through ``utils.graphs.StepGraph`` beside ``graphs=False`` in one process.
 
     python3 perf/graphs_probe.py [--frames N] [--skip-chunk] [--sites] [--bisect]
-                                 [--smoke-phase] [--vocab]
+                                 [--smoke-phase] [--vocab] [--close] [--loop]
+                                 [--depth] [--launch]
 
 Prints torch's version and whether ``torch.cuda.CUDAGraph`` has
 ``begin_capture_to_if_node``; checks a captured ``cond`` and ``while_capped``
@@ -17,7 +18,22 @@ operations and each mapping-chain stage inside an IF body (which ones
 instantiate); ``--smoke-phase`` runs only
 ``chip_smoke.run_graphs_phase``; ``--vocab`` captures the vocabulary path's
 operations inside an IF body one by one, then runs the smoke's eigensolver
-phase and main path 4 through graphs (``chip_smoke.run_graphs_kidnap``).
+phase and main path 4 through graphs (``chip_smoke.run_graphs_kidnap``);
+``--close`` captures the loop close's operations inside an IF body one by one
+(the dense pose-graph solve at path 5's and the default caps' sizes, the Sim3
+RANSAC and refinement, forward-mode Jacobians, the whole pose graph with a
+device ``fixed_kf``), each replay against eager; ``--loop`` runs the smoke's
+main path 5 (``chunk=4``) and main path 8a eagerly and through the step
+programs with the close inside the background program (``chip_smoke.run_pan``,
+``run_path8a``): equal, host syncs per chunk, launches from the second chunk
+on (counted on the device), the closing chunk's ms, capture time and nodes;
+``--depth``
+captures the essential graph's dense solve at K 256 (one (K*7)^2 system) and
+its pieces under 1, 2 and 3 nested conds, with ``solve_ex`` and with a
+Cholesky, before and after running each once on the IF-body streams;
+``--launch`` times main path 5 (``chunk=4``) through the step programs in a
+fresh process, then again after a short ``torch.profiler`` session, with the
+host seconds of each program's ``replay`` call.
 Needs the card; exits 1 without one.
 """
 
@@ -25,6 +41,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import gc
 import sys
 import time
 import traceback
@@ -218,6 +235,292 @@ def vocab_cases(graphs) -> None:
             print(f"  vocab {name}: FAILED {type(e).__name__}: {str(e)[:200]}", flush=True)
 
 
+def close_cases(graphs) -> None:
+    """The loop close's operations inside an IF body, each its own StepGraph,
+    each replay against eager: ``solve_ex`` on one dense system (refine's
+    6x6, the pose graph's (K*7)^2 at K 32 and 256), a Cholesky with two
+    triangular solves at K 256, ``jac_at_zero`` (``torch.func.jvp``), the
+    Sim3 RANSAC with a device seed and its refinement, and
+    ``solve_pose_graph`` with a device ``fixed_kf``."""
+    from vo_slam_test_tpu_torch import lie
+    from vo_slam_test_tpu_torch.solvers import pose_graph, sim3
+
+    dev = torch.device("cuda")
+    g = torch.Generator().manual_seed(9)
+
+    def spd(n):
+        A = torch.randn(n, n, generator=g)
+        return (A @ A.T / n + torch.eye(n)).to(dev), torch.randn(n, generator=g).to(dev)
+
+    H6, b6 = spd(6)
+    H224, b224 = spd(224)
+    H1792, b1792 = spd(1792)
+    W = torch.randn(14, 7, generator=g).to(dev)
+    N = 128
+    pc2 = (torch.randn(N, 3, generator=g) * 0.5 + torch.tensor([0.0, 0.0, 3.0])).to(dev)
+    R = lie.se3_exp(torch.tensor([0.02, -0.01, 0.03, 0.01, 0.02, -0.01]).to(dev))
+    pc1 = pc2 @ R[:3, :3].T + R[:3, 3]
+
+    def proj(p):
+        return torch.stack([500 * p[:, 0] / p[:, 2] + 320, 500 * p[:, 1] / p[:, 2] + 240], -1)
+
+    uv1, uv2 = proj(pc1), proj(pc2)
+    ok = torch.ones(N, dtype=torch.bool, device=dev)
+    gate = torch.full((N,), 9.21, device=dev)
+    seed = torch.full((), 9, dtype=torch.int32, device=dev)
+
+    def chain(K, n):
+        """A drifted chain of n live keyframes in a K-slot graph."""
+        xi = torch.randn(K, 6, generator=g).to(dev) * 0.05
+        xi[:, 2] += torch.arange(K, device=dev) * 0.1
+        T = lie.se3_exp(xi)
+        valid = torch.arange(K, device=dev) < n
+        ids = torch.arange(K, device=dev)
+        edges = ((ids[:, None] - ids[None, :]).abs() == 1) & valid[:, None] & valid[None, :]
+        edges[0, n - 1] = edges[n - 1, 0] = True
+        meas = torch.einsum("iab,jbc->ijac", T, lie.se3_inverse(T))
+        noise = lie.se3_exp(torch.randn(K, 6, generator=g).to(dev) * 0.01)
+        Tn = noise @ T
+        return (torch.ones(K, device=dev), Tn[:, :3, :3], Tn[:, :3, 3], valid, edges,
+                torch.ones(K, K, device=dev), meas[:, :, :3, :3], meas[:, :, :3, 3])
+
+    c32, c256 = chain(32, 20), chain(256, 60)
+    fixed = torch.full((), 3, dtype=torch.int32, device=dev)
+
+    def pg(c):
+        s, Ro, t = pose_graph.solve_pose_graph(*c, fixed, iters=20)
+        return torch.cat([s[:, None], Ro.reshape(-1, 9), t], 1)
+
+    def chol_solve(H, b):
+        L = torch.linalg.cholesky_ex(H)[0]
+        y = torch.linalg.solve_triangular(L, b[:, None], upper=False)
+        return torch.linalg.solve_triangular(L.mT, y, upper=True)[:, 0]
+
+    cases = {
+        "solve_ex f32 6x6": lambda: torch.linalg.solve_ex(H6, b6)[0],
+        "solve_ex f32 224x224": lambda: torch.linalg.solve_ex(H224, b224)[0],
+        "solve_ex f32 1792x1792": lambda: torch.linalg.solve_ex(H1792, b1792)[0],
+        "cholesky_ex + 2 solve_triangular 1792": lambda: chol_solve(H1792, b1792),
+        "jac_at_zero [4096,14]": lambda: sim3.jac_at_zero(
+            lambda x: torch.sin(x) @ W, (4096, 14), dev)[1],
+        "ransac_sim3, device seed": lambda: sim3.ransac_sim3(
+            pc1, pc2, uv1, uv2, gate, gate, ok, 500.0, 500.0, 320.0, 240.0, seed)[1],
+        "refine_sim3": lambda: sim3.refine_sim3(
+            torch.eye(4, device=dev), torch.ones((), device=dev), pc1, pc2, uv1, uv2,
+            torch.ones(N, device=dev), torch.ones(N, device=dev), ok, 500.0, 500.0, 320.0,
+            240.0)[1],
+        "solve_pose_graph K 32, device fixed_kf": lambda: pg(c32),
+        "solve_pose_graph K 256, device fixed_kf": lambda: pg(c256),
+    }
+    for name, fn in cases.items():
+        sg = graphs.StepGraph(lambda inp, st, fn=fn: (st, graphs.cond(inp[0], fn,
+                                                                       lambda: fn() * 0)),
+                              dev, name)
+        go = torch.ones((), dtype=torch.bool, device=dev)
+        try:
+            outs = [sg.run((go,), torch.zeros(1, device=dev))[1] for _ in range(3)]
+            torch.cuda.synchronize()
+            want = fn()
+            same = all(torch.equal(torch.nan_to_num(o), torch.nan_to_num(want)) for o in outs)
+            e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            e0.record()
+            sg.run((go,), torch.zeros(1, device=dev))
+            e1.record()
+            torch.cuda.synchronize()
+            print(f"  close {name}: ok, replays equal eager {same}, {sg.n_nodes} nodes, "
+                  f"replay {e0.elapsed_time(e1):.3f} ms", flush=True)
+        except Exception as e:  # noqa: BLE001 - the probe reports every case
+            print(f"  close {name}: FAILED {type(e).__name__}: {str(e)[:200]}", flush=True)
+
+
+def loop_paths(system, dev) -> None:
+    """Main paths 5 (``chunk=4``) and 8a, eager and through the step
+    programs, with the smoke's own run functions and checks."""
+    import json
+
+    import chip_smoke
+    from vo_slam_test_tpu_torch import bench
+
+    pseq, pcfg = chip_smoke.pan_sequence()
+    pframes = [pseq[i] for i in range(len(pseq))]
+    pvoc = chip_smoke.pan_vocabulary(pseq, pcfg, dev)
+    rows = {}
+    runs = {}
+    for on in (False, True):
+        t0 = time.perf_counter()
+        runs[on] = chip_smoke.run_pan(system, pcfg, pvoc, pframes, chip_smoke.PAN_CHUNK, False,
+                                      graphs=on)
+        print(f"path 5 graphs={on} in {time.perf_counter() - t0:.1f} s", flush=True)
+    (a, ra), (b, rb) = runs[False], runs[True]
+    chip_smoke.same_system_runs("path 5 (graphs=True)", a, b, a.results(), b.results())
+    calls = [i for i in range(len(pframes)) if (i + 1) % chip_smoke.PAN_CHUNK == 0]
+    bg = b.background_graph
+    rows["5"] = dict(closures=b.loop_closures, syncs=rb["syncs"], eager_syncs=ra["syncs"],
+                     chunk_ms=[rb["call_ms"][i] for i in calls],
+                     eager_chunk_ms=[ra["call_ms"][i] for i in calls],
+                     launches_equal=rb["launches_from_chunk_2"] == ra["launches_from_chunk_2"],
+                     launches=rb["launches_from_chunk_2"],
+                     eager_launches=ra["launches_from_chunk_2"],
+                     wrappers=rb["wrapper_calls_from_chunk_2"],
+                     capture_s=[b.track_graph.capture_s, bg.capture_s],
+                     nodes=[b.track_graph.n_nodes, bg.n_nodes], if_nodes=[b.track_graph.n_if,
+                                                                           bg.n_if])
+    print(json.dumps({"path5": rows["5"]}), flush=True)
+    del a, b, runs
+    gc.collect()
+    sc = bench.build_scenario("kfdense", dev)
+    frames_dev = bench.stage_frames(sc.frames, dev)
+    runs = {}
+    for on in (False, True):
+        t0 = time.perf_counter()
+        runs[on] = chip_smoke.run_path8a(system, sc, frames_dev, None, graphs=on)
+        print(f"path 8a graphs={on} in {time.perf_counter() - t0:.1f} s", flush=True)
+    (a, ra), (b, rb) = runs[False], runs[True]
+    chip_smoke.same_system_runs("path 8a (graphs=True)", a, b, a.results(), b.results())
+    diag = bench.check(sc, b, len(frames_dev))
+    bg = b.background_graph
+    rejected = sorted({f // sc.chunk for f, _, acc, _ in b.loop_gates if not acc})
+    rows["8a"] = dict(diag=diag, syncs=rb["syncs"], sync_sites=rb["sync_sites"],
+                      eager_syncs=ra["syncs"], chunk_ms=rb["chunk_ms"],
+                      eager_chunk_ms=ra["chunk_ms"], rejected_chunks=rejected,
+                      launches_equal=rb["launches_from_chunk_2"] == ra["launches_from_chunk_2"],
+                      launches=rb["launches_from_chunk_2"],
+                      eager_launches=ra["launches_from_chunk_2"],
+                      wrappers=rb["wrapper_calls_from_chunk_2"],
+                      capture_s=[b.track_graph.capture_s, bg.capture_s],
+                      nodes=[b.track_graph.n_nodes, bg.n_nodes],
+                      if_nodes=[b.track_graph.n_if, bg.n_if])
+    print(json.dumps({"path8a": rows["8a"]}, default=str), flush=True)
+
+
+def depth_cases(graphs) -> None:
+    """The pose graph's dense solve at K 256 and its pieces under 1-3 nested
+    conds (each its own StepGraph): ``solve_ex`` on one 1792x1792 system, a
+    Cholesky with two triangular solves, the one-hot block sums, the whole
+    ``solve_pose_graph``; then each body stream runs ``solve_ex`` once outside
+    any capture, and the failing cases are tried again."""
+    from vo_slam_test_tpu_torch import lie
+    from vo_slam_test_tpu_torch.solvers import pose_graph
+
+    dev = torch.device("cuda")
+    g = torch.Generator().manual_seed(4)
+    n = 1792
+    A = torch.randn(n, n, generator=g)
+    H = (A @ A.T / n + torch.eye(n)).to(dev)
+    b = torch.randn(n, generator=g).to(dev)
+    O = torch.randn(4096, 256, generator=g).to(dev)
+    X = torch.randn(4096, 49, generator=g).to(dev)
+    K = 256
+    xi = torch.randn(K, 6, generator=g).to(dev) * 0.05
+    T = lie.se3_exp(xi)
+    valid = torch.arange(K, device=dev) < 60
+    ids = torch.arange(K, device=dev)
+    edges = ((ids[:, None] - ids[None, :]).abs() == 1) & valid[:, None] & valid[None, :]
+    meas = torch.einsum("iab,jbc->ijac", T, lie.se3_inverse(T))
+    fixed = torch.full((), 3, dtype=torch.int32, device=dev)
+
+    def chol(H, b):
+        L = torch.linalg.cholesky_ex(H)[0]
+        y = torch.linalg.solve_triangular(L, b[:, None], upper=False)
+        return torch.linalg.solve_triangular(L.mT, y, upper=True)[:, 0]
+
+    cases = {
+        "solve_ex 1792": lambda: torch.linalg.solve_ex(H, b)[0],
+        "lu_factor_ex 1792": lambda: torch.linalg.lu_factor_ex(H)[0],
+        "cholesky + solve_triangular 1792": lambda: chol(H, b),
+        "one-hot sums [256,4096]@[4096,49]": lambda: O.T @ X,
+        "solve_pose_graph K 256": lambda: pose_graph.solve_pose_graph(
+            torch.ones(K, device=dev), T[:, :3, :3], T[:, :3, 3], valid, edges,
+            torch.ones(K, K, device=dev), meas[:, :, :3, :3], meas[:, :, :3, 3], fixed,
+            iters=2)[2],
+    }
+    true = torch.ones((), dtype=torch.bool, device=dev)
+
+    def attempt(name, fn, depth, tag):
+        want = fn()
+
+        def nest(d):
+            if d == 0:
+                return fn()
+            return graphs.cond(true, lambda: nest(d - 1), lambda: torch.zeros_like(want))
+
+        sg = graphs.StepGraph(lambda inp, st: (st, nest(depth)), dev, name)
+        try:
+            outs = [sg.run((), torch.zeros(1, device=dev))[1] for _ in range(3)]
+            torch.cuda.synchronize()
+            same = all(torch.equal(o, want) for o in outs)
+            print(f"  depth {tag} {depth} {name}: ok, equal {same}, {sg.n_nodes} nodes", flush=True)
+            return True
+        except Exception as e:  # noqa: BLE001 - the probe reports every case
+            print(f"  depth {tag} {depth} {name}: FAILED {type(e).__name__}: {str(e)[:100]}",
+                  flush=True)
+            return False
+
+    failed = [(name, d) for d in (1, 2, 3) for name, fn in cases.items()
+              if not attempt(name, fn, d, "first")]
+    for d in range(3):
+        with torch.cuda.stream(graphs._body_stream(dev, d)):
+            torch.linalg.solve_ex(H, b)
+            _ = O.T @ X
+    torch.cuda.synchronize()
+    for name, d in failed:
+        attempt(name, cases[name], d, "after a run on each body stream")
+
+
+def launch_cases(system, dev) -> None:
+    """Main path 5 through the step programs twice per setting, the chunk ms
+    and the host ms of each ``CUDAGraph.replay`` call (tracking, background):
+    in a fresh process, after a short ``torch.profiler`` session, and after
+    that session's runs with the profiler's state cleared."""
+    import json
+
+    from torch.profiler import ProfilerActivity, profile
+
+    import chip_smoke
+    from vo_slam_test_tpu_torch.utils import graphs as graphs_mod
+
+    pseq, pcfg = chip_smoke.pan_sequence()
+    pframes = [pseq[i] for i in range(len(pseq))]
+    pvoc = chip_smoke.pan_vocabulary(pseq, pcfg, dev)
+    replay_ms: dict = {}
+    orig = graphs_mod.StepGraph.run
+
+    def timed(sg, *a):
+        if sg.graph is None:
+            return orig(sg, *a)
+        replay = sg.graph.replay
+
+        def host_timed():
+            t0 = time.perf_counter()
+            replay()
+            replay_ms.setdefault(sg.name, []).append((time.perf_counter() - t0) * 1e3)
+        sg.graph.replay = host_timed
+        try:
+            return orig(sg, *a)
+        finally:
+            sg.graph.replay = replay
+
+    graphs_mod.StepGraph.run = timed
+    calls = [i for i in range(len(pframes)) if (i + 1) % chip_smoke.PAN_CHUNK == 0]
+    out = {}
+    for label in ("fresh", "fresh again", "after a profiler session", "after it, again"):
+        if label == "after a profiler session":
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
+                (torch.ones(8, device=dev) * 2).sum().item()
+        replay_ms.clear()
+        s, r = chip_smoke.run_pan(system, pcfg, pvoc, pframes, chip_smoke.PAN_CHUNK, False,
+                                  graphs=True)
+        ms = [r["call_ms"][i] for i in calls[1:]]
+        out[label] = dict(chunk_ms_median=float(np.median(ms)),
+                          replay_host_ms_median={k: float(np.median(v))
+                                                 for k, v in replay_ms.items()},
+                          nodes=[s.track_graph.n_nodes, s.background_graph.n_nodes])
+        print(f"  launch {label}: {json.dumps(out[label])}", flush=True)
+        del s
+        gc.collect()
+    graphs_mod.StepGraph.run = orig
+
+
 def vocab_paths(system, dev) -> None:
     """The smoke's eigensolver phase, then main path 4 through the step
     programs (``chip_smoke.run_graphs_kidnap``)."""
@@ -285,6 +588,15 @@ def main() -> int:
     ap.add_argument("--vocab", action="store_true",
                     help="the vocabulary path's operations inside an IF body, the eigensolver "
                          "phase and main path 4 through graphs, then stop")
+    ap.add_argument("--close", action="store_true",
+                    help="the loop close's operations inside an IF body, then stop")
+    ap.add_argument("--loop", action="store_true",
+                    help="main paths 5 (chunk=4) and 8a eagerly and through the step programs, "
+                         "then stop")
+    ap.add_argument("--depth", action="store_true",
+                    help="the pose graph's dense solve under nested conds, then stop")
+    ap.add_argument("--launch", action="store_true",
+                    help="path 5's graph run fresh and after a profiler session, then stop")
     args = ap.parse_args()
 
     from vo_slam_test_tpu_torch.config import SlamConfig
@@ -307,6 +619,18 @@ def main() -> int:
         return 2
 
     dev = torch.device("cuda")
+    if args.close:
+        close_cases(graphs)
+        return 0
+    if args.loop:
+        loop_paths(system, dev)
+        return 0
+    if args.depth:
+        depth_cases(graphs)
+        return 0
+    if args.launch:
+        launch_cases(system, dev)
+        return 0
     if args.vocab:
         vocab_cases(graphs)
         vocab_paths(system, dev)

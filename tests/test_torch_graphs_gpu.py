@@ -357,7 +357,7 @@ def test_vocabulary_system_graph_equals_eager(kidnap, parity):
     """Module 8: SlamSystem(vocabulary=..., graphs=True) over the kidnap:
     every map and loop-state tensor, the poses, keyframes, relocalization
     frames and winners equal eager's; no host sync inside any tracking
-    replay, and one read after each background replay."""
+    replay, and none after a background replay (the close runs inside it)."""
     import warnings
 
     from vo_slam_test_tpu_torch.slam_map.map_state import MapCaps
@@ -389,7 +389,7 @@ def test_vocabulary_system_graph_equals_eager(kidnap, parity):
             finally:
                 torch.cuda.set_sync_debug_mode("default")
         reads.append(sum("synchroniz" in str(w.message) for w in caught))
-    assert reads == [1] * len(frames) and b.track_graph.replays == len(frames) - 2
+    assert reads == [0] * len(frames) and b.track_graph.replays == len(frames) - 2
     ra, rb = a.results(), b.results()
     assert np.array_equal(ra[0], rb[0]) and ra[1] == rb[1]
     assert a.reloc_frames == b.reloc_frames and a.reloc_frames[0] == 11
@@ -399,3 +399,92 @@ def test_vocabulary_system_graph_equals_eager(kidnap, parity):
         assert torch.equal(getattr(a.map, f.name), getattr(b.map, f.name)), f.name
     for f in dataclasses.fields(a.loop_state):
         assert torch.equal(getattr(a.loop_state, f.name), getattr(b.loop_state, f.name)), f.name
+
+
+def test_loop_chain_background_program_closes_like_eager(cuda, monkeypatch):
+    """Module 9: the background step with the loop close inside (the
+    candidate scan, the correction with its loop fuse, the essential graph)
+    on the drifted chain (tests/torch_loop_chain.py: four keyframe events of
+    KF9, the fourth confirms KF0 and closes), captured and replayed against
+    eager ``background_step``, bit for bit, with no host sync from the
+    capture on; the close runs in a replay. Then SlamSystem's graph path with
+    ``enable_global_ba``: one read after each dispatch's replays, and global
+    BA after the closure, equal to the eager system."""
+    import types
+    import warnings
+
+    from torch_loop_chain import CAPS, GROUP_DIV, KW, SCALES, drifted_chain
+    from vo_slam_test_tpu_torch.bow import vocabulary as bow_voc
+    from vo_slam_test_tpu_torch.camera import Camera
+    from vo_slam_test_tpu_torch.pipeline import loop_closing as LC
+    from vo_slam_test_tpu_torch.pipeline import system
+
+    cam = Camera.from_config(SlamConfig(**KW), cuda)
+    sf = torch.as_tensor(SCALES, device=cuda)
+
+    def step(ev, carry):
+        m, ls, bg = system.background_step(*carry, *ev, CAPS, cam, sf, True, GROUP_DIV)
+        return (m, ls), (bg.cands, bg.close)
+
+    sg = graphs.StepGraph(step, cuda, "chain")
+    ev = (torch.tensor(True, device=cuda), torch.tensor(9, dtype=torch.int32, device=cuda),
+          torch.tensor(True, device=cuda))
+    m_e, ls_e = drifted_chain(cuda), LC.empty_loop_state(CAPS, cuda)
+    carry = (drifted_chain(cuda), LC.empty_loop_state(CAPS, cuda))
+    closed = []
+    for r in range(4):
+        m_e, ls_e, out_e = system.background_step(m_e, ls_e, True, 9, True, CAPS, cam, sf, True,
+                                                  GROUP_DIV)
+        torch.cuda.set_sync_debug_mode("error" if r else "default")
+        try:
+            carry, (cands, close) = sg.run(ev, carry)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        out_g = system.BackgroundOut()
+        out_g.fold(*graphs.fetch(cands, *close.leaves()))
+        assert (out_e.attempted, out_e.closed, out_e.which, out_e.attempts) == \
+            (out_g.attempted, out_g.closed, out_g.which, out_g.attempts), r
+        assert bit_equal((m_e, ls_e), carry), r
+        closed.append(out_g.closed)
+    assert closed == [False, False, False, True] and sg.replays == 3
+    assert out_g.attempts[0][:2] == (0, True)
+
+    voc = bow_voc.synth_vocabulary(k=10, levels=3, seed=0, device=cuda)
+    eager, graph = (SlamSystem(SlamConfig(**KW), caps=CAPS, vocabulary=voc, enable_global_ba=True,
+                               graphs=on) for on in (False, True))
+    runs = []
+    for s in (eager, graph):
+        s.map = drifted_chain(cuda)
+        gba = s._global_ba
+
+        def counted(gba=gba, s=s):
+            runs.append(s)
+            torch.cuda.set_sync_debug_mode("default")  # global BA's own reads are not counted
+            try:
+                gba()
+            finally:
+                torch.cuda.set_sync_debug_mode("warn")
+        monkeypatch.setattr(s, "_global_ba", counted)
+    reads = []
+    made, kid = torch.ones(1, dtype=torch.bool, device=cuda), torch.full(
+        (1,), 9, dtype=torch.int32, device=cuda)
+    for r in range(4):
+        eager.map, eager.loop_state, bg = system.background_step(
+            eager.map, eager.loop_state, True, 9, True, CAPS, eager.camera, eager.scale_factors,
+            True, GROUP_DIV)
+        eager._fold_background([(r, True, bg)])
+        graph._outs.append(types.SimpleNamespace(made_kf=None, reloc_winner=None))
+        torch.cuda.synchronize()
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                graph._graph_background_steps(len(graph._outs) - 1, made, kid, made)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        graph._frame_id += 1
+        reads.append(sum("synchroniz" in str(w.message) for w in caught))
+    assert reads == [1] * 4 and runs == [eager, graph]
+    assert graph.loop_closures == eager.loop_closures == [3]
+    assert graph.loop_gates == eager.loop_gates and graph.ba_iters == eager.ba_iters
+    assert bit_equal((eager.map, eager.loop_state), (graph.map, graph.loop_state))

@@ -30,7 +30,25 @@ before the clock stops, and ``results()`` runs after it. The background
 device ms comes from one more run under ``torch.profiler``: the device time
 of the kernels launched inside the ``background``, ``close_step`` and
 ``global_bundle`` ranges of ``pipeline/system.py`` (the JAX package's
-background programs).
+background programs); a replayed graph's kernels are placed by the time of
+their ``cudaGraphLaunch``.
+
+The systems run the step programs (``SlamSystem``'s default on the card:
+replayed CUDA graphs with conditional nodes, the loop close inside the
+background program); ``measure(..., graphs=False)`` times the eager path. A
+fresh system warms up and captures its two programs during its first frames,
+inside its timed run (the JAX package compiles once per process, in its warm
+pass); ``setup_s`` reports the host seconds of the two programs' warm-ups
+and captures. On the graph path the profiler traces a window of two chunks
+after the captures (``trace_window``; a capture under the profiler, and a
+trace of a whole run of replays, crashed the process on the card), and the
+background device ms is the profiler's sum over the window plus the CUDA
+events around each replay of the background program outside it
+(``background_device_ms_events``; its warm-up and capture run in the first
+frames, their host time in ``setup_s``). Inside the window each graph launch
+waits on the host for the profiler, so the events there
+(``background_device_ms_events_window``) are printed beside the profiler's
+sum, not used. Device busy and kernels per frame cover the window only.
 
 The port is host-bound: the background work also costs host time on the one
 tracking thread, which the metric does not subtract. The components (wall
@@ -145,13 +163,14 @@ def stage_frames(frames, device) -> list:
     return staged
 
 
-def track_all(sc: Scenario, frames_dev, device, syncs: Optional[list] = None
-              ) -> Tuple[SlamSystem, float]:
-    """A fresh system over the staged frames -> (system, wall s): every
-    tracking and background kernel has finished when the clock stops.
-    ``syncs`` (on the card): gets the host syncs of each chunk, counted in
-    the sync debug mode (slower: not for a timed run)."""
-    s = SlamSystem(sc.cfg, vocabulary=sc.voc, chunk=sc.chunk, device=device)
+def track_all(sc: Scenario, frames_dev, device, syncs: Optional[list] = None,
+              graphs: Optional[bool] = None) -> Tuple[SlamSystem, float]:
+    """A fresh system (``graphs``: ``SlamSystem``'s switch, None its default)
+    over the staged frames -> (system, wall s): every tracking and background
+    kernel has finished when the clock stops. ``syncs`` (on the card): gets
+    the host syncs of each chunk, counted in the sync debug mode (slower: not
+    for a timed run)."""
+    s = SlamSystem(sc.cfg, vocabulary=sc.voc, chunk=sc.chunk, device=device, graphs=graphs)
     count = syncs is not None and torch.device(device).type == "cuda"
     t0 = time.perf_counter()
     for i, (g, d, ts) in enumerate(frames_dev):
@@ -207,10 +226,18 @@ def check(sc: Scenario, s: SlamSystem, n_frames: int) -> dict:
     return diag
 
 
-def run(sc: Scenario, frames_dev, device, syncs: Optional[list] = None) -> Tuple[float, dict]:
-    """One timed run, then the gates -> (wall s, the run's numbers)."""
-    s, wall = track_all(sc, frames_dev, device, syncs)
-    return wall, check(sc, s, len(frames_dev))
+def setup_s(s: SlamSystem) -> float:
+    """Host seconds of the system's step programs' warm-ups and captures (0
+    eager)."""
+    return sum(g.warm_s + g.capture_s for g in (s.track_graph, s.background_graph))
+
+
+def run(sc: Scenario, frames_dev, device, syncs: Optional[list] = None,
+        graphs: Optional[bool] = None) -> Tuple[float, dict]:
+    """One timed run, then the gates -> (wall s, the run's numbers, with the
+    programs' ``setup_s``)."""
+    s, wall = track_all(sc, frames_dev, device, syncs, graphs)
+    return wall, dict(check(sc, s, len(frames_dev)), setup_s=setup_s(s))
 
 
 # ---------------------------------------------------------------------------
@@ -277,53 +304,143 @@ def background_device_ms(ranges, acts) -> dict:
                 bg_host_ms=sum(b - a for a, b in merged) / 1e6, unplaced=unplaced)
 
 
-def traced_run(sc: Scenario, frames_dev, device) -> Tuple[float, dict]:
+def time_background_replays(s: SlamSystem, spans: list) -> None:
+    """On the card's graph path: a CUDA event pair around each replay of the
+    system's background program (not its warm-up and capture, whose host
+    time is ``setup_s``), appended to ``spans``."""
+    if not (s.graphs and s.device.type == "cuda"):
+        return
+    program = s.background_graph
+    run_program = program.run
+
+    def timed(*args):
+        if program.graph is None:
+            return run_program(*args)
+        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        e0.record()
+        out = run_program(*args)
+        e1.record()
+        spans.append((e0, e1))
+        return out
+
+    s.background_graph.run = timed
+
+
+def trace_window(sc: Scenario, n_frames: int, on_graphs: bool) -> range:
+    """The frames the traced run profiles: all of them when eager; on the
+    graph path two chunks from the middle of the run, after the programs'
+    captures (a capture under the profiler, and a trace of a whole run of
+    replays, crashed the process on the card)."""
+    if not on_graphs:
+        return range(n_frames)
+    start = max(1, n_frames // sc.chunk // 2 - 1) * sc.chunk
+    return range(start, min(n_frames, start + 2 * sc.chunk))
+
+
+def traced_run(sc: Scenario, frames_dev, device, graphs: Optional[bool] = None
+               ) -> Tuple[float, dict]:
     """One more run under ``torch.profiler`` (CUDA activities on the card)
-    -> (wall s, ``background_device_ms``'s dict)."""
+    over ``trace_window``'s frames -> (wall s, ``background_device_ms``'s
+    dict, with ``window`` (first frame, frames) and, on the graph path, the
+    CUDA events' sum over the background program's replays outside the
+    window (``events_ms``) and over those inside it (``events_window_ms``,
+    beside the profiler's ``bg_ms``: inside the window each launch waits on
+    the host for the profiler, which the events count), else None).
+    ``TEARDOWN_CUPTI=1`` (unless set): a profiler session that leaves CUPTI
+    attached makes every later graph launch cost host time in proportion to
+    the graph's nodes (78 ms a launch of the background program's 180,507 on
+    the card)."""
     from torch.profiler import ProfilerActivity, profile
 
-    acts = [ProfilerActivity.CPU]
-    if torch.device(device).type == "cuda":
-        acts.append(ProfilerActivity.CUDA)
-    with profile(activities=acts) as prof:
-        s, wall = track_all(sc, frames_dev, device)
+    os.environ.setdefault("TEARDOWN_CUPTI", "1")
+    cuda = torch.device(device).type == "cuda"
+    acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if cuda else [])
+    s = SlamSystem(sc.cfg, vocabulary=sc.voc, chunk=sc.chunk, device=device, graphs=graphs)
+    spans: list = []
+    time_background_replays(s, spans)
+    window = trace_window(sc, len(frames_dev), s.graphs and cuda)
+    prof, on, spans_in = profile(activities=acts), False, [0, 0]
+
+    def toggle():
+        nonlocal on
+        if cuda:
+            torch.cuda.synchronize(device)
+        if on:
+            prof.stop()
+        else:
+            prof.start()
+        on = not on
+        spans_in[on] = len(spans)
+
+    t0 = time.perf_counter()
+    try:
+        for i, (g, d, ts) in enumerate(frames_dev):
+            if i == window.start:
+                toggle()
+            s.track(g, d, ts)
+            if i == window.stop - 1 and window.stop < len(frames_dev):
+                toggle()
+        s._flush()
+        if on:
+            toggle()
+        wall = time.perf_counter() - t0
+    finally:
+        if on:
+            prof.stop()
     t0 = time.perf_counter()
     bg = background_device_ms(*trace_rows(prof))
     bg["parse_s"] = time.perf_counter() - t0
+    bg["window"] = (window.start, len(window))
+    ms = [e0.elapsed_time(e1) for e0, e1 in spans]
+    inside = sum(ms[spans_in[1]:spans_in[0]])
+    bg["events_ms"] = sum(ms) - inside if spans else None
+    bg["events_window_ms"] = inside if spans else None
     check(sc, s, len(frames_dev))
     if torch.device(device).type == "cuda" and not bg["n_device"]:
         raise RuntimeError("the trace recorded no device activity")
     return wall, bg
 
 
-def measure(sc: Scenario, device, reps: int = 3) -> dict:
+def measure(sc: Scenario, device, reps: int = 3, graphs: Optional[bool] = None) -> dict:
     """The protocol of bench.py:173-297: frames staged on the device, a warm
     pass (counting host syncs per chunk), the best wall of ``reps`` fresh
-    systems, one traced run -> dict(line=the JSON line, components, diag)."""
+    systems, one traced run -> dict(line=the JSON line, components, diag).
+    ``graphs``: ``SlamSystem``'s switch for every system (None: its
+    default)."""
     frames_dev = stage_frames(sc.frames, device)
     n = len(frames_dev)
     syncs: list = []
     if sc.warm_frames is None:
-        run(sc, frames_dev, device, syncs)
+        run(sc, frames_dev, device, syncs, graphs)
     else:
-        warm = SlamSystem(sc.cfg, vocabulary=sc.voc, chunk=sc.chunk, device=device)
+        warm = SlamSystem(sc.cfg, vocabulary=sc.voc, chunk=sc.chunk, device=device,
+                          graphs=graphs)
         for f in frames_dev[:sc.warm_frames]:
             warm.track(*f)
         warm.results()
-    walls, diag = [], None
+    walls, diags = [], []
     for _ in range(reps):
-        wall, diag = run(sc, frames_dev, device)
+        wall, diag = run(sc, frames_dev, device, graphs=graphs)
         walls.append(wall)
-    best_ms = min(walls) * 1e3
-    traced_s, bg = traced_run(sc, frames_dev, device)
-    bg_ms = min(bg["bg_ms"], 0.9 * best_ms)  # bench.py's sanity clamp
-    ms = (best_ms - bg_ms) / n
+        diags.append(diag)
+    best = int(np.argmin(walls))
+    diag = diags[best]
+    best_ms = walls[best] * 1e3
+    traced_s, bg = traced_run(sc, frames_dev, device, graphs)
+    # the graph path's background device time: the CUDA events over the
+    # replays outside the traced window, the profiler's sum inside it
+    bg_ms = bg["bg_ms"] + (bg["events_ms"] or 0.0)
+    ms = (best_ms - min(bg_ms, 0.9 * best_ms)) / n  # bench.py's sanity clamp
     components = dict(
         wall_ms_per_frame=best_ms / n, walls_ms=[w * 1e3 for w in walls],
         traced_wall_ms=traced_s * 1e3, device_busy_ms=bg["device_ms"],
-        background_device_ms=bg["bg_ms"], background_host_wall_ms=bg["bg_host_ms"],
-        kernels_per_frame=bg["n_device"] / n, unplaced_activities=bg["unplaced"],
-        trace_parse_s=bg["parse_s"], host_syncs_per_chunk=syncs)
+        background_device_ms=bg_ms, background_device_ms_traced=bg["bg_ms"],
+        background_host_wall_ms=bg["bg_host_ms"],
+        kernels_per_frame=bg["n_device"] / bg["window"][1], unplaced_activities=bg["unplaced"],
+        trace_parse_s=bg["parse_s"], host_syncs_per_chunk=syncs,
+        background_device_ms_events=bg["events_ms"],
+        background_device_ms_events_window=bg["events_window_ms"],
+        trace_window=bg["window"], setup_s=diag["setup_s"])
     line = {"metric": "tracking_ms_per_frame", "value": round(ms, 3), "unit": "ms",
             "vs_baseline": round(BASELINE_MS / ms, 3)}
     return dict(line=line, components=components, diag=diag)
@@ -353,7 +470,13 @@ def report(res: dict, card: str) -> None:
           f"{c['background_host_wall_ms']:.1f} ms (traced run), kernels per frame "
           f"{c['kernels_per_frame']:.0f}, host syncs per chunk {sync_text}, trace parsed in "
           f"{c['trace_parse_s']:.1f} s "
-          f"({c['unplaced_activities']} activities without a launch time)", file=sys.stderr)
+          f"({c['unplaced_activities']} activities without a launch time); background device "
+          f"by CUDA events around the background program's calls "
+          f"{c['background_device_ms_events']} ms outside the traced window (frame and "
+          f"length {c['trace_window']}; inside it {c['background_device_ms_events_window']} "
+          f"ms, the profiler {c['background_device_ms_traced']:.1f} ms); step "
+          f"programs' warm-up and capture "
+          f"{c['setup_s']:.3f} s in the best timed run", file=sys.stderr)
     print(f"[bench] {d['tracked']}/{d['frames']} tracked, keyframe events at "
           f"{d['keyframe_frames']}, closures {d['closures']}, attempts {d['attempts']}",
           file=sys.stderr)

@@ -32,6 +32,7 @@ from __future__ import annotations
 
 import torch
 
+from ..utils import graphs
 from . import hamming
 
 BIG = 1 << 20
@@ -82,6 +83,12 @@ def masked_top2_plain(
     """Returns (best_i, best_d, second_i, second_d), each [M] int32. A row
     with no allowed pair gives (0, BIG, 0, BIG); one allowed pair gives a
     second of (0, BIG). Ties go to the lowest target index."""
+    if row_ok.device.type == "cpu" and not graphs.cpu_flag(row_ok.any()):
+        # no live row (a step program's untaken branch in select mode runs
+        # such searches): every row's answer without the pairs
+        zero = torch.zeros(row_ok.shape, dtype=torch.int32)
+        big = torch.full(row_ok.shape, BIG, dtype=torch.int32)
+        return zero, big, zero.clone(), big.clone()
     allowed = allowed_mask(row_u, row_v, row_rw, row_ur, row_rur, row_lo, row_hi, row_ok,
                            col_u, col_v, col_ur, col_oct, col_ok, col_isig2, chi2_gate)
     return _top2(torch.where(allowed, hamming.distance_matrix(a_desc, b_desc), BIG))

@@ -58,28 +58,28 @@ are ``lax.cond`` on device scalars. Here the branches are
 path (the frame counter, the last keyframe's frame and its flag live on the
 device on every path, as in the JAX package):
 
-- through the step programs (``graphs=True``; on the card the default
-  without a vocabulary): ``track`` replays two captured CUDA graphs, the
-  tracking step (``_slam_step``) and the background step
-  (``background_step``), whose branches are conditional nodes: the r=30
-  retry, the keyframe insert at a device slot, the mapping chain on
-  ``made_kf & (kf_id >= 0)``, each triangulation neighbour slot, local BA's
-  interruptBA entry and its LM passes. With a vocabulary the tracking program
-  also holds BoW and the fallback chain (motion tracking, the reference
-  keyframe, relocalization with each candidate slot, its solver choice and
-  the top-up cascade's gates as conds; ``last_reloc_frame`` and the winner
-  stay on the device), and the background program holds loop detection
-  under its cond; after each background replay the host reads the confirmed
-  loop candidates (one read a frame, with the frame's keyframe decision, LM
-  counts and relocalization winner) and runs a confirmed candidate's close
-  eagerly. Without a vocabulary nothing is read back until ``results()``.
-  The timestamp is a device input of the tracking program. The first frame
-  (which flips the host flag ``initialized``) and the warm-up of each
+- through the step programs (``graphs=True``; the card's default): ``track``
+  replays two captured CUDA graphs, the tracking step (``_slam_step``) and
+  the background step (``background_step``), whose branches are conditional
+  nodes: the r=30 retry, the keyframe insert at a device slot, the mapping
+  chain on ``made_kf & (kf_id >= 0)``, each triangulation neighbour slot,
+  local BA's interruptBA entry and its LM passes. With a vocabulary the
+  tracking program also holds BoW and the fallback chain (motion tracking,
+  the reference keyframe, relocalization with each candidate slot, its
+  solver choice and the top-up cascade's gates as conds; ``last_reloc_frame``
+  and the winner stay on the device), and the background program holds loop
+  detection and the close (the Sim3 candidate scan, each slot under its
+  cond, the correction with the loop fuse's slots and the essential graph)
+  under their conds. Nothing is read back until ``results()``; with global
+  BA one read after each dispatch's background replays folds the closures
+  and runs global BA after each (the JAX package reads its close results
+  then). The timestamp is a device input of the tracking program. The first
+  frame (which flips the host flag ``initialized``) and the warm-up of each
   program run in ``select`` mode, also without a read. With ``chunk=K`` the
   tracking program is replayed K times, then the background program K times
   with ``chunk_ba_stops`` computed on the device;
-- eager (``graphs=False``, the CPU's default and the card's with a
-  vocabulary): the same functions, each ``cond`` reading its predicate back.
+- eager (``graphs=False``, the CPU's default): the same functions, each
+  ``cond`` reading its predicate back.
   Without a vocabulary a tracked frame reads the r=15 match count (the r=30
   retry) and, in ``insert_keyframe``, the keyframe decision with its slot
   (one read); a lost frame's motion attempt runs and is discarded
@@ -89,8 +89,9 @@ device on every path, as in the JAX package):
   each live candidate's solver choice, the cascade's gates and the winner. A
   keyframe event adds the triangulation's neighbour gates (one read) and one
   read per local-BA LM iteration (its exit test); with loop closing on it
-  reads its confirmed loop candidates (one read) and each Sim3 attempt its
-  gates (one).
+  reads its confirmed loop candidates (one read), and a close reads each
+  slot's gate (one a candidate tried), the accept, the group it fuses into
+  and its outcome (one each).
 """
 
 from __future__ import annotations
@@ -724,10 +725,21 @@ class BackgroundOut:
     which: int = -1          # the winning candidate keyframe (-1 none)
     # (candidate, accepted, gate values) per Sim3 attempt
     attempts: List[Tuple[int, bool, dict]] = dataclasses.field(default_factory=list)
-    # without the inline close: the detection's confirmed candidates [MAX_CANDS]
-    # and their kf_gen at detection, on the device (-1 rows without an event)
+    # with loop closing: the detection's confirmed candidates [MAX_CANDS] and
+    # their kf_gen at detection, on the device (-1 rows without an event)
     cands: Optional[torch.Tensor] = None
     cand_gens: Optional[torch.Tensor] = None
+    # the inline close's outcome on the device (None eager when no candidate
+    # was confirmed, and on the VO_LOOP_DIAG path)
+    close: Optional[loop_closing.CloseOut] = None
+
+    def fold(self, cands, closed, which, tried, accepted, gates) -> None:
+        """The close's outcome read back (host values, ``CloseOut.leaves``
+        after the candidates) into ``attempted``/``closed``/``which``/
+        ``attempts``."""
+        self.attempted = cands[0] >= 0
+        self.closed, self.which = bool(closed), which
+        self.attempts = loop_closing.fold_attempts(cands, tried, accepted, gates)
 
 
 def background_step(m: MapState, loop_state: loop_closing.LoopState, did_kf, kf_id,
@@ -736,48 +748,33 @@ def background_step(m: MapState, loop_state: loop_closing.LoopState, did_kf, kf_
                     ) -> Tuple[MapState, loop_closing.LoopState, BackgroundOut]:
     """The work the reference runs off the tracking thread, for one frame:
     the local-mapping chain, then (``with_loop``) loop detection and, for a
-    confirmed candidate, the Sim3 verification and correction of every
-    confirmed candidate in turn until one is accepted, serially after
+    confirmed candidate, the Sim3 verification of every confirmed candidate
+    in turn until one is accepted and the loop correction, serially after
     detection (the reference's LoopClosing thread order, loopClosing.cpp:
-    17-37).
+    17-37; the JAX package's ``_background_one``).
 
-    Eager (host ``did_kf``/``kf_id``), a keyframe event's confirmed
-    candidates are read back once and closed here (``close_confirmed``).
-    In a step program (``graphs.traced()``) and without ``inline_close`` (the
-    VO_LOOP_DIAG path) detection runs under its cond and the candidates stay
-    on the device in ``cands``/``cand_gens``: nothing is read back and
-    nothing is verified here (``SlamSystem`` reads them after the replay)."""
+    The close runs under a ``graphs.cond`` on the best confirmed candidate
+    (``loop_closing.close_detected``), its outcome on the device in
+    ``close``. Eager (host ``did_kf``/``kf_id``), a keyframe event reads its
+    confirmed candidates back, closes inside the ``close_step`` profiler
+    range and reads the outcome into the host fields (``fold``); in a step
+    program nothing is read back. Without ``inline_close`` (the VO_LOOP_DIAG
+    path) nothing is verified here: the candidates stay on the device in
+    ``cands``/``cand_gens`` for the host's drain."""
     m, n1, n2 = _mapping_step(m, did_kf, kf_id, caps, cam, scale_factors,
                               interrupt_ba=interrupt_ba, bow_group_div=bow_group_div)
     out = BackgroundOut(ba_n1=n1, ba_n2=n2)
     if not with_loop:
         return m, loop_state, out
-    if graphs_mod.traced() or not inline_close:
-        loop_state, out.cands, out.cand_gens = loop_closing.detect_step(
-            m, loop_state, did_kf, kf_id, caps)
-    elif did_kf and kf_id >= 0:
-        loop_state, cand, cand_gen = loop_closing.detect_step(m, loop_state, did_kf, kf_id, caps)
-        cands, gens = torch.stack([cand, cand_gen]).tolist()
-        m, loop_state = close_confirmed(m, loop_state, kf_id, cands, gens, out, bow_group_div,
-                                        caps, cam, scale_factors)
+    loop_state, out.cands, out.cand_gens = loop_closing.detect_step(
+        m, loop_state, did_kf, kf_id, caps)
+    if inline_close:
+        m, loop_state, out.close = loop_closing.close_detected(
+            m, loop_state, did_kf & (kf_id >= 0), kf_id, out.cands, out.cand_gens,
+            bow_group_div, caps, cam, scale_factors)
+        if out.close is not None and not graphs_mod.traced():
+            out.fold(*graphs_mod.fetch(out.cands, *out.close.leaves()))
     return m, loop_state, out
-
-
-def close_confirmed(m: MapState, loop_state: loop_closing.LoopState, kf_id: int,
-                    cands: List[int], gens: List[int], out: BackgroundOut, bow_group_div: int,
-                    caps: MapCaps, cam: Camera, scale_factors: torch.Tensor):
-    """The eager close of a keyframe event's confirmed candidates (host
-    lists, best score first), when there is one: the Sim3 verification and
-    correction of each in turn until one is accepted
-    (``loop_closing._close_multi``) inside the ``close_step`` profiler range,
-    recorded in ``out``. -> (map, loop state)."""
-    if cands[0] >= 0:
-        with record_function("close_step"):
-            m, loop_state, out.closed, out.which, out.attempts = loop_closing._close_multi(
-                m, loop_state, kf_id, m.kf_valid[kf_id], cands, gens, bow_group_div, caps,
-                cam, scale_factors)
-        out.attempted = True
-    return m, loop_state
 
 
 def track_chunk(state: SlamTrackState, m: MapState, frames, cam: Camera, caps: MapCaps,
@@ -859,16 +856,17 @@ class SlamSystem:
     after each accepted loop closure. ``drain_chunk``: frames between the
     loop-candidate readbacks of the VO_LOOP_DIAG path (module docstring).
 
-    ``graphs`` (default: on for the card without a vocabulary, else off):
-    the steps as ``utils.graphs.StepGraph`` programs (module docstring), with
-    or without a vocabulary. On the card they are captured CUDA graphs with
-    conditional nodes, and a capture that fails raises; on the CPU they run
-    in ``select`` mode under ``no_host_reads``, the stand-in for a replay.
+    ``graphs`` (default: on for the card, with or without a vocabulary, off
+    on the CPU): the steps as ``utils.graphs.StepGraph`` programs (module
+    docstring). On the card they are captured CUDA graphs with conditional
+    nodes, and a capture that fails raises; on the CPU they run in
+    ``select`` mode under ``no_host_reads``, the stand-in for a replay.
     ``graphs=False`` keeps the eager path. Under graphs each frame's
-    ``made_kf`` and the ``ba_iters``/``n_ba_interrupts`` records stay on the
-    device until they are read (``results()``, or with loop closing the read
-    after each background replay), and ``state``/``map``/``loop_state`` are
-    the programs' static buffers, rewritten by the next replay. A frame's
+    ``made_kf``, the ``ba_iters``/``n_ba_interrupts`` records and the loop
+    records (``loop_attempts``, ``loop_gates``, ``loop_closures``) stay on
+    the device until they are read (``results()``, or with global BA the
+    read after each dispatch), and ``state``/``map``/``loop_state`` are the
+    programs' static buffers, rewritten by the next replay. A frame's
     relocalization winner (``SlamOut.reloc_winner``) stays on the device on
     both paths until the same read folds it."""
 
@@ -935,14 +933,17 @@ class SlamSystem:
         self.timestamps: List[float] = []
         self._frame_id = 0
         # the graph path (class docstring): two step programs sharing nothing
-        # but the map they hand over
-        self.graphs = (self.device.type == "cuda" and vocabulary is None if graphs is None
-                       else bool(graphs))
+        # but the map (and the loop state) they hand over
+        self.graphs = self.device.type == "cuda" if graphs is None else bool(graphs)
         self.track_graph = graphs_mod.StepGraph(self._graph_track, self.device, "slam_step")
         self.background_graph = graphs_mod.StepGraph(self._graph_background, self.device,
                                                      "background_step")
-        # (frame, index in _outs, made, n1, n2) per background step, on the device
-        self._bg_pending: List[Tuple[int, int, torch.Tensor, torch.Tensor, torch.Tensor]] = []
+        # (frame, index in _outs, made, n1, n2, with loop closing (the confirmed
+        # candidates, the close's outcome) else None) per background step, on
+        # the device
+        self._bg_pending: List[Tuple[int, int, torch.Tensor, torch.Tensor, torch.Tensor,
+                                     Optional[Tuple[torch.Tensor,
+                                                    loop_closing.CloseOut]]]] = []
 
     def _ba_interrupt(self) -> bool:
         """The forced interruptBA value, else lowered (the JAX package's
@@ -1009,14 +1010,14 @@ class SlamSystem:
         """The background step program: (made a keyframe, its id, interruptBA)
         and the map (and, with loop closing, the loop state) -> (the same,
         (BA iterations pass 1, pass 2[, the confirmed loop candidates, their
-        generations]))."""
+        generations, the close's outcome])))."""
         did, kid, stop = event
         m, ls = carry if self.enable_loop_closing else (carry, self.loop_state)
         m, ls, bg = background_step(m, ls, did, kid, stop, self.caps, self.camera,
                                     self.scale_factors, self.enable_loop_closing,
                                     self._bow_group_div, self._inline_close)
         if self.enable_loop_closing:
-            return (m, ls), (bg.ba_n1, bg.ba_n2, bg.cands, bg.cand_gens)
+            return (m, ls), (bg.ba_n1, bg.ba_n2, bg.cands, bg.cand_gens, bg.close)
         return m, (bg.ba_n1, bg.ba_n2)
 
     def _graph_step(self, gray_d, depth_d, timestamp: float):
@@ -1037,61 +1038,59 @@ class SlamSystem:
         return out, new_kf
 
     def _graph_background_steps(self, first: int, made, new_kf, stops) -> None:
-        """The background program per event of ``_outs[first:]``, in order.
-        Without loop closing the counts stay on the device until results().
-        With it, each replay is followed by one read (the pending keyframe
-        decisions, LM counts and relocalization winners, the confirmed loop
-        candidates and the keyframe id), and a confirmed candidate is closed
-        eagerly (``close_confirmed``; the JAX package runs the close inside
-        its background program); the VO_LOOP_DIAG path queues the
-        candidates instead."""
-        closes, queued = [], []
+        """The background program per event of ``_outs[first:]``, in order,
+        each keyframe event's loop close inside it. Nothing is read back: the
+        counts and the close's outcome stay on the device until ``results()``
+        (``_settle``), as the JAX package keeps them (``_queue_close_results``).
+        With global BA, one read after the dispatch's replays folds them and
+        runs global BA after each closure (the JAX package reads its close
+        results synchronously then); the VO_LOOP_DIAG path queues the
+        candidates for its drain instead."""
+        queued = []
         with record_function("background"):
             for k in range(made.shape[0]):
                 frame, event = self._frame_id + k, (made[k], new_kf[k], stops[k])
                 if not self.enable_loop_closing:
                     self.map, (n1, n2) = self.background_graph.run(event, self.map)
-                    self._bg_pending.append((frame, first + k, made[k], n1, n2))
+                    self._bg_pending.append((frame, first + k, made[k], n1, n2, None))
                     continue
-                (self.map, self.loop_state), (n1, n2, cands, gens) = self.background_graph.run(
-                    event, (self.map, self.loop_state))
-                self._bg_pending.append((frame, first + k, made[k], n1, n2))
+                (self.map, self.loop_state), (n1, n2, cands, gens, close) = \
+                    self.background_graph.run(event, (self.map, self.loop_state))
+                self._bg_pending.append((frame, first + k, made[k], n1, n2,
+                                         None if close is None else (cands, close)))
                 if not self._inline_close:
                     queued.append((frame, cands, gens, self._outs[first + k]))
-                    continue
-                kid, cands, gens = self._settle(new_kf[k], cands, gens)
-                bg = BackgroundOut()
-                self.map, self.loop_state = close_confirmed(
-                    self.map, self.loop_state, kid, cands, gens, bg, self._bow_group_div,
-                    self.caps, self.camera, self.scale_factors)
-                closes.append((frame, bg))
-        self._fold_loop(closes)
+        if self.enable_global_ba:
+            self._settle()
         if queued:
             frames, cands, gens, outs = zip(*queued)
             self._queue_loop(list(frames), torch.stack(cands), torch.stack(gens),
                              torch.stack([o.ref_kf for o in outs]),
                              torch.stack([o.ref_gen for o in outs]))
 
-    def _settle(self, *extra):
-        """Read the pending per-frame records back, with the ``extra``
-        integer tensors, in one read: every frame's relocalization winner not
-        yet folded (both paths), and the graph path's per-event ``made_kf``
-        and ``ba_iters``/``n_ba_interrupts``. -> the ``extra`` values (a
-        Python int per 0-d tensor, a list per 1-d one)."""
+    def _settle(self) -> None:
+        """Read the pending per-frame records back in one read: every frame's
+        relocalization winner not yet folded (both paths), and the graph
+        path's per-event ``made_kf``, ``ba_iters``/``n_ba_interrupts`` and,
+        with loop closing, each close's outcome, whose loop records are then
+        folded in frame order (``_fold_loop``, with global BA after each
+        closure when enabled)."""
         pend, self._bg_pending = self._bg_pending, []
         unfolded = [o for o in self._outs[self._n_folded:] if o.reloc_winner is not None]
         self._n_folded = len(self._outs)
         parts = [o.reloc_winner for o in unfolded]
-        for _, _, made, n1, n2 in pend:
+        for _, _, made, n1, n2, loop in pend:
             parts += [made.reshape(1), n1.reshape(1), n2.reshape(1)]
-        parts += [x.reshape(-1) for x in extra]
+            if loop is not None:
+                parts += [loop[0]] + list(loop[1].leaves())
         if not parts:
-            return []
-        flat = torch.cat([x.to(torch.int32) for x in parts]).tolist()
+            return
+        flat = torch.cat([x.reshape(-1).to(torch.int32) for x in parts]).tolist()
         for j, o in enumerate(unfolded):
             o.reloc_winner = fold_winner(flat[4 * j:4 * j + 4])
         at = 4 * len(unfolded)
-        for frame, i, _, _, _ in pend:
+        events = []
+        for frame, i, _, _, _, loop in pend:
             made, n1, n2 = flat[at:at + 3]
             at += 3
             self._outs[i].made_kf = bool(made)
@@ -1099,12 +1098,16 @@ class SlamSystem:
                 self.ba_iters.append((frame, n1, n2))
                 if not (n1 or n2):
                     self.n_ba_interrupts += 1
-        out = []
-        for x in extra:
-            vals = flat[at:at + x.numel()]
-            at += x.numel()
-            out.append(vals[0] if x.dim() == 0 else vals)
-        return out
+            if loop is None:
+                continue
+            vals = []
+            for x in [loop[0]] + list(loop[1].leaves()):
+                vals.append(flat[at] if x.dim() == 0 else flat[at:at + x.numel()])
+                at += x.numel()
+            bg = BackgroundOut()
+            bg.fold(*vals)
+            events.append((frame, bg))
+        self._fold_loop(events)
 
     def _track_one(self, gray_d: torch.Tensor, depth_d: torch.Tensor, timestamp: float) -> None:
         if self.graphs:

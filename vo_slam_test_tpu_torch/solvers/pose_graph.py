@@ -10,13 +10,20 @@ loop-match keyframe held fixed (:1239-1241).
 The graph is dense over the keyframe capacity: the edge list is the upper
 triangle's set entries, compacted; residuals and Jacobians (forward-mode AD
 over each edge's two 7-dof tangents) are batched over it, and the normal
-equations are one dense (K*7)^2 system solved by ``torch.linalg.solve_ex``
-(no status read back). RGB-D freezes the scale (the 7th tangent). The JAX
-package adds the blocks with a scatter; here a diagonal block is a one-hot
-matmul over the edges and an off-diagonal block is set once (each keyframe
-pair is one edge), so the sums do not depend on scheduling. The JAX package
+equations are one dense (K*7)^2 system. The JAX package solves it with
+``jnp.linalg.solve`` (an LU); here the damped matrix, symmetric positive
+definite, takes a Cholesky factor and two triangular solves
+(``utils/linalg.py::spd_solve``, no status read back): cuSOLVER's LU of one
+matrix of the default caps' 1792 rows does not instantiate inside a nested
+conditional node, where the background program runs the loop correction.
+The steps agree with an LU's to rounding. RGB-D freezes the scale (the 7th
+tangent). The JAX package adds the blocks with a scatter; here a diagonal
+block is a one-hot matmul over the edges and an off-diagonal block is set
+once (each keyframe pair is one edge), so the sums do not depend on
+scheduling. The JAX package
 stops when a step's largest entry falls under 1e-9; here all ``iters``
-iterations run with the state frozen once that happens.
+iterations run with the state frozen once that happens (on CPU tensors the
+loop stops there, as nothing is left to change).
 """
 
 from __future__ import annotations
@@ -27,6 +34,8 @@ import torch
 
 from .. import lie
 from ..slam_map.map_state import compact_ids, scatter_set
+from ..utils import graphs
+from ..utils.linalg import spd_solve
 from .sim3 import jac_at_zero
 
 
@@ -50,7 +59,7 @@ def solve_pose_graph(
     meas_s: torch.Tensor,     # [K,K] measured relative scale S_ij = S_i S_j^-1
     meas_R: torch.Tensor,     # [K,K,3,3]
     meas_t: torch.Tensor,     # [K,K,3]
-    fixed_kf: int,            # held fixed
+    fixed_kf,                 # int or 0-d device tensor: the keyframe held fixed
     iters: int = 20,
     max_edges: int = 4096,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
@@ -93,6 +102,7 @@ def solve_pose_graph(
         return torch.sum(torch.where(e_ok[:, None], rr * rr, 0.0))
 
     s, R, t = kf_s, kf_R, kf_t
+    c_cur = cost(s, R, t)  # carried: the cost of the state kept
     lam = torch.full((), 1e-6, device=dev)
     done = torch.zeros((), dtype=torch.bool, device=dev)
     for _ in range(iters):
@@ -113,15 +123,21 @@ def solve_pose_graph(
         g = (O_i.T @ gi + O_j.T @ gj).reshape(-1)
         # gauge: the loop-match keyframe and every invalid vertex held fixed
         H = H + eye_kp * (lam + 1e-8 + boost)
-        step = -torch.linalg.solve_ex(H, g)[0].reshape(K, n_p)
+        # the damped normal matrix is positive definite: a Cholesky solve
+        # (module docstring); a failed factor gives a NaN step, rejected
+        step = -spd_solve(H, g).reshape(K, n_p)
         step = step * sel * free[:, None]
         s_new, R_new, t_new = _vertex_apply(s, R, t, step)
-        improved = (cost(s_new, R_new, t_new) < cost(s, R, t)) & ~done
+        c_new = cost(s_new, R_new, t_new)
+        improved = (c_new < c_cur) & ~done
+        c_cur = torch.where(improved, c_new, c_cur)
         s = torch.where(improved, s_new, s)
         R = torch.where(improved, R_new, R)
         t = torch.where(improved, t_new, t)
         lam = torch.where(done, lam, torch.where(improved, torch.clamp(lam * 0.33, min=1e-9),
                                                  torch.clamp(lam * 5.0, max=1e6)))
         done = done | (torch.abs(step).max() < 1e-9)
+        if dev.type == "cpu" and graphs.cpu_flag(done):
+            break  # the iterations left change nothing; on the CPU the test is free
     R = lie.quat_to_mat(lie.mat_to_quat(R))
     return s, R, t

@@ -26,7 +26,7 @@ import torch
 
 from .. import lie
 from ..slam_map.map_state import pick
-from ..utils import prng
+from ..utils import graphs, prng
 from .ransac import horn_align
 
 N_HYP = 128
@@ -134,6 +134,7 @@ def refine_sim3(
         lam = torch.full((), 1e-4, device=dev)
         done = torch.zeros((), dtype=torch.bool, device=dev)
         eye = torch.eye(6, device=dev)
+        c_T = cost(T, s, active, use_huber)  # carried: the cost of the T kept
         for _ in range(iters):
             e, J = jac_at_zero(lambda x: residuals(x, T, s), (6,), dev)  # [N,4], [N,4,6]
             r2 = torch.sum(e * e, -1)
@@ -145,11 +146,15 @@ def refine_sim3(
             Hd = H + lam * torch.diag(torch.diag(H)) + 1e-9 * eye
             step = -torch.linalg.solve_ex(Hd, g)[0]
             T_new = lie.se3_exp(step) @ T
-            improved = (cost(T_new, s, active, use_huber) < cost(T, s, active, use_huber)) & ~done
+            c_new = cost(T_new, s, active, use_huber)
+            improved = (c_new < c_T) & ~done
             T = torch.where(improved, T_new, T)
+            c_T = torch.where(improved, c_new, c_T)
             lam = torch.where(done, lam, torch.where(improved, torch.clamp(lam * 0.33, min=1e-8),
                                                      torch.clamp(lam * 4.0, max=1e6)))
             done = done | (torch.abs(step).max() < 1e-8)
+            if dev.type == "cpu" and graphs.cpu_flag(done):
+                break  # the iterations left change nothing; on the CPU the test is free
         return T
 
     def classify(T, s):

@@ -577,9 +577,10 @@ class StepGraph:
         self._node_calls: Optional[list] = None
         self._counts: Optional[torch.Tensor] = None
         # the capture's size and cost: graph nodes (the top level plus every
-        # IF body's), IF nodes, and the capture call's host wall seconds
+        # IF body's), IF nodes, and the capture call's host wall seconds; the
+        # warm-up call's host wall seconds
         self.n_nodes = self.n_if = 0
-        self.capture_s = 0.0
+        self.capture_s = self.warm_s = 0.0
 
     def launches(self) -> dict:
         """Launches of each kernel wrapper (``ops._build.Kernel`` -> count)
@@ -603,8 +604,12 @@ class StepGraph:
     def run(self, inputs, state):
         _release_deferred()
         if self.device.type != "cuda" or not self.warmed:
-            self.warmed = True
-            return self._select(inputs, state)
+            first, self.warmed = not self.warmed, True
+            t0 = time.perf_counter()
+            out = self._select(inputs, state)
+            if first:
+                self.warm_s = time.perf_counter() - t0
+            return out
         if self.graph is None:
             self._capture(inputs, state)
         else:

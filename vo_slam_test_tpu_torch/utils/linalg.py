@@ -11,6 +11,8 @@ symmetric form.)
 ``ops/symeig_cuda.py::symeig``), which Horn's alignment and EPnP call where
 the JAX package calls ``jnp.linalg.svd``/``eigh``: ``torch.linalg.eigh`` and
 ``svd`` read their status back to the host, which a captured step cannot.
+
+``spd_solve`` is the essential graph's dense solve (``solvers/pose_graph.py``).
 """
 
 from __future__ import annotations
@@ -58,6 +60,19 @@ def inv3x3(A: torch.Tensor, eps: float = 0.0) -> torch.Tensor:
 SYMEIG_MAX_N = 12     # EPnP's M^T M
 SYMEIG_SWEEPS = 12    # sweep cap
 SYMEIG_TOL = 1e-14    # converged: every |a_pq| <= TOL * max |a_ii|
+
+
+def spd_solve(A: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``A x = b`` for one symmetric positive definite [n, n] ``A`` and [n]
+    ``b``: a Cholesky factor and two triangular solves (cuSOLVER's LU of one
+    large matrix, ``torch.linalg.solve_ex``'s path, does not instantiate
+    inside a nested conditional node on the card; ``torch.cholesky_solve``
+    does not inside any). A matrix that is not positive definite gives NaN,
+    as JAX's Cholesky does."""
+    chol, info = torch.linalg.cholesky_ex(A)
+    chol = torch.where(info == 0, chol, torch.nan)
+    half = torch.linalg.solve_triangular(chol, b[:, None], upper=False)
+    return torch.linalg.solve_triangular(chol.mT, half, upper=True)[:, 0]
 
 
 def jacobi_rounds(n: int) -> list:
