@@ -71,7 +71,13 @@
    once per execution (``StepGraph.launches``); that run's results must
    equal eager's too. Frame (chunk) ms medians, graph replays and
    cudaGraphLaunch calls per frame, device busy, kernels per frame and idle
-   share from a profiler window, each beside eager's. The kernels line's
+   share from a profiler window, each beside eager's. Path 3's graph run must
+   replay one tracking and one background program per full chunk (each a
+   ``graphs.scan`` over the chunk, one WHILE node), and each SlamSystem graph
+   run of paths 3, 4, 5 and 8a prints its programs' nodes, IF and WHILE
+   nodes, warm-up and capture seconds beside those of the previous design,
+   an IF node per loop trip (``program_sizes``;
+   paths 5 and 8a also check two replays per full chunk). The kernels line's
    ``launches_by_path`` gives each graph run's launches over the whole run,
    warm-ups included (``1 graphs``, ``2 graphs``, ``3 graphs``);
 7. main path 4, the kidnap: ``SlamSystem(vocabulary=...)`` (loop closing on,
@@ -212,6 +218,7 @@ import tempfile
 import time
 import warnings
 import zlib
+from typing import Optional
 from pathlib import Path
 
 import numpy as np
@@ -2057,6 +2064,7 @@ def run_pan(system, cfg, voc, frames, chunk: int, gba: bool, recorder=None, seve
     s.results()  # folds the graph path's per-frame records
     rec["run_launches"], rec["launches_from_chunk_2"], rec["wrapper_calls_from_chunk_2"] = \
         count.result()
+    rec["replays_from_chunk_2"] = count.replays
     # keyframe events run in frame order, one background step each
     kf_frames = [i for i, o in enumerate(s._outs) if o.made_kf]
     assert graphs or len(kf_frames) == len(rec["events"])
@@ -2939,6 +2947,7 @@ def run_path8a(system, sc, frames_dev, lrec, graphs: bool = False):
     s.results()  # folds the graph path's per-frame records
     rec["run_launches"], rec["launches_from_chunk_2"], rec["wrapper_calls_from_chunk_2"] = \
         count.result()
+    rec["replays_from_chunk_2"] = count.replays
     # a chunk's events are mapped in frame order: the k-th event of a chunk
     # belongs to its k-th keyframe frame
     made = [o.made_kf for o in s._outs]
@@ -3090,7 +3099,9 @@ def main_path8(system, ba_cuda, ba_pallas, all_kernels, plains, dev) -> tuple:
         eager_launches_from_chunk_2=rec["launches_from_chunk_2"],
         capture_s=dict(track=sg.track_graph.capture_s, background=bgg.capture_s),
         graph_nodes=dict(track=sg.track_graph.n_nodes, background=bgg.n_nodes),
-        if_nodes=dict(track=sg.track_graph.n_if, background=bgg.n_if))
+        if_nodes=dict(track=sg.track_graph.n_if, background=bgg.n_if),
+        programs=program_sizes(sg, "8a", rg["replays_from_chunk_2"],
+                               len(frames_dev) // sc.chunk - 1))
     print(f"main path 8a through the step programs (graphs=True) in {run_g:.1f} s: tracked "
           f"{diag_g['tracked']}/{diag_g['frames']}, n_kf_ever {diag_g['n_kf_ever']}, ATE "
           f"{diag_g['ate_m'] * 100:.4f} cm, closures {diag_g['closures']}; equal to the eager "
@@ -3106,8 +3117,10 @@ def main_path8(system, ba_cuda, ba_pallas, all_kernels, plains, dev) -> tuple:
           f"{sc.chunk} on, launches counted on the device {rg['launches_from_chunk_2']} (the "
           f"wrappers {rg['wrapper_calls_from_chunk_2']}), eager {rec['launches_from_chunk_2']}; "
           f"capture {sg.track_graph.capture_s:.3f} s (tracking, {sg.track_graph.n_nodes} nodes, "
-          f"{sg.track_graph.n_if} IF nodes) and {bgg.capture_s:.3f} s (background, "
-          f"{bgg.n_nodes} nodes, {bgg.n_if} IF nodes)")
+          f"{sg.track_graph.n_if} IF / {sg.track_graph.n_while} WHILE nodes) and "
+          f"{bgg.capture_s:.3f} s (background, {bgg.n_nodes} nodes, {bgg.n_if} IF / "
+          f"{bgg.n_while} WHILE nodes); {rg['replays_from_chunk_2']} replays over the "
+          f"{len(frames_dev) // sc.chunk - 1} chunks after the first")
     missing = [k for k in ("top2_chi2", "symeig") if not rec["launches_from_chunk_2"][k]]
     if (any(rg["syncs"]) or rg["launches_from_chunk_2"] != rec["launches_from_chunk_2"]
             or missing or any(rg["wrapper_calls_from_chunk_2"].values())):
@@ -3216,6 +3229,43 @@ def graph_replays(s) -> int:
     return sum(sg.replays for sg in step_graphs(s))
 
 
+# the step programs of the previous design, measured by this script on an
+# NVIDIA H100 80GB HBM3 at 700.00 W: an IF node per loop trip and per Sim3 and
+# loop-fuse slot, and two replays a frame in chunks too
+IF_PER_TRIP_PROGRAMS = {
+    "4": dict(track=dict(nodes=26556, if_nodes=26, capture_s=0.573),
+              background=dict(nodes=180507, if_nodes=93, capture_s=8.695)),
+    "4 (depth_poor)": dict(track=dict(nodes=26556, if_nodes=26, capture_s=0.819),
+                           background=dict(nodes=180507, if_nodes=93, capture_s=8.595)),
+    "4 (reloc_parity)": dict(track=dict(nodes=71429, if_nodes=58, capture_s=1.958),
+                             background=dict(nodes=180507, if_nodes=93, capture_s=8.799)),
+    "5": dict(track=dict(nodes=26556, capture_s=0.790),
+              background=dict(nodes=180507, if_nodes=93, capture_s=9.494)),
+    "8a": dict(track=dict(nodes=26634, if_nodes=26, capture_s=0.635),
+               background=dict(nodes=180585, if_nodes=93, capture_s=7.713)),
+}
+
+
+def program_sizes(s, path: str, replays: Optional[int] = None, chunks: Optional[int] = None
+                  ) -> dict:
+    """A SlamSystem's two step programs: nodes, IF and WHILE nodes, warm-up
+    and capture seconds, printed beside the previous design's
+    (``IF_PER_TRIP_PROGRAMS``); with
+    ``replays`` over ``chunks`` full chunks, the replays per chunk, which
+    must be 2 (one tracking and one background program) -> the record."""
+    out = {name: dict(nodes=sg.n_nodes, if_nodes=sg.n_if, while_nodes=sg.n_while,
+                      warm_s=sg.warm_s, capture_s=sg.capture_s)
+           for name, sg in (("track", s.track_graph), ("background", s.background_graph))}
+    if replays is not None:
+        out["replays_per_chunk"] = replays / chunks
+    print(f"  path {path} step programs: {out}; with an IF node per trip: "
+          f"{IF_PER_TRIP_PROGRAMS.get(path, 'not recorded')}, 2 replays a frame")
+    if replays is not None and replays != 2 * chunks:
+        raise AssertionError(f"path {path}: {replays} replays over {chunks} full chunks, not "
+                             f"one tracking and one background program per chunk")
+    return out
+
+
 class LaunchCount:
     """Each kernel's launches over a tracker's run and from its frame
     ``start`` on (``frame(i)`` before each track call): the wrappers' calls
@@ -3223,7 +3273,8 @@ class LaunchCount:
     wrappers' calls less those its captures recorded plus its replays'
     launches counted on the device. ``result()`` -> (whole run, from
     ``start``, the wrappers' calls from ``start``: 0 on a graph run whose
-    programs only replay by then)."""
+    programs only replay by then); ``replays`` then holds the programs'
+    replays from ``start``."""
 
     def __init__(self, s, graphs_on: bool, start: int):
         self.s, self.on, self.start = s, graphs_on, start
@@ -3238,8 +3289,10 @@ class LaunchCount:
         if i == self.start:
             torch.cuda.synchronize()
             self.at_start = self._snap()
+            self.replays0 = graph_replays(self.s) if self.on else 0
 
     def result(self) -> tuple:
+        self.replays = (graph_replays(self.s) - self.replays0) if self.on else 0
         calls, replayed = self._snap()
         whole = {k: v - self.first[0][k] for k, v in calls.items()}
         wrapped = {k: v - self.at_start[0][k] for k, v in calls.items()}
@@ -3412,6 +3465,8 @@ def run_graphs_phase(system, tracking, cfg, frames, room_cfg, room_frames, gt, r
             eager_busy_ms=busy_a, graph_busy_ms=busy_b, eager_kernels=k_a, graph_kernels=k_b,
             eager_wall_ms=w_a, graph_wall_ms=w_b, eager_idle=1 - busy_a / w_a,
             graph_idle=1 - busy_b / w_b)
+        if path == 3:  # one tracking and one background replay per chunk
+            rows["programs"] = program_sizes(sc, "3", rc["replays"], n_steady // chunk)
         report[path] = rows
         del runs, a, b, sc
         gc.collect()
@@ -3536,6 +3591,7 @@ def run_graphs_kidnap(system, kcfg, voc, kframes, kframes_poor, dev) -> tuple:
             capture_s=dict(track=tg.capture_s, background=bg.capture_s),
             graph_nodes=dict(track=tg.n_nodes, background=bg.n_nodes),
             if_nodes=dict(track=tg.n_if, background=bg.n_if),
+            programs=program_sizes(b, "4" if label == "default" else f"4 ({label})"),
             eager_busy_ms=prof_rows[False][0], graph_busy_ms=prof_rows[True][0],
             eager_kernels=prof_rows[False][1], graph_kernels=prof_rows[True][1],
             eager_wall_ms=prof_rows[False][2], graph_wall_ms=prof_rows[True][2],
@@ -3555,8 +3611,9 @@ def run_graphs_kidnap(system, kcfg, voc, kframes, kframes_poor, dev) -> tuple:
               f"{[round(x, 3) for x in rows['eager_reloc_ms']]}; frames {c0}-{len(fr) - 1}: "
               f"{rows['replays_per_frame']:.3f} graph replays a frame, kernel launches "
               f"{rc['launches']} equal to eager's (counted on the device; the wrappers 0); "
-              f"capture {tg.capture_s:.3f} s (tracking, {tg.n_nodes} nodes, {tg.n_if} IF nodes) "
-              f"and {bg.capture_s:.3f} s (background, {bg.n_nodes} nodes, {bg.n_if} IF nodes); "
+              f"capture {tg.capture_s:.3f} s (tracking, {tg.n_nodes} nodes, {tg.n_if} IF / "
+              f"{tg.n_while} WHILE nodes) and {bg.capture_s:.3f} s (background, {bg.n_nodes} "
+              f"nodes, {bg.n_if} IF / {bg.n_while} WHILE nodes); "
               f"profile (frames {P[0]}-{P[-1]}): {rows['window_graph_launches_per_frame']:.3f} "
               f"cudaGraphLaunch calls a frame, device busy {rows['graph_busy_ms']:.3f} ms/frame "
               f"in {rows['graph_kernels']:.0f} kernels, idle share {rows['graph_idle']:.3f} "
@@ -4299,7 +4356,9 @@ def main() -> int:
                                            background=bgx.capture_s),
                             graph_nodes=dict(track=s5x.track_graph.n_nodes,
                                              background=bgx.n_nodes),
-                            if_nodes=dict(track=s5x.track_graph.n_if, background=bgx.n_if))
+                            if_nodes=dict(track=s5x.track_graph.n_if, background=bgx.n_if),
+                            programs=program_sizes(s5x, "5", r5x["replays_from_chunk_2"],
+                                                   len(pframes) // PAN_CHUNK - 1))
     print(f"  {graph_label}: equal to the eager chunk={PAN_CHUNK} run (trajectory, per-frame "
           f"counts, keyframes, LM iterations, loop records, every map and loop-state tensor); "
           f"chunk ms median {med_g:.3f} against eager {med_e:.3f} (chunks after the first, the "
@@ -4310,8 +4369,9 @@ def main() -> int:
           f"{launches5x} (the wrappers {r5x['wrapper_calls_from_chunk_2']}), eager "
           f"{launches5e}; over the whole run {r5x['run_launches']}; "
           f"capture {s5x.track_graph.capture_s:.3f} s (tracking, {s5x.track_graph.n_nodes} "
-          f"nodes) and {bgx.capture_s:.3f} s (background, {bgx.n_nodes} nodes, {bgx.n_if} IF "
-          f"nodes)")
+          f"nodes) and {bgx.capture_s:.3f} s (background, {bgx.n_nodes} nodes, {bgx.n_if} IF / "
+          f"{bgx.n_while} WHILE nodes); {r5x['replays_from_chunk_2']} replays over the "
+          f"{len(pframes) // PAN_CHUNK - 1} chunks after the first")
     missing = [k for k in ("top2_chi2", "symeig") if not launches5e[k]]
     if (any(r5x["syncs"]) or launches5x != launches5e or missing
             or any(r5x["wrapper_calls_from_chunk_2"].values())):

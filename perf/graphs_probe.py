@@ -3,7 +3,7 @@ through ``utils.graphs.StepGraph`` beside ``graphs=False`` in one process.
 
     python3 perf/graphs_probe.py [--frames N] [--skip-chunk] [--sites] [--bisect]
                                  [--smoke-phase] [--vocab] [--close] [--loop]
-                                 [--depth] [--launch]
+                                 [--depth] [--launch] [--while] [--mapping-nodes]
 
 Prints torch's version and whether ``torch.cuda.CUDAGraph`` has
 ``begin_capture_to_if_node``; checks a captured ``cond`` and ``while_capped``
@@ -33,7 +33,16 @@ its pieces under 1, 2 and 3 nested conds, with ``solve_ex`` and with a
 Cholesky, before and after running each once on the IF-body streams;
 ``--launch`` times main path 5 (``chunk=4``) through the step programs in a
 fresh process, then again after a short ``torch.profiler`` session, with the
-host seconds of each program's ``replay`` call.
+host seconds of each program's ``replay`` call; ``--while`` replays a toy
+``graphs.scan`` (one WHILE node) for 0, 1 and all trips against eager and
+compares its node count at two trip caps, then captures each op class of the
+background program (cuBLAS, cuSOLVER's LU and Cholesky, ``torch.func.jvp``,
+a hand-written kernel, the Sim3 refinement and the pose graph with their own
+LM loops) inside one WHILE body and inside WHILE > IF > IF > WHILE > IF >
+WHILE, as the background program nests the Sim3 LM (with ``--loop``, paths 5
+and 8a follow); ``--mapping-nodes`` captures each stage of the mapping chain
+alone on the room orbit's map and prints its graph nodes beside the whole
+chain's.
 Needs the card; exits 1 without one.
 """
 
@@ -364,7 +373,8 @@ def loop_paths(system, dev) -> None:
                      wrappers=rb["wrapper_calls_from_chunk_2"],
                      capture_s=[b.track_graph.capture_s, bg.capture_s],
                      nodes=[b.track_graph.n_nodes, bg.n_nodes], if_nodes=[b.track_graph.n_if,
-                                                                           bg.n_if])
+                                                                           bg.n_if],
+                     while_nodes=[b.track_graph.n_while, bg.n_while])
     print(json.dumps({"path5": rows["5"]}), flush=True)
     del a, b, runs
     gc.collect()
@@ -389,7 +399,8 @@ def loop_paths(system, dev) -> None:
                       wrappers=rb["wrapper_calls_from_chunk_2"],
                       capture_s=[b.track_graph.capture_s, bg.capture_s],
                       nodes=[b.track_graph.n_nodes, bg.n_nodes],
-                      if_nodes=[b.track_graph.n_if, bg.n_if])
+                      if_nodes=[b.track_graph.n_if, bg.n_if],
+                      while_nodes=[b.track_graph.n_while, bg.n_while])
     print(json.dumps({"path8a": rows["8a"]}, default=str), flush=True)
 
 
@@ -465,6 +476,175 @@ def depth_cases(graphs) -> None:
     torch.cuda.synchronize()
     for name, d in failed:
         attempt(name, cases[name], d, "after a run on each body stream")
+
+
+def while_cases(graphs) -> None:
+    """WHILE nodes (``graphs.scan``/``while_capped`` in a capture): a toy
+    scan replayed for 0, 1 and all trips against eager, its node count at
+    two trip caps; then every op class of the background program inside a
+    WHILE body nested as the program nests it, WHILE (chunk) > IF (keyframe)
+    > IF (close) > WHILE (Sim3 slot) > IF (live) > WHILE (LM), each WHILE of
+    two trips, each its own StepGraph replayed three times against eager."""
+    from vo_slam_test_tpu_torch import lie
+    from vo_slam_test_tpu_torch.ops import symeig_cuda
+    from vo_slam_test_tpu_torch.solvers import pose_graph, sim3
+
+    dev = torch.device("cuda")
+
+    def toy(length):
+        def step(inp, st):
+            xs, start, n = inp
+            return graphs.scan(lambda i, c, x: (c + x * (i + 1), c * 2), st, xs, start=start,
+                               n=n)
+
+        return graphs.StepGraph(step, dev, f"toy {length}")
+
+    def toy_eager(xs, st, start, n):
+        return graphs.scan(lambda i, c, x: (c + x * (i + 1), c * 2), st, xs, start=start, n=n)
+
+    nodes = {}
+    for length in (4, 16):
+        sg = toy(length)
+        xs = torch.arange(length, dtype=torch.float32, device=dev)
+        dint = lambda v: torch.full((), v, dtype=torch.int64, device=dev)  # noqa: E731
+        ok = []
+        for start, n in ((0, 1), (1, 2), (0, 0), (0, length), (2, 1), (1, length)):
+            st = torch.ones((), device=dev)
+            got = sg.run((xs, dint(start), dint(n)), st.clone())
+            want = toy_eager(xs, st, start, n)
+            rows_ok = (not got[1].any()) if want[1] is None else torch.equal(got[1], want[1])
+            ok.append(torch.equal(got[0], want[0]) and bool(rows_ok))
+        nodes[length] = (sg.n_nodes, sg.n_while)
+        print(f"  while toy length {length}: equal {ok}, {sg.n_nodes} nodes, {sg.n_while} "
+              f"WHILE nodes, {sg.replays} replays", flush=True)
+    print(f"  while toy: node count the same at both caps {nodes[4] == nodes[16]}", flush=True)
+
+    g = torch.Generator().manual_seed(5)
+
+    def spd(n):
+        A = torch.randn(n, n, generator=g)
+        return (A @ A.T / n + torch.eye(n)).to(dev), torch.randn(n, generator=g).to(dev)
+
+    H6, b6 = spd(6)
+    H144, b144 = spd(144)
+    H1792, b1792 = spd(1792)
+    O = torch.randn(4096, 256, generator=g).to(dev)
+    X = torch.randn(4096, 49, generator=g).to(dev)
+    W = torch.randn(14, 7, generator=g).to(dev)
+    Ms = torch.randn(16, 12, 12, generator=g)
+    Ms = (Ms @ Ms.mT).to(dev)
+    N = 128
+    pc2 = (torch.randn(N, 3, generator=g) * 0.5 + torch.tensor([0.0, 0.0, 3.0])).to(dev)
+    R = lie.se3_exp(torch.tensor([0.02, -0.01, 0.03, 0.01, 0.02, -0.01]).to(dev))
+    pc1 = pc2 @ R[:3, :3].T + R[:3, 3]
+    proj = lambda p: torch.stack([500 * p[:, 0] / p[:, 2] + 320,  # noqa: E731
+                                  500 * p[:, 1] / p[:, 2] + 240], -1)
+    uv1, uv2 = proj(pc1), proj(pc2)
+    ok_n = torch.ones(N, dtype=torch.bool, device=dev)
+    K = 256
+    T = lie.se3_exp(torch.randn(K, 6, generator=g).to(dev) * 0.05)
+    valid = torch.arange(K, device=dev) < 60
+    ids = torch.arange(K, device=dev)
+    edges = ((ids[:, None] - ids[None, :]).abs() == 1) & valid[:, None] & valid[None, :]
+    meas = torch.einsum("iab,jbc->ijac", T, lie.se3_inverse(T))
+    fixed = torch.full((), 3, dtype=torch.int32, device=dev)
+
+    def chol(H, b):
+        L = torch.linalg.cholesky_ex(H)[0]
+        y = torch.linalg.solve_triangular(L, b[:, None], upper=False)
+        return torch.linalg.solve_triangular(L.mT, y, upper=True)[:, 0]
+
+    cases = {
+        "solve_ex f32 6x6 (Sim3 LM, pose-only)": lambda: torch.linalg.solve_ex(H6, b6)[0],
+        "cholesky_ex + 2 solve_triangular 144 (local BA)": lambda: chol(H144, b144),
+        "cholesky_ex + 2 solve_triangular 1792 (pose graph)": lambda: chol(H1792, b1792),
+        "solve_ex f32 1792 (LU)": lambda: torch.linalg.solve_ex(H1792, b1792)[0],
+        "cuBLAS [256,4096]@[4096,49]": lambda: O.T @ X,
+        "jac_at_zero [4096,14] (jvp)": lambda: sim3.jac_at_zero(
+            lambda x: torch.sin(x) @ W, (4096, 14), dev)[1],
+        "symeig kernel [16,12,12]": lambda: symeig_cuda.symeig(Ms)[0],
+        "refine_sim3 (its own WHILE loops)": lambda: sim3.refine_sim3(
+            torch.eye(4, device=dev), torch.ones((), device=dev), pc1, pc2, uv1, uv2,
+            torch.ones(N, device=dev), torch.ones(N, device=dev), ok_n, 500.0, 500.0, 320.0,
+            240.0)[1],
+        "solve_pose_graph K 256 (its own WHILE loop)": lambda: pose_graph.solve_pose_graph(
+            torch.ones(K, device=dev), T[:, :3, :3], T[:, :3, 3], valid, edges,
+            torch.ones(K, K, device=dev), meas[:, :, :3, :3], meas[:, :, :3, 3], fixed,
+            iters=3)[2],
+    }
+    true = torch.ones((), dtype=torch.bool, device=dev)
+
+    def nest(fn, levels, like):
+        if not levels:
+            return fn()
+        if levels[0] == "I":
+            return graphs.cond(true, lambda: nest(fn, levels[1:], like),
+                               lambda: torch.zeros_like(like))
+        ys = graphs.scan(lambda i, c, _: (c + 1, nest(fn, levels[1:], like)),
+                         torch.zeros((), device=dev), length=2)[1]
+        return ys[1]
+
+    for levels in ("W", "WIIWIW"):
+        for name, fn in cases.items():
+            want = fn()
+            sg = graphs.StepGraph(lambda inp, st, fn=fn, want=want: (st, nest(fn, levels, want)),
+                                  dev, name)
+            try:
+                outs = [sg.run((), torch.zeros(1, device=dev))[1] for _ in range(3)]
+                torch.cuda.synchronize()
+                same = all(torch.equal(torch.nan_to_num(o), torch.nan_to_num(want))
+                           for o in outs)
+                print(f"  while {levels} {name}: ok, equal {same}, {sg.n_nodes} nodes, "
+                      f"{sg.n_while} WHILE / {sg.n_if} IF", flush=True)
+            except Exception as e:  # noqa: BLE001 - the probe reports every case
+                print(f"  while {levels} {name}: FAILED {type(e).__name__}: {str(e)[:160]}",
+                      flush=True)
+            del sg
+            gc.collect()
+
+
+def mapping_nodes(system, dev) -> None:
+    """The graph nodes of the mapping chain's stages, each captured alone
+    (its own StepGraph, the keyframe id a device input) on the room orbit's
+    map after 6 frames at the default caps, beside the whole chain: the
+    share of the background program that the triangulation's neighbour
+    slots and keyframe culling's re-selection loop take."""
+    from vo_slam_test_tpu_torch.config import SlamConfig
+    from vo_slam_test_tpu_torch.datasets import SyntheticRGBD
+    from vo_slam_test_tpu_torch.datasets.synthetic import room_orbit_trajectory
+    from vo_slam_test_tpu_torch.slam_map import culling, fuse, triangulate
+    from vo_slam_test_tpu_torch.utils import graphs
+
+    room = SyntheticRGBD(trajectory=room_orbit_trajectory(240, loops=1.5), scene="room", seed=7)
+    cfg = SlamConfig(camera_fx=room.fx, camera_fy=room.fy, camera_cx=room.cx, camera_cy=room.cy,
+                     camera_k1=0, camera_k2=0, camera_p1=0, camera_p2=0, camera_k3=0)
+    s = system.SlamSystem(cfg, graphs=False)
+    for i in range(6):
+        g, d, t = room[i]
+        s.track(torch.as_tensor(g).to(dev), torch.as_tensor(d).to(dev), t)
+    s.results()
+    m0, caps, cam, sf = s.map, s.caps, s.camera, s.scale_factors
+    stages = {
+        "culling.cull_map_points": lambda m, k: culling.cull_map_points(m, k, caps),
+        "triangulate.create_new_map_points": lambda m, k: triangulate.create_new_map_points(
+            m, k, caps, cam, sf),
+        "fuse.search_in_neighbors": lambda m, k: fuse.search_in_neighbors(m, k, caps, cam, sf),
+        "culling.cull_keyframes": lambda m, k: culling.cull_keyframes(m, k, caps, cam),
+        "the whole chain (_mapping_step)": lambda m, k: system._mapping_step(
+            m, torch.ones((), dtype=torch.bool, device=dev), k, caps, cam, sf)[0],
+    }
+    kid = torch.full((), 5, dtype=torch.int32, device=dev)
+    for name, fn in stages.items():
+        sg = graphs.StepGraph(lambda inp, st, fn=fn: (st, fn(m0, inp[0])), dev, name)
+        try:
+            for _ in range(2):
+                sg.run((kid,), torch.zeros(1, device=dev))
+            print(f"  nodes {name}: {sg.n_nodes} ({sg.n_if} IF, {sg.n_while} WHILE), capture "
+                  f"{sg.capture_s:.3f} s", flush=True)
+        except Exception as e:  # noqa: BLE001 - the probe reports every stage
+            print(f"  nodes {name}: FAILED {type(e).__name__}: {str(e)[:160]}", flush=True)
+        del sg
+        gc.collect()
 
 
 def launch_cases(system, dev) -> None:
@@ -597,6 +777,11 @@ def main() -> int:
                     help="the pose graph's dense solve under nested conds, then stop")
     ap.add_argument("--launch", action="store_true",
                     help="path 5's graph run fresh and after a profiler session, then stop")
+    ap.add_argument("--mapping-nodes", action="store_true",
+                    help="the mapping chain's stages captured alone: their graph nodes, then stop")
+    ap.add_argument("--while", dest="while_", action="store_true",
+                    help="WHILE nodes: a toy loop, then the background program's op classes "
+                         "inside nested WHILE and IF bodies; then stop, or go on with --loop")
     args = ap.parse_args()
 
     from vo_slam_test_tpu_torch.config import SlamConfig
@@ -619,6 +804,13 @@ def main() -> int:
         return 2
 
     dev = torch.device("cuda")
+    if args.mapping_nodes:
+        mapping_nodes(system, dev)
+        return 0
+    if args.while_:
+        while_cases(graphs)
+        if not args.loop:
+            return 0
     if args.close:
         close_cases(graphs)
         return 0

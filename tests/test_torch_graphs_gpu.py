@@ -7,7 +7,10 @@ counted on the device (``graphs.counting``) against eager's; dropped systems
 releasing their graphs' memory; the vocabulary path: a captured
 relocalization attempt, and ``SlamSystem(vocabulary=...)`` over the kidnap
 (chip_smoke.py's main path 4), bit for bit with no host sync inside a
-tracking replay.
+tracking replay; WHILE nodes (``graphs.scan``, ``while_capped``): a toy loop
+for 0, 1 and all trips, nested in IF and WHILE bodies, counted launches per
+trip, a node count that does not grow with the trip cap, and the chunk
+programs of ``SlamSystem(chunk=4)`` with a vocabulary.
 
 Run on a machine with a CUDA card (no JAX needed there):
 
@@ -246,7 +249,10 @@ def test_slam_system_graph_equals_eager(room, chunk):
     cfg, frames = room
     a = _track_all(lambda: SlamSystem(cfg, chunk=chunk, graphs=False), frames, False)
     b = _track_all(lambda: SlamSystem(cfg, chunk=chunk), frames, True)
-    assert b.graphs and b.track_graph.replays == len(frames) - 2
+    # per frame: a replay from frame 2; in chunks: the tracking program is
+    # replayed once per chunk (the first chunk's capturing call included)
+    assert b.graphs and b.track_graph.replays == (len(frames) - 2 if chunk == 1
+                                                  else len(frames) // chunk)
     ta, tb = a.results()[0], b.results()[0]
     assert np.array_equal(ta, tb)
     assert [o.made_kf for o in a._outs] == [o.made_kf for o in b._outs]
@@ -488,3 +494,160 @@ def test_loop_chain_background_program_closes_like_eager(cuda, monkeypatch):
     assert graph.loop_closures == eager.loop_closures == [3]
     assert graph.loop_gates == eager.loop_gates and graph.ba_iters == eager.ba_iters
     assert bit_equal((eager.map, eager.loop_state), (graph.map, graph.loop_state))
+
+
+# ---------------------------------------------------------------------------
+# WHILE nodes
+# ---------------------------------------------------------------------------
+
+
+def _dint(v):
+    return torch.full((), v, dtype=torch.int64, device="cuda")
+
+
+def _toy_scan(xs, st, start, n):
+    return graphs.scan(lambda i, c, x: (c * 0.5 + x * (i + 1), c + x), st, xs, start=start, n=n)
+
+
+@pytest.mark.parametrize("length", [5, 32])
+def test_while_node_replays_a_toy_loop(cuda, length):
+    """A scan over a device trip range is one WHILE node; replays for 0, 1
+    and every trip (and a range cut at the end) equal eager, the rows of the
+    trips not run zero."""
+    xs = torch.linspace(-1.0, 2.0, length, device=cuda)
+    sg = graphs.StepGraph(lambda inp, st: _toy_scan(inp[0], st, inp[1], inp[2]), cuda, "toy")
+    ranges = [(0, 1), (0, length), (2, 0), (1, 1), (length - 2, 5), (0, length)]
+    for k, (start, n) in enumerate(ranges):
+        st = torch.full((), 0.25, device=cuda)
+        got_c, got_y = sg.run((xs, _dint(start), _dint(n)), st.clone())
+        want_c, want_y = _toy_scan(xs, st, start, n)
+        torch.cuda.synchronize()
+        assert torch.equal(got_c, want_c), k
+        if want_y is None:  # no trip ran
+            assert not got_y.any(), k
+        else:
+            assert torch.equal(got_y, want_y), k
+    assert sg.n_while == 1 and sg.n_if == 0 and sg.replays == len(ranges) - 1
+
+
+def test_nested_while_if_while_replays(cuda):
+    """A WHILE inside an IF inside a WHILE (the background program's chunk >
+    keyframe > LM nesting), replayed for both branch values, equals eager."""
+    def step(inp, st):
+        xs, go = inp
+
+        def inner(c):
+            return graphs.while_capped(lambda s: s[0].sum() < 40.0,
+                                       lambda s: (s[0] * 1.5 + 1.0, s[1] + 1),
+                                       (c, torch.zeros((), dtype=torch.int32, device=cuda)), 6)
+
+        def body(i, c, x):
+            grown, trips = graphs.cond(go & (x > 0), lambda: inner(c + x),
+                                       lambda: (c - x, torch.zeros((), dtype=torch.int32,
+                                                                   device=cuda)))
+            return grown, trips
+
+        return graphs.scan(body, st, xs)
+
+    sg = graphs.StepGraph(step, cuda, "nested")
+    xs = torch.tensor([1.0, -2.0, 0.5, 3.0], device=cuda)
+    for go in (True, False, True, True):
+        gd = torch.full((), go, device=cuda)
+        st = torch.full((3,), 0.5, device=cuda)
+        got = sg.run((xs, gd), st.clone())
+        want = step((xs, gd), st)
+        torch.cuda.synchronize()
+        assert bit_equal(got, want), go
+    assert sg.n_while == 2 and sg.replays == 3
+
+
+def test_counted_launches_are_per_trip(cuda):
+    """Under ``graphs.counting()`` a kernel wrapper called once in a WHILE
+    body counts once per trip: the eigensolver in a scan over a device range
+    of trips."""
+    from vo_slam_test_tpu_torch.ops import symeig_cuda
+
+    A = torch.randn(6, 4, 12, 12, device=cuda)
+    A = A @ A.mT
+
+    def step(inp, st):
+        xs, n = inp
+        return graphs.scan(lambda i, c, a: (c + symeig_cuda.symeig(a)[0].sum(), c), st, xs, n=n)
+
+    sg = graphs.StepGraph(step, cuda, "counted")
+    with graphs.counting():
+        trips = [3, 6, 1, 4]  # the first call is the warm-up
+        for n in trips:
+            sg.run((A, _dint(n)), torch.zeros((), device=cuda))
+    got = sg.launches()
+    assert sum(got.values()) == sum(trips[1:]) and sg.replays == len(trips) - 1
+
+
+def test_while_node_count_does_not_grow_with_the_cap(cuda):
+    """The body of a captured ``scan``/``while_capped`` is captured once: the
+    graph's node count is the same at two trip caps."""
+    def scan_step(length):
+        def step(inp, st):
+            return graphs.scan(lambda i, c, _: (torch.sin(c) + c * 0.5 + i, None), st,
+                               length=length)
+        return step
+
+    def while_step(cap):
+        def step(inp, st):
+            return graphs.while_capped(lambda c: c.sum() < 1e6, lambda c: torch.cos(c) * 2 + c,
+                                       st, cap), None
+        return step
+
+    for make in (scan_step, while_step):
+        sizes = []
+        for cap in (3, 40):
+            sg = graphs.StepGraph(make(cap), cuda, "cap")
+            for _ in range(3):
+                sg.run((), torch.ones(4, device=cuda))
+            sizes.append((sg.n_nodes, sg.n_while))
+        assert sizes[0] == sizes[1] and sizes[0][1] == 1, sizes
+
+
+def test_vocabulary_chunk_programs_equal_eager(kidnap):
+    """SlamSystem(chunk=4) with a vocabulary over the kidnap: the chunk
+    programs (tracking and background, the close inside) equal eager's
+    chunks bit for bit, with one replay of each per full chunk after the
+    first and no host sync in a chunk's dispatch."""
+    import warnings
+
+    from vo_slam_test_tpu_torch.slam_map.map_state import MapCaps
+
+    cfg, voc, frames, _ = kidnap
+
+    def make(on):
+        return SlamSystem(cfg, caps=MapCaps(max_kf=32, max_pt=8192), vocabulary=voc, chunk=4,
+                          graphs=on)
+
+    a = _track_all(lambda: make(False), frames, False)
+    b = make(True)
+    reads = []
+    for i, f in enumerate(frames):
+        if i == 4:
+            replays0 = b.track_graph.replays + b.background_graph.replays
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                b.track(*f)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        reads.append(sum("synchroniz" in str(w.message) for w in caught))
+    full = len(frames) // 4
+    assert b.track_graph.replays + b.background_graph.replays - replays0 == 2 * (full - 1)
+    assert b.track_graph.n_while >= 1 and b.background_graph.n_while >= 1
+    assert reads == [0] * len(frames)
+    ra, rb = a.results(), b.results()
+    assert np.array_equal(ra[0], rb[0]) and ra[1] == rb[1]
+    assert a.reloc_frames == b.reloc_frames
+    assert [o.reloc_winner for o in a._outs] == [o.reloc_winner for o in b._outs]
+    assert [o.made_kf for o in a._outs] == [o.made_kf for o in b._outs]
+    assert a.ba_iters == b.ba_iters
+    for f in dataclasses.fields(a.map):
+        assert torch.equal(getattr(a.map, f.name), getattr(b.map, f.name)), f.name
+    for f in dataclasses.fields(a.loop_state):
+        assert torch.equal(getattr(a.loop_state, f.name), getattr(b.loop_state, f.name)), f.name

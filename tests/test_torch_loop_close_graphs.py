@@ -7,7 +7,9 @@ tests/test_torch_loop_close.py's multi-candidate scene (a dead slot, a bogus
 candidate, a stale generation, then the accepted one); the essential graph
 with a device ``fixed_kf`` against the int form (``SlamSystem``'s graph path
 with the close inside: test_torch_loop_system_graphs.py). One JAX run
-(``close_step_multi``, ~30 s of compile) is shared by the file."""
+(``close_step_multi``, ~30 s of compile, on each candidate list of
+``JAX_CANDS``) is shared by the session (tests/test_torch_graphs_loops.py
+reads it too)."""
 
 import jax
 import jax.numpy as jnp
@@ -29,24 +31,47 @@ from test_loop_close import CAPS, build_drifted_loop_map
 from test_torch_loop_background import GROUP_DIV
 from test_torch_loop_close import (KW, MULTI_CANDS, MULTI_GENS, P_CAPS, SCALES, _assert_map,
                                    _multi_map)
-from torch_slam_helpers import port_map
+from torch_slam_helpers import _shared_run, port_map
 
 torch.set_num_threads(1)
 
 
-@pytest.fixture(scope="module")
-def multi():
+# the candidate lists JAX's close_step_multi runs on the multi-candidate scene:
+# the tests' (a dead slot, a bogus candidate, a stale generation, then the
+# accepted one), one with dead slots between live ones, and one accepted at once
+JAX_CANDS = {"multi": (MULTI_CANDS, MULTI_GENS),
+             "gapped": ([4, -1, 0, -1, 0, -1, -1, -1], [0, -1, 99, -1, 0, -1, -1, -1]),
+             "first": ([0, 4, 0, -1, -1, -1, -1, -1], [0, 0, 0, -1, -1, -1, -1, -1])}
+
+
+def _jax_close_multi(_):
     jcam = JCamera.from_config(JConfig(**KW))
     m, gt, _ = build_drifted_loop_map(jcam)
     host = jax.device_get(_multi_map(jax.tree.map(jnp.asarray, jax.device_get(m))))
-    jm, jls, jdone, jwhich = JLC.close_step_multi(
-        jax.tree.map(jnp.asarray, host), JLC.empty_loop_state(CAPS), jnp.asarray(9, jnp.int32),
-        jnp.asarray(0, jnp.int32), jnp.asarray(MULTI_CANDS, jnp.int32),
-        jnp.asarray(MULTI_GENS, jnp.int32), jnp.asarray(GROUP_DIV, jnp.int32), CAPS, jcam,
-        jnp.asarray(SCALES))
-    return dict(host=host, gt=gt, cam=Camera.from_config(SlamConfig(**KW), "cpu"),
-                want=(convert.dataclass_to_numpy(jax.device_get(jm)), int(jls.last_loop_seq),
-                      bool(jdone), int(jwhich)))
+    want = {}
+    for name, (cands, gens) in JAX_CANDS.items():
+        jm, jls, jdone, jwhich = JLC.close_step_multi(
+            jax.tree.map(jnp.asarray, host), JLC.empty_loop_state(CAPS),
+            jnp.asarray(9, jnp.int32), jnp.asarray(0, jnp.int32), jnp.asarray(cands, jnp.int32),
+            jnp.asarray(gens, jnp.int32), jnp.asarray(GROUP_DIV, jnp.int32), CAPS, jcam,
+            jnp.asarray(SCALES))
+        want[name] = (convert.dataclass_to_numpy(jax.device_get(jm)), int(jls.last_loop_seq),
+                      bool(jdone), int(jwhich))
+    return dict(host=host, gt=gt, want=want)
+
+
+def jax_close_multi(tmp_path_factory):
+    """JAX's close_step_multi on the multi-candidate scene for each of
+    ``JAX_CANDS``, once per test session (``_shared_run``): (the start map,
+    the ground truth, {name: (map, last_loop_seq, accepted, winner)})."""
+    return _shared_run(tmp_path_factory, "jax_close_multi", _jax_close_multi)
+
+
+@pytest.fixture(scope="module")
+def multi(tmp_path_factory):
+    run = jax_close_multi(tmp_path_factory)
+    return dict(host=run["host"], gt=run["gt"], cam=Camera.from_config(SlamConfig(**KW), "cpu"),
+                want=run["want"]["multi"])
 
 
 def _leaves_equal(a, b, label):

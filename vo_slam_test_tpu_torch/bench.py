@@ -35,8 +35,10 @@ their ``cudaGraphLaunch``.
 
 The systems run the step programs (``SlamSystem``'s default on the card:
 replayed CUDA graphs with conditional nodes, the loop close inside the
-background program); ``measure(..., graphs=False)`` times the eager path. A
-fresh system warms up and captures its two programs during its first frames,
+background program; a chunk is one replay of the tracking program and one of
+the background program, each loop a WHILE node); ``measure(...,
+graphs=False)`` times the eager path. A
+fresh system warms up and captures its two programs during its first chunk,
 inside its timed run (the JAX package compiles once per process, in its warm
 pass); ``setup_s`` reports the host seconds of the two programs' warm-ups
 and captures. On the graph path the profiler traces a window of two chunks
@@ -306,8 +308,8 @@ def background_device_ms(ranges, acts) -> dict:
 
 def time_background_replays(s: SlamSystem, spans: list) -> None:
     """On the card's graph path: a CUDA event pair around each replay of the
-    system's background program (not its warm-up and capture, whose host
-    time is ``setup_s``), appended to ``spans``."""
+    system's background program, one per chunk (not its warm-up and capture,
+    whose host time is ``setup_s``), appended to ``spans``."""
     if not (s.graphs and s.device.type == "cuda"):
         return
     program = s.background_graph
@@ -391,6 +393,8 @@ def traced_run(sc: Scenario, frames_dev, device, graphs: Optional[bool] = None
     bg = background_device_ms(*trace_rows(prof))
     bg["parse_s"] = time.perf_counter() - t0
     bg["window"] = (window.start, len(window))
+    if spans:  # the last chunk's background replay may still run on the card
+        torch.cuda.synchronize(device)
     ms = [e0.elapsed_time(e1) for e0, e1 in spans]
     inside = sum(ms[spans_in[1]:spans_in[0]])
     bg["events_ms"] = sum(ms) - inside if spans else None

@@ -1,7 +1,8 @@
-// IF nodes for CUDA graphs captured from a stream: the counterpart of
-// torch.cuda.CUDAGraph.begin_capture_to_if_node / end_capture_to_conditional_node,
-// which the card's PyTorch build lacks. utils/graphs.py calls these through
-// ctypes while a StepGraph is being captured.
+// IF and WHILE nodes for CUDA graphs captured from a stream: the counterpart
+// of torch.cuda.CUDAGraph.begin_capture_to_if_node /
+// end_capture_to_conditional_node (and of a WHILE node, which torch does not
+// offer), which the card's PyTorch build lacks. utils/graphs.py calls these
+// through ctypes while a StepGraph is being captured.
 //
 // graph_if_begin: on `stream` (capturing), create a conditional handle in the
 // graph being captured, capture a one-thread kernel that sets the handle from
@@ -10,6 +11,13 @@
 // then start capturing `body_stream` into the node's body graph. Work issued
 // on `body_stream` until graph_if_end runs only when the handle is 1 at
 // replay. Needs CUDA 12.4 or later (conditional nodes from stream capture).
+//
+// graph_while_begin / graph_while_end: the same with a WHILE node, whose body
+// runs again for as long as its handle is 1 at the body's end (a trip).
+// Its trip counter is the int64 at `counter`: the begin kernel sets it to 0
+// and the handle to `pred && 0 < cap`; graph_while_end captures, as the
+// body's last kernel, one that adds 1 to it and sets the handle to
+// `pred && counter < cap` from the flag the body wrote.
 
 #include <cuda_runtime.h>
 
@@ -19,8 +27,13 @@ __global__ void set_if_kernel(cudaGraphConditionalHandle handle, const unsigned 
   cudaGraphSetConditional(handle, negate ? v ^ 1u : v);
 }
 
-extern "C" int graph_if_begin(void* stream, void* body_stream, const void* pred, int negate) {
-  cudaStream_t s = (cudaStream_t)stream;
+// Create a handle in the graph `s` is capturing, capture `set` (a one-thread
+// kernel launch on `s` that sets the handle), add a conditional node of
+// `type` after the stream's dependencies, make it the only one, and start
+// capturing `body_stream` into the node's body graph.
+template <typename SetFn>
+static int begin_conditional(cudaStream_t s, void* body_stream, cudaGraphConditionalNodeType type,
+                             unsigned long long* handle_out, SetFn set) {
   cudaStreamCaptureStatus status;
   cudaGraph_t graph;
   const cudaGraphNode_t* deps;
@@ -31,7 +44,7 @@ extern "C" int graph_if_begin(void* stream, void* body_stream, const void* pred,
   cudaGraphConditionalHandle handle;
   e = cudaGraphConditionalHandleCreate(&handle, graph, 0, 0);
   if (e != cudaSuccess) return (int)e;
-  set_if_kernel<<<1, 1, 0, s>>>(handle, (const unsigned char*)pred, negate);
+  set(handle);
   e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
   e = cudaStreamGetCaptureInfo(s, &status, nullptr, &graph, &deps, &n_deps);
@@ -39,20 +52,48 @@ extern "C" int graph_if_begin(void* stream, void* body_stream, const void* pred,
   cudaGraphNodeParams params = {};
   params.type = cudaGraphNodeTypeConditional;
   params.conditional.handle = handle;
-  params.conditional.type = cudaGraphCondTypeIf;
+  params.conditional.type = type;
   params.conditional.size = 1;
   cudaGraphNode_t node;
   e = cudaGraphAddNode(&node, graph, deps, n_deps, &params);
   if (e != cudaSuccess) return (int)e;
   e = cudaStreamUpdateCaptureDependencies(s, &node, 1, cudaStreamSetCaptureDependencies);
   if (e != cudaSuccess) return (int)e;
+  if (handle_out) *handle_out = (unsigned long long)handle;
   return (int)cudaStreamBeginCaptureToGraph((cudaStream_t)body_stream,
                                             params.conditional.phGraph_out[0], nullptr,
                                             nullptr, 0, cudaStreamCaptureModeRelaxed);
 }
 
-// One more execution of the node whose body this is captured into: a
-// one-thread kernel adding 1 to counts[slot] (a StepGraph's launch count,
+extern "C" int graph_if_begin(void* stream, void* body_stream, const void* pred, int negate) {
+  cudaStream_t s = (cudaStream_t)stream;
+  return begin_conditional(s, body_stream, cudaGraphCondTypeIf, nullptr,
+                           [&](cudaGraphConditionalHandle h) {
+                             set_if_kernel<<<1, 1, 0, s>>>(h, (const unsigned char*)pred, negate);
+                           });
+}
+
+// A WHILE node's handle from its flag and trip counter: `first` starts the
+// count at 0, else it goes up by one (the trip that just ended).
+__global__ void set_while_kernel(cudaGraphConditionalHandle handle, const unsigned char* pred,
+                                 long long* counter, long long cap, int first) {
+  long long c = first ? 0 : counter[0] + 1;
+  counter[0] = c;
+  cudaGraphSetConditional(handle, (pred[0] != 0 && c < cap) ? 1u : 0u);
+}
+
+extern "C" int graph_while_begin(void* stream, void* body_stream, const void* pred,
+                                 void* counter, long long cap, unsigned long long* handle) {
+  cudaStream_t s = (cudaStream_t)stream;
+  return begin_conditional(s, body_stream, cudaGraphCondTypeWhile, handle,
+                           [&](cudaGraphConditionalHandle h) {
+                             set_while_kernel<<<1, 1, 0, s>>>(h, (const unsigned char*)pred,
+                                                              (long long*)counter, cap, 1);
+                           });
+}
+
+// One more execution of the node whose body this is captured into (an IF
+// node's execution, a WHILE node's trip): a one-thread kernel adding 1 to counts[slot] (a StepGraph's launch count,
 // utils/graphs.py::counting).
 __global__ void count_if_kernel(unsigned long long* counts, int slot) {
   atomicAdd(counts + slot, 1ull);
@@ -64,7 +105,8 @@ extern "C" int graph_if_count(void* stream, void* counts, int slot) {
 }
 
 // End the body capture that graph_if_begin started on `body_stream`; the
-// body graph's node count (an inner IF node counts as one) into *n_nodes.
+// body graph's node count (an inner conditional node counts as one) into
+// *n_nodes.
 extern "C" int graph_if_end(void* body_stream, unsigned long long* n_nodes) {
   cudaGraph_t body;
   cudaError_t e = cudaStreamEndCapture((cudaStream_t)body_stream, &body);
@@ -75,8 +117,24 @@ extern "C" int graph_if_end(void* body_stream, unsigned long long* n_nodes) {
   return (int)e;
 }
 
-// The node count of the graph `stream` is capturing (its top level: an IF
-// node counts as one) into *n_nodes.
+// End a WHILE body that graph_while_begin started on `body_stream`: capture
+// the kernel that counts the trip and sets `handle` again from the flag at
+// `pred` and the counter, then end the capture as graph_if_end does.
+extern "C" int graph_while_end(void* body_stream, unsigned long long handle, const void* pred,
+                               void* counter, long long cap, unsigned long long* n_nodes) {
+  set_while_kernel<<<1, 1, 0, (cudaStream_t)body_stream>>>(
+      (cudaGraphConditionalHandle)handle, (const unsigned char*)pred, (long long*)counter, cap, 0);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) {
+    cudaGraph_t body;
+    cudaStreamEndCapture((cudaStream_t)body_stream, &body);  // leave no capture open
+    return (int)e;
+  }
+  return graph_if_end(body_stream, n_nodes);
+}
+
+// The node count of the graph `stream` is capturing (its top level: a
+// conditional node counts as one) into *n_nodes.
 extern "C" int graph_capture_nodes(void* stream, unsigned long long* n_nodes) {
   cudaStreamCaptureStatus status;
   cudaGraph_t graph;

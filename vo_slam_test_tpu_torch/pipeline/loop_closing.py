@@ -22,11 +22,13 @@ The reference's LoopClosing thread (loopClosing.cpp):
 
 Host reads: the JAX package branches on device scalars with ``lax.cond``,
 and so does this module, through ``utils.graphs.cond``: detection, the close
-on the best confirmed candidate, each of the ``MAX_CANDS`` Sim3 slots on
-``~done & (cand >= 0)``, the correction on the accept and each of its
-``GROUP_FUSE`` loop-fuse slots. In a step program nothing is read back and
-the outcome stays on the device (``CloseOut``); eager, each cond reads its
-predicate (the candidates and the group's keyframe ids are read once each).
+on the best confirmed candidate, each Sim3 slot on ``cand >= 0``, the
+correction on the accept and each of its ``GROUP_FUSE`` loop-fuse slots; its
+loops are ``utils.graphs`` loops, as the JAX package's: the ``MAX_CANDS``
+slots a ``scan`` with an early exit, the loop fuse a ``fori_loop``, each LM
+pass a ``while_capped``. In a step program nothing is read back and the
+outcome stays on the device (``CloseOut``); eager, each cond and each loop's
+exit test reads its predicate (the candidates are read once).
 
 Deviation (the JAX package's DEVIATIONS.md D1): the reference runs 5 RANSAC
 iterations per candidate per loop round; the batched solver evaluates 128
@@ -268,14 +270,17 @@ def _correct(m: MapState, kf, cd, c, caps: MapCaps, cam: Camera,
                                      m.pt_pos))
 
     # fuse the loop points into the corrected group (searchAndFuse :496-516):
-    # GROUP_FUSE slots, each under a cond on its keyframe id (the JAX
-    # package's fori_loop of conds); eager, the ids are read back once
-    group_ids = graphs.fetch(compact_ids(group, GROUP_FUSE))
-    for i in range(GROUP_FUSE):
-        g = group_ids[i]
-        m = graphs.cond(g >= 0, lambda m, g=g: fuse.fuse_into_keyframe(
-            m, graphs.where(g >= 0, g, 0), c["loop_pts"], caps, cam, scale_factors,
-            threshold=4.0), lambda m: m, (m,))
+    # a fori_loop over GROUP_FUSE slots, each under a cond on its keyframe id
+    # (the JAX package's fori_loop of conds)
+    group_ids = compact_ids(group, GROUP_FUSE)
+
+    def fuse_slot(i, m):
+        g = pick(group_ids, i)
+        return graphs.cond(g >= 0, lambda m: fuse.fuse_into_keyframe(
+            m, torch.clamp(g, min=0), c["loop_pts"], caps, cam, scale_factors, threshold=4.0),
+            lambda m: m, (m,))
+
+    m = graphs.fori_loop(0, GROUP_FUSE, fuse_slot, m)
 
     # essential graph: parents, strong covisibles, old loop edges, the new edge
     par_ok = (m.parent >= 0) & m.kf_valid
@@ -389,7 +394,7 @@ def close_step(m: MapState, ls: LoopState, kf_id: int, cand_kf: int, caps: MapCa
     return (m, ls, accept, dict(zip(GATE_KEYS[1:], vals[1:]))) if diag else (m, ls, accept)
 
 
-def _close_multi(m: MapState, ls: LoopState, kf, kf_ok: torch.Tensor, cand_kfs,
+def _close_multi(m: MapState, ls: LoopState, kf, kf_ok: torch.Tensor, cand_kfs: torch.Tensor,
                  cand_gens: torch.Tensor, group_div: int, caps: MapCaps, cam: Camera,
                  scale_factors: torch.Tensor) -> Tuple[MapState, LoopState, CloseOut]:
     """Try the confirmed candidates of one keyframe in order until a Sim3
@@ -399,17 +404,18 @@ def _close_multi(m: MapState, ls: LoopState, kf, kf_ok: torch.Tensor, cand_kfs,
     CloseOut).
 
     ``kf`` is a Python int or a 0-d device tensor, ``cand_kfs`` [C] the
-    candidates (-1 padded; a device tensor is read back once when eager),
-    ``cand_gens`` [C] their kf_gen at detection, on the device. Slot i
-    verifies under a ``graphs.cond`` on ``~done & (cand >= 0)``; the
-    winner's correction inputs are kept by selects, and one correction runs
-    under a cond on ``done``. This is the JAX package's scan exactly: a
-    rejected attempt leaves the map and the loop state as they were, and
-    nothing runs after an accept, so every verification sees the map before
-    the close and at most one correction runs."""
+    candidates (-1 padded, on the device) and ``cand_gens`` [C] their kf_gen
+    at detection. The slots are a ``graphs.scan`` whose early exit fires
+    once an attempt is accepted or no candidate is left; slot i verifies
+    under a ``graphs.cond`` on ``cand >= 0``, the winner's correction inputs
+    are kept by selects, and one correction runs under a cond on the accept.
+    This is the JAX package's scan exactly: a rejected attempt leaves the map
+    and the loop state as they were, and nothing runs after an accept, so
+    every verification sees the map before the close and at most one
+    correction runs. Slots that never run keep ``CloseOut.none``'s values."""
     dev = m.device
     K, P, C = caps.max_kf, caps.max_pt, cand_gens.shape[0]
-    cands = graphs.fetch(cand_kfs)
+    cands = cand_kfs.to(torch.int32)
 
     def groups(k):
         words = row_at(m.kf_word, k)
@@ -417,35 +423,39 @@ def _close_multi(m: MapState, ls: LoopState, kf, kf_ok: torch.Tensor, cand_kfs,
 
     g_curr = groups(kf)
     out = CloseOut.none(dev, C)
-    done, which = out.closed, out.which
     eye = torch.eye(4, device=dev)
     no_kf = torch.zeros((K,), dtype=torch.bool, device=dev)
     win = dict(T1=eye, T1_corr=eye, nb_cand=no_kf, loop_pts=torch.zeros((P,), dtype=torch.bool,
                                                                      device=dev),
                group=no_kf, cd=torch.zeros((), dtype=torch.int32, device=dev))
-    tried, accepted, gates = [], [], []
-    for i in range(C):
-        cand, gen = cands[i], cand_gens[i]
-        live = graphs.where(cand >= 0, ~done, False)
-        cd = graphs.where(cand >= 0, cand, 0)
+    # left[j]: a candidate at slot j or later (left[C] False)
+    valid = (cands >= 0).to(torch.int32)
+    left = torch.cat([torch.flip(torch.cumsum(torch.flip(valid, [0]), 0), [0]) > 0,
+                      torch.zeros((1,), dtype=torch.bool, device=dev)])
 
-        def attempt(cd=cd, gen=gen):
+    def slot(i, carry, x):
+        done, which, _, win = carry
+        cand, gen = x
+        cd = torch.clamp(cand, min=0)
+
+        def attempt():
             gen_ok = kf_ok & row_at(m.kf_valid, cd) & (row_at(m.kf_gen, cd) == gen)
             g, c = _gates_and_group(m, ls, kf, cd, gen_ok, caps, cam, scale_factors, g_curr,
                                     groups(cd))
-            return g, dict(c, cd=graphs.on_device(cd, torch.int32, dev))
+            return g, dict(c, cd=cd)
 
-        g, c = graphs.cond(live, attempt, lambda: (out.gates[i], win))
+        live = cand >= 0
+        g, c = graphs.cond(live, attempt, lambda: (out.gates[0], win))
         acc = g[0] > 0  # an accept only where the slot ran, hence before any other
         win = {k: torch.where(acc, c[k], v) for k, v in win.items()}
-        which = torch.where(acc, win["cd"], which)
-        done = done | acc
-        tried.append(graphs.on_device(live, torch.bool, dev))
-        accepted.append(acc)
-        gates.append(g)
+        return ((done | acc, torch.where(acc, cd, which), pick(left, i + 1), win),
+                (live, acc, g))
+
+    (done, which, _, win), (tried, accepted, gates) = graphs.scan(
+        slot, (out.closed, out.which, left[0], win), (cands, cand_gens),
+        ys=(out.tried, out.accepted, out.gates), until=lambda c: c[0] | ~c[2])
     m, ls = _apply(m, ls, kf, win["cd"], done, win, caps, cam, scale_factors)
-    return m, ls, CloseOut(closed=done, which=which, tried=torch.stack(tried),
-                           accepted=torch.stack(accepted), gates=torch.stack(gates))
+    return m, ls, CloseOut(closed=done, which=which, tried=tried, accepted=accepted, gates=gates)
 
 
 def close_detected(m: MapState, ls: LoopState, go, kf_id, cand_kfs: torch.Tensor,
@@ -467,8 +477,8 @@ def close_detected(m: MapState, ls: LoopState, go, kf_id, cand_kfs: torch.Tensor
 
     def close(m, ls):
         with contextlib.nullcontext() if graphs.traced() else record_function("close_step"):
-            return _close_multi(m, ls, kf, row_at(m.kf_valid, kf), cands, cand_gens, group_div,
-                                caps, cam, scale_factors)
+            return _close_multi(m, ls, kf, row_at(m.kf_valid, kf), cand_kfs, cand_gens,
+                                group_div, caps, cam, scale_factors)
 
     return graphs.cond(cands[0] >= 0, close, lambda m, ls: (m, ls, none), (m, ls))
 
@@ -482,8 +492,9 @@ def close_step_multi(m: MapState, ls: LoopState, kf_id: int, kf_gen_expect: int,
     kf = max(int(kf_id), 0)
     kf_ok = m.kf_valid[kf] & (m.kf_gen[kf] == kf_gen_expect)
     gens = torch.as_tensor(cand_gens, dtype=torch.int32).to(m.device)
-    m, ls, out = _close_multi(m, ls, kf, kf_ok, torch.as_tensor(cand_kfs).tolist(), gens,
-                              group_div, caps, cam, scale_factors)
+    cands = torch.as_tensor(cand_kfs, dtype=torch.int32).to(m.device)
+    m, ls, out = _close_multi(m, ls, kf, kf_ok, cands, gens, group_div, caps, cam,
+                              scale_factors)
     done, which = graphs.fetch(out.closed, out.which)
     return m, ls, done, which
 

@@ -58,26 +58,34 @@ are ``lax.cond`` on device scalars. Here the branches are
 path (the frame counter, the last keyframe's frame and its flag live on the
 device on every path, as in the JAX package):
 
-- through the step programs (``graphs=True``; the card's default): ``track``
-  replays two captured CUDA graphs, the tracking step (``_slam_step``) and
-  the background step (``background_step``), whose branches are conditional
-  nodes: the r=30 retry, the keyframe insert at a device slot, the mapping
-  chain on ``made_kf & (kf_id >= 0)``, each triangulation neighbour slot,
-  local BA's interruptBA entry and its LM passes. With a vocabulary the
+- through the step programs (``graphs=True``; the card's default): a chunk
+  (or, with ``chunk=1``, a frame) replays two captured CUDA graphs, the
+  tracking program (``_slam_step`` as the body of a ``graphs.scan`` over the
+  chunk's frames, the JAX package's ``track_chunk``) and the background
+  program (``background_step`` as a ``scan`` body over the chunk's events,
+  its ``background_chunk``); each loop is one WHILE node whose body is
+  captured once, and the branches are IF nodes: the r=30 retry, the
+  keyframe insert at a device slot, the mapping chain on ``made_kf & (kf_id
+  >= 0)``, each triangulation neighbour slot, local BA's interruptBA entry;
+  local BA's LM passes and pose-only LM are WHILE nodes. With a vocabulary the
   tracking program also holds BoW and the fallback chain (motion tracking,
   the reference keyframe, relocalization with each candidate slot, its
   solver choice and the top-up cascade's gates as conds; ``last_reloc_frame``
   and the winner stay on the device), and the background program holds loop
-  detection and the close (the Sim3 candidate scan, each slot under its
-  cond, the correction with the loop fuse's slots and the essential graph)
-  under their conds. Nothing is read back until ``results()``; with global
+  detection and the close (the Sim3 candidate scan, a WHILE node with an
+  early exit and each slot under its cond, the Sim3 and essential-graph LM
+  loops, the correction with the loop fuse's ``fori_loop``) under their
+  conds. Nothing is read back until ``results()``; with global
   BA one read after each dispatch's background replays folds the closures
   and runs global BA after each (the JAX package reads its close results
-  then). The timestamp is a device input of the tracking program. The first
-  frame (which flips the host flag ``initialized``) and the warm-up of each
-  program run in ``select`` mode, also without a read. With ``chunk=K`` the
-  tracking program is replayed K times, then the background program K times
-  with ``chunk_ba_stops`` computed on the device;
+  then). The frames and timestamps are staged into the tracking program's
+  [K] buffers on the device, and both programs take their trip range as
+  device ints, so one pair serves a full chunk (one replay each), the first
+  chunk (its first frame, which flips the host flag ``initialized``, runs
+  outside in ``select`` mode; each program's first trip is its warm-up, in
+  ``select`` mode, and the next call captures the rest) and ``results()``'s
+  partial chunk (frame by frame); ``chunk_ba_stops`` is computed on the
+  device inside the background program;
 - eager (``graphs=False``, the CPU's default): the same functions, each
   ``cond`` reading its predicate back.
   Without a vocabulary a tracked frame reads the r=15 match count (the r=30
@@ -935,9 +943,10 @@ class SlamSystem:
         # the graph path (class docstring): two step programs sharing nothing
         # but the map (and the loop state) they hand over
         self.graphs = self.device.type == "cuda" if graphs is None else bool(graphs)
-        self.track_graph = graphs_mod.StepGraph(self._graph_track, self.device, "slam_step")
+        self.track_graph = graphs_mod.StepGraph(self._graph_track, self.device, "track_chunk")
         self.background_graph = graphs_mod.StepGraph(self._graph_background, self.device,
-                                                     "background_step")
+                                                     "background_chunk")
+        self._frame_bufs = None  # the tracking program's [chunk] frame buffers
         # (frame, index in _outs, made, n1, n2, with loop closing (the confirmed
         # candidates, the close's outcome) else None) per background step, on
         # the device
@@ -986,80 +995,165 @@ class SlamSystem:
             return
         self._track_one(gray_d, depth_d, timestamp)
 
-    def _archive(self, feats: FrameFeatures) -> None:
+    def _archive(self, desc: torch.Tensor, valid: torch.Tensor) -> None:
+        """A frame's descriptors for ``create_vocabulary`` (tensors that no
+        later step rewrites)."""
         if len(self._frame_desc) < DESC_ARCHIVE_CAP:
-            if self.graphs:  # the state's buffers are rewritten by the next replay
-                self._frame_desc.append((feats.desc.clone(), feats.valid.clone()))
-            else:
-                self._frame_desc.append((feats.desc, feats.valid))
+            self._frame_desc.append((desc, valid))
 
     # ---- the graph path ----------------------------------------------------
 
-    def _graph_track(self, frame, carry):
-        """The tracking step program: (gray, depth, timestamp) and (state,
-        map) -> ((state, map), (out, new keyframe id))."""
-        gray_d, depth_d, ts = frame
-        state, m = carry
-        state, m, out, new_kf = _slam_step(
-            state, m, gray_d, depth_d, ts, self.camera, self.caps, self.spec, self.budgets,
-            self.scale_factors, self.inv_level_sigma2, self.fast_hi, self.fast_lo,
-            self.max_frame_gap, self.voc, self.reloc_parity)
-        return (state, m), (out, new_kf)
+    def _graph_track(self, inputs, carry):
+        """The tracking program: ``_slam_step`` as the body of a ``scan`` over
+        the frame buffers' trips [start, start + n) (the JAX package's
+        ``track_chunk``): ([K] grays, depths, timestamps, (start, n, end)) and
+        (state, map) -> ((state, map), the per-frame (SlamOut, new keyframe
+        id, descriptors, their valid mask) stacked [K, ...])."""
+        grays, depths, stamps, (start, n, _) = inputs
 
-    def _graph_background(self, event, carry):
-        """The background step program: (made a keyframe, its id, interruptBA)
+        def body(i, carry, frame):
+            state, m = carry
+            state, m, out, new_kf = _slam_step(
+                state, m, *frame, self.camera, self.caps, self.spec, self.budgets,
+                self.scale_factors, self.inv_level_sigma2, self.fast_hi, self.fast_lo,
+                self.max_frame_gap, self.voc, self.reloc_parity)
+            return (state, m), (out, new_kf, state.feats.desc, state.feats.valid)
+
+        return graphs_mod.scan(body, carry, (grays, depths, stamps), start=start, n=n)
+
+    def _graph_background(self, inputs, carry):
+        """The background program: ``background_step`` as the body of a
+        ``scan`` over the events' trips [start, start + n) (the JAX
+        package's ``background_chunk``), each event's interruptBA its forced
+        flag or ``chunk_ba_stops`` over the events before ``end``, on the
+        device: ([K] made a keyframe, its id, forced stop, (start, n, end))
         and the map (and, with loop closing, the loop state) -> (the same,
         (BA iterations pass 1, pass 2[, the confirmed loop candidates, their
-        generations, the close's outcome])))."""
-        did, kid, stop = event
-        m, ls = carry if self.enable_loop_closing else (carry, self.loop_state)
-        m, ls, bg = background_step(m, ls, did, kid, stop, self.caps, self.camera,
-                                    self.scale_factors, self.enable_loop_closing,
-                                    self._bow_group_div, self._inline_close)
-        if self.enable_loop_closing:
-            return (m, ls), (bg.ba_n1, bg.ba_n2, bg.cands, bg.cand_gens, bg.close)
-        return m, (bg.ba_n1, bg.ba_n2)
+        generations, the close's outcome]) stacked [K, ...])."""
+        did, kid, forced, (start, n, end) = inputs
+        window = torch.arange(did.shape[0], device=did.device) < end
+        stops = chunk_ba_stops(did & window) | forced
 
-    def _graph_step(self, gray_d, depth_d, timestamp: float):
-        """One tracking step on the graph path -> (out, new keyframe id). The
-        first frame flips the host flag ``initialized`` and runs outside the
+        def body(i, carry, event):
+            m, ls = carry if self.enable_loop_closing else (carry, self.loop_state)
+            m, ls, bg = background_step(m, ls, *event, self.caps, self.camera,
+                                        self.scale_factors, self.enable_loop_closing,
+                                        self._bow_group_div, self._inline_close)
+            if self.enable_loop_closing:
+                return (m, ls), (bg.ba_n1, bg.ba_n2, bg.cands, bg.cand_gens, bg.close)
+            return m, (bg.ba_n1, bg.ba_n2)
+
+        return graphs_mod.scan(body, carry, (did, kid, stops), start=start, n=n)
+
+    def _run_program(self, sg: graphs_mod.StepGraph, data: tuple, carry, lo: int, hi: int):
+        """``sg`` over the trips [lo, hi) (``_graph_track``/``_graph_background``;
+        ``hi`` is also the events' end for ``chunk_ba_stops``) -> (carry,
+        [(first trip, trips, outputs)] per call). A program not yet warmed up
+        runs its first trip alone in select mode (the warm-up, host ints for
+        the range) and the rest in the next call, which captures it; every
+        later call is one replay with the range as device ints."""
+        def dev_int(v):
+            return torch.full((), v, dtype=torch.int64, device=self.device)
+
+        calls = [(lo, 1), (lo + 1, hi - lo - 1)] if not sg.warmed else [(lo, hi - lo)]
+        done = []
+        for start, k in calls:
+            if k <= 0:
+                continue
+            rng = (start, k, hi) if not sg.warmed else tuple(map(dev_int, (start, k, hi)))
+            carry, ys = sg.run(data + (rng,), carry)
+            done.append((start, k, ys))
+        return carry, done
+
+    def _stage(self, buf) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        """The frames of ``buf`` in rows 0.. of the tracking program's [K]
+        frame buffers (device copies, the timestamps filled on the device)."""
+        if self._frame_bufs is None:
+            g0, d0, _ = buf[0]
+            self._frame_bufs = (
+                torch.zeros((self.chunk,) + tuple(g0.shape), dtype=g0.dtype, device=self.device),
+                torch.zeros((self.chunk,) + tuple(d0.shape), dtype=d0.dtype, device=self.device),
+                torch.zeros((self.chunk,), dtype=torch.float32, device=self.device))
+        grays, depths, stamps = self._frame_bufs
+        for k, (g, d, ts) in enumerate(buf):
+            grays[k].copy_(g)
+            depths[k].copy_(d)
+            stamps[k].fill_(float(ts))
+        return self._frame_bufs
+
+    def _graph_dispatch(self, buf) -> None:
+        """The graph path for the frames of ``buf`` (a chunk, or one frame):
+        the tracking program over them, then the background program over
+        their events, one replay each once both are captured. The first
+        frame flips the host flag ``initialized`` and runs outside the
         program, in select mode (nothing read back)."""
-        ts = torch.full((), float(timestamp), dtype=torch.float32, device=self.device)
-        frame = (gray_d, depth_d, ts)
+        grays, depths, stamps = self._stage(buf)
+        rows = []  # per frame: (SlamOut, new keyframe id, descriptors, valid mask)
+        first = 0
         if not self.state.initialized:
             with graphs_mod.use("select"), graphs_mod.no_host_reads():
-                (self.state, self.map), (out, new_kf) = self._graph_track(
-                    frame, (self.state, self.map))
+                self.state, self.map, out, new_kf = _slam_step(
+                    self.state, self.map, grays[0], depths[0], stamps[0], self.camera,
+                    self.caps, self.spec, self.budgets, self.scale_factors,
+                    self.inv_level_sigma2, self.fast_hi, self.fast_lo, self.max_frame_gap,
+                    self.voc, self.reloc_parity)
             # the outputs must not alias buffers a later capture rewrites
-            out, new_kf = graphs_mod.tree_map(torch.clone, (out, new_kf))
-        else:
-            (self.state, self.map), (out, new_kf) = self.track_graph.run(
-                frame, (self.state, self.map))
-        return out, new_kf
+            rows.append(graphs_mod.tree_map(torch.clone, (
+                out, new_kf, self.state.feats.desc, self.state.feats.valid)))
+            first = 1
+        if first < len(buf):
+            (self.state, self.map), calls = self._run_program(
+                self.track_graph, (grays, depths, stamps), (self.state, self.map), first,
+                len(buf))
+            for start, k, ys in calls:
+                rows += [graphs_mod.tree_map(lambda x, j=j: x[j], ys)
+                         for j in range(start, start + k)]
+        for _, _, desc, valid in rows:
+            self._archive(desc, valid)
+        at = len(self._outs)
+        self._outs += [out for out, _, _, _ in rows]
+        self.timestamps += [ts for _, _, ts in buf]
+        made = torch.stack([out.made_kf for out, _, _, _ in rows])
+        stops = torch.full((len(buf),), self._ba_interrupt(), dtype=torch.bool,
+                           device=self.device)
+        self._graph_background_steps(at, made, torch.stack([kf for _, kf, _, _ in rows]), stops)
+        self._frame_id += len(buf)
 
     def _graph_background_steps(self, first: int, made, new_kf, stops) -> None:
-        """The background program per event of ``_outs[first:]``, in order,
-        each keyframe event's loop close inside it. Nothing is read back: the
-        counts and the close's outcome stay on the device until ``results()``
-        (``_settle``), as the JAX package keeps them (``_queue_close_results``).
-        With global BA, one read after the dispatch's replays folds them and
-        runs global BA after each closure (the JAX package reads its close
-        results synchronously then); the VO_LOOP_DIAG path queues the
-        candidates for its drain instead."""
-        queued = []
+        """The background program over the events of ``_outs[first:]``
+        (``made``, ``new_kf`` and the forced ``stops``: one row each), in
+        order, each keyframe event's loop close inside it. Nothing is read
+        back: the counts and the close's outcome stay on the device until
+        ``results()`` (``_settle``), as the JAX package keeps them
+        (``_queue_close_results``). With global BA, one read after the
+        dispatch folds them and runs global BA after each closure (the JAX
+        package reads its close results synchronously then); the VO_LOOP_DIAG
+        path queues the candidates for its drain instead."""
+        n = made.shape[0]
+        pad = self.chunk - n  # the program's event buffers hold a chunk
+        data = tuple(torch.cat([x.to(dt), torch.full((pad,), v, dtype=dt, device=x.device)])
+                     for x, v, dt in ((made, False, torch.bool), (new_kf, -1, torch.int32),
+                                      (stops, False, torch.bool)))
+        carry = (self.map, self.loop_state) if self.enable_loop_closing else self.map
         with record_function("background"):
-            for k in range(made.shape[0]):
-                frame, event = self._frame_id + k, (made[k], new_kf[k], stops[k])
-                if not self.enable_loop_closing:
-                    self.map, (n1, n2) = self.background_graph.run(event, self.map)
-                    self._bg_pending.append((frame, first + k, made[k], n1, n2, None))
-                    continue
-                (self.map, self.loop_state), (n1, n2, cands, gens, close) = \
-                    self.background_graph.run(event, (self.map, self.loop_state))
-                self._bg_pending.append((frame, first + k, made[k], n1, n2,
-                                         None if close is None else (cands, close)))
-                if not self._inline_close:
-                    queued.append((frame, cands, gens, self._outs[first + k]))
+            carry, calls = self._run_program(self.background_graph, data, carry, 0, n)
+        if self.enable_loop_closing:
+            self.map, self.loop_state = carry
+        else:
+            self.map = carry
+        queued = []
+        for start, k, ys in calls:
+            for j in range(start, start + k):
+                frame, i = self._frame_id + j, first + j
+                n1, n2 = ys[0][j], ys[1][j]
+                loop = None
+                if self.enable_loop_closing:
+                    cands, gens, close = ys[2][j], ys[3][j], ys[4]
+                    if close is not None:
+                        loop = (cands, graphs_mod.tree_map(lambda x, j=j: x[j], close))
+                    if not self._inline_close:
+                        queued.append((frame, cands, gens, self._outs[i]))
+                self._bg_pending.append((frame, i, data[0][j], n1, n2, loop))
         if self.enable_global_ba:
             self._settle()
         if queued:
@@ -1111,14 +1205,7 @@ class SlamSystem:
 
     def _track_one(self, gray_d: torch.Tensor, depth_d: torch.Tensor, timestamp: float) -> None:
         if self.graphs:
-            out, new_kf = self._graph_step(gray_d, depth_d, timestamp)
-            self._archive(self.state.feats)
-            self._outs.append(out)
-            self.timestamps.append(timestamp)
-            stop = torch.full((1,), self._ba_interrupt(), dtype=torch.bool, device=self.device)
-            self._graph_background_steps(len(self._outs) - 1, out.made_kf.reshape(1),
-                                         new_kf.reshape(1), stop)
-            self._frame_id += 1
+            self._graph_dispatch([(gray_d, depth_d, timestamp)])
             return
         self.state, self.map, out, new_kf = _slam_step(
             self.state, self.map, gray_d, depth_d, timestamp, self.camera, self.caps,
@@ -1134,7 +1221,7 @@ class SlamSystem:
         if self.enable_loop_closing and not self._inline_close:
             self._queue_loop([self._frame_id], bg.cands[None], bg.cand_gens[None],
                              out.ref_kf.reshape(1), out.ref_gen.reshape(1))
-        self._archive(self.state.feats)
+        self._archive(self.state.feats.desc, self.state.feats.valid)
         self._outs.append(out)
         self.timestamps.append(timestamp)
         self._frame_id += 1
@@ -1143,20 +1230,7 @@ class SlamSystem:
         """Track the buffered frames, then map their keyframe events."""
         buf, self._chunk_buf = self._chunk_buf, []
         if self.graphs:
-            # K tracking replays, then K background replays in
-            # background_chunk's order, the stops computed on the device
-            steps = []
-            for gray_d, depth_d, ts in buf:
-                steps.append(self._graph_step(gray_d, depth_d, ts))
-                self._archive(self.state.feats)
-            made = torch.stack([o.made_kf for o, _ in steps])
-            new_kfs = torch.stack([k for _, k in steps])
-            stops = chunk_ba_stops(made) | self._ba_interrupt()
-            first = len(self._outs)
-            self._outs += [o for o, _ in steps]
-            self.timestamps += [t for _, _, t in buf]
-            self._graph_background_steps(first, made, new_kfs, stops)
-            self._frame_id += len(buf)
+            self._graph_dispatch(buf)
             return
         self.state, self.map, outs, new_kfs, feats = track_chunk(
             self.state, self.map, buf, self.camera, self.caps, self.spec, self.budgets,
@@ -1177,7 +1251,7 @@ class SlamSystem:
                              torch.stack([o.ref_kf for o in outs]),
                              torch.stack([o.ref_gen for o in outs]))
         for f in feats:
-            self._archive(f)
+            self._archive(f.desc, f.valid)
         self._outs += outs
         self.timestamps += [t for _, _, t in buf]
         self._frame_id += len(buf)

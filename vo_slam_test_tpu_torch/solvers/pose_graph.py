@@ -20,10 +20,10 @@ The steps agree with an LU's to rounding. RGB-D freezes the scale (the 7th
 tangent). The JAX package adds the blocks with a scatter; here a diagonal
 block is a one-hot matmul over the edges and an off-diagonal block is set
 once (each keyframe pair is one edge), so the sums do not depend on
-scheduling. The JAX package
-stops when a step's largest entry falls under 1e-9; here all ``iters``
-iterations run with the state frozen once that happens (on CPU tensors the
-loop stops there, as nothing is left to change).
+scheduling. The LM loop is ``utils.graphs.while_capped`` with the JAX
+package's exit (a step's largest entry under 1e-9, ``lax.while_loop``): eager
+it reads the exit test once per iteration, in a step program it is one WHILE
+node.
 """
 
 from __future__ import annotations
@@ -101,11 +101,8 @@ def solve_pose_graph(
         rr = residual(zero, zero, s, R, t)
         return torch.sum(torch.where(e_ok[:, None], rr * rr, 0.0))
 
-    s, R, t = kf_s, kf_R, kf_t
-    c_cur = cost(s, R, t)  # carried: the cost of the state kept
-    lam = torch.full((), 1e-6, device=dev)
-    done = torch.zeros((), dtype=torch.bool, device=dev)
-    for _ in range(iters):
+    def body(state):
+        s, R, t, c_cur, lam, _ = state  # c_cur: the cost of the state kept
         r, J = jac_at_zero(lambda x: residual(x[..., :n_p], x[..., n_p:], s, R, t),
                            (E, 2 * n_p), dev)
         Ji, Jj = J[..., :n_p] * sel, J[..., n_p:] * sel
@@ -129,15 +126,17 @@ def solve_pose_graph(
         step = step * sel * free[:, None]
         s_new, R_new, t_new = _vertex_apply(s, R, t, step)
         c_new = cost(s_new, R_new, t_new)
-        improved = (c_new < c_cur) & ~done
-        c_cur = torch.where(improved, c_new, c_cur)
-        s = torch.where(improved, s_new, s)
-        R = torch.where(improved, R_new, R)
-        t = torch.where(improved, t_new, t)
-        lam = torch.where(done, lam, torch.where(improved, torch.clamp(lam * 0.33, min=1e-9),
-                                                 torch.clamp(lam * 5.0, max=1e6)))
-        done = done | (torch.abs(step).max() < 1e-9)
-        if dev.type == "cpu" and graphs.cpu_flag(done):
-            break  # the iterations left change nothing; on the CPU the test is free
+        improved = c_new < c_cur
+        return (torch.where(improved, s_new, s), torch.where(improved, R_new, R),
+                torch.where(improved, t_new, t), torch.where(improved, c_new, c_cur),
+                torch.where(improved, torch.clamp(lam * 0.33, min=1e-9),
+                            torch.clamp(lam * 5.0, max=1e6)),
+                torch.abs(step).max() < 1e-9)
+
+    lam = torch.full((), 1e-6, device=dev)
+    done = torch.zeros((), dtype=torch.bool, device=dev)
+    s, R, t, _, _, _ = graphs.while_capped(
+        lambda st: ~st[5], body, (kf_s, kf_R, kf_t, cost(kf_s, kf_R, kf_t), lam, done), iters,
+        active=iters > 0)
     R = lie.quat_to_mat(lie.mat_to_quat(R))
     return s, R, t

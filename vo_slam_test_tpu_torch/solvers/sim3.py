@@ -13,9 +13,10 @@ of ``vo_slam_test_tpu/solvers/sim3.py``).
 
 RGB-D fixes the scale to 1 (sim3Solver.cpp:227-234); the JAX package's
 ``fix_scale=False`` branch (monocular) has no caller and is not ported. The
-JAX package stops each LM pass when a step's largest entry falls under 1e-8;
-here every pass runs all its iterations with the state frozen once that
-happens, which gives the same result and reads nothing back to the host.
+JAX package stops each LM pass when a step's largest entry falls under 1e-8
+(its ``lax.while_loop``); here each pass is ``utils.graphs.while_capped``
+with the same exit: eager it reads the exit test once per iteration, in a
+step program it is one WHILE node, and nothing is read back.
 """
 
 from __future__ import annotations
@@ -131,11 +132,10 @@ def refine_sim3(
         return torch.sum(torch.where(active, r2, 0.0))
 
     def lm_pass(T, s, active, use_huber):
-        lam = torch.full((), 1e-4, device=dev)
-        done = torch.zeros((), dtype=torch.bool, device=dev)
         eye = torch.eye(6, device=dev)
-        c_T = cost(T, s, active, use_huber)  # carried: the cost of the T kept
-        for _ in range(iters):
+
+        def body(state):
+            T, c_T, lam, _ = state  # c_T: the cost of the T kept
             e, J = jac_at_zero(lambda x: residuals(x, T, s), (6,), dev)  # [N,4], [N,4,6]
             r2 = torch.sum(e * e, -1)
             wr = torch.clamp(delta / torch.sqrt(r2 + 1e-12), max=1.0) if use_huber \
@@ -147,14 +147,17 @@ def refine_sim3(
             step = -torch.linalg.solve_ex(Hd, g)[0]
             T_new = lie.se3_exp(step) @ T
             c_new = cost(T_new, s, active, use_huber)
-            improved = (c_new < c_T) & ~done
-            T = torch.where(improved, T_new, T)
-            c_T = torch.where(improved, c_new, c_T)
-            lam = torch.where(done, lam, torch.where(improved, torch.clamp(lam * 0.33, min=1e-8),
-                                                     torch.clamp(lam * 4.0, max=1e6)))
-            done = done | (torch.abs(step).max() < 1e-8)
-            if dev.type == "cpu" and graphs.cpu_flag(done):
-                break  # the iterations left change nothing; on the CPU the test is free
+            improved = c_new < c_T
+            return (torch.where(improved, T_new, T), torch.where(improved, c_new, c_T),
+                    torch.where(improved, torch.clamp(lam * 0.33, min=1e-8),
+                                torch.clamp(lam * 4.0, max=1e6)),
+                    torch.abs(step).max() < 1e-8)
+
+        lam = torch.full((), 1e-4, device=dev)
+        done = torch.zeros((), dtype=torch.bool, device=dev)
+        T, _, _, _ = graphs.while_capped(lambda st: ~st[3], body,
+                                         (T, cost(T, s, active, use_huber), lam, done), iters,
+                                         active=iters > 0)
         return T
 
     def classify(T, s):

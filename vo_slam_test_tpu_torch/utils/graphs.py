@@ -1,5 +1,6 @@
 """Device-side control flow and captured step programs: the port's
-counterparts of ``lax.cond``, ``lax.while_loop`` and ``jax.jit``.
+counterparts of ``lax.cond``, ``lax.while_loop``, ``lax.scan``,
+``lax.fori_loop`` and ``jax.jit``.
 
 The JAX package compiles each step into one program whose branches are
 ``lax.cond`` on device scalars, so a step never waits for the host. Here a
@@ -18,14 +19,20 @@ step runs in one of three modes (``use(mode)``):
   same CUDA calls (a conditional handle, a kernel that sets it from the
   predicate, ``cudaGraphAddNode`` and a capture of the body into the node's
   graph on a stream of its own), with the bodies' allocations routed to a
-  second private pool of the capture.
+  second private pool of the capture. A loop (``while_capped``, ``scan``,
+  ``fori_loop``) becomes one WHILE node whose body, one trip, is captured
+  once: its carry lives in buffers the loop owns, rewritten in place by each
+  trip, and the body's last kernel counts the trip and sets the node's
+  handle from the loop's flag and the trip cap.
 
 A predicate that is a Python bool branches on the host in every mode (no
 read). Branch functions are pure functions of their operands and return
 pytrees (tuples, lists, dicts, dataclasses, NamedTuples) of tensors with the
 same structure, shapes and dtypes on both sides.
 
-``while_capped`` is ``lax.while_loop`` with a trip cap; ``StepGraph`` owns a
+``while_capped`` is ``lax.while_loop`` with a trip cap, ``scan`` is
+``lax.scan`` over a trip range with an optional early exit (``fori_loop`` the
+same without per-trip inputs or outputs); ``StepGraph`` owns a
 step's static inputs and carried state, warms it up, captures it and replays
 it; ``no_host_reads`` raises on every operation that reads a device value
 back to the host (or could not be captured for that reason).
@@ -55,9 +62,10 @@ _MODE = ["eager"]
 
 @dataclasses.dataclass
 class _Capture:
-    """The capture under way: its device and the nesting depth of the IF
-    nodes open (each depth captures its bodies on a stream of its own). When
-    counting (``counting``): the device counters of the IF nodes' executions,
+    """The capture under way: its device and the nesting depth of the
+    conditional nodes open (each depth captures its bodies on a stream of its
+    own). When counting (``counting``): the device counters of the nodes'
+    executions (an IF node's runs, a WHILE node's trips),
     the kernel wrapper calls recorded in each node's own body, and a stack of
     (wrapper calls at entry, calls recorded in the inner nodes) per open
     node, the capture itself at the bottom."""
@@ -65,7 +73,8 @@ class _Capture:
     device: torch.device
     depth: int = 0
     n_if: int = 0          # IF nodes made
-    body_nodes: int = 0    # nodes of their bodies (an inner IF node counts as one)
+    n_while: int = 0       # WHILE nodes made
+    body_nodes: int = 0    # nodes of their bodies (an inner node counts as one)
     counts: Optional[torch.Tensor] = None
     nodes: list = dataclasses.field(default_factory=list)
     stack: list = dataclasses.field(default_factory=list)
@@ -73,8 +82,8 @@ class _Capture:
 
 _CAPTURING: List[Optional[_Capture]] = [None]
 _COUNTING = [False]
-MAX_COUNTED_NODES = 4096  # IF nodes a counted StepGraph may hold
-_BODY_STREAMS: dict = {}  # (device, depth) -> stream for IF-node body captures
+MAX_COUNTED_NODES = 4096  # conditional nodes a counted StepGraph may hold
+_BODY_STREAMS: dict = {}  # (device, depth) -> stream for conditional-node body captures
 # device -> the stream every StepGraph captures on (one per device, as
 # torch.cuda.graph's default capture stream: cuBLAS keeps a workspace for each
 # stream it meets, for the process's lifetime)
@@ -299,24 +308,32 @@ def _check_match(t_spec, f_spec, t_leaves, f_leaves) -> None:
                             f"{a.dtype}{tuple(a.shape)} / {b.dtype}{tuple(b.shape)}")
 
 
-def _if_kernels():
-    from ..ops import _build
+def _graph_kernels() -> dict:
+    """``csrc/graph_if.cu``'s functions, bound at the first capture."""
+    if not _GRAPH_KERNELS:
+        from ..ops import _build
 
-    P = ctypes.c_void_p
-    N = ctypes.POINTER(ctypes.c_ulonglong)
-    return (_build.Kernel("graph_if", "graph_if_begin", [P, P, P, ctypes.c_int]),
-            _build.Kernel("graph_if", "graph_if_end", [P, N]),
-            _build.Kernel("graph_if", "graph_stream_create", [ctypes.POINTER(P)]),
-            _build.Kernel("graph_if", "graph_if_count", [P, P, ctypes.c_int]),
-            _build.Kernel("graph_if", "graph_capture_nodes", [P, N]))
+        P = ctypes.c_void_p
+        U = ctypes.c_ulonglong
+        N = ctypes.POINTER(U)
+        L = ctypes.c_longlong
+        _GRAPH_KERNELS.update(
+            if_begin=_build.Kernel("graph_if", "graph_if_begin", [P, P, P, ctypes.c_int]),
+            if_end=_build.Kernel("graph_if", "graph_if_end", [P, N]),
+            while_begin=_build.Kernel("graph_if", "graph_while_begin", [P, P, P, P, L, N]),
+            while_end=_build.Kernel("graph_if", "graph_while_end", [P, U, P, P, L, N]),
+            stream_create=_build.Kernel("graph_if", "graph_stream_create", [ctypes.POINTER(P)]),
+            count=_build.Kernel("graph_if", "graph_if_count", [P, P, ctypes.c_int]),
+            capture_nodes=_build.Kernel("graph_if", "graph_capture_nodes", [P, N]))
+    return _GRAPH_KERNELS
 
 
 @contextlib.contextmanager
 def counting():
     """StepGraphs captured inside count their kernels' launches
-    (``StepGraph.launches``): each IF body gets a one-thread kernel that
-    counts the node's executions on the device. Off by default: it adds that
-    kernel to every body."""
+    (``StepGraph.launches``): each conditional body gets a one-thread kernel
+    that counts the node's executions (a WHILE node's trips) on the device.
+    Off by default: it adds that kernel to every body."""
     prev = _COUNTING[0]
     _COUNTING[0] = True
     try:
@@ -326,8 +343,8 @@ def counting():
 
 
 def _wrapper_calls() -> dict:
-    """Every kernel wrapper's call count (``ops._build.Kernel``), the IF
-    nodes' own helpers left out."""
+    """Every kernel wrapper's call count (``ops._build.Kernel``), the
+    conditional nodes' own helpers left out."""
     from ..ops import _build
 
     return {k: k.launches for k in _build.Kernel.ALL if k.source != "graph_if"}
@@ -342,7 +359,7 @@ def _add_into(into: dict, calls: dict) -> None:
         into[k] = into.get(k, 0) + v
 
 
-_IF_KERNELS: list = []  # graph_if.cu's functions, bound at the first capture
+_GRAPH_KERNELS: dict = {}  # graph_if.cu's functions (_graph_kernels)
 
 
 def _body_stream(dev: torch.device, depth: int):
@@ -350,33 +367,29 @@ def _body_stream(dev: torch.device, depth: int):
     if key not in _BODY_STREAMS:
         out = ctypes.c_void_p()
         with torch.cuda.device(dev):
-            _IF_KERNELS[2](ctypes.byref(out))
+            _graph_kernels()["stream_create"](ctypes.byref(out))
         _BODY_STREAMS[key] = torch.cuda.ExternalStream(out.value, device=dev)
     return _BODY_STREAMS[key]
 
 
 @contextlib.contextmanager
-def _if_body(cap: _Capture, pred: torch.Tensor, negate: bool):
-    """Capture the enclosed work into an IF node on ``pred`` (negated when
-    ``negate``): the body is captured on a stream of its own, whose
-    allocations go to the StepGraph's body pool."""
-    if not _IF_KERNELS:
-        _IF_KERNELS.extend(_if_kernels())
-    begin, end = _IF_KERNELS[:2]
+def _cond_body(cap: _Capture, begin: Callable, end: Callable):
+    """Capture the enclosed work into the body of the conditional node that
+    ``begin(parent stream, body stream)`` adds; ``end(body stream, node
+    count out)`` closes it. The body is captured on a stream of its own,
+    whose allocations go to the StepGraph's body pool."""
     dev = cap.device
     parent = torch.cuda.current_stream(dev)
     body = _body_stream(dev, cap.depth)
-    pred = pred.contiguous()
-    begin(parent.cuda_stream, body.cuda_stream, pred.data_ptr(), int(negate))
+    begin(parent.cuda_stream, body.cuda_stream)
     cap.depth += 1
-    cap.n_if += 1
     slot = None
     if cap.counts is not None:
         slot = len(cap.nodes)
         if slot >= cap.counts.numel():
-            raise RuntimeError(f"more than {cap.counts.numel()} IF nodes to count")
+            raise RuntimeError(f"more than {cap.counts.numel()} conditional nodes to count")
         cap.nodes.append({})
-        _IF_KERNELS[3](body.cuda_stream, cap.counts.data_ptr(), slot)
+        _graph_kernels()["count"](body.cuda_stream, cap.counts.data_ptr(), slot)
         cap.stack.append((_wrapper_calls(), {}))
     try:
         with torch.cuda.stream(body):
@@ -393,14 +406,48 @@ def _if_body(cap: _Capture, pred: torch.Tensor, negate: bool):
         cap.body_nodes += n.value
 
 
+def _if_body(cap: _Capture, pred: torch.Tensor, negate: bool):
+    """Capture the enclosed work into an IF node on ``pred`` (negated when
+    ``negate``)."""
+    k = _graph_kernels()
+    pred = pred.contiguous()
+    cap.n_if += 1
+    return _cond_body(cap, lambda s, b: k["if_begin"](s, b, pred.data_ptr(), int(negate)),
+                      k["if_end"])
+
+
+def _while_body(cap: _Capture, flag: torch.Tensor, counter: torch.Tensor, max_trips: int):
+    """Capture the enclosed work, one trip, into a WHILE node: a trip runs
+    while the bool ``flag`` is set and fewer than ``max_trips`` trips ran.
+    ``counter`` (int64, 0-d) holds the trip's number from 0; the body must
+    leave the next trip's flag in ``flag``."""
+    k = _graph_kernels()
+    handle = ctypes.c_ulonglong()
+    args = (flag.data_ptr(), counter.data_ptr(), int(max_trips))
+    cap.n_while += 1
+    return _cond_body(
+        cap, lambda s, b: k["while_begin"](s, b, *args, ctypes.byref(handle)),
+        lambda b, n: k["while_end"](b, handle.value, *args, n))
+
+
+def _cpu_int(t: torch.Tensor) -> int:
+    """A CPU tensor's value, read under ``no_host_reads`` too (``cpu_flag``)."""
+    if t.device.type != "cpu":
+        raise HostReadError(f"a read of a {t.device.type} tensor inside a step")
+    with torch._C.DisableTorchFunction():
+        return int(t)
+
+
 def while_capped(cond_fn: Callable, body_fn: Callable, state, max_iters: int, active=None):
     """``lax.while_loop(cond_fn, body_fn, state)`` cut at ``max_iters`` trips:
-    ``max_iters`` bodies, each run under ``cond`` on a device flag ``active``
-    that ``cond_fn`` of the new state clears. ``active`` is the first test
-    (default ``cond_fn(state)``); a Python bool there needs no read. Eager
-    reads ``active`` once per trip and stops at the first False; ``select``
-    runs every body and keeps the state of the active ones; ``capture``
-    records one IF node per trip, so a skipped trip runs nothing."""
+    a trip runs while the device flag ``active`` is set, and ``cond_fn`` of
+    the new state clears it. ``active`` is the first test (default
+    ``cond_fn(state)``); a Python bool there needs no read. Eager reads
+    ``active`` once per trip and stops at the first False; ``select`` runs
+    every trip and keeps the state of the active ones (on the CPU it stops
+    at the first inactive trip, read for free: the trips left change
+    nothing); ``capture`` records one WHILE node whose body, one trip, is
+    captured once, so a trip that does not run runs nothing."""
     if active is None:
         active = cond_fn(state)
     m = _MODE[0]
@@ -420,6 +467,8 @@ def while_capped(cond_fn: Callable, body_fn: Callable, state, max_iters: int, ac
     active = active.reshape(()).to(torch.bool)
     if m == "select":
         for _ in range(max_iters):
+            if dev.type == "cpu" and not cpu_flag(active):
+                break  # as the WHILE node stops
             new = body_fn(state)
             n_leaves, n_spec = flatten(new)
             _check_match(spec, n_spec, leaves, n_leaves)
@@ -431,18 +480,186 @@ def while_capped(cond_fn: Callable, body_fn: Callable, state, max_iters: int, ac
     if cap is None:
         raise RuntimeError("while_capped in capture mode outside a StepGraph capture")
     # the carried state lives in buffers owned by the loop; a trip writes
-    # them in place inside its IF body, so a skipped trip copies nothing
+    # them in place inside the WHILE body, so a trip that does not run
+    # copies nothing
     carry = [x.clone() for x in leaves]
     flag = active.clone()
-    for _ in range(max_iters):
-        with _if_body(cap, flag, negate=False):
-            new = body_fn(unflatten(spec, carry))
-            n_leaves, n_spec = flatten(new)
-            _check_match(spec, n_spec, carry, n_leaves)
-            nxt = cond_fn(new).reshape(()).to(torch.bool)
-            copy_into(carry, n_leaves)
-            flag.copy_(nxt)
+    counter = torch.empty((), dtype=torch.int64, device=dev)
+    with _while_body(cap, flag, counter, max_iters):
+        new = body_fn(unflatten(spec, carry))
+        n_leaves, n_spec = flatten(new)
+        _check_match(spec, n_spec, carry, n_leaves)
+        nxt = cond_fn(new).reshape(()).to(torch.bool)
+        copy_into(carry, n_leaves)
+        flag.copy_(nxt)
     return unflatten(spec, carry)
+
+
+def _trip_rows(xs, i: torch.Tensor):
+    """Row ``i`` (a 0-d int64 device tensor) of every leaf of ``xs``."""
+    idx = i.reshape(1)
+    return None if xs is None else tree_map(lambda a: a.index_select(0, idx).squeeze(0), xs)
+
+
+def _write_rows(bufs: list, i: torch.Tensor, y_leaves, keep=None) -> None:
+    """Row ``i`` of each buffer := the matching leaf of ``y_leaves`` (only
+    where the device bool ``keep`` holds, when given)."""
+    idx = i.reshape(1)
+    for b, y in zip(bufs, y_leaves):
+        if keep is not None:
+            y = torch.where(keep, y, b.index_select(0, idx).squeeze(0))
+        b.index_copy_(0, idx, y.unsqueeze(0))
+
+
+def _check_rows(ys_spec, y_spec, bufs, y_leaves) -> None:
+    if not _same_spec(ys_spec, y_spec):
+        raise TypeError(f"scan: the body's outputs differ in structure from ys:\n{y_spec}\n"
+                        f"{ys_spec}")
+    for j, (b, y) in enumerate(zip(bufs, y_leaves)):
+        if b.shape[1:] != y.shape or b.dtype != y.dtype:
+            raise TypeError(f"scan: output {j} is {y.dtype}{tuple(y.shape)}, its rows "
+                            f"{b.dtype}{tuple(b.shape[1:])}")
+
+
+def scan(body: Callable, carry, xs=None, length: Optional[int] = None, *, ys=None, start=0,
+         n=None, until: Optional[Callable] = None):
+    """``lax.scan(body, carry, xs)`` over the trips i = start, start+1, ...:
+    ``body(i, carry, x) -> (carry, y)``, with ``i`` the trip index as a 0-d
+    int64 device tensor in every mode (so every mode runs the same indexing
+    code) and ``x`` the rows ``i`` of ``xs`` (``index_select``; None without
+    ``xs``). Each trip's ``y`` (a pytree of tensors, or None) is written into
+    row ``i`` of [``length``, ...] buffers the loop owns (``index_copy_``),
+    which start as ``ys`` (the rows of trips that do not run; default zeros)
+    -> (carry, ys; None without outputs).
+
+    ``length`` (a Python int; default the rows of ``xs``) caps the trips;
+    ``start`` and ``n`` (host ints or 0-d device ints; ``n`` defaults to the
+    rows from ``start`` on) give the trip range [start, start + n) within
+    it; ``until(carry)``, a device bool, is the early exit, tested before
+    each trip. Eager reads the range and the exit test on the host; select
+    runs every trip of the range and keeps the carry and the rows of the
+    trips the exit skips (a device range runs ``length`` trips on the card;
+    on the CPU the range and the exit are read for free, and the loop stops
+    where a WHILE node stops); capture records one WHILE node whose body,
+    one trip, is captured once."""
+    if length is None:
+        if xs is None:
+            raise ValueError("scan: give xs or length")
+        length = flatten(xs)[0][0].shape[0]
+    leaves, spec = flatten(carry)
+    if not leaves:
+        raise ValueError("scan: the carry holds no tensor")
+    dev = leaves[0].device
+    if n is None:
+        n = length - start
+    if isinstance(n, torch.Tensor) or isinstance(start, torch.Tensor):
+        lim = torch.clamp(torch.minimum(on_device(n, torch.int64, dev),
+                                        length - on_device(start, torch.int64, dev)), min=0)
+    else:
+        lim = max(min(n, length - start), 0)
+    start_d = on_device(start, torch.int64, dev)
+    bufs = ys_spec = None
+    if ys is not None:
+        y0, ys_spec = flatten(ys)
+        bufs = [b.clone() for b in y0]
+
+    def rows_for(y_leaves, y_spec, alloc):
+        nonlocal bufs, ys_spec
+        if bufs is None:
+            bufs = [alloc((length,) + tuple(y.shape), y.dtype) for y in y_leaves]
+            ys_spec = y_spec
+        _check_rows(ys_spec, y_spec, bufs, y_leaves)
+
+    def zeros(shape, dtype):
+        return torch.zeros(shape, dtype=dtype, device=dev)
+
+    def outputs():
+        return None if bufs is None else unflatten(ys_spec, bufs)
+
+    m = _MODE[0]
+    if m == "eager":
+        lo, trips = fetch(start, lim)
+        for t in range(trips):
+            if until is not None and host_bool(until(carry)):
+                break
+            i = torch.full((), lo + t, dtype=torch.int64, device=dev)
+            carry, y = body(i, carry, _trip_rows(xs, i))
+            y_leaves, y_spec = flatten(y)
+            if y_leaves:
+                rows_for(y_leaves, y_spec, zeros)
+                _write_rows(bufs, i, y_leaves)
+        return carry, outputs()
+    if m == "select":
+        if isinstance(lim, torch.Tensor) and dev.type == "cpu":
+            lim = _cpu_int(lim)
+        exact = not isinstance(lim, torch.Tensor)
+        for t in range(lim if exact else length):
+            go = None if exact else t < lim
+            if until is not None:
+                stop = until(carry).reshape(()).to(torch.bool)
+                if dev.type == "cpu" and cpu_flag(stop):
+                    break  # as the WHILE node stops
+                go = ~stop if go is None else go & ~stop
+            i = start_d + t if exact else torch.clamp(start_d + t, max=length - 1)
+            new, y = body(i, carry, _trip_rows(xs, i))
+            n_leaves, n_spec = flatten(new)
+            _check_match(spec, n_spec, leaves, n_leaves)
+            if go is not None:
+                n_leaves = [torch.where(go, a, b) for a, b in zip(n_leaves, leaves)]
+            leaves, carry = n_leaves, unflatten(spec, n_leaves)
+            y_leaves, y_spec = flatten(y)
+            if y_leaves:
+                rows_for(y_leaves, y_spec, zeros)
+                _write_rows(bufs, i, y_leaves, go)
+        return carry, outputs()
+    cap = _CAPTURING[0]
+    if cap is None:
+        raise RuntimeError("scan in capture mode outside a StepGraph capture")
+    lim_d = on_device(lim, torch.int64, dev)
+    flag = lim_d > 0
+    if until is not None:
+        flag = flag & ~until(carry).reshape(()).to(torch.bool)
+    flag = flag.clone()
+    counter = torch.empty((), dtype=torch.int64, device=dev)
+    own = [x.clone() for x in leaves]
+    masked = bufs is None  # rows made in the body: those of trips not run are zeroed after
+    parent = torch.cuda.current_stream(dev)
+
+    def outside(shape, dtype):
+        # rows that outlive a trip: allocated on the parent stream (no kernel
+        # is captured), never from the body stream's free blocks, which the
+        # body's own temporaries rewrite at every trip
+        with torch.cuda.stream(parent):
+            return torch.empty(shape, dtype=dtype, device=dev)
+
+    with _while_body(cap, flag, counter, length):
+        i = start_d + counter
+        new, y = body(i, unflatten(spec, own), _trip_rows(xs, i))
+        n_leaves, n_spec = flatten(new)
+        _check_match(spec, n_spec, own, n_leaves)
+        nxt = counter + 1 < lim_d
+        if until is not None:
+            nxt = nxt & ~until(new).reshape(()).to(torch.bool)
+        y_leaves, y_spec = flatten(y)
+        if y_leaves:
+            rows_for(y_leaves, y_spec, outside)
+            _write_rows(bufs, i, y_leaves)
+        copy_into(own, n_leaves)
+        flag.copy_(nxt)
+    if masked and bufs is not None:
+        # the counter holds the number of trips run
+        r = torch.arange(length, device=dev)
+        ran = (r >= start_d) & (r < start_d + counter)
+        bufs = [torch.where(ran.reshape((length,) + (1,) * (b.dim() - 1)), b,
+                            torch.zeros((), dtype=b.dtype, device=dev)) for b in bufs]
+    return unflatten(spec, own), outputs()
+
+
+def fori_loop(lower, upper: int, body: Callable, carry):
+    """``lax.fori_loop(lower, upper, body, carry)``: ``body(i, carry) ->
+    carry`` for i in [lower, upper) (``upper`` a Python int, ``lower`` a
+    host or device int), through ``scan``."""
+    return scan(lambda i, c, _: (body(i, c), None), carry, length=upper, start=lower)[0]
 
 
 # ---------------------------------------------------------------------------
@@ -552,8 +769,8 @@ class StepGraph:
     under ``no_host_reads``), the stand-in for a replay.
 
     When the StepGraph is collected, its graph is reset and both private
-    pools are released (the IF bodies' pool is opened here, so the graph's
-    own ``reset`` does not release it); ``torch.cuda.empty_cache`` then
+    pools are released (the conditional bodies' pool is opened here, so the
+    graph's own ``reset`` does not release it); ``torch.cuda.empty_cache`` then
     returns their memory."""
 
     def __init__(self, fn: Callable, device, name: str = "step"):
@@ -570,23 +787,25 @@ class StepGraph:
         self._in_spec = self._state_spec = self._out_spec = None
         self._pool = self._body_pool = None
         # counted captures (``counting``): the wrapper calls recorded while
-        # capturing (not launches), those outside every IF node, those in each
+        # capturing (not launches), those outside every conditional node, those in each
         # node's own body, and the nodes' execution counters
         self.capture_calls: dict = {}
         self._top_calls: dict = {}
         self._node_calls: Optional[list] = None
         self._counts: Optional[torch.Tensor] = None
         # the capture's size and cost: graph nodes (the top level plus every
-        # IF body's), IF nodes, and the capture call's host wall seconds; the
-        # warm-up call's host wall seconds
-        self.n_nodes = self.n_if = 0
+        # conditional body's, each captured once), IF and WHILE nodes, and
+        # the capture call's host wall seconds; the warm-up call's host wall
+        # seconds
+        self.n_nodes = self.n_if = self.n_while = 0
         self.capture_s = self.warm_s = 0.0
 
     def launches(self) -> dict:
         """Launches of each kernel wrapper (``ops._build.Kernel`` -> count)
         by this graph's replays so far, counted on the device: a call recorded
-        outside every IF node once per replay, one recorded in a node's own
-        body (not an inner node's) once per execution of the node. Needs a
+        outside every conditional node once per replay, one recorded in a
+        node's own body (not an inner node's) once per execution of the node
+        (a WHILE node's trip). Needs a
         capture made inside ``counting()``; reads the counters back (one host
         read). Launches made through the wrappers (the warm-up) are theirs."""
         if self._node_calls is None:
@@ -657,7 +876,7 @@ class StepGraph:
             # synchronizes the device: the capture makes no host sync
             with torch.cuda.stream(side):
                 graph.capture_begin(pool=self._pool)
-                # the IF bodies are captured on streams of their own: their
+                # the conditional bodies are captured on streams of their own: their
                 # allocations go to a second private pool (the allocator
                 # records one pool per capture, and the first filter that
                 # takes a stream wins: the capture's own stream stays in the
@@ -675,12 +894,10 @@ class StepGraph:
                         # outputs first: the state copy may rewrite what they alias
                         self._outs = [x.clone() for x in o_leaves]
                         copy_into(self._state, n_leaves)
-                    if not _IF_KERNELS:
-                        _IF_KERNELS.extend(_if_kernels())
                     top = ctypes.c_ulonglong()
-                    _IF_KERNELS[4](side.cuda_stream, ctypes.byref(top))
+                    _graph_kernels()["capture_nodes"](side.cuda_stream, ctypes.byref(top))
                     self.n_nodes = top.value + cap.body_nodes
-                    self.n_if = cap.n_if
+                    self.n_if, self.n_while = cap.n_if, cap.n_while
                 finally:
                     torch._C._cuda_endAllocateToPool(dev.index, self._body_pool)
                     graph.capture_end()
@@ -702,7 +919,7 @@ _DEFERRED: list = []  # releases that fell inside a capture
 
 def _release_graph(graph: torch.cuda.CUDAGraph, device_index: int, body_pool) -> None:
     """Free a StepGraph's graph and its pools: ``reset`` releases the
-    capture's pool, ``_cuda_releasePool`` the IF bodies' pool that
+    capture's pool, ``_cuda_releasePool`` the conditional bodies' pool that
     ``_cuda_beginAllocateToPool`` opened. The collector may run this in the
     middle of another capture, where destroying a graph invalidates that
     capture: there it is deferred to the capture's end (or the next
