@@ -192,8 +192,24 @@
    first LM iteration of the local BA with the most live points held and timed
    with their bounds (``dense_window`` in the kernels line). 8b: corner40
    (SyntheticRGBD(n_frames=40, seed=0, motion_scale=0.4)) with u16 depth
-   staged on the card and synth_vocabulary(k=10, levels=6): 40/40 tracked;
-12. prints one ``{"kernels": [...]}`` line and, last, the ``{"ok": true, ...}``
+   staged on the card and synth_vocabulary(k=10, levels=6): 40/40 tracked.
+   Path 8a's frames are rendered into the staging cache by a process of its
+   own while paths 1-7 run (``start_prestage``), which the script waits for
+   and stops;
+12. phase programs: the step programs are the process's
+   (``utils/graphs.py``'s table, keyed as the JAX package's jits). After
+   path 4's variants, two kidnap systems with vocabularies of one shape
+   (seeds 2 and 5) interleaved frame by frame through the default variant's
+   programs (``run_kidnap_pair``), and after path 8a's graph pass two fresh
+   kfdense systems interleaved chunk by chunk (``interleaved_runs``): each
+   warms up and captures nothing, replays twice a chunk, launches each
+   kernel from the first replay-only frame as often as its eager run
+   (counted on the device, its own share), and equals its eager run (path
+   4) or the first graph pass (path 8a, under bench.py's gates) bit for
+   bit. After paths 1-3, 4, 5, 6 and 8a the table is printed (per program:
+   hits, nodes, replays, warm-up and capture seconds; the reserved memory
+   before and after) and cleared (``program_table``);
+13. prints one ``{"kernels": [...]}`` line and, last, the ``{"ok": true, ...}``
    line. Every bound is computed from this run's inputs and counts the work
    the function needs, whatever computes it; a kernel timed under its bound
    fails the run (the bound is then wrong). No plain version may see a CUDA
@@ -1325,10 +1341,11 @@ def kidnap_frames(seq, depth_poor: bool):
             + [(seq[i][0], no_depth if depth_poor else seq[i][1], 20.0 + i) for i in range(2, 6)])
 
 
-def kidnap_vocabulary(seq, cfg, device):
+def kidnap_vocabulary(seq, cfg, device, seed: int = 2):
     """The scene vocabulary of main path 4: build_vocabulary(k=8, levels=3,
     seed=2) over the port's extract_fused descriptors of frames 0-2 (the
-    reference's test builds it from its host OrbExtractor, not ported)."""
+    reference's test builds it from its host OrbExtractor, not ported);
+    another ``seed`` gives another vocabulary of the same shapes."""
     from vo_slam_test_tpu_torch.bow.vocabulary import build_vocabulary
     from vo_slam_test_tpu_torch.frontend.extractor import extract_fused
     from vo_slam_test_tpu_torch.pipeline import tracking
@@ -1340,7 +1357,7 @@ def kidnap_vocabulary(seq, cfg, device):
         f = extract_fused(torch.as_tensor(g).to(device), torch.as_tensor(d).to(device),
                           tr.camera, tr.spec, tr.budgets)
         descs.append(f.desc[f.valid].cpu().numpy())
-    return build_vocabulary(np.concatenate(descs), k=8, levels=3, seed=2, device=device)
+    return build_vocabulary(np.concatenate(descs), k=8, levels=3, seed=seed, device=device)
 
 
 def run_kidnap(system, cfg, voc, frames, parity: bool, recorder=None, profile_frames=()):
@@ -3128,7 +3145,47 @@ def main_path8(system, ba_cuda, ba_pallas, all_kernels, plains, dev) -> tuple:
                              f"({rg['sync_sites']}); launches {rg['launches_from_chunk_2']} "
                              f"(the wrappers {rg['wrapper_calls_from_chunk_2']}), eager "
                              f"{rec['launches_from_chunk_2']}; none of {missing}")
-    del sg
+
+    # the step programs are the process's, as the JAX package's jits: two
+    # fresh systems of the configuration, interleaved chunk by chunk, replay
+    # the counted programs the pass above captured, with no warm-up and no
+    # capture, each bit-equal to that pass (whose state they take over in
+    # turn) and held to bench.py's gates
+    t0 = time.perf_counter()
+    fresh = [system.SlamSystem(sc.cfg, vocabulary=sc.voc, chunk=sc.chunk) for _ in range(2)]
+    recs = interleaved_runs(fresh, frames_dev, sc.chunk, sc.chunk)
+    run_f = time.perf_counter() - t0
+    n_chunks = len(frames_dev) // sc.chunk
+    report["8a fresh systems"] = []
+    for j, (sf, rf) in enumerate(zip(fresh, recs)):
+        label = f"main path 8a, fresh system {j}"
+        diag_f = bench.check(sc, sf, len(frames_dev))
+        same_system_runs(label, sg, sf, sg.results(), sf.results())
+        progs = check_fresh(label, sf, rf, rec["launches_from_chunk_2"], 2 * n_chunks)
+        shared = [p.last is q.last for p, q in ((sf.track_graph, sg.track_graph),
+                                                (sf.background_graph, sg.background_graph))]
+        if not all(shared):
+            raise AssertionError(f"{label}: does not share the first system's programs")
+        report["8a fresh systems"].append(dict(
+            tracked=diag_f["tracked"], n_kf_ever=diag_f["n_kf_ever"], ate_m=diag_f["ate_m"],
+            closures=diag_f["closures"], setup_s=bench.setup_s(sf), programs=progs,
+            replays=rf["replays"], chunk_ms=rf["turn_ms"],
+            chunk_ms_median=float(np.median(rf["turn_ms"][1:])),
+            launches_from_chunk_2=rf["launches"]))
+        print(f"{label} (interleaved chunk by chunk with the other, inside "
+              f"graphs.counting()): tracked {diag_f['tracked']}/{diag_f['frames']}, n_kf_ever "
+              f"{diag_f['n_kf_ever']}, ATE {diag_f['ate_m'] * 100:.4f} cm, closures "
+              f"{diag_f['closures']}; bit-equal to the first graph pass (trajectory, per-frame "
+              f"counts, keyframes, winners, LM iterations, loop records, every map and "
+              f"loop-state tensor); warm-up and capture {bench.setup_s(sf)} s (programs "
+              f"{progs}); {rf['replays']} replays over {n_chunks} chunks; chunk ms (CUDA "
+              f"events) median {np.median(rf['turn_ms'][1:]):.3f}, first "
+              f"{rf['turn_ms'][0]:.3f}; from frame {sc.chunk} on, launches counted on the "
+              f"device {rf['launches']} (the wrappers 0), equal to the eager pass's")
+    print(f"  the two fresh systems in {run_f:.1f} s (the first graph pass: {run_g:.1f} s)")
+    report["8a fresh systems run_s"] = run_f
+    report["8a programs"] = program_table("main path 8a")
+    del sg, fresh
     gc.collect()
 
     # rows 7-9 on the densest local-BA window of the run (7k-9k)
@@ -3209,7 +3266,8 @@ def graph_counts(s) -> tuple:
     counted on the device: ``StepGraph.launches``; the wrapper calls its
     captures recorded, which launched nothing), by key of kernel_counters."""
     keys = kernel_counters()
-    sgs = [sg for sg in step_graphs(s) if sg.graph is not None]
+    # a system's share of each program it ran (``utils.graphs.Program``)
+    sgs = [sg for sg in step_graphs(s) if sg.replays]
     reps = [sg.launches() for sg in sgs]
     caps = [sg.capture_calls for sg in sgs]
     return ({key: sum(r.get(k, 0) for r in reps) for key, k in keys.items()},
@@ -3264,6 +3322,88 @@ def program_sizes(s, path: str, replays: Optional[int] = None, chunks: Optional[
         raise AssertionError(f"path {path}: {replays} replays over {chunks} full chunks, not "
                              f"one tracking and one background program per chunk")
     return out
+
+
+def program_table(label: str) -> dict:
+    """The process's step programs (``utils.graphs.programs``), printed: per
+    program its name, whether it was captured inside ``graphs.counting()``,
+    the systems that found it built (hits), its nodes, IF and WHILE nodes,
+    replays (all owners'), warm-up and capture seconds; the card's reserved
+    memory with them and after ``clear_programs()`` and
+    ``torch.cuda.empty_cache`` (the systems still alive keep their own
+    tensors). The table is cleared: the next path shares nothing with this
+    one -> the record."""
+    from vo_slam_test_tpu_torch.utils import graphs as graphs_mod
+
+    rows = [dict(name=sg.name, counted=key[-1], hits=sg.hits, captured=sg.graph is not None,
+                 nodes=sg.n_nodes, if_nodes=sg.n_if, while_nodes=sg.n_while,
+                 replays=sg.replays, warm_s=sg.warm_s, capture_s=sg.capture_s)
+            for key, sg in graphs_mod.programs()]
+    torch.cuda.synchronize()
+    out = dict(programs=rows, reserved_bytes=torch.cuda.memory_reserved())
+    graphs_mod.clear_programs()
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    out["reserved_bytes_after_clear"] = torch.cuda.memory_reserved()
+    print(f"phase programs ({label}): {json.dumps(out)}")
+    return out
+
+
+def interleaved_runs(systems, frames, chunk: int, count_from: int) -> list:
+    """``systems`` fed ``frames`` in turns of ``chunk`` frames (one chunk's
+    dispatch each), inside ``graphs.counting()``, so that they share the
+    programs a counted run captured, with sync debug mode ``error`` around
+    each ``track`` call (a residency hand-over reads nothing back) -> per
+    system: CUDA-event ms per turn, its replays and, from frame
+    ``count_from`` on, each kernel's launches counted on the device (its own
+    share, ``LaunchCount``) and the wrappers' calls."""
+    from vo_slam_test_tpu_torch.utils import graphs as graphs_mod
+
+    recs = [dict(turn_ms=[]) for _ in systems]
+    with graphs_mod.counting():
+        counts = [LaunchCount(s, True, count_from) for s in systems]
+        for lo in range(0, len(frames), chunk):
+            for s, count, rec in zip(systems, counts, recs):
+                e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+                for i in range(lo, min(lo + chunk, len(frames))):
+                    count.frame(i)
+                    if i == lo:
+                        e0.record()
+                    torch.cuda.set_sync_debug_mode("error")
+                    try:
+                        s.track(*frames[i])
+                    finally:
+                        torch.cuda.set_sync_debug_mode("default")
+                e1.record()
+                rec["turn_ms"].append((e0, e1))
+        for s in systems:
+            s._flush()
+        torch.cuda.synchronize()
+        for s, count, rec in zip(systems, counts, recs):
+            _, rec["launches"], rec["wrapper_calls"] = count.result()
+            rec["replays_from"] = count.replays
+            rec["replays"] = graph_replays(s)
+            rec["turn_ms"] = [a.elapsed_time(b) for a, b in rec["turn_ms"]]
+    return recs
+
+
+def check_fresh(label: str, s, rec, eager_launches: dict, replays: int) -> dict:
+    """A system whose programs were captured before it ran: no warm-up and
+    no capture of its own, ``replays`` replays, and from the first
+    replay-only frame each kernel's launches (its own share, counted on the
+    device) equal to ``eager_launches``, none through the wrappers -> its
+    programs' record."""
+    progs = {name: dict(warm_s=p.warm_s, capture_s=p.capture_s, hits=p.hits, nodes=p.n_nodes)
+             for name, p in (("track", s.track_graph), ("background", s.background_graph))}
+    setup = sum(p["warm_s"] + p["capture_s"] for p in progs.values())
+    if (setup or rec["replays"] != replays or rec["launches"] != eager_launches
+            or any(rec["wrapper_calls"].values()) or min(p["hits"] for p in progs.values()) < 1):
+        raise AssertionError(f"{label}: programs {progs} (warm-up and capture {setup} s), "
+                             f"{rec['replays']} replays (not {replays}); launches "
+                             f"{rec['launches']} (the wrappers {rec['wrapper_calls']}), eager "
+                             f"{eager_launches}")
+    return progs
 
 
 class LaunchCount:
@@ -3514,7 +3654,43 @@ def same_system_runs(label, a, b, res_a, res_b) -> None:
                              f"(tensors {differ})")
 
 
-def run_graphs_kidnap(system, kcfg, voc, kframes, kframes_poor, dev) -> tuple:
+def run_kidnap_pair(system, kcfg, vocs, fr) -> dict:
+    """Two kidnap systems with different vocabularies of one shape
+    (``vocs``), interleaved frame by frame through the counted programs
+    that the default variant captured (``interleaved_runs``): each equal to
+    its own eager run (``same_system_runs``), with no warm-up and no capture,
+    2 replays a frame after the first, and from frame ``KIDNAP_COUNT_FROM``
+    each kernel's launches (its own share, counted on the device) equal to
+    its eager run's -> the record."""
+    from vo_slam_test_tpu_torch.slam_map.map_state import MapCaps
+
+    def make(voc, on):
+        return system.SlamSystem(kcfg, caps=MapCaps(max_kf=32, max_pt=8192), vocabulary=voc,
+                                 graphs=on)
+
+    c0 = KIDNAP_COUNT_FROM
+    eager = [graphs_run(lambda v=v: make(v, False), fr, False, count_from=c0) for v in vocs]
+    pair = [make(v, True) for v in vocs]
+    recs = interleaved_runs(pair, fr, 1, c0)
+    out = []
+    for j, ((a, ra), b, rb) in enumerate(zip(eager, pair, recs)):
+        label = f"phase programs, main path 4, system {j} of the interleaved pair"
+        same_system_runs(label, a, b, a.results(), b.results())
+        progs = check_fresh(label, b, rb, ra["launches"], 2 * len(fr) - 1)
+        out.append(dict(reloc_frames=b.reloc_frames, programs=progs, replays=rb["replays"],
+                        launches=rb["launches"], frame_ms=rb["turn_ms"]))
+        print(f"{label} (vocabulary seed {2 if j == 0 else 5}): equal to its own graphs=False "
+              f"run (trajectory, per-frame counts, keyframes, reloc_frames {b.reloc_frames}, "
+              f"winners, LM iterations, every map and loop-state tensor); no warm-up or capture "
+              f"(programs {progs}); {rb['replays']} replays over {len(fr)} frames; from frame "
+              f"{c0} on, launches counted on the device {rb['launches']} equal to eager's; frame "
+              f"ms (CUDA events) {[round(x, 3) for x in rb['turn_ms']]}")
+    differ = not np.array_equal(eager[0][0].results()[0], eager[1][0].results()[0])
+    print(f"  the two vocabularies' eager runs differ in their trajectories: {differ}")
+    return dict(systems=out, trajectories_differ=differ)
+
+
+def run_graphs_kidnap(system, kcfg, voc, kframes, kframes_poor, dev, voc2=None) -> tuple:
     """Phase graphs, main path 4: the kidnap's three variants (default,
     depth-poor return frames, ``reloc_parity=True``) through the step
     programs (``graphs=True``: the tracking program with the vocabulary's
@@ -3621,6 +3797,10 @@ def run_graphs_kidnap(system, kcfg, voc, kframes, kframes_poor, dev) -> tuple:
               f"{rows['eager_idle']:.3f})")
         del a, b, c
         gc.collect()
+    if voc2 is not None:
+        report["interleaved pair"] = run_kidnap_pair(system, kcfg, (voc, voc2),
+                                                     variants["default"][0])
+    report["programs"] = program_table("main path 4")
     return report, run_launches
 
 
@@ -3648,10 +3828,47 @@ def device_profile(prof, n_frames, wall_ms):
     return busy, n_launch
 
 
+def start_prestage() -> subprocess.Popen:
+    """Render main path 8a's kfdense frames (``bench.build_scenario``'s 240
+    frames) into the staging cache (``datasets/staging.py``, ``TMPDIR``) in
+    a process of its own, on the host only, while the earlier paths run: the
+    host ray-caster takes 70-110 s, which path 8a then reads back from the
+    cache (``finish_prestage`` waits for it first)."""
+    code = ("from vo_slam_test_tpu_torch import bench\n"
+            "from vo_slam_test_tpu_torch.datasets import staging\n"
+            "seq, _ = bench.kfdense_sequence()\n"
+            "staging.render_all(seq, bench.KFDENSE_FRAMES, f'orbit{bench.KFDENSE_LOOPS}')\n")
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="", OMP_NUM_THREADS="2")
+    return subprocess.Popen([sys.executable, "-c", code], cwd=str(Path(__file__).resolve().parent),
+                            env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+
+
+def finish_prestage(proc: subprocess.Popen) -> None:
+    """Wait for ``start_prestage``'s process; it must have succeeded."""
+    t0 = time.perf_counter()
+    out, _ = proc.communicate(timeout=900)
+    print(f"main path 8a prestage (kfdense frames rendered beside the earlier paths): exit "
+          f"{proc.returncode}, waited {time.perf_counter() - t0:.1f} s; "
+          + "; ".join(out.strip().splitlines()[-2:]))
+    if proc.returncode != 0:
+        raise RuntimeError(f"the kfdense prestage failed:\n{out}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 1
+    prestage = start_prestage()
+    try:
+        return run_all(prestage)
+    finally:
+        if prestage.poll() is None:
+            prestage.kill()
+        prestage.wait()
+
+
+def run_all(prestage: subprocess.Popen) -> int:
+    """Every phase and main path, in order (module docstring)."""
     # detach CUPTI when each profiler window ends: left attached, every later
     # graph launch costs host time in proportion to the graph's nodes (78 ms a
     # launch of the 180,507-node background program; perf/graphs_probe.py
@@ -4137,6 +4354,7 @@ def main() -> int:
     t0 = time.perf_counter()
     graph_rows, graph_launches = run_graphs_phase(system, tracking, cfg, frames, room_cfg,
                                                   room_frames, gt, gt2, dev)
+    graph_rows["programs"] = program_table("main paths 1-3")
     print(f"  phase graphs in {time.perf_counter() - t0:.1f} s")
 
     # -- main path 4: the kidnap, SlamSystem with a vocabulary ------------------
@@ -4247,8 +4465,9 @@ def main() -> int:
 
     # -- phase graphs, main path 4: the vocabulary path through its programs ----
     t0 = time.perf_counter()
+    voc2 = kidnap_vocabulary(kseq, kcfg, dev, seed=5)
     graph_kidnap, graph_launches4 = run_graphs_kidnap(system, kcfg, voc, kframes, kframes_poor,
-                                                      dev)
+                                                      dev, voc2)
     print(f"  phase graphs (main path 4) in {time.perf_counter() - t0:.1f} s")
 
     # -- main path 5: the pan loop; loop closing and global BA -----------------
@@ -4379,6 +4598,7 @@ def main() -> int:
                              f"launches {launches5x} through the graphs (the wrappers "
                              f"{r5x['wrapper_calls_from_chunk_2']}), {launches5e} eager; none of "
                              f"{missing} from frame {PAN_CHUNK}")
+    pan["programs"] = program_table("main path 5")
 
     # -- main path 5 through the VO_LOOP_DIAG drain path (chunk=1, drain_chunk=1)
     with PlainGuard(plains) as guard5d:
@@ -4464,6 +4684,7 @@ def main() -> int:
     # -- main path 6: the CLI on files ---------------------------------------
     cli, launches6 = main_path6(room, room_frames, room_cfg, frames, cfg, gt, all_kernels,
                                 plains, dev)
+    programs6 = program_table("main path 6")
     if min(launches6[k] for k in ("fast", "orb", "top2")) < 1 or min(
             cli[r]["launches"][k] for r in ("slam", "fused") for k in ("fast", "orb", "top2")) < 1:
         raise AssertionError(f"path 6 launched no FAST, ORB or frame-pair top-2 (in all, or in "
@@ -4478,6 +4699,7 @@ def main() -> int:
     print(f"  main path 7 in {time.perf_counter() - t7:.1f} s")
 
     # -- main path 8: the JAX package's benchmark configuration ---------------
+    finish_prestage(prestage)
     t8 = time.perf_counter()
     bench8, launches8, dense_rows = main_path8(system, ba_cuda, ba_pallas, all_kernels, plains,
                                                dev)
@@ -4537,6 +4759,7 @@ def main() -> int:
         "mesh_8_shards_one_card": mesh_rows,
         "cli_on_files": {k: {kk: vv for kk, vv in v.items() if kk != "stdout"}
                          for k, v in cli.items()},
+        "cli_programs": programs6,
         "off_nominal_scenes": scenes7, "saturated_local_ba": saturated,
         "bench_configuration": bench8, "card": smi}}))
     order = ("fast", "orb", "top2", "top2_m4096", "top2_chi2", "top2_nb", "top1_epi") + ba_keys \

@@ -9,8 +9,11 @@ default (``SlamSystem``'s step programs on the card, the loop close inside the
 background program). Prints each run's JSON line and components (wall,
 device busy, the background device ms by the profiler's launch times and by
 CUDA events around each call of the background program, the programs'
-warm-up and capture seconds, host syncs per chunk) and the card's name and
-power limit; the last stdout line is one JSON object with every number.
+warm-up and capture seconds of the best timed run, host syncs per chunk) and
+the card's name and power limit; the last stdout line is one JSON object
+with every number. Each timed run's ``setup_s`` goes to stderr
+(``bench.measure``): the programs are the process's, captured by the warm
+pass.
 Needs the card; exits 1 without one.
 """
 
@@ -32,6 +35,8 @@ def main(argv) -> int:
         return 1
     from vo_slam_test_tpu_torch import bench
     from vo_slam_test_tpu_torch.ops import _build
+
+    from vo_slam_test_tpu_torch.utils import graphs as graphs_mod
 
     names = argv or ["kfdense", "corner40"]
     card = bench.card_line()
@@ -64,6 +69,7 @@ def main(argv) -> int:
                   f"syncs per chunk {c['host_syncs_per_chunk']}; tracked {d['tracked']}/"
                   f"{d['frames']}, n_kf_ever {d['n_kf_ever']}, ATE {d['ate_m'] * 100:.4f} cm, "
                   f"closures {d['closures']}; {row['run_s']:.1f} s", flush=True)
+        graphs_mod.clear_programs()  # the next scenario shares no program with this one
     print(card)
     print(json.dumps(out, default=str))
     return 0

@@ -665,9 +665,9 @@ def launch_cases(system, dev) -> None:
     replay_ms: dict = {}
     orig = graphs_mod.StepGraph.run
 
-    def timed(sg, *a):
+    def timed(sg, *a, **kw):
         if sg.graph is None:
-            return orig(sg, *a)
+            return orig(sg, *a, **kw)
         replay = sg.graph.replay
 
         def host_timed():
@@ -676,7 +676,7 @@ def launch_cases(system, dev) -> None:
             replay_ms.setdefault(sg.name, []).append((time.perf_counter() - t0) * 1e3)
         sg.graph.replay = host_timed
         try:
-            return orig(sg, *a)
+            return orig(sg, *a, **kw)
         finally:
             sg.graph.replay = replay
 

@@ -10,7 +10,11 @@ relocalization attempt, and ``SlamSystem(vocabulary=...)`` over the kidnap
 tracking replay; WHILE nodes (``graphs.scan``, ``while_capped``): a toy loop
 for 0, 1 and all trips, nested in IF and WHILE bodies, counted launches per
 trip, a node count that does not grow with the trip cap, and the chunk
-programs of ``SlamSystem(chunk=4)`` with a vocabulary.
+programs of ``SlamSystem(chunk=4)`` with a vocabulary; the process's
+program table: two systems with different vocabularies interleaved through
+one program pair (the residency hand-over), each equal to its eager run; a
+cache hit capturing nothing; ``clear_programs()`` returning the reserved
+memory. Each test starts from an empty table.
 
 Run on a machine with a CUDA card (no JAX needed there):
 
@@ -36,6 +40,13 @@ from vo_slam_test_tpu_torch.solvers import local_ba, pose_only
 from vo_slam_test_tpu_torch.utils import graphs
 
 pytestmark = pytest.mark.gpu
+
+
+@pytest.fixture(autouse=True)
+def empty_table():
+    graphs.clear_programs()
+    yield
+    graphs.clear_programs()
 
 
 @pytest.fixture(scope="module")
@@ -264,7 +275,8 @@ def test_slam_system_graph_equals_eager(room, chunk):
 def test_dropped_systems_release_their_graph_pools(room):
     """A StepGraph's graph and both private pools (the capture's and the IF
     bodies') are released when it is collected: building and dropping
-    systems that captured both programs leaves the reserved memory flat."""
+    systems that captured both programs, and the table's programs with them,
+    leaves the reserved memory flat."""
     cfg, frames = room
 
     def cycle():
@@ -274,6 +286,7 @@ def test_dropped_systems_release_their_graph_pools(room):
         s.results()
         assert s.track_graph.graph is not None and s.background_graph.graph is not None
         del s
+        graphs.clear_programs()
         gc.collect()
         torch.cuda.synchronize()
         torch.cuda.empty_cache()
@@ -651,3 +664,124 @@ def test_vocabulary_chunk_programs_equal_eager(kidnap):
         assert torch.equal(getattr(a.map, f.name), getattr(b.map, f.name)), f.name
     for f in dataclasses.fields(a.loop_state):
         assert torch.equal(getattr(a.loop_state, f.name), getattr(b.loop_state, f.name)), f.name
+
+
+# ---------------------------------------------------------------------------
+# the process's program table
+# ---------------------------------------------------------------------------
+
+
+def test_interleaved_systems_share_programs_and_equal_eager(kidnap, tmp_path):
+    """Two kidnap systems with different vocabularies of one shape,
+    interleaved frame by frame through one program pair: each replay for
+    the other system first clones this one's state out of the static
+    buffers, so each equals its own eager run bit for bit (every map and
+    loop-state tensor, poses, keyframes, winners, LM counts), no ``track``
+    call synchronizes, each program is warmed up and captured once for both,
+    and ``save_map`` of the system that is not resident writes its own
+    map."""
+    import os
+    import sys
+    import warnings
+
+    sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+    import chip_smoke
+    from vo_slam_test_tpu_torch.slam_map import serialize
+    from vo_slam_test_tpu_torch.slam_map.map_state import MapCaps
+
+    cfg, voc, frames, _ = kidnap
+    voc2 = chip_smoke.kidnap_vocabulary(chip_smoke.kidnap_sequence()[0], cfg, "cuda", seed=5)
+    caps = MapCaps(max_kf=32, max_pt=8192)
+
+    def make(v, on):
+        return SlamSystem(cfg, caps=caps, vocabulary=v, graphs=on)
+
+    eager = [_track_all(lambda v=v: make(v, False), frames, False) for v in (voc, voc2)]
+    pair = [make(v, True) for v in (voc, voc2)]
+    reads = []
+    for f in frames:
+        for s in pair:
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                torch.cuda.set_sync_debug_mode("warn")
+                try:
+                    s.track(*f)
+                finally:
+                    torch.cuda.set_sync_debug_mode("default")
+            reads.append(sum("synchroniz" in str(w.message) for w in caught))
+    assert reads == [0] * len(reads)
+    a, b = pair
+    assert a.track_graph.last is b.track_graph.last
+    assert a.background_graph.last is b.background_graph.last
+    # one warm-up and one capture of each program in all: the background
+    # program's at frame 0 (a warms it up, b captures it), the tracking
+    # program's at frame 1
+    for p, q in ((a.track_graph, b.track_graph), (a.background_graph, b.background_graph)):
+        assert p.warm_s > 0 and p.capture_s == 0 and q.warm_s == 0 and q.capture_s > 0
+    assert (a.track_graph.replays, b.track_graph.replays) == (len(frames) - 2, len(frames) - 1)
+    # b ran last: a's tensors are its own now
+    serialize.save_map(os.fspath(tmp_path / "a.npz"), a.map, caps)
+    saved, _ = serialize.load_map(os.fspath(tmp_path / "a.npz"))
+    assert bit_equal(saved, eager[0].map)
+    for e, g in zip(eager, pair):
+        re_, rg = e.results(), g.results()
+        assert np.array_equal(re_[0], rg[0]) and re_[1] == rg[1]
+        assert [o.made_kf for o in e._outs] == [o.made_kf for o in g._outs]
+        assert [o.reloc_winner for o in e._outs] == [o.reloc_winner for o in g._outs]
+        assert e.ba_iters == g.ba_iters and e.reloc_frames == g.reloc_frames
+        assert bit_equal((e.map, e.loop_state), (g.map, g.loop_state))
+
+
+def test_a_cache_hit_makes_no_capture(room):
+    """A fresh system of a configuration already captured in the process
+    replays its programs from its first chunk: no warm-up, no capture, the
+    same programs (node counts unchanged), its results equal the first's."""
+    cfg, frames = room
+    runs = []
+    for _ in range(2):
+        s = SlamSystem(cfg, chunk=4)
+        for f in frames[:8]:
+            s.track(*f)
+        runs.append((s, s.results()))
+    (a, ra), (b, rb) = runs
+    ta, ba_ = a.track_graph, a.background_graph
+    tb, bb = b.track_graph, b.background_graph
+    assert ta.last is tb.last and ba_.last is bb.last and len(graphs.programs()) == 2
+    assert ta.capture_s > 0 and ba_.warm_s > 0
+    assert tb.warm_s == tb.capture_s == bb.warm_s == bb.capture_s == 0
+    assert (tb.n_nodes, bb.n_nodes) == (ta.n_nodes, ba_.n_nodes) and tb.hits == bb.hits == 1
+    assert tb.replays + bb.replays == 2 * 2  # one replay of each a chunk
+    assert np.array_equal(ra[0], rb[0]) and ra[1] == rb[1]
+    assert bit_equal(a.map, b.map)
+
+
+def test_clear_programs_returns_the_reserved_memory(room):
+    """The table keeps a dropped system's programs (their pools stay
+    reserved); ``clear_programs()`` releases them: after ``empty_cache`` the
+    reserved memory is back at its level before the programs."""
+    cfg, frames = room
+
+    def run():
+        s = SlamSystem(cfg, chunk=4)
+        for f in frames[:8]:
+            s.track(*f)
+        s.results()
+        assert s.track_graph.graph is not None and s.background_graph.graph is not None
+        del s
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        return torch.cuda.memory_reserved()
+
+    def cleared():
+        graphs.clear_programs()
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        return torch.cuda.memory_reserved()
+
+    run()  # the process's own first-use allocations (library workspaces, streams)
+    before = cleared()
+    held = run()
+    assert held > before and len(graphs.programs()) == 2
+    assert cleared() <= before and graphs.programs() == []

@@ -37,17 +37,18 @@ The systems run the step programs (``SlamSystem``'s default on the card:
 replayed CUDA graphs with conditional nodes, the loop close inside the
 background program; a chunk is one replay of the tracking program and one of
 the background program, each loop a WHILE node); ``measure(...,
-graphs=False)`` times the eager path. A
-fresh system warms up and captures its two programs during its first chunk,
-inside its timed run (the JAX package compiles once per process, in its warm
-pass); ``setup_s`` reports the host seconds of the two programs' warm-ups
-and captures. On the graph path the profiler traces a window of two chunks
+graphs=False)`` times the eager path. The
+programs are the process's for a static configuration (``utils.graphs.program``),
+as the JAX package's jits are: the warm pass warms them up and captures
+them, and the timed and traced systems replay them from their first chunk;
+``setup_s`` reports a system's own host seconds of warm-ups and captures (0
+for a system that found its programs captured; each timed run's is printed
+on stderr). On the graph path the profiler traces a window of two chunks
 after the captures (``trace_window``; a capture under the profiler, and a
 trace of a whole run of replays, crashed the process on the card), and the
 background device ms is the profiler's sum over the window plus the CUDA
 events around each replay of the background program outside it
-(``background_device_ms_events``; its warm-up and capture run in the first
-frames, their host time in ``setup_s``). Inside the window each graph launch
+(``background_device_ms_events``). Inside the window each graph launch
 waits on the host for the profiler, so the events there
 (``background_device_ms_events_window``) are printed beside the profiler's
 sum, not used. Device busy and kernels per frame cover the window only.
@@ -229,8 +230,8 @@ def check(sc: Scenario, s: SlamSystem, n_frames: int) -> dict:
 
 
 def setup_s(s: SlamSystem) -> float:
-    """Host seconds of the system's step programs' warm-ups and captures (0
-    eager)."""
+    """Host seconds of the system's own warm-ups and captures of its step
+    programs (0 eager, and for programs it found captured)."""
     return sum(g.warm_s + g.capture_s for g in (s.track_graph, s.background_graph))
 
 
@@ -410,7 +411,10 @@ def measure(sc: Scenario, device, reps: int = 3, graphs: Optional[bool] = None) 
     pass (counting host syncs per chunk), the best wall of ``reps`` fresh
     systems, one traced run -> dict(line=the JSON line, components, diag).
     ``graphs``: ``SlamSystem``'s switch for every system (None: its
-    default)."""
+    default). As the JAX package's jits, the step programs are the
+    process's: the warm pass warms them up and captures them, and the timed
+    and traced systems replay them (each timed run's ``setup_s``, 0 then, is
+    printed on stderr)."""
     frames_dev = stage_frames(sc.frames, device)
     n = len(frames_dev)
     syncs: list = []
@@ -422,11 +426,14 @@ def measure(sc: Scenario, device, reps: int = 3, graphs: Optional[bool] = None) 
         for f in frames_dev[:sc.warm_frames]:
             warm.track(*f)
         warm.results()
+        del warm
     walls, diags = [], []
-    for _ in range(reps):
+    for i in range(reps):
         wall, diag = run(sc, frames_dev, device, graphs=graphs)
         walls.append(wall)
         diags.append(diag)
+        print(f"[bench] {sc.name}: timed run {i}: wall {wall * 1e3:.1f} ms, setup_s "
+              f"{diag.get('setup_s')!r}", file=sys.stderr)
     best = int(np.argmin(walls))
     diag = diags[best]
     best_ms = walls[best] * 1e3

@@ -85,7 +85,12 @@ device on every path, as in the JAX package):
   outside in ``select`` mode; each program's first trip is its warm-up, in
   ``select`` mode, and the next call captures the rest) and ``results()``'s
   partial chunk (frame by frame); ``chunk_ba_stops`` is computed on the
-  device inside the background program;
+  device inside the background program. The programs (``track_program``,
+  ``background_program``) close over no system: the camera's tensors, the
+  vocabulary's and the scale tables are their traced inputs, and the
+  statics are bound by keyword, so they are the process's for a static
+  configuration, warmed up and captured once, as the JAX package's jits are
+  compiled once per process (``utils.graphs.program``);
 - eager (``graphs=False``, the CPU's default): the same functions, each
   ``cond`` reading its predicate back.
   Without a vocabulary a tracked frame reads the r=15 match count (the r=30
@@ -105,6 +110,7 @@ device on every path, as in the JAX package):
 from __future__ import annotations
 
 import dataclasses
+import functools
 import os
 from typing import List, NamedTuple, Optional, Sequence, Tuple, Union
 
@@ -832,6 +838,55 @@ def background_chunk(m: MapState, loop_state: loop_closing.LoopState, did_kf: Li
     return m, loop_state, outs
 
 
+def track_program(inputs, carry, *, caps: MapCaps, spec: PyramidSpec, budgets, fast_hi: float,
+                  fast_lo: float, max_frame_gap: int, reloc_parity: bool):
+    """The tracking program: ``_slam_step`` as the body of a ``scan`` over
+    the frame buffers' trips [start, start + n) (the JAX package's
+    ``track_chunk``): ((camera, vocabulary or None, scale_factors,
+    inv_level_sigma2): the traced constants, [K] grays, depths, timestamps,
+    (start, n, end)) and (state, map) -> ((state, map), the per-frame
+    (SlamOut, new keyframe id, descriptors, their valid mask) stacked [K,
+    ...]). The statics are bound by keyword: nothing here belongs to one
+    system, so every system of one static configuration shares the
+    program."""
+    (cam, voc, scale_factors, inv_level_sigma2), grays, depths, stamps, (start, n, _) = inputs
+
+    def body(i, carry, frame):
+        state, m = carry
+        state, m, out, new_kf = _slam_step(
+            state, m, *frame, cam, caps, spec, budgets, scale_factors, inv_level_sigma2,
+            fast_hi, fast_lo, max_frame_gap, voc, reloc_parity)
+        return (state, m), (out, new_kf, state.feats.desc, state.feats.valid)
+
+    return graphs_mod.scan(body, carry, (grays, depths, stamps), start=start, n=n)
+
+
+def background_program(inputs, carry, *, caps: MapCaps, with_loop: bool, bow_group_div: int,
+                       inline_close: bool):
+    """The background program: ``background_step`` as the body of a
+    ``scan`` over the events' trips [start, start + n) (the JAX package's
+    ``background_chunk``), each event's interruptBA its forced flag or
+    ``chunk_ba_stops`` over the events before ``end``, on the device:
+    ((camera, scale_factors): the traced constants, [K] made a keyframe, its
+    id, forced stop, (start, n, end)) and the map (and, ``with_loop``, the
+    loop state) -> (the same, (BA iterations pass 1, pass 2[, the confirmed
+    loop candidates, their generations, the close's outcome]) stacked [K,
+    ...]). The statics are bound by keyword, as ``track_program``'s."""
+    (cam, scale_factors), did, kid, forced, (start, n, end) = inputs
+    window = torch.arange(did.shape[0], device=did.device) < end
+    stops = chunk_ba_stops(did & window) | forced
+
+    def body(i, carry, event):
+        m, ls = carry if with_loop else (carry, None)
+        m, ls, bg = background_step(m, ls, *event, caps, cam, scale_factors, with_loop,
+                                    bow_group_div, inline_close)
+        if with_loop:
+            return (m, ls), (bg.ba_n1, bg.ba_n2, bg.cands, bg.cand_gens, bg.close)
+        return m, (bg.ba_n1, bg.ba_n2)
+
+    return graphs_mod.scan(body, carry, (did, kid, stops), start=start, n=n)
+
+
 def recover_frame_pose(
     ref: int, gen: int, T_cr: np.ndarray, T_c_w_raw: np.ndarray,
     kf_pose, kf_valid, kf_gen, cull_parent, cull_parent_gen, cull_gen, kf_tcp,
@@ -874,7 +929,14 @@ class SlamSystem:
     records (``loop_attempts``, ``loop_gates``, ``loop_closures``) stay on
     the device until they are read (``results()``, or with global BA the
     read after each dispatch), and ``state``/``map``/``loop_state`` are the
-    programs' static buffers, rewritten by the next replay. A frame's
+    programs' static buffers, rewritten by this system's next replay. The
+    two programs are the process's for the system's static configuration
+    (``track_graph``/``background_graph`` are this system's shares, with its
+    own replays, warm-up and capture seconds and launches): a fresh system
+    of a configuration already run replays them at once, and before another
+    system's replay takes the static buffers over, this system's tensors
+    among them are cloned on the device into tensors of its own, so no
+    system sees another's state (``utils.graphs.Program``). A frame's
     relocalization winner (``SlamOut.reloc_winner``) stays on the device on
     both paths until the same read folds it."""
 
@@ -941,11 +1003,28 @@ class SlamSystem:
         self.timestamps: List[float] = []
         self._frame_id = 0
         # the graph path (class docstring): two step programs sharing nothing
-        # but the map (and the loop state) they hand over
+        # but the map (and the loop state) they hand over, each the process's
+        # for its key: the statics (the JAX jits' static arguments, the chunk,
+        # and the host numbers the programs hold) and the traced constants'
+        # shapes, so systems that differ only in intrinsics or vocabulary
+        # values share them
         self.graphs = self.device.type == "cuda" if graphs is None else bool(graphs)
-        self.track_graph = graphs_mod.StepGraph(self._graph_track, self.device, "track_chunk")
-        self.background_graph = graphs_mod.StepGraph(self._graph_background, self.device,
-                                                     "background_chunk")
+        self._track_consts = (self.camera, self.voc, self.scale_factors, self.inv_level_sigma2)
+        self._background_consts = (self.camera, self.scale_factors)
+        track_statics = dict(caps=caps, spec=self.spec, budgets=self.budgets,
+                             fast_hi=self.fast_hi, fast_lo=self.fast_lo,
+                             max_frame_gap=self.max_frame_gap, reloc_parity=self.reloc_parity)
+        bg_statics = dict(caps=caps, with_loop=self.enable_loop_closing,
+                          bow_group_div=self._bow_group_div, inline_close=self._inline_close)
+        held = ("state", "map", "loop_state")
+        self.track_graph = graphs_mod.Program(
+            "track_chunk", (self.chunk, self.use_bow) + tuple(sorted(track_statics.items()))
+            + (graphs_mod.signature(self._track_consts),),
+            functools.partial(track_program, **track_statics), self.device, self, held)
+        self.background_graph = graphs_mod.Program(
+            "background_chunk", (self.chunk,) + tuple(sorted(bg_statics.items()))
+            + (graphs_mod.signature(self._background_consts),),
+            functools.partial(background_program, **bg_statics), self.device, self, held)
         self._frame_bufs = None  # the tracking program's [chunk] frame buffers
         # (frame, index in _outs, made, n1, n2, with loop closing (the confirmed
         # candidates, the close's outcome) else None) per background step, on
@@ -1003,64 +1082,24 @@ class SlamSystem:
 
     # ---- the graph path ----------------------------------------------------
 
-    def _graph_track(self, inputs, carry):
-        """The tracking program: ``_slam_step`` as the body of a ``scan`` over
-        the frame buffers' trips [start, start + n) (the JAX package's
-        ``track_chunk``): ([K] grays, depths, timestamps, (start, n, end)) and
-        (state, map) -> ((state, map), the per-frame (SlamOut, new keyframe
-        id, descriptors, their valid mask) stacked [K, ...])."""
-        grays, depths, stamps, (start, n, _) = inputs
-
-        def body(i, carry, frame):
-            state, m = carry
-            state, m, out, new_kf = _slam_step(
-                state, m, *frame, self.camera, self.caps, self.spec, self.budgets,
-                self.scale_factors, self.inv_level_sigma2, self.fast_hi, self.fast_lo,
-                self.max_frame_gap, self.voc, self.reloc_parity)
-            return (state, m), (out, new_kf, state.feats.desc, state.feats.valid)
-
-        return graphs_mod.scan(body, carry, (grays, depths, stamps), start=start, n=n)
-
-    def _graph_background(self, inputs, carry):
-        """The background program: ``background_step`` as the body of a
-        ``scan`` over the events' trips [start, start + n) (the JAX
-        package's ``background_chunk``), each event's interruptBA its forced
-        flag or ``chunk_ba_stops`` over the events before ``end``, on the
-        device: ([K] made a keyframe, its id, forced stop, (start, n, end))
-        and the map (and, with loop closing, the loop state) -> (the same,
-        (BA iterations pass 1, pass 2[, the confirmed loop candidates, their
-        generations, the close's outcome]) stacked [K, ...])."""
-        did, kid, forced, (start, n, end) = inputs
-        window = torch.arange(did.shape[0], device=did.device) < end
-        stops = chunk_ba_stops(did & window) | forced
-
-        def body(i, carry, event):
-            m, ls = carry if self.enable_loop_closing else (carry, self.loop_state)
-            m, ls, bg = background_step(m, ls, *event, self.caps, self.camera,
-                                        self.scale_factors, self.enable_loop_closing,
-                                        self._bow_group_div, self._inline_close)
-            if self.enable_loop_closing:
-                return (m, ls), (bg.ba_n1, bg.ba_n2, bg.cands, bg.cand_gens, bg.close)
-            return m, (bg.ba_n1, bg.ba_n2)
-
-        return graphs_mod.scan(body, carry, (did, kid, stops), start=start, n=n)
-
-    def _run_program(self, sg: graphs_mod.StepGraph, data: tuple, carry, lo: int, hi: int):
-        """``sg`` over the trips [lo, hi) (``_graph_track``/``_graph_background``;
+    def _run_program(self, sg: graphs_mod.Program, data: tuple, carry, lo: int, hi: int):
+        """``sg`` over the trips [lo, hi) (``track_program``/``background_program``;
         ``hi`` is also the events' end for ``chunk_ba_stops``) -> (carry,
         [(first trip, trips, outputs)] per call). A program not yet warmed up
-        runs its first trip alone in select mode (the warm-up, host ints for
-        the range) and the rest in the next call, which captures it; every
-        later call is one replay with the range as device ints."""
+        (by any system) runs its first trip alone in select mode (the
+        warm-up, host ints for the range) and the rest in the next call,
+        which captures it; every later call is one replay with the range as
+        device ints."""
         def dev_int(v):
             return torch.full((), v, dtype=torch.int64, device=self.device)
 
-        calls = [(lo, 1), (lo + 1, hi - lo - 1)] if not sg.warmed else [(lo, hi - lo)]
+        calls = [(lo, 1), (lo + 1, hi - lo - 1)] if not sg.step().warmed else [(lo, hi - lo)]
         done = []
         for start, k in calls:
             if k <= 0:
                 continue
-            rng = (start, k, hi) if not sg.warmed else tuple(map(dev_int, (start, k, hi)))
+            warmed = sg.step().warmed
+            rng = (start, k, hi) if not warmed else tuple(map(dev_int, (start, k, hi)))
             carry, ys = sg.run(data + (rng,), carry)
             done.append((start, k, ys))
         return carry, done
@@ -1103,8 +1142,8 @@ class SlamSystem:
             first = 1
         if first < len(buf):
             (self.state, self.map), calls = self._run_program(
-                self.track_graph, (grays, depths, stamps), (self.state, self.map), first,
-                len(buf))
+                self.track_graph, (self._track_consts, grays, depths, stamps),
+                (self.state, self.map), first, len(buf))
             for start, k, ys in calls:
                 rows += [graphs_mod.tree_map(lambda x, j=j: x[j], ys)
                          for j in range(start, start + k)]
@@ -1136,7 +1175,8 @@ class SlamSystem:
                                       (stops, False, torch.bool)))
         carry = (self.map, self.loop_state) if self.enable_loop_closing else self.map
         with record_function("background"):
-            carry, calls = self._run_program(self.background_graph, data, carry, 0, n)
+            carry, calls = self._run_program(self.background_graph,
+                                             (self._background_consts,) + data, carry, 0, n)
         if self.enable_loop_closing:
             self.map, self.loop_state = carry
         else:

@@ -12,7 +12,11 @@ count. The first-frame branch is a host bool (the state's ``initialized``).
 ``FusedTracker`` on the card replays a captured CUDA graph of the step from
 its third frame on (the first frame runs outside it and the second is the
 graph's warm-up, both in ``select`` mode): the retry is a conditional node
-and nothing is read back until ``results()``. With ``graphs=False`` (the
+and nothing is read back until ``results()``. The step program is the
+process's for the tracker's static configuration (``fused_step``, whose
+traced constants are the camera's tensors and the scale tables): a second
+tracker of the same configuration, with any intrinsics, replays it from its
+second frame, with no warm-up and no capture. With ``graphs=False`` (the
 CPU's default) the step runs eagerly and the retry reads the r=15 count
 back: one host sync per frame after the first. The pose solve's round-2
 branch is computed on both sides and selected with ``torch.where`` (no
@@ -24,6 +28,7 @@ reference's integer gates read on the host, as the JAX package reads them.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import List, Optional, Tuple, Union
 
 import numpy as np
@@ -258,15 +263,27 @@ def track_step(
     return new_state, out
 
 
+def fused_step(inputs, state: TrackState, *, spec: PyramidSpec, budgets: Tuple[int, ...],
+               fast_hi: float, fast_lo: float) -> Tuple[TrackState, TrackOut]:
+    """``FusedTracker``'s step program: ``track_step`` of one frame, with
+    ``inputs`` = ((camera, scale_factors, inv_level_sigma2): the traced
+    constants, (gray, depth)) and the statics bound by keyword."""
+    (cam, scale_factors, inv_level_sigma2), (gray_d, depth_d) = inputs
+    return track_step(gray_d, depth_d, state, cam, spec, budgets, scale_factors,
+                      inv_level_sigma2, fast_hi, fast_lo)
+
+
 class FusedTracker:
     """Frame-to-frame VO with the state on the device and an asynchronous
     host loop: per-frame results are read back only by ``results()``.
 
     ``graphs`` (default: on for the card, off for the CPU): on the card the
-    step is a ``utils.graphs.StepGraph`` (captured at the third frame and
-    replayed from then on; a capture failure raises); on the CPU it runs in
-    ``select`` mode under ``no_host_reads``, the stand-in for a replay.
-    ``graphs=False`` runs the step eagerly (one host read per frame)."""
+    step is the process's ``utils.graphs`` program for the tracker's static
+    configuration (``step_graph``, this tracker's share of it: captured at
+    the third frame of the first tracker that runs it and replayed from then
+    on; a capture failure raises); on the CPU it runs in ``select`` mode
+    under ``no_host_reads``, the stand-in for a replay. ``graphs=False``
+    runs the step eagerly (one host read per frame)."""
 
     def __init__(self, cfg: SlamConfig, device: Optional[Union[str, torch.device]] = None,
                  graphs: Optional[bool] = None):
@@ -281,7 +298,13 @@ class FusedTracker:
         self.fast_hi = float(cfg.ini_fast_threshold)
         self.fast_lo = float(cfg.min_fast_threshold)
         self.graphs = self.device.type == "cuda" if graphs is None else bool(graphs)
-        self.step_graph = graphs_mod.StepGraph(self._step, self.device, "track_step")
+        self._consts = (self.camera, self.scale_factors, self.inv_level_sigma2)
+        statics = dict(spec=self.spec, budgets=self.budgets, fast_hi=self.fast_hi,
+                       fast_lo=self.fast_lo)
+        self._step = functools.partial(fused_step, **statics)
+        self.step_graph = graphs_mod.Program(
+            "track_step", tuple(sorted(statics.items())) + (graphs_mod.signature(self._consts),),
+            self._step, self.device, self, ("state",))
         self.state = self.empty_state()
         self._outs: List[TrackOut] = []
         self.timestamps: List[float] = []
@@ -293,11 +316,6 @@ class FusedTracker:
             motion_valid=torch.zeros((), dtype=torch.bool, device=self.device), initialized=False,
         )
 
-    def _step(self, frame, state: TrackState):
-        gray_d, depth_d = frame
-        return track_step(gray_d, depth_d, state, self.camera, self.spec, self.budgets,
-                          self.scale_factors, self.inv_level_sigma2, self.fast_hi, self.fast_lo)
-
     def track(self, gray: Union[np.ndarray, torch.Tensor], depth: Union[np.ndarray, torch.Tensor],
               timestamp: float) -> None:
         """gray u8 (H, W), depth f32 meters (H, W); either may be a tensor
@@ -305,15 +323,16 @@ class FusedTracker:
         gray_d = upload(gray, self.device)
         depth_d = upload(depth if isinstance(depth, torch.Tensor)
                          else np.asarray(depth, dtype=np.float32), self.device)
+        frame = (gray_d, depth_d)
         if not self.graphs:
-            self.state, out = self._step((gray_d, depth_d), self.state)
+            self.state, out = self._step((self._consts, frame), self.state)
         elif not self.state.initialized:
             # the first frame changes the host flag ``initialized``: it runs
             # outside the graph, with nothing read back all the same
             with graphs_mod.use("select"), graphs_mod.no_host_reads():
-                self.state, out = self._step((gray_d, depth_d), self.state)
+                self.state, out = self._step((self._consts, frame), self.state)
         else:
-            self.state, out = self.step_graph.run((gray_d, depth_d), self.state)
+            self.state, out = self.step_graph.run((self._consts, frame), self.state)
         self._outs.append(out)
         self.timestamps.append(timestamp)
 

@@ -37,6 +37,18 @@ step's static inputs and carried state, warms it up, captures it and replays
 it; ``no_host_reads`` raises on every operation that reads a device value
 back to the host (or could not be captured for that reason).
 
+The process's step programs live in one table, the counterpart of
+``jax.jit``'s cache: ``program(key, ...)`` returns the StepGraph of a key
+(the device, the program's name, its statics and the signature of its traced
+constants), building it on first use, so every caller of one static
+configuration shares one warm-up and one capture; ``clear_programs()`` (the
+counterpart of ``jax.clear_caches()``) drops them all. A ``Program`` is one
+owner's share of such a StepGraph: its replays, warm-up and capture seconds
+and launches, and the hand-over of the static buffers (``StepGraph.run``
+with an owner: before a replay for an owner that is not the resident one,
+the resident's tensors that are static buffers are cloned into tensors of
+its own, so no owner ever sees another's state).
+
 Whether a value lives on the host or on the device is decided here and
 nowhere else: ``fetch`` reads the values a step branches on back when eager
 (one read) and leaves them on the device otherwise; ``where`` selects with a
@@ -177,6 +189,21 @@ def tree_map(fn: Callable, tree):
     """``fn`` on every tensor leaf."""
     leaves, spec = flatten(tree)
     return unflatten(spec, [fn(x) for x in leaves])
+
+
+def signature(tree) -> tuple:
+    """A pytree's abstract value, as ``jax.jit`` keys its cache: the
+    structure with its statics, and each leaf's shape, dtype and device."""
+    leaves, spec = flatten(tree)
+    return spec, tuple((tuple(x.shape), x.dtype, x.device) for x in leaves)
+
+
+def _check_leaves(name: str, what: str, want: Sequence[torch.Tensor],
+                  got: Sequence[torch.Tensor]) -> None:
+    for i, (a, b) in enumerate(zip(want, got)):
+        if a.shape != b.shape or a.dtype != b.dtype:
+            raise ValueError(f"{name}: {what} leaf {i} is {b.dtype}{tuple(b.shape)}, the "
+                             f"captured one {a.dtype}{tuple(a.shape)}")
 
 
 def _storage_span(t: torch.Tensor) -> Tuple[int, int]:
@@ -764,9 +791,21 @@ class StepGraph:
     to eager.
 
     The state's non-tensor values are statics: a step whose output state
-    changes one, or a call whose state differs in one from the captured
-    state, raises. On the CPU every call runs the warm-up form (``select``
-    under ``no_host_reads``), the stand-in for a replay.
+    changes one, or a call whose inputs or state differ in one, in structure
+    or in a leaf's shape or dtype from the captured ones, raises. On the CPU
+    every call runs the warm-up form (``select`` under ``no_host_reads``),
+    the stand-in for a replay.
+
+    Owners (``run(..., owner=)``, a ``Program``): the resident owner is the
+    one whose state the static buffers hold. Before a replay for another
+    owner, the resident's tensors that are static state buffers are cloned
+    on the device into tensors of its own (``Program.evict``; no host read),
+    then the newcomer's inputs and state are loaded. An input leaf that is
+    the very tensor the resident owner loaded last, unchanged since (its
+    version counter; so an input must not be a buffer that a graph replay
+    rewrites, since a replay bumps no counter), is not copied again.
+    ``replays``, ``warm_s``, ``capture_s`` and ``launches()`` are the totals;
+    each owner keeps its share (``Program``).
 
     When the StepGraph is collected, its graph is reset and both private
     pools are released (the conditional bodies' pool is opened here, so the
@@ -775,14 +814,13 @@ class StepGraph:
 
     def __init__(self, fn: Callable, device, name: str = "step"):
         self.fn = fn
-        self.device = torch.device(device)
-        if self.device.type == "cuda" and self.device.index is None:
-            self.device = torch.device("cuda", torch.cuda.current_device())
+        self.device = _device(device)
         self.name = name
         self.graph: Optional[torch.cuda.CUDAGraph] = None
         self._release: Optional[weakref.finalize] = None
         self.warmed = False
         self.replays = 0
+        self.hits = 0  # owners that found it built (``Program.step``)
         self._in = self._state = self._outs = None
         self._in_spec = self._state_spec = self._out_spec = None
         self._pool = self._body_pool = None
@@ -799,10 +837,20 @@ class StepGraph:
         # seconds
         self.n_nodes = self.n_if = self.n_while = 0
         self.capture_s = self.warm_s = 0.0
+        # owners: the resident (a weak reference), the (weak reference,
+        # version) of each input leaf it loaded last, each owner's replays and
+        # its node executions settled on the device when it left, and the
+        # counters when the resident took over
+        self._resident: Optional[weakref.ref] = None
+        self._loaded: list = []
+        self._owner_replays = weakref.WeakKeyDictionary()
+        self._owner_runs = weakref.WeakKeyDictionary()
+        self._mark: Optional[torch.Tensor] = None
 
-    def launches(self) -> dict:
+    def launches(self, owner: Optional["Program"] = None) -> dict:
         """Launches of each kernel wrapper (``ops._build.Kernel`` -> count)
-        by this graph's replays so far, counted on the device: a call recorded
+        by this graph's replays so far (those for ``owner`` when given),
+        counted on the device: a call recorded
         outside every conditional node once per replay, one recorded in a
         node's own body (not an inner node's) once per execution of the node
         (a WHILE node's trip). Needs a
@@ -810,17 +858,25 @@ class StepGraph:
         read). Launches made through the wrappers (the warm-up) are theirs."""
         if self._node_calls is None:
             raise RuntimeError(f"{self.name}: not captured inside graphs.counting()")
-        runs = self._counts[:len(self._node_calls)].tolist() if self._node_calls else []
-        out = {k: v * self.replays for k, v in self._top_calls.items()}
-        for calls, n in zip(self._node_calls, runs):
-            _add_into(out, {k: v * n for k, v in calls.items()})
+        if owner is None:
+            runs, replays = self._counts, self.replays
+        else:
+            runs, replays = self._owner_runs.get(owner), self._owner_replays.get(owner, 0)
+            if self._resident_owner() is owner:
+                live = self._counts - self._mark
+                runs = live if runs is None else runs + live
+        n = len(self._node_calls)
+        per_node = runs[:n].tolist() if n and runs is not None else [0] * n
+        out = {k: v * replays for k, v in self._top_calls.items()}
+        for calls, r in zip(self._node_calls, per_node):
+            _add_into(out, {k: v * r for k, v in calls.items()})
         return out
 
     def _select(self, inputs, state):
         with use("select"), no_host_reads():
             return self.fn(inputs, state)
 
-    def run(self, inputs, state):
+    def run(self, inputs, state, owner: Optional["Program"] = None):
         _release_deferred()
         if self.device.type != "cuda" or not self.warmed:
             first, self.warmed = not self.warmed, True
@@ -828,17 +884,53 @@ class StepGraph:
             out = self._select(inputs, state)
             if first:
                 self.warm_s = time.perf_counter() - t0
+                if owner is not None:
+                    owner.warm_s = self.warm_s
             return out
         if self.graph is None:
             self._capture(inputs, state)
+            self._resident = None if owner is None else weakref.ref(owner)
+            self._remember(owner, inputs)
+            if self._counts is not None:
+                self._mark = torch.zeros_like(self._counts)
+            if owner is not None:
+                owner.capture_s, owner.capture_calls = self.capture_s, self.capture_calls
         else:
-            self._load(inputs, state)
+            self._load(inputs, state, owner)
         self.graph.replay()
         self.replays += 1
+        if owner is not None:
+            owner.replays += 1
+            self._owner_replays[owner] = self._owner_replays.get(owner, 0) + 1
         return (unflatten(self._state_spec, self._state),
                 unflatten(self._out_spec, [x.clone() for x in self._outs]))
 
-    def _load(self, inputs, state) -> None:
+    def _resident_owner(self) -> Optional["Program"]:
+        return None if self._resident is None else self._resident()
+
+    def _remember(self, owner, inputs) -> None:
+        """The input leaves ``owner`` just loaded (none for an anonymous
+        caller: its inputs are copied at every replay)."""
+        self._loaded = ([] if owner is None else
+                        [(weakref.ref(x), x._version) for x in flatten(inputs)[0]])
+
+    def _hand_over(self, prev: Optional["Program"], new: Optional["Program"]) -> None:
+        """The static buffers pass from ``prev`` to ``new``: ``prev``'s
+        tensors among them are cloned into its own, and its node executions
+        so far are settled to it on the device."""
+        if prev is new:
+            return
+        if prev is not None:
+            prev.evict(self)
+        if self._counts is not None:
+            if prev is not None:
+                ran = self._counts - self._mark
+                had = self._owner_runs.get(prev)
+                self._owner_runs[prev] = ran if had is None else had + ran
+            self._mark = self._counts.clone()
+        self._resident = None if new is None else weakref.ref(new)
+
+    def _load(self, inputs, state, owner: Optional["Program"] = None) -> None:
         in_leaves, in_spec = flatten(inputs)
         st_leaves, st_spec = flatten(state)
         if not _same_spec(in_spec, self._in_spec):
@@ -846,8 +938,19 @@ class StepGraph:
         if not _same_spec(st_spec, self._state_spec):
             raise ValueError(f"{self.name}: the state differs in a static value or in structure "
                              f"from the captured one")
-        copy_into(self._in, in_leaves)
+        prev = self._resident_owner()
+        if owner is None or prev is not owner:
+            _check_leaves(self.name, "input", self._in, in_leaves)
+            _check_leaves(self.name, "state", self._state, st_leaves)
+            self._hand_over(prev, owner)
+            dst, src = self._in, in_leaves
+        else:
+            moved = [i for i, (x, (ref, ver)) in enumerate(zip(in_leaves, self._loaded))
+                     if ref() is not x or x._version != ver]
+            dst, src = [self._in[i] for i in moved], [in_leaves[i] for i in moved]
+        copy_into(dst, src)
         copy_into(self._state, st_leaves)
+        self._remember(owner, inputs)
 
     def _capture(self, inputs, state) -> None:
         t0 = time.perf_counter()
@@ -934,3 +1037,126 @@ def _release_graph(graph: torch.cuda.CUDAGraph, device_index: int, body_pool) ->
 def _release_deferred() -> None:
     while _DEFERRED:
         _release_graph(*_DEFERRED.pop())
+
+
+def _device(device) -> torch.device:
+    dev = torch.device(device)
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    return dev
+
+
+# ---------------------------------------------------------------------------
+# the process's programs (jax.jit's cache)
+# ---------------------------------------------------------------------------
+
+
+_PROGRAMS: dict = {}  # key -> StepGraph
+
+
+def program(key: tuple, fn: Callable, device, name: str = "step") -> StepGraph:
+    """The process's StepGraph for ``key`` (hashable: the device, the
+    program's name, its statics and its traced constants' ``signature``),
+    built from ``fn`` on first use; every later caller of the key gets the
+    same one, warmed up and captured once."""
+    sg = _PROGRAMS.get(key)
+    if sg is None:
+        sg = _PROGRAMS[key] = StepGraph(fn, device, name)
+    return sg
+
+
+def programs() -> list:
+    """(key, StepGraph) for every program of the table."""
+    return list(_PROGRAMS.items())
+
+
+def clear_programs() -> None:
+    """Drop every program of the table (``jax.clear_caches``): a program
+    that no caller holds is collected, which releases its graph and both
+    pools (``torch.cuda.empty_cache`` then returns their memory). An owner's
+    next run builds, warms up and captures its program again; the state it
+    holds is its own tensors."""
+    _PROGRAMS.clear()
+
+
+class Program:
+    """One owner's share of the process's StepGraph for a key
+    (``program``): ``run`` looks the StepGraph up (the key also holds
+    whether ``counting()`` is on), building it on first use, and runs it as
+    this owner. ``replays``, ``warm_s``, ``capture_s``, ``capture_calls``
+    and ``launches()`` are this owner's: a program found built costs it no
+    warm-up and no capture (both 0). ``graph``, ``n_nodes``, ``n_if``,
+    ``n_while`` and ``hits`` are those of the StepGraph it last ran (else
+    the table's entry for its key); ``step().warmed`` tells whether the
+    next ``run`` warms the program up. ``owner`` (held weakly) and
+    ``fields``: the owner's attributes that may hold the program's static
+    state buffers; ``evict`` clones those into tensors of the owner's own
+    when another owner's replay takes the buffers over. No StepGraph is held
+    here, so ``clear_programs`` releases them while owners live."""
+
+    def __init__(self, name: str, key: tuple, fn: Callable, device, owner, fields: Sequence[str]):
+        self.name = name
+        self.device = _device(device)
+        self.key = (self.device, name) + tuple(key)
+        self.fn = fn
+        self._owner = weakref.ref(owner)
+        self._fields = tuple(fields)
+        self.replays = 0
+        self.warm_s = self.capture_s = 0.0
+        self.capture_calls: dict = {}
+        self._bound: Optional[weakref.ref] = None
+
+    def step(self) -> StepGraph:
+        """The process's StepGraph for this key now (built on first use)."""
+        key = self.key + (_COUNTING[0],)
+        built = key not in _PROGRAMS
+        sg = program(key, self.fn, self.device, self.name)
+        if self._bound is None or self._bound() is not sg:
+            self._bound = weakref.ref(sg)
+            if not built:
+                sg.hits += 1
+        return sg
+
+    def run(self, inputs, state):
+        return self.step().run(inputs, state, owner=self)
+
+    @property
+    def last(self) -> Optional[StepGraph]:
+        """The StepGraph this owner last ran (None before its first run, or
+        once the table dropped it and it was collected)."""
+        return None if self._bound is None else self._bound()
+
+    def _current(self) -> Optional[StepGraph]:
+        sg = self.last
+        return sg if sg is not None else _PROGRAMS.get(self.key + (_COUNTING[0],))
+
+    def _get(self, attr: str, default):
+        sg = self._current()
+        return default if sg is None else getattr(sg, attr)
+
+    graph = property(lambda self: self._get("graph", None))
+    n_nodes = property(lambda self: self._get("n_nodes", 0))
+    n_if = property(lambda self: self._get("n_if", 0))
+    n_while = property(lambda self: self._get("n_while", 0))
+    hits = property(lambda self: self._get("hits", 0))
+
+    def launches(self) -> dict:
+        """This owner's launches of each kernel wrapper by its replays of the
+        StepGraph it last ran (``StepGraph.launches``)."""
+        sg = self.last
+        if sg is None:
+            raise RuntimeError(f"{self.name}: no program run")
+        return sg.launches(self)
+
+    def evict(self, sg: StepGraph) -> None:
+        """Clone the owner's tensors that are ``sg``'s static state buffers
+        into tensors of its own (device copies, no host read)."""
+        owner = self._owner()
+        if owner is None:
+            return
+        mine = {id(x) for x in sg._state}
+        for f in self._fields:
+            leaves, spec = flatten(getattr(owner, f))
+            if any(id(x) in mine for x in leaves):
+                setattr(owner, f, unflatten(spec, [x.clone() if id(x) in mine else x
+                                                   for x in leaves]))
