@@ -126,11 +126,21 @@
    the second chunk on, each kernel's launches counted on the device
    (``graphs.counting``) equal to the eager run's (the loop fuse's row 4
    and the eigensolver among them); the closing chunk's ms, capture time and
-   graph nodes recorded;
+   graph nodes recorded; and the chunk=4 variant with global BA through the
+   step programs, global BA its own program (warmed up and captured first on
+   a copy of the eager variant's map, so the closure replays it), equal to
+   the eager global-BA variant in every map and loop-state tensor, the loop
+   records and the LM counts, with one host read a chunk (the close
+   results, as the JAX package reads them with global BA on); global BA's
+   and the closing chunk's ms recorded;
    then global BA on tests/test_global_ba.py's fabricated scene (gba_scene),
    where its steps are taken, at the tests' caps (the card against the CPU
    within 1e-5) and at the default MapCaps: two calls identical, the robust
-   cost lower, every keyframe within 1 cm of the truth; timed;
+   cost lower, every keyframe within 1 cm of the truth; timed; and its step
+   program (``solvers/global_ba.py::program``, the LM and CG loops as WHILE
+   nodes) beside it: warm-up, capture and three replays, each map equal to
+   eager's bit for bit, no host sync in a replay; nodes, warm-up and capture
+   seconds and ms per replay recorded;
 9. main path 6, the CLI on files: ``run_slam.main`` in this process on a TUM
    directory written here (path 2's 40 frames as zlib PNGs, gray as R=G=B and
    depth as round(d*5000) u16, with a ``configs/tum_fr1.yaml``-keyed config):
@@ -1693,6 +1703,55 @@ def run_gba_scene(label, caps, device, cpu_check: bool) -> dict:
             and torch.equal(out.kf_pose[0], m.kf_pose[0])
             and row.get("cpu_max_abs", 0.0) < 1e-5):
         raise AssertionError(f"global BA on the fabricated scene ({label}) failed: {row}")
+    row["program"] = gba_program_runs(label, m, caps, cam, out)
+    return row
+
+
+GBA_PROGRAM_RUNS = 5  # the warm-up, the capture with its first replay, three replays
+
+
+def gba_program_runs(label, m, caps, cam, want) -> dict:
+    """Global BA's step program (``solvers/global_ba.py::program``) on the
+    map ``m`` that eager ``global_bundle_adjust`` turned into ``want``:
+    ``GBA_PROGRAM_RUNS`` runs from the same map, the first the select-mode
+    warm-up, the second the capture and its replay, timed with CUDA events,
+    the host syncs of each replay counted (sync debug mode); fails unless
+    every run's map equals ``want`` in every field bit for bit and no replay
+    syncs -> the record (nodes, IF and WHILE nodes, warm-up and capture
+    seconds, ms per run)."""
+    from vo_slam_test_tpu_torch.solvers import global_ba
+
+    owner = global_ba.MapOwner(m)
+    prog = global_ba.program(owner, caps, cam, None)
+    fixed = torch.zeros((), dtype=torch.int32, device=m.device)
+    ms, syncs, equal = [], [], []
+    for k in range(GBA_PROGRAM_RUNS):
+        torch.cuda.synchronize()
+        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            if k >= 2:
+                torch.cuda.set_sync_debug_mode("warn")
+            e0.record()
+            owner.map, _ = prog.run((cam, None, fixed), m)
+            e1.record()
+            torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+        ms.append(e0.elapsed_time(e1))
+        syncs.append(len([w for w in caught if "synchroniz" in str(w.message)]))
+        equal.append(all(torch.equal(getattr(owner.map, f.name), getattr(want, f.name))
+                         for f in dataclasses.fields(want)))
+    row = dict(nodes=prog.n_nodes, if_nodes=prog.n_if, while_nodes=prog.n_while,
+               warm_s=prog.warm_s, capture_s=prog.capture_s, replays=prog.replays, ms=ms,
+               replay_syncs=syncs[2:], equal_to_eager=equal)
+    print(f"  {label}, the step program: warm-up {prog.warm_s:.3f} s (select mode, "
+          f"{ms[0]:.3f} ms), capture {prog.capture_s:.3f} s ({prog.n_nodes} nodes, {prog.n_if} IF "
+          f"/ {prog.n_while} WHILE nodes) with its first replay {ms[1]:.3f} ms, replays "
+          f"{[round(x, 3) for x in ms[2:]]} ms; host syncs per replay {syncs[2:]}; each map equal "
+          f"to eager's bit for bit {equal}")
+    if not all(equal) or any(syncs[2:]) or prog.replays != GBA_PROGRAM_RUNS - 1 \
+            or prog.n_while != 2:
+        raise AssertionError(f"global BA's program on the fabricated scene ({label}): {row}")
     return row
 
 
@@ -1975,7 +2034,6 @@ def run_pan(system, cfg, voc, frames, chunk: int, gba: bool, recorder=None, seve
 
     from vo_slam_test_tpu_torch.pipeline import loop_closing
     from vo_slam_test_tpu_torch.slam_map.map_state import MapCaps
-    from vo_slam_test_tpu_torch.solvers import global_ba
     from vo_slam_test_tpu_torch.utils import graphs as graphs_mod
     from vo_slam_test_tpu_torch.utils.drift import inject_drift
 
@@ -1992,8 +2050,7 @@ def run_pan(system, cfg, voc, frames, chunk: int, gba: bool, recorder=None, seve
         else:
             os.environ["VO_LOOP_DIAG"] = saved
     rec = dict(call_ms=[], syncs=[], sync_sites={}, events=[], gba=[])
-    orig_bg, orig_gba, orig_corr = (system.background_step, global_ba.global_bundle_adjust,
-                                    loop_closing._correct)
+    orig_bg, orig_gba, orig_corr = system.background_step, s._global_ba, loop_closing._correct
 
     def timed_bg(*a, **k):
         if not (a[2] and a[3] >= 0):  # no keyframe event
@@ -2024,7 +2081,7 @@ def run_pan(system, cfg, voc, frames, chunk: int, gba: bool, recorder=None, seve
 
     if not graphs:
         system.background_step = timed_bg
-    global_ba.global_bundle_adjust = timed_gba
+    s._global_ba = timed_gba  # eager global_bundle_adjust, or the program with graphs
     loop_closing._correct = tagged_correct
     kf_cut = pre_poses = pre_valid = prof = None
     rec["profile"] = None
@@ -2074,7 +2131,8 @@ def run_pan(system, cfg, voc, frames, chunk: int, gba: bool, recorder=None, seve
         torch.cuda.synchronize()
     finally:
         counting.__exit__(None, None, None)
-        system.background_step, global_ba.global_bundle_adjust = orig_bg, orig_gba
+        system.background_step = orig_bg
+        del s._global_ba
         loop_closing._correct = orig_corr
         if prof is not None:
             prof.__exit__(None, None, None)
@@ -2091,6 +2149,29 @@ def run_pan(system, cfg, voc, frames, chunk: int, gba: bool, recorder=None, seve
                closing_ms=[e0.elapsed_time(e1) for e0, e1, out in rec.pop("events") if out.closed],
                gba_ms=[e0.elapsed_time(e1) for e0, e1 in rec.pop("gba")])
     return s, rec
+
+
+def warm_gba_program(system, cfg, voc, m) -> dict:
+    """Main path 5's global-BA program warmed up and captured (inside
+    ``graphs.counting()``, as ``run_pan``'s graph runs capture) as the first
+    closure of the configuration in a process would: a throwaway
+    ``SlamSystem`` of path 5's configuration runs its global BA twice on
+    copies of ``m`` (the select-mode warm-up, then the capture and its first
+    replay), so a later system's closure replays the program -> its warm-up
+    and capture seconds, nodes, IF and WHILE nodes."""
+    from vo_slam_test_tpu_torch.slam_map.map_state import MapCaps
+    from vo_slam_test_tpu_torch.utils import graphs as graphs_mod
+
+    w = system.SlamSystem(cfg, caps=MapCaps(max_kf=32, max_pt=8192), vocabulary=voc,
+                          chunk=PAN_CHUNK, enable_global_ba=True, graphs=True)
+    with graphs_mod.counting():
+        for _ in range(2):
+            w.map = map_copy(m)
+            w._global_ba()
+    torch.cuda.synchronize()
+    g = w.gba_graph
+    return dict(warm_s=g.warm_s, capture_s=g.capture_s, nodes=g.n_nodes, if_nodes=g.n_if,
+                while_nodes=g.n_while)
 
 
 def pan_report(label, s, rec, gt):
@@ -4598,6 +4679,40 @@ def run_all(prestage: subprocess.Popen) -> int:
                              f"launches {launches5x} through the graphs (the wrappers "
                              f"{r5x['wrapper_calls_from_chunk_2']}), {launches5e} eager; none of "
                              f"{missing} from frame {PAN_CHUNK}")
+
+    # -- main path 5 (chunk=4) with global BA through the step programs ------
+    gba_label = f"chunk={PAN_CHUNK}, global BA, graphs=True"
+    warmed = warm_gba_program(system, pcfg, pvoc, s5g.map)
+    s5xg, r5xg = run_pan(system, pcfg, pvoc, pframes, PAN_CHUNK, True, graphs=True)
+    pan[gba_label] = pan_report(gba_label, s5xg, r5xg, pgt)
+    same_system_runs(f"main path 5 ({gba_label})", s5g, s5xg, s5g.results(), s5xg.results())
+    gx = s5xg.gba_graph
+    reads = [int((i + 1) % PAN_CHUNK == 0) for i in range(len(pframes))]
+    launches5xg, launches5g = r5xg["launches_from_chunk_2"], r5g["launches_from_chunk_2"]
+    pan[gba_label].update(global_ba_ms=r5xg["gba_ms"], eager_global_ba_ms=r5g["gba_ms"],
+                          closing_chunk_ms=r5xg["call_ms"][close_call],
+                          eager_closing_chunk_ms=r5g["call_ms"][close_call],
+                          launches=launches5xg, eager_launches=launches5g,
+                          gba_program=dict(warmed, replays=gx.replays, own_warm_s=gx.warm_s,
+                                           own_capture_s=gx.capture_s))
+    print(f"  {gba_label}: equal to the eager chunk={PAN_CHUNK} global-BA run (trajectory, "
+          f"per-frame counts, keyframes, LM iterations, loop records, every map and loop-state "
+          f"tensor); global BA {[round(x, 3) for x in r5xg['gba_ms']]} ms (a replay of its "
+          f"program; eager {[round(x, 3) for x in r5g['gba_ms']]}); the closing chunk (frames "
+          f"{close_call - PAN_CHUNK + 1}-{close_call}) {r5xg['call_ms'][close_call]:.3f} ms "
+          f"against eager {r5g['call_ms'][close_call]:.3f}; host syncs per track call "
+          f"{r5xg['syncs']} (one a dispatch: the close results' read); the program warmed up "
+          f"and captured first by another system of this configuration {warmed}, this system's "
+          f"replays {gx.replays}, warm-up {gx.warm_s} s, capture {gx.capture_s} s; from frame "
+          f"{PAN_CHUNK} on, launches counted on the device {launches5xg}, eager {launches5g}")
+    if (r5xg["syncs"] != reads or len(r5xg["gba_ms"]) != 1 or gx.replays != 1 or gx.warm_s
+            or gx.capture_s or warmed["while_nodes"] != 2 or launches5xg != launches5g
+            or any(r5xg["wrapper_calls_from_chunk_2"].values())):
+        raise AssertionError(f"main path 5 ({gba_label}): host syncs {r5xg['syncs']} (one a "
+                             f"dispatch expected), global BA runs {r5xg['gba_ms']}, its program "
+                             f"{pan[gba_label]['gba_program']}; launches {launches5xg} through "
+                             f"the graphs (the wrappers {r5xg['wrapper_calls_from_chunk_2']}), "
+                             f"{launches5g} eager")
     pan["programs"] = program_table("main path 5")
 
     # -- main path 5 through the VO_LOOP_DIAG drain path (chunk=1, drain_chunk=1)

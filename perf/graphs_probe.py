@@ -4,6 +4,7 @@ through ``utils.graphs.StepGraph`` beside ``graphs=False`` in one process.
     python3 perf/graphs_probe.py [--frames N] [--skip-chunk] [--sites] [--bisect]
                                  [--smoke-phase] [--vocab] [--close] [--loop]
                                  [--depth] [--launch] [--while] [--mapping-nodes]
+                                 [--gba]
 
 Prints torch's version and whether ``torch.cuda.CUDAGraph`` has
 ``begin_capture_to_if_node``; checks a captured ``cond`` and ``while_capped``
@@ -42,7 +43,12 @@ LM loops) inside one WHILE body and inside WHILE > IF > IF > WHILE > IF >
 WHILE, as the background program nests the Sim3 LM (with ``--loop``, paths 5
 and 8a follow); ``--mapping-nodes`` captures each stage of the mapping chain
 alone on the room orbit's map and prints its graph nodes beside the whole
-chain's.
+chain's, then the three fixed-trip loops still unrolled (undistortion,
+EPnP's Gauss-Newton, pose-only's fast round); ``--gba`` captures global BA's
+pieces (the [256,6,6] ``inv_ex`` batch, the per-point sorted sums, a WHILE >
+WHILE gemv nest) alone and inside one and two WHILE bodies, then its whole
+program at the tests' caps and the default MapCaps beside eager
+(``chip_smoke.run_gba_scene``).
 Needs the card; exits 1 without one.
 """
 
@@ -603,6 +609,115 @@ def while_cases(graphs) -> None:
             gc.collect()
 
 
+def gba_cases(graphs) -> None:
+    """Global BA's pieces inside WHILE bodies, each its own StepGraph
+    replayed three times against eager: cuSOLVER's batched inverse of
+    [256,6,6] f64 blocks (``inv_ex``, the CG preconditioner), the per-point
+    sums (a stable argsort, ``index_add_`` lengths, ``segment_reduce`` over
+    P+1 segments) and a bare WHILE > WHILE nest of cuBLAS gemv (the LM > CG
+    nest), each alone, in one WHILE body and in WHILE > WHILE; then the
+    whole global-BA program on ``chip_smoke.gba_scene`` at the tests' caps
+    and the default MapCaps beside eager (``chip_smoke.run_gba_scene``)."""
+    import chip_smoke
+    from vo_slam_test_tpu_torch.slam_map.map_state import MapCaps
+
+    dev = torch.device("cuda")
+    g = torch.Generator().manual_seed(7)
+    f64 = torch.float64
+    A = torch.randn(256, 6, 6, generator=g, dtype=f64)
+    A = (A @ A.mT + torch.eye(6, dtype=f64)).to(dev)
+    M = (torch.randn(1536, 1536, generator=g, dtype=f64) / 80).to(dev)
+    v0 = torch.randn(1536, generator=g, dtype=f64).to(dev)
+    P = 2048
+    key = torch.randint(0, P + 1, (4096,), generator=g).to(dev)
+    X = torch.randn(4096, 6, 6, generator=g, dtype=f64).to(dev)
+
+    def per_point():
+        b = torch.argsort(key, stable=True)
+        n = torch.zeros(P + 1, dtype=torch.int64, device=dev).index_add_(0, key,
+                                                                          torch.ones_like(key))
+        return torch.segment_reduce(X[b], "sum", lengths=n, axis=0, unsafe=True)[:P]
+
+    def nest2():
+        return graphs.fori_loop(0, 3, lambda i, c: graphs.fori_loop(
+            0, 4, lambda j, d: torch.tanh(M @ d), c), v0)
+
+    cases = {"inv_ex [256,6,6] f64": lambda: torch.linalg.inv_ex(A)[0],
+             "argsort + index_add_ + segment_reduce [4096] -> [2048,6,6]": per_point,
+             "WHILE(3) > WHILE(4) of gemv [1536]": nest2}
+
+    def nest(fn, depth, like):
+        if not depth:
+            return fn()
+        return graphs.scan(lambda i, c, _: (c + 1, nest(fn, depth - 1, like)),
+                           torch.zeros((), device=dev), length=2)[1][1]
+
+    for depth in (0, 1, 2):
+        for name, fn in cases.items():
+            want = fn()
+            sg = graphs.StepGraph(lambda inp, st, fn=fn, want=want, d=depth: (
+                st, nest(fn, d, want)), dev, name)
+            try:
+                outs = [sg.run((), torch.zeros(1, device=dev))[1] for _ in range(4)]
+                torch.cuda.synchronize()
+                same = all(torch.equal(o, want) for o in outs)
+                print(f"  gba {'WHILE > ' * depth}{name}: ok, equal {same}, {sg.n_nodes} nodes, "
+                      f"{sg.n_while} WHILE, {sg.replays} replays", flush=True)
+            except Exception as e:  # noqa: BLE001 - the probe reports every case
+                print(f"  gba {'WHILE > ' * depth}{name}: FAILED {type(e).__name__}: "
+                      f"{str(e)[:160]}", flush=True)
+            del sg
+            gc.collect()
+    for label, caps in (("the tests' caps", MapCaps(16, 2048, 12, 256)),
+                        ("the default MapCaps", MapCaps())):
+        chip_smoke.run_gba_scene(label, caps, dev, False)
+
+
+def fixed_loop_nodes(dev) -> None:
+    """The graph nodes of the three fixed-trip loops still unrolled, each
+    captured alone as the step programs run it: ``ops/undistort.py``'s 10
+    fixed-point trips on 1024 keypoints, EPnP's 6 Gauss-Newton trips on its
+    [3,4] beta cases for 8 candidates, and pose-only's fast-path Gauss-Newton
+    round (4 trips) on 512 observations."""
+    from vo_slam_test_tpu_torch.ops import undistort
+    from vo_slam_test_tpu_torch.solvers import epnp, pose_only
+    from vo_slam_test_tpu_torch.utils import graphs
+
+    g = torch.Generator().manual_seed(3)
+    uv = (torch.rand(1024, 2, generator=g) * torch.tensor([640.0, 480.0])).to(dev)
+    dist = torch.tensor([0.2, -0.5, 0.001, 0.002, 0.3], device=dev)
+    V = torch.randn(8, 3, 4, 4, 3, generator=g).to(dev)
+    rho = torch.rand(8, 3, 6, generator=g).to(dev)
+    betas = torch.rand(8, 3, 4, generator=g).to(dev)
+    n = 512
+    p = torch.rand(n, 3, generator=g) * torch.tensor([4.0, 4.0, 4.0]) + torch.tensor(
+        [-2.0, -2.0, 2.0])
+    obs = pose_only.PoseObs(
+        p_world=p.to(dev), uv=(p[:, :2] / p[:, 2:] * 500 + 320).to(dev),
+        u_right=torch.full((n,), -1.0, device=dev), inv_sigma2=torch.ones(n, device=dev),
+        valid=torch.ones(n, dtype=torch.bool, device=dev))
+    T0 = torch.eye(4, device=dev)
+    cases = {
+        "ops/undistort.py undistort_points (10 trips)": lambda: undistort.undistort_points(
+            uv, 500.0, 500.0, 320.0, 240.0, dist),
+        "solvers/epnp.py _gauss_newton_betas (6 trips)": lambda: epnp._gauss_newton_betas(
+            V, rho, betas),
+        "solvers/pose_only.py _solve_round_gn (4 trips)": lambda: pose_only._solve_round_gn(
+            T0, obs, obs.valid, 500.0, 500.0, 320.0, 320.0, 40.0, True, 4),
+    }
+    for name, fn in cases.items():
+        sg = graphs.StepGraph(lambda inp, st, fn=fn: (st, fn()), dev, name)
+        try:
+            for _ in range(2):
+                sg.run((), torch.zeros(1, device=dev))
+            print(f"  nodes {name}: {sg.n_nodes} ({sg.n_if} IF, {sg.n_while} WHILE), capture "
+                  f"{sg.capture_s:.3f} s", flush=True)
+        except Exception as e:  # noqa: BLE001 - the probe reports every loop
+            print(f"  nodes {name}: FAILED {type(e).__name__}: {str(e)[:160]}", flush=True)
+        del sg
+        gc.collect()
+
+
 def mapping_nodes(system, dev) -> None:
     """The graph nodes of the mapping chain's stages, each captured alone
     (its own StepGraph, the keyframe id a device input) on the room orbit's
@@ -778,7 +893,11 @@ def main() -> int:
     ap.add_argument("--launch", action="store_true",
                     help="path 5's graph run fresh and after a profiler session, then stop")
     ap.add_argument("--mapping-nodes", action="store_true",
-                    help="the mapping chain's stages captured alone: their graph nodes, then stop")
+                    help="the mapping chain's stages and the fixed-trip loops still unrolled, "
+                         "each captured alone: their graph nodes, then stop")
+    ap.add_argument("--gba", action="store_true",
+                    help="global BA's pieces inside WHILE bodies, then its program at two caps "
+                         "beside eager; then stop, or go on with --mapping-nodes")
     ap.add_argument("--while", dest="while_", action="store_true",
                     help="WHILE nodes: a toy loop, then the background program's op classes "
                          "inside nested WHILE and IF bodies; then stop, or go on with --loop")
@@ -804,8 +923,13 @@ def main() -> int:
         return 2
 
     dev = torch.device("cuda")
+    if args.gba:
+        gba_cases(graphs)
+        if not args.mapping_nodes:
+            return 0
     if args.mapping_nodes:
         mapping_nodes(system, dev)
+        fixed_loop_nodes(dev)
         return 0
     if args.while_:
         while_cases(graphs)

@@ -2,7 +2,10 @@
 the JAX package's, on tests/test_local_ba.py::fabricate_map's scenes.
 
 The three single-device cases of tests/test_global_ba.py run on the port with
-their own bounds (the fourth, global_bundle_adjust_mesh, is not ported).
+their own bounds; the fourth, global_bundle_adjust_mesh (ported in
+solvers/global_ba.py), is covered by
+tests/test_torch_parallel.py::test_global_ba_mesh_matches_single_device (and
+its -m slow twin against the JAX mesh, test_global_ba_mesh_matches_jax_mesh).
 Against JAX the poses agree within 1e-2 and the reprojection RMSE within 50%:
 the JAX package's f32 Schur CG over 24 iterations amplifies rounding (its own
 tests/test_global_ba.py::TestGlobalBAMesh measured ~3e-3 between two

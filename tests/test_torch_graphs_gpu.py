@@ -161,8 +161,9 @@ def test_insert_keyframe_replays(room_map):
 
 
 def test_triangulation_replays(room_map):
-    """Module 7: each neighbour slot's search under a cond, the f64 null
-    vector; keyframes 1 and 2 (slot ids as device inputs)."""
+    """Module 7: the neighbour slots as one WHILE node, each slot's search
+    under a cond inside it, the f64 null vector; keyframes 1 and 2 (slot ids
+    as device inputs)."""
     s = room_map
     m = s.map
 
@@ -176,6 +177,80 @@ def test_triangulation_replays(room_map):
         want = tri(int(kf))
         _, got = sg.run((kf,), dummy)
         assert bit_equal(got, want), i
+    assert sg.n_while == 1 and sg.replays == len(calls) - 1
+
+
+def test_mapping_loops_replay_in_a_while_body(room_map):
+    """Triangulation's neighbour loop (WHILE > IF per slot, row 6 inside)
+    and keyframe culling's reparenting (WHILE > WHILE) nested as the
+    background program nests them, inside a WHILE body over keyframe ids:
+    each replay bit-equal to the eager chain, and row 6's launches counted
+    on the device equal to the eager calls' (the wrapper's count)."""
+    from vo_slam_test_tpu_torch.ops import match_cuda
+    from vo_slam_test_tpu_torch.slam_map import culling
+
+    s = room_map
+
+    def chain(m, kf):
+        m = triangulate.create_new_map_points(m, kf, s.caps, s.camera, s.scale_factors)
+        return culling.cull_keyframes(m, kf, s.caps, s.camera)
+
+    def step(inp, m):
+        kfs, = inp
+        return graphs.scan(lambda i, m, kf: (chain(m, kf), None), m, kfs)[0], ()
+
+    sg = graphs.StepGraph(step, "cuda", "mapping loops")
+    runs = ((2, 1), (1, 2), (2, 2), (1, 1))
+    with graphs.counting():
+        for i, kfs in enumerate(runs):
+            got, _ = sg.run((torch.tensor(kfs, dtype=torch.int32, device="cuda"),), s.map)
+            want = s.map
+            for kf in kfs:
+                want = chain(want, kf)
+            assert bit_equal(got, want), i
+    replayed = sg.launches().get(match_cuda.KERNEL_EPI, 0)
+    before = match_cuda.KERNEL_EPI.launches
+    for kfs in runs[1:]:  # the runs the graph replayed (the first is the warm-up)
+        want = s.map
+        for kf in kfs:
+            want = chain(want, kf)
+    assert replayed == match_cuda.KERNEL_EPI.launches - before and replayed > 0
+    assert sg.n_while == 4 and sg.replays == len(runs) - 1
+
+
+@pytest.mark.parametrize("caps", ["tests", "default"])
+def test_global_ba_program_replays_like_eager(cuda, caps):
+    """Global BA's step program (``solvers/global_ba.py::program``: the LM
+    loop a WHILE node with the CG loop a WHILE node inside) on
+    ``chip_smoke.gba_scene`` at the tests' caps and the default MapCaps:
+    warm-up, capture and three replays, each map bit-equal to eager
+    ``global_bundle_adjust``'s, no host sync in a replay."""
+    import sys
+    from pathlib import Path
+
+    from vo_slam_test_tpu_torch.slam_map.map_state import MapCaps
+    from vo_slam_test_tpu_torch.solvers import global_ba
+
+    sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
+    import chip_smoke
+
+    mc = MapCaps(16, 2048, 12, 256) if caps == "tests" else MapCaps()
+    m, _, cam = chip_smoke.gba_scene(mc, cuda)
+    want = global_ba.global_bundle_adjust(m, mc, cam, 0)
+
+    owner = global_ba.MapOwner(m)
+    prog = global_ba.program(owner, mc, cam, None)
+    fixed = torch.zeros((), dtype=torch.int32, device=cuda)
+    for k in range(5):
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error" if k >= 2 else "default")
+        try:
+            owner.map, _ = prog.run((cam, None, fixed), m)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        assert bit_equal(owner.map, want), k
+    assert prog.replays == 4 and prog.n_while == 2
+    assert not torch.equal(want.kf_pose, m.kf_pose)
 
 
 def test_local_ba_replays(room_map):
@@ -478,11 +553,7 @@ def test_loop_chain_background_program_closes_like_eager(cuda, monkeypatch):
 
         def counted(gba=gba, s=s):
             runs.append(s)
-            torch.cuda.set_sync_debug_mode("default")  # global BA's own reads are not counted
-            try:
-                gba()
-            finally:
-                torch.cuda.set_sync_debug_mode("warn")
+            gba()  # the graph system's: its program, which reads nothing back
         monkeypatch.setattr(s, "_global_ba", counted)
     reads = []
     made, kid = torch.ones(1, dtype=torch.bool, device=cuda), torch.full(

@@ -66,8 +66,10 @@ device on every path, as in the JAX package):
   its ``background_chunk``); each loop is one WHILE node whose body is
   captured once, and the branches are IF nodes: the r=30 retry, the
   keyframe insert at a device slot, the mapping chain on ``made_kf & (kf_id
-  >= 0)``, each triangulation neighbour slot, local BA's interruptBA entry;
-  local BA's LM passes and pose-only LM are WHILE nodes. With a vocabulary the
+  >= 0)``, each triangulation neighbour slot (inside the slots' WHILE
+  node), local BA's interruptBA entry; local BA's LM passes, pose-only LM
+  and keyframe culling's reparenting (a WHILE node in a WHILE node) are
+  WHILE nodes. With a vocabulary the
   tracking program also holds BoW and the fallback chain (motion tracking,
   the reference keyframe, relocalization with each candidate slot, its
   solver choice and the top-up cascade's gates as conds; ``last_reloc_frame``
@@ -78,7 +80,9 @@ device on every path, as in the JAX package):
   conds. Nothing is read back until ``results()``; with global
   BA one read after each dispatch's background replays folds the closures
   and runs global BA after each (the JAX package reads its close results
-  then). The frames and timestamps are staged into the tracking program's
+  then), itself a third program (``solvers/global_ba.py::program``: its LM
+  and CG loops are WHILE nodes, the map goes in and out through its static
+  buffers). The frames and timestamps are staged into the tracking program's
   [K] buffers on the device, and both programs take their trip range as
   device ints, so one pair serves a full chunk (one replay each), the first
   chunk (its first frame, which flips the host flag ``initialized``, runs
@@ -930,9 +934,10 @@ class SlamSystem:
     the device until they are read (``results()``, or with global BA the
     read after each dispatch), and ``state``/``map``/``loop_state`` are the
     programs' static buffers, rewritten by this system's next replay. The
-    two programs are the process's for the system's static configuration
-    (``track_graph``/``background_graph`` are this system's shares, with its
-    own replays, warm-up and capture seconds and launches): a fresh system
+    programs (tracking, background, global BA) are the process's for the
+    system's static configuration (``track_graph``, ``background_graph`` and
+    ``gba_graph`` are this system's shares, with its own replays, warm-up
+    and capture seconds and launches): a fresh system
     of a configuration already run replays them at once, and before another
     system's replay takes the static buffers over, this system's tensors
     among them are cloned on the device into tensors of its own, so no
@@ -1025,6 +1030,10 @@ class SlamSystem:
             "background_chunk", (self.chunk,) + tuple(sorted(bg_statics.items()))
             + (graphs_mod.signature(self._background_consts),),
             functools.partial(background_program, **bg_statics), self.device, self, held)
+        # global BA after a closure: the process's program for the caps,
+        # keyframe 0 (the gauge) held fixed as a device input
+        self.gba_graph = global_ba.program(self, caps, self.camera, self.inv_level_sigma2)
+        self._gba_fixed = torch.zeros((), dtype=torch.int32, device=self.device)
         self._frame_bufs = None  # the tracking program's [chunk] frame buffers
         # (frame, index in _outs, made, n1, n2, with loop closing (the confirmed
         # candidates, the close's outcome) else None) per background step, on
@@ -1391,10 +1400,16 @@ class SlamSystem:
             break
 
     def _global_ba(self) -> None:
-        """The upstream global BA after an accepted closure (keyframe 0 fixed)."""
+        """The upstream global BA after an accepted closure (keyframe 0
+        fixed): the step program with ``graphs`` (the map in and out through
+        its static buffers), else the same function eagerly."""
         with record_function("global_bundle"):
-            self.map = global_ba.global_bundle_adjust(
-                self.map, self.caps, self.camera, 0, inv_level_sigma2=self.inv_level_sigma2)
+            if self.graphs:
+                self.map, _ = self.gba_graph.run(
+                    (self.camera, self.inv_level_sigma2, self._gba_fixed), self.map)
+            else:
+                self.map = global_ba.global_bundle_adjust(
+                    self.map, self.caps, self.camera, 0, inv_level_sigma2=self.inv_level_sigma2)
 
     def _flush(self) -> None:
         """Track the frames of an incomplete chunk one at a time."""

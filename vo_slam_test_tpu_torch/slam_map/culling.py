@@ -9,8 +9,10 @@
   its covisibility is zeroed and its children are reparented, with Tcp
   recorded for trajectory recovery (keyframe.cpp:400-491).
 
-The JAX package's ``fori_loop``s have fixed trip counts and become Python
-loops; nothing here reads a value back to the host.
+The reparenting is the JAX package's ``fori_loop`` over the culled
+keyframes around a ``fori_loop`` of greedy attach steps, each a
+``utils.graphs.fori_loop`` (one WHILE node in a capture, its body captured
+once); nothing here reads a value back to the host.
 """
 
 from __future__ import annotations
@@ -19,6 +21,7 @@ import torch
 
 from .. import lie
 from ..camera import Camera
+from ..utils import graphs
 from .insert import Index, row_at
 from .map_state import MapCaps, MapState, compact_ids, pick, scatter_add, scatter_or, scatter_set
 
@@ -167,23 +170,29 @@ def cull_keyframes(m: MapState, curr_kf: Index, caps: MapCaps, cam: Camera) -> M
     culled_ids = torch.where(culled_ids >= 0, cand_ids[culled_ids.clamp(min=0).long()], -1)
     live_after = m.kf_valid & ~cull
     covis_w = torch.where(live_after[:, None] & live_after[None, :], m.covis, 0)
-    for i in range(CU):
-        c = culled_ids[i].clamp(min=0)
-        do = culled_ids[i] >= 0
+
+    def step(_, st):
+        new_parent, children, cand = st
+        Wm = torch.where(children[:, None] & cand[None, :], covis_w, 0)
+        best = torch.argmax(Wm)
+        bx = best // K
+        bw = (best % K).to(torch.int32)
+        ok = Wm.max() > 0
+        at_bx = kf_ar == bx
+        took = at_bx & ok
+        return torch.where(took, bw, new_parent), children & ~took, cand | took
+
+    def reparent_one(i, new_parent):
+        ci = pick(culled_ids, i)
+        c = ci.clamp(min=0)
+        do = ci >= 0
         gp = pick(parent, c)
         gp_ok = (gp >= 0) & ~pick(cull, gp.clamp(min=0))
         children = do & (parent == c) & live_after
         cand = (kf_ar == gp.clamp(min=0)) & gp_ok & do
-        for _ in range(CH):
-            Wm = torch.where(children[:, None] & cand[None, :], covis_w, 0)
-            best = torch.argmax(Wm)
-            bx = best // K
-            bw = (best % K).to(torch.int32)
-            ok = Wm.max() > 0
-            at_bx = kf_ar == bx
-            new_parent = torch.where(ok & at_bx, bw, new_parent)
-            cand = cand | (at_bx & ok)
-            children = children & ~(at_bx & ok)
+        return graphs.fori_loop(0, CH, step, (new_parent, children, cand))[0]
+
+    new_parent = graphs.fori_loop(0, CU, reparent_one, new_parent)
     return m.replace(
         kf_valid=m.kf_valid & ~cull,
         kf_mp=torch.where(cull[:, None], -1, m.kf_mp),

@@ -9,13 +9,16 @@ per neighbour (the kernel ``csrc/epi.cu`` on the card), the rotation filter, a
 per-kp2 dedup, then SVD or depth triangulation with chi2 and scale gates.
 
 Host reads: the JAX package skips a neighbour's search with ``lax.cond`` on
-its gate (in a ``fori_loop`` over the 10 slots). Here each slot's search runs
-under ``utils.graphs.cond`` on its gate: eager, the 10 gates and neighbour
-ids come back in one read per keyframe event and only the neighbours that
+its gate, in a ``fori_loop`` over the 10 slots. Here the slots are a
+``utils.graphs.scan`` over the gates and neighbour ids (one WHILE node in a
+capture, its body captured once) and each slot's search runs under
+``utils.graphs.cond`` on its gate: eager, the 10 gates and ids come back in
+one read per keyframe event before the loop and only the neighbours that
 pass are searched; in ``select`` mode and in a captured graph nothing is
-read. The DLT null vector is ``null_vector_4x4`` (inverse iteration in f64
-with ``solve_ex``), which reads nothing back; ``torch.linalg.svd``, which the
-JAX package's ``jnp.linalg.svd`` would map to, checks its status on the host.
+read. The DLT null vector is ``null_vector_4x4`` (inverse
+iteration in f64 with ``solve_ex``), which reads nothing back;
+``torch.linalg.svd``, which the JAX package's ``jnp.linalg.svd`` would map
+to, checks its status on the host.
 """
 
 from __future__ import annotations
@@ -145,7 +148,8 @@ def create_new_map_points(
     gate = (nb_ids >= 0) & (norm3(ow2_all - ow1[None]) > cam.b)
     gates, nbs_all = graphs.fetch(gate, nb_safe)
 
-    def per_neighbor(nbs: Index, T2):
+    def per_neighbor(nbs: Index):
+        T2 = row_at(m.kf_pose, nbs)
         F12 = _f12(T1, T2, K_mat)
         free2 = (row_at(m.kf_mp, nbs) < 0) & row_at(m.kf_kp_valid, nbs)
         uv2 = row_at(m.kf_uv_und, nbs)
@@ -177,14 +181,21 @@ def create_new_map_points(
         return (torch.zeros(N, dtype=torch.bool, device=dev),
                 torch.zeros(N, dtype=torch.int32, device=dev))
 
-    has_rows, best2_rows = [], []
-    for i, (g, nb) in enumerate(zip(gates, nbs_all)):
-        # the JAX package's lax.cond per neighbour slot
-        has, best2 = graphs.cond(g, lambda nb=nb, i=i: per_neighbor(nb, T2_all[i]), no_search)
-        has_rows.append(has)
-        best2_rows.append(best2.to(torch.int32))
-    has_arr = torch.stack(has_rows)
-    best2_arr = torch.stack(best2_rows)
+    def nb_step(i, rows, x):
+        # the JAX package's fori_loop over the slots, a lax.cond per slot;
+        # each trip writes its slot's row of the buffers in place
+        gate, nbs = x
+        has, best2 = graphs.cond(gate, lambda: per_neighbor(nbs), no_search)
+        idx = i.reshape(1)
+        rows[0].index_copy_(0, idx, has[None])
+        rows[1].index_copy_(0, idx, best2.to(torch.int32)[None])
+        return rows, None
+
+    n_slots = nb_ids.shape[0]  # N_NEIGHBORS, or every keyframe slot of a smaller map
+    has_arr, best2_arr = graphs.scan(nb_step, (
+        torch.zeros((n_slots, N), dtype=torch.bool, device=dev),
+        torch.zeros((n_slots, N), dtype=torch.int32, device=dev)), (gates, nbs_all),
+        length=n_slots)[0]
 
     # each kp1 keeps its first valid neighbour (covisibility order)
     first_nb = first_true(has_arr, 0)                           # [N]

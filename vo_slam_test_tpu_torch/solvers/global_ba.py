@@ -33,7 +33,17 @@ so each point's observations keep that order. Invalid observations stay in
 the table with point 0 and weight 0, as in the JAX package, and in every
 per-keyframe sum; the per-point sums leave them out (they add zeros there,
 and one thread sums a segment, so point 0's would hold every free slot of
-the [K,N] table).
+the [K,N] table): they sort after the bound ones, into segments of their
+own that are cut off.
+
+The LM iterations and the CG iterations nested in each are
+``utils.graphs.fori_loop``s (the JAX package's ``fori_loop``s; in a capture
+each is one WHILE node whose body is captured once), and nothing is read
+back: every shape is fixed (the whole sort, the segment lengths counted on
+the device) and ``fixed_kf`` may be a device int. ``program`` is the
+process's global-BA step program for a static configuration
+(``SlamSystem`` runs it with ``graphs=True``), the counterpart of the JAX
+package's jitted ``global_bundle_adjust``.
 
 ``global_bundle_adjust_mesh`` runs the same core with the [K*N] observation
 axis split over the shards of a ``parallel.ObsMesh``: every sum over
@@ -46,6 +56,7 @@ runs. ``global_bundle_adjust`` is the one-shard case.
 
 from __future__ import annotations
 
+import functools
 from typing import Optional
 
 import numpy as np
@@ -54,9 +65,13 @@ import torch
 from .. import lie
 from ..camera import Camera
 from ..parallel.sharded import ObsMesh
+from ..slam_map.insert import Index
 from ..slam_map.map_state import MapCaps, MapState
-from ..utils import linalg
+from ..utils import graphs, linalg
 from .pose_only import CHI2_MONO, CHI2_STEREO
+
+
+CUT_SEGMENT = 32  # table slots per cut-off segment of the per-point sums (_gba_optimize)
 
 
 def _obs_table(m: MapState):
@@ -118,21 +133,27 @@ def _gba_optimize(poses0, points0, obs, len_kf, free, pt_valid, cams, iters: int
     P = pt_valid.shape[0]
     dev, dt = poses0.device, poses0.dtype
     shards = range(mesh.n_shards)
-    # per point: the bound observations only, in keyframe-major order; the
-    # unbound ones (o_pt 0, weight 0) sort last, into a segment P that is
-    # cut off, so no segment's length grows with the free slots
+    # per point: the bound observations in keyframe-major order; the unbound
+    # ones (o_pt 0, weight 0) sort last, into segments P + j of at most
+    # CUT_SEGMENT table slots each, which are cut off. One thread sums a
+    # segment, serially: one segment P of every free slot made the solve ~8x
+    # slower at the default caps, one per keyframe row (N slots) doubled it
+    # on main path 5. The lengths are counted on the device
     by_pt, len_pt = [], []
     for o_kf, o_pt, o_valid, *_ in obs:
-        key = torch.where(o_valid, o_pt, P)
-        by_pt.append(torch.argsort(key, stable=True)[:int(o_valid.sum())])
-        len_pt.append(torch.bincount(key, minlength=P + 1)[:P])
+        M = o_pt.shape[0]
+        slot = torch.arange(M, device=o_pt.device)
+        key = torch.where(o_valid, o_pt, P + torch.div(slot, CUT_SEGMENT, rounding_mode="floor"))
+        by_pt.append(torch.argsort(key, stable=True))
+        len_pt.append(torch.zeros(P + -(-M // CUT_SEGMENT), dtype=torch.int64,
+                                  device=key.device).index_add_(0, key, torch.ones_like(key)))
 
     def sum_kf(xs):  # each shard's observations are keyframe-major
         return mesh.psum([torch.segment_reduce(x, "sum", lengths=n, axis=0, unsafe=True)
                           for x, n in zip(xs, len_kf)])
 
     def sum_pt(xs):
-        return mesh.psum([torch.segment_reduce(x[b], "sum", lengths=n, axis=0, unsafe=True)
+        return mesh.psum([torch.segment_reduce(x[b], "sum", lengths=n, axis=0, unsafe=True)[:P]
                           for x, b, n in zip(xs, by_pt, len_pt)])
 
     d_mono = CHI2_MONO ** 0.5
@@ -157,8 +178,8 @@ def _gba_optimize(poses0, points0, obs, len_kf, free, pt_valid, cams, iters: int
             parts.append(torch.sum(torch.where(o[2], rho, 0.0)))
         return mesh.psum(parts)
 
-    poses, points = poses0, points0
-    for _ in range(iters):
+    def lm_iter(_, carry):
+        poses, points = carry
         res = residuals(poses, points)
         w, wp = [], []
         for (e, _, _, stereo), o, isg, fs in zip(res, obs, inv_sig, free_s):
@@ -204,11 +225,8 @@ def _gba_optimize(poses0, points0, obs, len_kf, free, pt_valid, cams, iters: int
         def precond(r):
             return torch.einsum("kij,kj->ki", Hpp_inv, r) * free_f
 
-        x = torch.zeros((K, 6), dtype=dt, device=dev)
-        r = rhs
-        p_ = precond(rhs)
-        rz = torch.sum(rhs * p_)
-        for _ in range(cg_iters):
+        def cg_body(_, st):
+            x, r, p_, rz = st
             Ap = schur_matvec(p_) * free_f
             alpha = rz / torch.clamp(torch.sum(p_ * Ap), min=1e-20)
             x = x + alpha * p_
@@ -216,8 +234,11 @@ def _gba_optimize(poses0, points0, obs, len_kf, free, pt_valid, cams, iters: int
             z = precond(r)
             rz_new = torch.sum(r * z)
             beta = rz_new / torch.clamp(rz, min=1e-20)
-            p_ = z + beta * p_
-            rz = rz_new
+            return x, r, z + beta * p_, rz_new
+
+        z0 = precond(rhs)
+        x = graphs.fori_loop(0, cg_iters, cg_body, (
+            torch.zeros((K, 6), dtype=dt, device=dev), rhs, z0, torch.sum(rhs * z0)))[0]
         dx_pose = x * free_f
 
         # back-substitute the points: dx_l = -Hll^-1 (bl + W^T dx)
@@ -229,13 +250,14 @@ def _gba_optimize(poses0, points0, obs, len_kf, free, pt_valid, cams, iters: int
         points_new = points + dx_pt
         # accept only if the robust cost decreased
         better = cost(poses_new, points_new) < cost(poses, points)
-        poses = torch.where(better, poses_new, poses)
-        points = torch.where(better, points_new, points)
-    return poses, points
+        return torch.where(better, poses_new, poses), torch.where(better, points_new, points)
+
+    return graphs.fori_loop(0, iters, lm_iter, (poses0, points0))
 
 
-def _global_ba(m: MapState, caps: MapCaps, cam: Camera, fixed_kf: int, iters: int, cg_iters: int,
-               inv_level_sigma2: Optional[torch.Tensor], mesh: Optional[ObsMesh]) -> MapState:
+def _global_ba(m: MapState, caps: MapCaps, cam: Camera, fixed_kf: Index, iters: int,
+               cg_iters: int, inv_level_sigma2: Optional[torch.Tensor],
+               mesh: Optional[ObsMesh]) -> MapState:
     f64 = torch.float64
     o_kf, o_pt, o_valid, uv, ur_obs, inv_sig2 = _prep_obs(m, inv_level_sigma2)
     free = m.kf_valid & (torch.arange(caps.max_kf, device=m.device) != fixed_kf)
@@ -264,15 +286,50 @@ def _global_ba(m: MapState, caps: MapCaps, cam: Camera, fixed_kf: int, iters: in
                      pt_pos=torch.where(m.pt_valid[:, None], points.to(torch.float32), m.pt_pos))
 
 
-def global_bundle_adjust(m: MapState, caps: MapCaps, cam: Camera, fixed_kf: int, iters: int = 10,
-                         cg_iters: int = 24, inv_level_sigma2: Optional[torch.Tensor] = None
-                         ) -> MapState:
-    """Whole-map BA with keyframe ``fixed_kf`` held fixed -> the map with
-    new keyframe poses and point positions."""
+def global_bundle_adjust(m: MapState, caps: MapCaps, cam: Camera, fixed_kf: Index,
+                         iters: int = 10, cg_iters: int = 24,
+                         inv_level_sigma2: Optional[torch.Tensor] = None) -> MapState:
+    """Whole-map BA with keyframe ``fixed_kf`` (a Python int or a 0-d device
+    int) held fixed -> the map with new keyframe poses and point positions."""
     return _global_ba(m, caps, cam, fixed_kf, iters, cg_iters, inv_level_sigma2, None)
 
 
-def global_bundle_adjust_mesh(m: MapState, caps: MapCaps, cam: Camera, fixed_kf: int,
+def global_ba_step(inputs, m: MapState, *, caps: MapCaps, iters: int, cg_iters: int):
+    """``global_bundle_adjust`` as a step program's function, ``(inputs,
+    map) -> (map, ())``: ``inputs`` are the camera, ``inv_level_sigma2`` (or
+    None) and ``fixed_kf`` as a 0-d device int; the statics are bound by
+    keyword, so it closes over no system."""
+    cam, inv_level_sigma2, fixed_kf = inputs
+    return _global_ba(m, caps, cam, fixed_kf, iters, cg_iters, inv_level_sigma2, None), ()
+
+
+class MapOwner:
+    """The owner of a ``program`` run outside a ``SlamSystem``: ``map`` holds
+    the map the program last returned (``graphs.Program`` clones it into
+    tensors of its own when another owner's replay takes the static buffers
+    over)."""
+
+    def __init__(self, m: MapState):
+        self.map = m
+
+
+def program(owner, caps: MapCaps, cam: Camera, inv_level_sigma2: Optional[torch.Tensor]
+            ) -> graphs.Program:
+    """``owner``'s share of the process's global-BA step program
+    (``global_ba_step`` at ``global_bundle_adjust``'s 10 LM and 24 CG
+    iterations), keyed as the JAX package's jit: ``caps``, the iterations
+    and the signature of the traced camera and scale table. ``owner.map``
+    may hold the program's static map (a ``SlamSystem``, or a
+    ``MapOwner``). Run it as ``program.run((cam, inv_level_sigma2,
+    fixed_kf), map)``."""
+    statics = dict(caps=caps, iters=10, cg_iters=24)
+    return graphs.Program(
+        "global_ba", tuple(sorted(statics.items()))
+        + (graphs.signature((cam, inv_level_sigma2)),),
+        functools.partial(global_ba_step, **statics), cam.fx.device, owner, ("map",))
+
+
+def global_bundle_adjust_mesh(m: MapState, caps: MapCaps, cam: Camera, fixed_kf: Index,
                               mesh: ObsMesh, iters: int = 10, cg_iters: int = 24,
                               inv_level_sigma2: Optional[torch.Tensor] = None) -> MapState:
     """``global_bundle_adjust`` with the [K*N] observation table split over

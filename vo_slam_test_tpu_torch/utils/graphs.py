@@ -53,7 +53,8 @@ Whether a value lives on the host or on the device is decided here and
 nowhere else: ``fetch`` reads the values a step branches on back when eager
 (one read) and leaves them on the device otherwise; ``where`` selects with a
 host or a device predicate; ``scalar`` makes a count in the mode's form;
-``on_device`` fills a host value on the device.
+``on_device`` fills a host value on the device; ``scan`` hands a trip the
+row of what ``fetch`` gave in either form.
 """
 
 from __future__ import annotations
@@ -522,10 +523,25 @@ def while_capped(cond_fn: Callable, body_fn: Callable, state, max_iters: int, ac
     return unflatten(spec, carry)
 
 
-def _trip_rows(xs, i: torch.Tensor):
-    """Row ``i`` (a 0-d int64 device tensor) of every leaf of ``xs``."""
+def _host_rows(a) -> bool:
+    """A list of host numbers: what ``fetch`` gives for a 1-d tensor eagerly."""
+    return isinstance(a, list) and all(isinstance(v, (bool, int)) for v in a)
+
+
+def _trip_rows(xs, i: torch.Tensor, t: Optional[int] = None):
+    """Row ``i`` (a 0-d int64 device tensor) of every leaf of ``xs``; eager
+    (``t`` the trip's host number), item ``t`` of a list of host numbers in
+    ``xs`` (so nothing is read)."""
+    if xs is None:
+        return None
+    if _host_rows(xs):
+        if t is None:
+            raise TypeError("scan: host values in xs outside eager mode")
+        return xs[t]
+    if isinstance(xs, tuple) and not hasattr(xs, "_fields"):
+        return tuple(_trip_rows(x, i, t) for x in xs)
     idx = i.reshape(1)
-    return None if xs is None else tree_map(lambda a: a.index_select(0, idx).squeeze(0), xs)
+    return tree_map(lambda a: a.index_select(0, idx).squeeze(0), xs)
 
 
 def _write_rows(bufs: list, i: torch.Tensor, y_leaves, keep=None) -> None:
@@ -553,8 +569,9 @@ def scan(body: Callable, carry, xs=None, length: Optional[int] = None, *, ys=Non
     """``lax.scan(body, carry, xs)`` over the trips i = start, start+1, ...:
     ``body(i, carry, x) -> (carry, y)``, with ``i`` the trip index as a 0-d
     int64 device tensor in every mode (so every mode runs the same indexing
-    code) and ``x`` the rows ``i`` of ``xs`` (``index_select``; None without
-    ``xs``). Each trip's ``y`` (a pytree of tensors, or None) is written into
+    code) and ``x`` the rows ``i`` of ``xs`` (``index_select``; eager, a
+    list of host numbers that ``fetch`` gave is indexed on the host; None
+    without ``xs``). Each trip's ``y`` (a pytree of tensors, or None) is written into
     row ``i`` of [``length``, ...] buffers the loop owns (``index_copy_``),
     which start as ``ys`` (the rows of trips that do not run; default zeros)
     -> (carry, ys; None without outputs).
@@ -610,7 +627,7 @@ def scan(body: Callable, carry, xs=None, length: Optional[int] = None, *, ys=Non
             if until is not None and host_bool(until(carry)):
                 break
             i = torch.full((), lo + t, dtype=torch.int64, device=dev)
-            carry, y = body(i, carry, _trip_rows(xs, i))
+            carry, y = body(i, carry, _trip_rows(xs, i, lo + t))
             y_leaves, y_spec = flatten(y)
             if y_leaves:
                 rows_for(y_leaves, y_spec, zeros)
