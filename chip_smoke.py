@@ -140,7 +140,12 @@
    program (``solvers/global_ba.py::program``, the LM and CG loops as WHILE
    nodes) beside it: warm-up, capture and three replays, each map equal to
    eager's bit for bit, no host sync in a replay; nodes, warm-up and capture
-   seconds and ms per replay recorded;
+   seconds and ms per replay recorded; then the mesh phase
+   (``run_mesh_phase``): local and global BA over 8 shards on the card
+   against the one-device solvers, eagerly and as their mesh step programs
+   (every replay bit-equal to the eager mesh call, no host sync, rows 7-9
+   counted on the device: 8 x the LM iterations a replay), rows 7-9 on one
+   shard's slice held against their plain versions and timed (7m-9m);
 9. main path 6, the CLI on files: ``run_slam.main`` in this process on a TUM
    directory written here (path 2's 40 frames as zlib PNGs, gray as R=G=B and
    depth as round(d*5000) u16, with a ``configs/tum_fr1.yaml``-keyed config):
@@ -1707,25 +1712,21 @@ def run_gba_scene(label, caps, device, cpu_check: bool) -> dict:
     return row
 
 
-GBA_PROGRAM_RUNS = 5  # the warm-up, the capture with its first replay, three replays
+PROGRAM_RUNS = 5  # the warm-up, the capture with its first replay, three replays
 
 
-def gba_program_runs(label, m, caps, cam, want) -> dict:
-    """Global BA's step program (``solvers/global_ba.py::program``) on the
-    map ``m`` that eager ``global_bundle_adjust`` turned into ``want``:
-    ``GBA_PROGRAM_RUNS`` runs from the same map, the first the select-mode
-    warm-up, the second the capture and its replay, timed with CUDA events,
-    the host syncs of each replay counted (sync debug mode); fails unless
-    every run's map equals ``want`` in every field bit for bit and no replay
-    syncs -> the record (nodes, IF and WHILE nodes, warm-up and capture
-    seconds, ms per run)."""
-    from vo_slam_test_tpu_torch.solvers import global_ba
-
-    owner = global_ba.MapOwner(m)
-    prog = global_ba.program(owner, caps, cam, None)
-    fixed = torch.zeros((), dtype=torch.int32, device=m.device)
+def program_runs(label, owner, prog, inputs, m, want, outs_want=None) -> dict:
+    """A solver's step program on the map ``m`` that the eager call turned
+    into ``want`` (and whose other outputs, read as ints, were
+    ``outs_want``): ``PROGRAM_RUNS`` runs from the same map, the first the
+    select-mode warm-up, the second the capture and its replay, timed with
+    CUDA events, the host syncs of each replay counted (sync debug mode);
+    ``owner.map`` holds each run's map. Fails unless every run's map equals
+    ``want`` in every field bit for bit (and its outputs ``outs_want``) and
+    no replay syncs -> the record (nodes, IF and WHILE nodes, warm-up and
+    capture seconds, ms per run)."""
     ms, syncs, equal = [], [], []
-    for k in range(GBA_PROGRAM_RUNS):
+    for k in range(PROGRAM_RUNS):
         torch.cuda.synchronize()
         e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         with warnings.catch_warnings(record=True) as caught:
@@ -1733,24 +1734,41 @@ def gba_program_runs(label, m, caps, cam, want) -> dict:
             if k >= 2:
                 torch.cuda.set_sync_debug_mode("warn")
             e0.record()
-            owner.map, _ = prog.run((cam, None, fixed), m)
+            owner.map, outs = prog.run(inputs, m)
             e1.record()
             torch.cuda.set_sync_debug_mode("default")
         torch.cuda.synchronize()
         ms.append(e0.elapsed_time(e1))
         syncs.append(len([w for w in caught if "synchroniz" in str(w.message)]))
         equal.append(all(torch.equal(getattr(owner.map, f.name), getattr(want, f.name))
-                         for f in dataclasses.fields(want)))
+                         for f in dataclasses.fields(want))
+                     and (outs_want is None or [int(x) for x in outs] == list(outs_want)))
     row = dict(nodes=prog.n_nodes, if_nodes=prog.n_if, while_nodes=prog.n_while,
                warm_s=prog.warm_s, capture_s=prog.capture_s, replays=prog.replays, ms=ms,
                replay_syncs=syncs[2:], equal_to_eager=equal)
-    print(f"  {label}, the step program: warm-up {prog.warm_s:.3f} s (select mode, "
-          f"{ms[0]:.3f} ms), capture {prog.capture_s:.3f} s ({prog.n_nodes} nodes, {prog.n_if} IF "
-          f"/ {prog.n_while} WHILE nodes) with its first replay {ms[1]:.3f} ms, replays "
-          f"{[round(x, 3) for x in ms[2:]]} ms; host syncs per replay {syncs[2:]}; each map equal "
-          f"to eager's bit for bit {equal}")
-    if not all(equal) or any(syncs[2:]) or prog.replays != GBA_PROGRAM_RUNS - 1 \
-            or prog.n_while != 2:
+    print(f"  {label}: warm-up {prog.warm_s:.3f} s (select mode, {ms[0]:.3f} ms), capture "
+          f"{prog.capture_s:.3f} s ({prog.n_nodes} nodes, {prog.n_if} IF / {prog.n_while} WHILE "
+          f"nodes) with its first replay {ms[1]:.3f} ms, replays "
+          f"{[round(x, 3) for x in ms[2:]]} ms; host syncs per replay {syncs[2:]}; each map "
+          f"{'and LM count ' if outs_want is not None else ''}equal to eager's bit for bit "
+          f"{equal}")
+    if not all(equal) or any(syncs[2:]) or prog.replays != PROGRAM_RUNS - 1:
+        raise AssertionError(f"{label}: {row}")
+    return row
+
+
+def gba_program_runs(label, m, caps, cam, want, mesh=None) -> dict:
+    """Global BA's step program (``solvers/global_ba.py::program``, with
+    ``mesh`` the mesh solver's) through ``program_runs``; its LM and CG loops
+    must be two WHILE nodes."""
+    from vo_slam_test_tpu_torch.solvers import global_ba
+
+    owner = global_ba.MapOwner(m)
+    prog = global_ba.program(owner, caps, cam, None, mesh)
+    fixed = torch.zeros((), dtype=torch.int32, device=m.device)
+    row = program_runs(f"{label}, the {'mesh ' if mesh else ''}step program", owner, prog,
+                       (cam, None, fixed), m, want)
+    if prog.n_while != 2:
         raise AssertionError(f"global BA's program on the fabricated scene ({label}): {row}")
     return row
 
@@ -1897,13 +1915,22 @@ def run_mesh_phase(s1, dev) -> dict:
     iteration on each shard, and a dead shard's launches zero; global BA on
     ``gba_scene`` at the default MapCaps against the one-device solver
     under tests/test_global_ba.py:49-80's contract; the three ``sharded_*``
-    functions against the same calls on an 8-shard CPU mesh. Mesh and
+    functions against the same calls on an 8-shard CPU mesh. Both mesh
+    solvers also run as step programs (``local_ba.mesh_program``,
+    ``global_ba.program`` with the mesh; ``program_runs``): every run
+    bit-equal to the eager mesh call, no host sync in a replay, and local
+    BA's rows 7-9 counted on the device in a counted capture (8 x (n1 + n2)
+    launches each a replay). Rows 7-9 on shard 0's slice of the mesh problem
+    (its first LM iteration, ``BaCapture``) are held against their plain
+    versions and timed replayed in a graph ("7m-9m"). Program, eager mesh and
     one-device ms side by side; one card holds every shard, so no scaling is
-    measured."""
+    measured -> the record, with ``shard_rows`` ({row key: its 7m-9m
+    numbers})."""
     from vo_slam_test_tpu_torch import parallel
-    from vo_slam_test_tpu_torch.ops import ba_cuda
+    from vo_slam_test_tpu_torch.ops import ba_cuda, ba_pallas
     from vo_slam_test_tpu_torch.slam_map.map_state import MapCaps
     from vo_slam_test_tpu_torch.solvers import global_ba, local_ba
+    from vo_slam_test_tpu_torch.utils import graphs
 
     mesh = parallel.make_obs_mesh(8)
     cpu = parallel.make_obs_mesh(8, ["cpu"])
@@ -1956,6 +1983,58 @@ def run_mesh_phase(s1, dev) -> dict:
             and mesh_launches == [mesh.n_shards * (k1 + k2)] * 3))):
         raise AssertionError(f"mesh local BA: {row['local_ba']}")
 
+    # local BA's mesh step program: replays bit-equal to the eager mesh call;
+    # rows 7-9 counted on the device in a counted capture of the same program
+    inputs = (cam, inv, torch.full((), kf, dtype=torch.int32, device=dev),
+              torch.zeros((), dtype=torch.bool, device=dev))
+    owner = global_ba.MapOwner(m)
+    lprog = program_runs("local BA's mesh step program", owner,
+                         local_ba.mesh_program(owner, caps, cam, inv, mesh), inputs, m, m_mesh,
+                         (k1, k2))
+    with graphs.counting():
+        cowner = global_ba.MapOwner(m)
+        cprog = local_ba.mesh_program(cowner, caps, cam, inv, mesh)
+        for _ in range(3):  # warm-up, capture and its replay, a replay
+            cowner.map, _ = cprog.run(inputs, m)
+        counted = cprog.launches()
+    per_replay = {k: counted.get(v, 0) / cprog.replays for k, v in zip(
+        ("ba_acc", "ba_cost", "ba_backsub"), acc)}
+    lprog["launches_per_replay"] = per_replay
+    row["local_ba"]["program"] = lprog
+    ms_prog = float(np.median(lprog["ms"][2:]))
+    print(f"  local BA: replay ms {ms_prog:.3f} (median of {len(lprog['ms']) - 2}), eager mesh "
+          f"{ms_mesh:.3f}, one device {ms_single:.3f}; rows 7-9 launched per replay, counted on "
+          f"the device: {per_replay} (8 shards x {k1 + k2} LM iterations)")
+    if any(v != mesh.n_shards * (k1 + k2) for v in per_replay.values()):
+        raise AssertionError(f"local BA's mesh program: rows 7-9 launched {per_replay} a replay, "
+                             f"not {mesh.n_shards} x {k1 + k2}")
+
+    # rows 7-9 on shard 0's slice of the mesh problem (7m-9m)
+    with BaCapture(ba_cuda) as cap:
+        local_ba.local_bundle_adjust_mesh_iters(map_copy(m), kf, caps, cam, mesh, inv)
+    inst, sub = cap.instance()
+    shard_rows = {}
+    where = "shard 0 of local BA's mesh problem (its first LM iteration)"
+    for key, spec in ba_kernel_specs(ba_cuda, ba_pallas).items():
+        kname, kfn, pfn, kind, _ = spec
+        err = hold_ba(ba_cuda, spec, where, inst, sub)
+        timed = (ba_carried_acc(ba_cuda, ba_pallas, inst, kfn(inst, sub), dev, where)
+                 if key == "ba_acc" else (lambda: kfn(inst, sub)))
+        kb, kby, n_work = ba_bound(kind, inst)
+        O, L = inst["slot"].shape
+        shard_rows[key] = dict(
+            shape=f"WF={inst['posesT'].shape[1]} wk={inst['wk']} O={O} L={L} (shard 0 of "
+                  f"{mesh.n_shards})", launches=per_replay[key], max_abs_err=err,
+            ms=time_graph_ms(timed), plain_ms=time_eager_ms(lambda: pfn(inst, sub)),
+            bound_ms=kb, bound_by=kby, counted=n_work)
+        print(f"  {kname} on {where}: within tolerance of the plain version, two launches "
+              f"bit-equal; counted {n_work}; kernel {shard_rows[key]['ms']:.4f} ms, plain "
+              f"{shard_rows[key]['plain_ms']:.4f} ms, bound {kb:.6f} ms ({kby}); "
+              f"{per_replay[key]:.0f} launches a replay of the mesh program")
+        if shard_rows[key]["ms"] < kb:
+            raise AssertionError(f"{kname} on {where} timed under its bound: {shard_rows[key]}")
+    row["shard_rows"] = shard_rows
+
     # global BA on the fabricated scene at the default MapCaps
     gcaps = MapCaps()
     gm, gt, gcam = gba_scene(gcaps, dev)
@@ -1976,6 +2055,10 @@ def run_mesh_phase(s1, dev) -> dict:
     if not (gpose <= 1e-2 and anchor <= 1e-6 and terr.max() < 0.01 and r2 < 1.0
             and r2 < r1 * 1.1):
         raise AssertionError(f"mesh global BA: {row['global_ba']}")
+    gprog = gba_program_runs("the default MapCaps on 8 shards", gm, gcaps, gcam, g2, mesh)
+    row["global_ba"]["program"] = gprog
+    print(f"  global BA: replay ms {float(np.median(gprog['ms'][2:])):.3f} (median of "
+          f"{len(gprog['ms']) - 2}), eager mesh {gms2:.3f}, one device {gms1:.3f}")
 
     # the three sharded_* functions against the same calls on the CPU's mesh
     T_gt, obs = pose_obs_instance()
@@ -4749,6 +4832,8 @@ def run_all(prestage: subprocess.Popen) -> int:
 
     # -- the multi-device solvers: 8 shards on the one card ------------------
     mesh_rows = run_mesh_phase(s1, dev)
+    for k in ba_keys:
+        kernels[k]["mesh_shard"] = mesh_rows["shard_rows"][k]
 
     # -- BoW at ORBvoc scale: transform, bow_vector, scores_vs_keyframes -------
     from vo_slam_test_tpu_torch.bow import retrieval as bow_ret
@@ -4854,7 +4939,7 @@ def run_all(prestage: subprocess.Popen) -> int:
             "max_abs_err", "ms", "v1_ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
             "launch_floor_x", "counted", "kidnap_instances", "loop_fuse_instances", "instances",
             "phase_launches", "random_ms", "random_v1_ms", "random_bound_ms", "saturated_window",
-            "dense_window")
+            "dense_window", "mesh_shard")
     print(f"total {time.perf_counter() - t_start:.1f} s after the card query")
     print(json.dumps({"main_path": {
         "fused_tracker": {"frame_ms_median": float(np.median(steady)), "ate_m": float(ate),

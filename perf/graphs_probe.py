@@ -4,7 +4,7 @@ through ``utils.graphs.StepGraph`` beside ``graphs=False`` in one process.
     python3 perf/graphs_probe.py [--frames N] [--skip-chunk] [--sites] [--bisect]
                                  [--smoke-phase] [--vocab] [--close] [--loop]
                                  [--depth] [--launch] [--while] [--mapping-nodes]
-                                 [--gba]
+                                 [--gba] [--loops] [--mesh]
 
 Prints torch's version and whether ``torch.cuda.CUDAGraph`` has
 ``begin_capture_to_if_node``; checks a captured ``cond`` and ``while_capped``
@@ -43,8 +43,12 @@ LM loops) inside one WHILE body and inside WHILE > IF > IF > WHILE > IF >
 WHILE, as the background program nests the Sim3 LM (with ``--loop``, paths 5
 and 8a follow); ``--mapping-nodes`` captures each stage of the mapping chain
 alone on the room orbit's map and prints its graph nodes beside the whole
-chain's, then the three fixed-trip loops still unrolled (undistortion,
-EPnP's Gauss-Newton, pose-only's fast round); ``--gba`` captures global BA's
+chain's, then the three fixed-trip loops (undistortion, EPnP's
+Gauss-Newton, pose-only's fast round), each captured alone; ``--loops``
+first captures those loops' library ops (``solve_ex`` at both shapes, the
+pose round's guard) inside a WHILE body, then the three loops, each replay
+against eager; ``--mesh`` runs the smoke's mesh phase on main path 2's map
+(both mesh solvers eagerly and as step programs); ``--gba`` captures global BA's
 pieces (the [256,6,6] ``inv_ex`` batch, the per-point sorted sums, a WHILE >
 WHILE gemv nest) alone and inside one and two WHILE bodies, then its whole
 program at the tests' caps and the default MapCaps beside eager
@@ -673,12 +677,53 @@ def gba_cases(graphs) -> None:
         chip_smoke.run_gba_scene(label, caps, dev, False)
 
 
+def loop_body_cases(graphs, dev) -> None:
+    """The fixed-trip loops' library ops inside one WHILE body (3 trips),
+    each its own StepGraph replayed three times against eager: ``solve_ex``
+    on the fast pose round's [6,6] system with its ``isfinite``/``max``
+    guard, and on EPnP's [128,3,4,4] batch of Gauss-Newton systems."""
+    g = torch.Generator().manual_seed(5)
+    A6 = torch.randn(6, 6, generator=g)
+    A6 = (A6 @ A6.T + torch.eye(6)).to(dev)
+    b6 = torch.randn(6, generator=g).to(dev)
+    A4 = torch.randn(128, 3, 4, 4, generator=g)
+    A4 = (A4 @ A4.mT + 1e-3 * torch.eye(4)).to(dev)
+    b4 = torch.randn(128, 3, 4, generator=g).to(dev)
+
+    def guarded(x):
+        step = -torch.linalg.solve_ex(A6, b6 + x)[0]
+        ok = torch.all(torch.isfinite(step)) & (torch.max(torch.abs(step)) < 1.0)
+        return torch.where(ok, x + 0.1 * step, x)
+
+    def batched(x):
+        return x - 0.1 * torch.linalg.solve_ex(A4, torch.einsum("...ij,...j->...i", A4, x) - b4)[0]
+
+    cases = {"solve_ex [6,6] + isfinite/max guard": (guarded, torch.zeros(6, device=dev)),
+             "solve_ex [128,3,4,4]": (batched, torch.zeros(128, 3, 4, device=dev))}
+    for name, (body, x0) in cases.items():
+        with graphs.use("select"):
+            want = graphs.repeat(3, body, x0)
+        sg = graphs.StepGraph(lambda inp, st, body=body: (st, graphs.repeat(3, body, inp[0])),
+                              dev, name)
+        try:
+            outs = [sg.run((x0,), torch.zeros(1, device=dev))[1] for _ in range(4)]
+            torch.cuda.synchronize()
+            same = all(torch.equal(o, want) for o in outs)
+            print(f"  WHILE > {name}: ok, equal {same}, {sg.n_nodes} nodes, {sg.n_while} WHILE, "
+                  f"{sg.replays} replays", flush=True)
+        except Exception as e:  # noqa: BLE001 - the probe reports every case
+            print(f"  WHILE > {name}: FAILED {type(e).__name__}: {str(e)[:160]}", flush=True)
+        del sg
+        gc.collect()
+
+
 def fixed_loop_nodes(dev) -> None:
-    """The graph nodes of the three fixed-trip loops still unrolled, each
-    captured alone as the step programs run it: ``ops/undistort.py``'s 10
-    fixed-point trips on 1024 keypoints, EPnP's 6 Gauss-Newton trips on its
-    [3,4] beta cases for 8 candidates, and pose-only's fast-path Gauss-Newton
-    round (4 trips) on 512 observations."""
+    """The three fixed-trip loops, each captured alone as the step programs
+    run it (one WHILE node, ``utils.graphs.repeat``): ``ops/undistort.py``'s
+    10 fixed-point trips on 1024 keypoints, EPnP's 6 Gauss-Newton trips on
+    its [3,4] beta cases for 8 candidates, and pose-only's fast-path
+    Gauss-Newton round (4 trips) on 512 observations; their graph nodes,
+    WHILE nodes and capture seconds, and whether each replay equals eager."""
     from vo_slam_test_tpu_torch.ops import undistort
     from vo_slam_test_tpu_torch.solvers import epnp, pose_only
     from vo_slam_test_tpu_torch.utils import graphs
@@ -706,16 +751,39 @@ def fixed_loop_nodes(dev) -> None:
             T0, obs, obs.valid, 500.0, 500.0, 320.0, 320.0, 40.0, True, 4),
     }
     for name, fn in cases.items():
+        want = fn()
         sg = graphs.StepGraph(lambda inp, st, fn=fn: (st, fn()), dev, name)
         try:
-            for _ in range(2):
-                sg.run((), torch.zeros(1, device=dev))
+            outs = [sg.run((), torch.zeros(1, device=dev))[1] for _ in range(3)]
+            torch.cuda.synchronize()
+            same = all(torch.equal(o, want) for o in outs)
             print(f"  nodes {name}: {sg.n_nodes} ({sg.n_if} IF, {sg.n_while} WHILE), capture "
-                  f"{sg.capture_s:.3f} s", flush=True)
+                  f"{sg.capture_s:.3f} s; replays equal to eager {same}", flush=True)
         except Exception as e:  # noqa: BLE001 - the probe reports every loop
             print(f"  nodes {name}: FAILED {type(e).__name__}: {str(e)[:160]}", flush=True)
         del sg
         gc.collect()
+
+
+def mesh_cases(system, dev, n_frames: int) -> None:
+    """The smoke's mesh phase alone (``chip_smoke.run_mesh_phase``: both
+    mesh solvers eagerly and as step programs on 8 shards of the card) on
+    the map of main path 2 (``SlamSystem``, ``graphs=False``) after
+    ``n_frames`` room-orbit frames."""
+    import chip_smoke
+    from vo_slam_test_tpu_torch.config import SlamConfig
+    from vo_slam_test_tpu_torch.datasets import SyntheticRGBD
+    from vo_slam_test_tpu_torch.datasets.synthetic import room_orbit_trajectory
+
+    room = SyntheticRGBD(trajectory=room_orbit_trajectory(240, loops=1.5), scene="room", seed=7)
+    cfg = SlamConfig(camera_fx=room.fx, camera_fy=room.fy, camera_cx=room.cx, camera_cy=room.cy,
+                     camera_k1=0, camera_k2=0, camera_p1=0, camera_p2=0, camera_k3=0)
+    s = system.SlamSystem(cfg, graphs=False)
+    for i in range(n_frames):
+        g, d, t = room[i]
+        s.track(torch.as_tensor(g).to(dev), torch.as_tensor(d).to(dev), t)
+    s.results()
+    chip_smoke.run_mesh_phase(s, dev)
 
 
 def mapping_nodes(system, dev) -> None:
@@ -893,11 +961,17 @@ def main() -> int:
     ap.add_argument("--launch", action="store_true",
                     help="path 5's graph run fresh and after a profiler session, then stop")
     ap.add_argument("--mapping-nodes", action="store_true",
-                    help="the mapping chain's stages and the fixed-trip loops still unrolled, "
-                         "each captured alone: their graph nodes, then stop")
+                    help="the mapping chain's stages and the fixed-trip loops, each captured "
+                         "alone: their graph nodes, then stop")
     ap.add_argument("--gba", action="store_true",
                     help="global BA's pieces inside WHILE bodies, then its program at two caps "
                          "beside eager; then stop, or go on with --mapping-nodes")
+    ap.add_argument("--loops", action="store_true",
+                    help="the fixed-trip loops' library ops inside a WHILE body, then the three "
+                         "loops captured alone; then stop, or go on with --mesh")
+    ap.add_argument("--mesh", action="store_true",
+                    help="the smoke's mesh phase (both mesh solvers eagerly and as step "
+                         "programs) on main path 2's map after --frames frames, then stop")
     ap.add_argument("--while", dest="while_", action="store_true",
                     help="WHILE nodes: a toy loop, then the background program's op classes "
                          "inside nested WHILE and IF bodies; then stop, or go on with --loop")
@@ -923,6 +997,14 @@ def main() -> int:
         return 2
 
     dev = torch.device("cuda")
+    if args.loops:
+        loop_body_cases(graphs, dev)
+        fixed_loop_nodes(dev)
+        if not args.mesh:
+            return 0
+    if args.mesh:
+        mesh_cases(system, dev, args.frames)
+        return 0
     if args.gba:
         gba_cases(graphs)
         if not args.mapping_nodes:

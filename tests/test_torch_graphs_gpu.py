@@ -14,7 +14,11 @@ programs of ``SlamSystem(chunk=4)`` with a vocabulary; the process's
 program table: two systems with different vocabularies interleaved through
 one program pair (the residency hand-over), each equal to its eager run; a
 cache hit capturing nothing; ``clear_programs()`` returning the reserved
-memory. Each test starts from an empty table.
+memory; the three fixed-trip loops (undistortion, EPnP's Gauss-Newton, the
+fast pose round) each one WHILE node, replayed bit-equal to eager; the mesh
+solvers' step programs on 8 shards of the card, replayed bit-equal to the
+eager mesh calls, local BA's rows 7-9 counted on the device. Each test
+starts from an empty table.
 
 Run on a machine with a CUDA card (no JAX needed there):
 
@@ -856,3 +860,144 @@ def test_clear_programs_returns_the_reserved_memory(room):
     held = run()
     assert held > before and len(graphs.programs()) == 2
     assert cleared() <= before and graphs.programs() == []
+
+
+def _loop_calls(name, dev):
+    """Four seeded argument tuples for one of the three fixed-trip loops, at
+    the shapes the step programs give them: 1024 keypoints (undistortion),
+    EPnP's 128 minimal samples, 512 observations (the fast pose round)."""
+    from vo_slam_test_tpu_torch.camera import Camera
+
+    rng = np.random.default_rng(17)
+    calls = []
+    for k in range(4):
+        if name == "undistort":
+            uv = rng.uniform([0, 0], [640, 480], (1024, 2)).astype(np.float32)
+            dist = np.array([0.26, -0.95, -0.005, 0.002, 1.16], np.float32) * (1 + 0.1 * k)
+            calls.append((torch.as_tensor(uv, device=dev), torch.as_tensor(dist, device=dev)))
+        elif name == "epnp":
+            X = rng.uniform([-1, -1, 2], [1, 1, 5], (128, 4, 3)).astype(np.float32)
+            uv = (X[..., :2] / X[..., 2:] * 500 + [320, 240]
+                  + rng.normal(0, 0.5 + k, (128, 4, 2))).astype(np.float32)
+            calls.append((torch.as_tensor(X, device=dev), torch.as_tensor(uv, device=dev),
+                          Camera.from_config(SlamConfig(camera_k1=0, camera_k2=0, camera_p1=0,
+                                                        camera_p2=0, camera_k3=0), dev)))
+        else:
+            n = 512
+            p = rng.uniform([-2, -2, 2], [2, 2, 6], (n, 3)).astype(np.float32)
+            uv = (p[:, :2] / p[:, 2:] * 500 + 320 + rng.normal(0, 0.5 + k, (n, 2)))
+            obs = pose_only.PoseObs(
+                p_world=torch.as_tensor(p, device=dev),
+                uv=torch.as_tensor(uv.astype(np.float32), device=dev),
+                u_right=torch.full((n,), -1.0, device=dev), inv_sigma2=torch.ones(n, device=dev),
+                valid=torch.as_tensor(rng.random(n) < 0.9, device=dev))
+            T0 = torch.eye(4, device=dev)
+            T0[:3, 3] = torch.as_tensor(rng.normal(0, 0.05, 3).astype(np.float32), device=dev)
+            calls.append((T0, obs))
+    return calls
+
+
+def _loop_fn(name):
+    from vo_slam_test_tpu_torch.ops import undistort
+    from vo_slam_test_tpu_torch.solvers import epnp
+
+    if name == "undistort":
+        return lambda uv, dist: undistort.undistort_points(uv, 500.0, 500.0, 320.0, 240.0, dist)
+    if name == "epnp":
+        return lambda X, uv, cam: epnp.epnp_pose(X, uv, torch.ones(X.shape[:2], device=X.device),
+                                                 cam)
+    return lambda T0, obs: pose_only._solve_round_gn(T0, obs, obs.valid, 500.0, 500.0, 320.0,
+                                                     320.0, 40.0, True, 4)
+
+
+@pytest.mark.parametrize("name", ["undistort", "epnp", "pose_round"])
+def test_fixed_trip_loops_are_one_while_node(cuda, name):
+    """Undistortion's 10 trips, EPnP's 6 Gauss-Newton trips and the fast pose
+    round's 4 trips: each captured alone is one WHILE node (EPnP's
+    eigensolver is a kernel, no loop), and every replay equals eager."""
+    fn = _loop_fn(name)
+    calls = _loop_calls(name, cuda)
+    sg = graphs.StepGraph(lambda inp, st: (st, fn(*inp)), "cuda", name)
+    dummy = torch.zeros(1, device="cuda")
+    for i, args in enumerate(calls):
+        want = fn(*args)
+        torch.cuda.set_sync_debug_mode("error" if i >= 2 else "default")
+        try:
+            _, got = sg.run(tuple(args), dummy)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        assert bit_equal(got, want), i
+    assert sg.n_while == 1 and sg.n_if == 0 and sg.replays == len(calls) - 1
+
+
+def test_local_ba_mesh_program_replays_like_eager(room_map):
+    """``local_ba.mesh_program`` on 8 shards of the card (the room orbit's
+    map; keyframes 2 and 1, ``stop`` raised once): each replay's map and LM
+    counts bit-equal to eager ``local_bundle_adjust_mesh_iters``, no host
+    sync in a replay, and rows 7-9 launched 8 x (n1 + n2) times a replay,
+    counted on the device."""
+    from vo_slam_test_tpu_torch import parallel
+    from vo_slam_test_tpu_torch.ops import ba_cuda
+    from vo_slam_test_tpu_torch.solvers import global_ba
+
+    s = room_map
+    inv = 1.0 / (s.scale_factors * s.scale_factors)
+    mesh = parallel.make_obs_mesh(8)
+    runs = ((2, False), (1, False), (2, True), (2, False))
+    owner = global_ba.MapOwner(s.map)
+    expect = 0
+    with graphs.counting():
+        prog = local_ba.mesh_program(owner, s.caps, s.camera, inv, mesh)
+        for i, (kf, stop) in enumerate(runs):
+            want_m, w1, w2 = local_ba.local_bundle_adjust_mesh_iters(
+                s.map, kf, s.caps, s.camera, mesh, inv, stop=stop)
+            if i:
+                expect += mesh.n_shards * (w1 + w2)
+            inputs = (s.camera, inv, torch.tensor(kf, dtype=torch.int32, device="cuda"),
+                      torch.tensor(stop, device="cuda"))
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("error" if i >= 2 else "default")
+            try:
+                owner.map, (g1, g2) = prog.run(inputs, s.map)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+            assert (int(g1), int(g2)) == (w1, w2), i
+            assert bit_equal(owner.map, want_m), i
+    launches = prog.launches()
+    assert [launches.get(k, 0) for k in (ba_cuda.KERNEL_ACC, ba_cuda.KERNEL_COST,
+                                         ba_cuda.KERNEL_BACKSUB)] == [expect] * 3 and expect > 0
+    assert prog.replays == len(runs) - 1
+
+
+def test_global_ba_mesh_program_replays_like_eager(cuda):
+    """``global_ba.program`` with an 8-shard mesh of the card on
+    ``chip_smoke.gba_scene`` at the tests' caps: warm-up, capture and three
+    replays, each map bit-equal to eager ``global_bundle_adjust_mesh``'s, no
+    host sync in a replay, the LM and CG loops two WHILE nodes."""
+    import sys
+    from pathlib import Path
+
+    from vo_slam_test_tpu_torch import parallel
+    from vo_slam_test_tpu_torch.slam_map.map_state import MapCaps
+    from vo_slam_test_tpu_torch.solvers import global_ba
+
+    sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
+    import chip_smoke
+
+    mc = MapCaps(16, 2048, 12, 256)
+    mesh = parallel.make_obs_mesh(8)
+    m, _, cam = chip_smoke.gba_scene(mc, cuda)
+    want = global_ba.global_bundle_adjust_mesh(m, mc, cam, 0, mesh)
+    owner = global_ba.MapOwner(m)
+    prog = global_ba.program(owner, mc, cam, None, mesh)
+    fixed = torch.zeros((), dtype=torch.int32, device=cuda)
+    for k in range(5):
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error" if k >= 2 else "default")
+        try:
+            owner.map, _ = prog.run((cam, None, fixed), m)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        assert bit_equal(owner.map, want), k
+    assert prog.replays == 4 and prog.n_while == 2 and prog.name == "global_ba_mesh"
+    assert not torch.equal(want.kf_pose, m.kf_pose)

@@ -1,5 +1,7 @@
 """The port's benchmark staging (``datasets/staging.py``): the frame cache
-round trip and its fingerprint, and the scene vocabulary against the JAX
+round trip (into a cache directory that does not exist yet, too) and its
+fingerprint (which tells arrays of equal bytes but another dtype or shape
+apart), and the scene vocabulary against the JAX
 package's (the same host-path descriptors into the same k-means: centroids,
 idf and node validity equal) and its cache. The cache directory is a test
 temporary directory."""
@@ -54,6 +56,31 @@ def test_fingerprint_follows_the_scene():
     assert fp(moved) != fp(small_seq())
 
 
+def test_render_all_creates_the_cache_directory(tmp_path, monkeypatch):
+    missing = tmp_path / "not" / "yet"
+    monkeypatch.setattr(staging, "CACHE_DIR", str(missing))
+    seq = small_seq()
+    grays, _, _ = staging.render_all(seq, 2, "m")
+    assert len(list(missing.glob("pilot_frames_m_2_*.npz"))) == 1
+    np.testing.assert_array_equal(staging.render_all(seq, 2, "m")[0][1], grays[1])
+
+
+class _Arrays:
+    def __init__(self, **arrays):
+        self.__dict__.update(arrays)
+
+
+def test_fingerprint_covers_dtype_and_shape():
+    fp = staging._scene_fingerprint
+    a = np.arange(8, dtype=np.int32)
+    assert fp(_Arrays(texture=a)) == fp(_Arrays(texture=a.copy()))
+    other_dtype = a.view(np.float32)  # the same bytes
+    other_shape = a.reshape(2, 4)
+    assert other_dtype.tobytes() == other_shape.tobytes() == a.tobytes()
+    fps = {fp(_Arrays(texture=x)) for x in (a, other_dtype, other_shape)}
+    assert len(fps) == 3
+
+
 def test_scene_vocabulary_equal_jax(cache):
     seq = small_seq()
     grays, depths, _ = staging.render_all(seq, 5, "v")
@@ -74,3 +101,15 @@ def test_scene_vocabulary_equal_jax(cache):
     cached = staging.scene_vocabulary(SlamConfig(**kw), grays, depths, "v", k=4, levels=2,
                                       device="cpu")
     np.testing.assert_array_equal(cached.to_numpy()["idf"], got["idf"])
+
+
+def test_scene_vocabulary_creates_the_cache_directory(tmp_path, monkeypatch):
+    missing = tmp_path / "a" / "b"
+    monkeypatch.setattr(staging, "CACHE_DIR", str(missing))
+    seq = small_seq()
+    grays, depths = [seq[i][0] for i in range(5)], [seq[i][1] for i in range(5)]
+    kw = dict(camera_fx=seq.fx, camera_fy=seq.fy, camera_cx=seq.cx, camera_cy=seq.cy,
+              camera_k1=0, camera_k2=0, camera_p1=0, camera_p2=0, camera_k3=0,
+              camera_width=W, camera_height=H)
+    staging.scene_vocabulary(SlamConfig(**kw), grays, depths, "d", k=4, levels=2, device="cpu")
+    assert len(list(missing.glob("pilot_voc_d_4_2_*.npz"))) == 1

@@ -6,8 +6,8 @@ timed loop (vo_run.cpp:109-110, untimed cv::imread) and loads a prebuilt
 vocabulary (vo_run.cpp:86-90). These helpers give the synthetic scenarios the
 same untimed setup: the host ray-caster costs hundreds of ms a frame and
 vocabulary training minutes, so both are cached on disk in ``VO_STAGE_CACHE``
-(default: the temporary directory, ``TMPDIR``), keyed by a fingerprint of
-what generated them.
+(default: the temporary directory, ``TMPDIR``; created when missing), keyed
+by a fingerprint of what generated them.
 """
 
 from __future__ import annotations
@@ -28,7 +28,9 @@ def _scene_fingerprint(seq) -> str:
     """Short hash of the sequence's generating parameters, so changing the
     scenario (seed, trajectory, texture, ...) under an unchanged tag cannot
     reuse stale cached frames. Covers every non-private scalar, string,
-    tuple and array attribute of the sequence object (arrays by content)."""
+    tuple and array attribute of the sequence object (arrays by dtype, shape
+    and content: equal bytes under another dtype or shape are another
+    scene)."""
     items = []
     for k in sorted(vars(seq)) if hasattr(seq, "__dict__") else []:
         if k.startswith("_"):
@@ -37,7 +39,8 @@ def _scene_fingerprint(seq) -> str:
         if isinstance(v, (int, float, str, bool, tuple)):
             items.append(f"{k}={v!r}")
         elif isinstance(v, np.ndarray):
-            items.append(f"{k}={hashlib.sha1(np.ascontiguousarray(v)).hexdigest()[:12]}")
+            digest = hashlib.sha1(np.ascontiguousarray(v)).hexdigest()[:12]
+            items.append(f"{k}={v.dtype.str}{v.shape}:{digest}")
     return hashlib.sha1(";".join(items).encode()).hexdigest()[:10]
 
 
@@ -46,6 +49,7 @@ def render_all(seq, n_frames: int, tag: str):
 
     Returns (grays [list of u8 HxW], depths [list of f32 HxW], times)."""
     fp = _scene_fingerprint(seq)
+    os.makedirs(CACHE_DIR, exist_ok=True)
     path = f"{CACHE_DIR}/pilot_frames_{tag}_{n_frames}_{fp}.npz"
     if os.path.exists(path):
         z = np.load(path)
@@ -83,6 +87,7 @@ def scene_vocabulary(cfg, grays, depths, tag: str, k: int = 10,
     h.update(str(len(grays)).encode())
     for g in (grays[0], grays[len(grays) // 2], grays[-1]):
         h.update(np.ascontiguousarray(g).tobytes())
+    os.makedirs(CACHE_DIR, exist_ok=True)
     path = f"{CACHE_DIR}/pilot_voc_{tag}_{k}_{levels}_{h.hexdigest()[:10]}.npz"
     if os.path.exists(path):
         return Vocabulary.load(path, device)

@@ -111,6 +111,17 @@ def make_obs_mesh(n_shards: int, devices: Optional[Sequence[Device]] = None) -> 
     return ObsMesh(n_shards, devices)
 
 
+def one_device(mesh: ObsMesh, what: str) -> None:
+    """Raise ``ValueError`` for a mesh whose shards span more than one
+    device: a step program is a CUDA graph, which belongs to one device, so
+    such a mesh runs the eager mesh solvers (the caller names them)."""
+    if mesh.n_devices > 1:
+        raise ValueError(
+            f"{what}: the mesh spans {mesh.n_devices} devices "
+            f"({', '.join(sorted({str(d) for d in mesh.shard_devices}))}) and a step program is "
+            f"one device's CUDA graph; call the eager mesh solver for such a mesh")
+
+
 def shard_observations(mesh: ObsMesh, obs: PoseObs) -> List[PoseObs]:
     """One ``PoseObs`` per shard: each field split along the observation axis."""
     fields = [mesh.split(f) for f in obs]

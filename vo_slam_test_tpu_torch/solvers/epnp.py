@@ -6,10 +6,11 @@ EPnP (Lepetit et al.) per hypothesis, all hypotheses batched: four control
 points (the centroid and the principal axes), barycentric coordinates, the
 [2n,12] projection system whose four smallest eigenvectors span the
 camera-frame control points, betas for the paper's approximations 1-3 each
-refined by six Gauss-Newton steps, and R, t by Horn alignment of the control
-points; the case with the least reprojection error wins. ``ransac_pnp``: 128
-minimal 4-point samples (``utils/prng.py``), the 8 px gate, one all-inlier
-refinement.
+refined by six Gauss-Newton steps (``utils.graphs.repeat``, the JAX
+package's ``lax.scan``: one WHILE node in a step program), and R, t by Horn
+alignment of the control points; the case with the least reprojection error
+wins. ``ransac_pnp``: 128 minimal 4-point samples (``utils/prng.py``), the
+8 px gate, one all-inlier refinement.
 
 The small solves are ``torch.linalg.solve_ex``/``inv_ex``: like the JAX
 package they return non-finite values for a singular system where the checked
@@ -32,7 +33,7 @@ import torch
 from ..camera import Camera
 from ..ops import symeig_cuda
 from ..slam_map.map_state import pick
-from ..utils import prng
+from ..utils import graphs, prng
 from .ransac import N_HYP, REPROJ_GATE, horn_align
 
 _PAIRS = ((0, 1), (0, 2), (0, 3), (1, 2), (1, 3), (2, 3))
@@ -125,13 +126,15 @@ def _betas_cases(V: torch.Tensor, rho: torch.Tensor) -> torch.Tensor:
 def _gauss_newton_betas(V: torch.Tensor, rho: torch.Tensor, betas: torch.Tensor) -> torch.Tensor:
     """Refine betas on the 6 distance residuals (the paper's gauss_newton)."""
     dv = _rho_v(V)  # [..., 4, 6, 3]
-    for _ in range(GN_ITERS):
+
+    def step(betas):
         cc = torch.einsum("...k,...kpx->...px", betas, dv)    # [...,6,3]
         res = (cc * cc).sum(-1) - rho                          # [...,6]
         J = 2.0 * torch.einsum("...px,...kpx->...pk", cc, dv)  # [...,6,4]
         JtJ = torch.einsum("...pi,...pj->...ij", J, J) + 1e-9 * _eye(4, J)
-        betas = betas - _solve(JtJ, torch.einsum("...pi,...p->...i", J, res))
-    return betas
+        return betas - _solve(JtJ, torch.einsum("...pi,...p->...i", J, res))
+
+    return graphs.repeat(GN_ITERS, step, betas)
 
 
 def epnp_pose(Xw: torch.Tensor, uv: torch.Tensor, w: torch.Tensor, cam: Camera) -> torch.Tensor:

@@ -51,7 +51,8 @@ observations (``sum_kf``, ``sum_pt``, the costs) becomes a shard's partial,
 then a psum in shard order; poses, points and the CG state stay on the
 mesh's first device. A shard boundary may cut through a keyframe's N
 observations, so each shard sums its keyframes over the lengths of its own
-runs. ``global_bundle_adjust`` is the one-shard case.
+runs. ``global_bundle_adjust`` is the one-shard case; ``program`` with a
+mesh is its step program.
 """
 
 from __future__ import annotations
@@ -59,12 +60,11 @@ from __future__ import annotations
 import functools
 from typing import Optional
 
-import numpy as np
 import torch
 
 from .. import lie
 from ..camera import Camera
-from ..parallel.sharded import ObsMesh
+from ..parallel.sharded import ObsMesh, one_device
 from ..slam_map.insert import Index
 from ..slam_map.map_state import MapCaps, MapState
 from ..utils import graphs, linalg
@@ -273,12 +273,14 @@ def _global_ba(m: MapState, caps: MapCaps, cam: Camera, fixed_kf: Index, iters: 
                              f"{mesh.n_shards} shards")
         obs = list(zip(*[mesh.split(c) for c in cols]))
         # shard s holds table rows [s M/n, (s+1) M/n): its run of keyframe k is
-        # the overlap with [k N, (k+1) N), computed on the host once per call
+        # the overlap with [k N, (k+1) N), computed on the shard's device (a
+        # host-to-device copy would replay from a freed buffer in a graph)
         n = K * N // mesh.n_shards
-        starts = np.arange(mesh.n_shards)[:, None] * n
-        kf0 = np.arange(K)[None, :] * N
-        lens = np.clip(np.minimum(starts + n, kf0 + N) - np.maximum(starts, kf0), 0, None)
-        len_kf = [torch.as_tensor(row).to(dev) for row, dev in zip(lens, mesh.shard_devices)]
+        len_kf = []
+        for s, dev in enumerate(mesh.shard_devices):
+            kf0 = torch.arange(K, device=dev) * N
+            len_kf.append(torch.clamp(torch.clamp(kf0 + N, max=(s + 1) * n)
+                                      - torch.clamp(kf0, min=s * n), min=0))
     poses, points = _gba_optimize(m.kf_pose.to(f64), m.pt_pos.to(f64), obs, len_kf, free,
                                   m.pt_valid, mesh.replicate_fields(cam), iters, cg_iters, mesh)
     # slots the solve holds fixed keep their f32 values exactly
@@ -294,13 +296,15 @@ def global_bundle_adjust(m: MapState, caps: MapCaps, cam: Camera, fixed_kf: Inde
     return _global_ba(m, caps, cam, fixed_kf, iters, cg_iters, inv_level_sigma2, None)
 
 
-def global_ba_step(inputs, m: MapState, *, caps: MapCaps, iters: int, cg_iters: int):
-    """``global_bundle_adjust`` as a step program's function, ``(inputs,
-    map) -> (map, ())``: ``inputs`` are the camera, ``inv_level_sigma2`` (or
-    None) and ``fixed_kf`` as a 0-d device int; the statics are bound by
-    keyword, so it closes over no system."""
+def global_ba_step(inputs, m: MapState, *, caps: MapCaps, iters: int, cg_iters: int,
+                   mesh: Optional[ObsMesh] = None):
+    """``global_bundle_adjust`` (``global_bundle_adjust_mesh`` with a
+    ``mesh``) as a step program's function, ``(inputs, map) -> (map, ())``:
+    ``inputs`` are the camera, ``inv_level_sigma2`` (or None) and
+    ``fixed_kf`` as a 0-d device int; the statics are bound by keyword, so it
+    closes over no system."""
     cam, inv_level_sigma2, fixed_kf = inputs
-    return _global_ba(m, caps, cam, fixed_kf, iters, cg_iters, inv_level_sigma2, None), ()
+    return _global_ba(m, caps, cam, fixed_kf, iters, cg_iters, inv_level_sigma2, mesh), ()
 
 
 class MapOwner:
@@ -313,20 +317,28 @@ class MapOwner:
         self.map = m
 
 
-def program(owner, caps: MapCaps, cam: Camera, inv_level_sigma2: Optional[torch.Tensor]
-            ) -> graphs.Program:
+def program(owner, caps: MapCaps, cam: Camera, inv_level_sigma2: Optional[torch.Tensor],
+            mesh: Optional[ObsMesh] = None) -> graphs.Program:
     """``owner``'s share of the process's global-BA step program
     (``global_ba_step`` at ``global_bundle_adjust``'s 10 LM and 24 CG
     iterations), keyed as the JAX package's jit: ``caps``, the iterations
-    and the signature of the traced camera and scale table. ``owner.map``
+    and the signature of the traced camera and scale table, and with a
+    ``mesh`` (``global_bundle_adjust_mesh``, the JAX package's jit of the
+    ``shard_map``) its layout, the shards and their devices. ``owner.map``
     may hold the program's static map (a ``SlamSystem``, or a
     ``MapOwner``). Run it as ``program.run((cam, inv_level_sigma2,
-    fixed_kf), map)``."""
+    fixed_kf), map)``. A mesh over more than one device raises
+    ``ValueError`` (``parallel.sharded.one_device``)."""
     statics = dict(caps=caps, iters=10, cg_iters=24)
-    return graphs.Program(
-        "global_ba", tuple(sorted(statics.items()))
-        + (graphs.signature((cam, inv_level_sigma2)),),
-        functools.partial(global_ba_step, **statics), cam.fx.device, owner, ("map",))
+    key = tuple(sorted(statics.items()))
+    name, device = "global_ba", cam.fx.device
+    if mesh is not None:
+        one_device(mesh, "global BA mesh program")
+        name, device = "global_ba_mesh", mesh.root
+        key += (("mesh", (mesh.n_shards, mesh.shard_devices)),)
+        statics["mesh"] = mesh
+    return graphs.Program(name, key + (graphs.signature((cam, inv_level_sigma2)),),
+                          functools.partial(global_ba_step, **statics), device, owner, ("map",))
 
 
 def global_bundle_adjust_mesh(m: MapState, caps: MapCaps, cam: Camera, fixed_kf: Index,

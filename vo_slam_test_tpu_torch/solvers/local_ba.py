@@ -41,11 +41,14 @@ only the JAX package's einsum path needs. ``local_bundle_adjust_mesh`` runs
 the same solver with the point axis split over the shards of a
 ``parallel.ObsMesh``; ``local_bundle_adjust`` is its one-shard case. The flat
 ``build_problem`` (one row per observation) is the JAX package's problem
-layout off the solver's path.
+layout off the solver's path. ``mesh_program`` is the process's step
+program of the mesh solver for a static configuration, the counterpart of
+the JAX package's ``jax.jit(shard_map(optimize, ...))``.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import List, NamedTuple, Optional, Tuple
 
 import torch
@@ -53,7 +56,7 @@ import torch
 from .. import lie
 from ..camera import Camera
 from ..ops import ba_cuda, ba_pallas
-from ..parallel.sharded import ObsMesh
+from ..parallel.sharded import ObsMesh, one_device
 from ..slam_map.insert import Index, row_at
 from ..slam_map.map_state import (MapCaps, MapState, compact_ids, scatter_add, scatter_or,
                                   scatter_set)
@@ -451,6 +454,36 @@ def local_bundle_adjust_mesh_iters(m: MapState, center_kf: Index, caps: MapCaps,
     """``local_bundle_adjust_mesh`` that also returns the LM iterations each
     pass ran (each shard launches each kernel once per iteration)."""
     return _local_ba_impl(m, center_kf, caps, cam, inv_level_sigma2, stop, mesh)
+
+
+def local_ba_mesh_step(inputs, m: MapState, *, caps: MapCaps, mesh: ObsMesh):
+    """``local_bundle_adjust_mesh_iters`` as a step program's function,
+    ``(inputs, map) -> (map, (n1, n2))``: ``inputs`` are the camera,
+    ``inv_level_sigma2`` (or None), ``center_kf`` as a 0-d device int and
+    ``stop`` as a device bool; the statics are bound by keyword, so it closes
+    over no system."""
+    cam, inv_level_sigma2, center_kf, stop = inputs
+    m, n1, n2 = _local_ba_impl(m, center_kf, caps, cam, inv_level_sigma2, stop, mesh)
+    return m, (n1, n2)
+
+
+def mesh_program(owner, caps: MapCaps, cam: Camera, inv_level_sigma2: Optional[torch.Tensor],
+                 mesh: ObsMesh) -> graphs.Program:
+    """``owner``'s share of the process's local-BA mesh step program
+    (``local_ba_mesh_step``), keyed as the JAX package's jit of the
+    ``shard_map``: ``caps``, the mesh layout (its shards and their devices)
+    and the signature of the traced camera and scale table. ``owner.map``
+    may hold the program's static map (``global_ba.MapOwner`` outside a
+    ``SlamSystem``). Run it as ``program.run((cam, inv_level_sigma2,
+    center_kf, stop), map)``. A mesh over more than one device raises
+    ``ValueError`` (``parallel.sharded.one_device``)."""
+    one_device(mesh, "local BA mesh program")
+    layout = (mesh.n_shards, mesh.shard_devices)
+    return graphs.Program(
+        "local_ba_mesh", (("caps", caps), ("mesh", layout),
+                          graphs.signature((cam, inv_level_sigma2))),
+        functools.partial(local_ba_mesh_step, caps=caps, mesh=mesh), mesh.root, owner,
+        ("map",))
 
 
 def _ba_write_back(m: MapState, prob: BAProblemOL, poses, points, final_inl) -> MapState:

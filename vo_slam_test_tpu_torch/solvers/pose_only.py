@@ -5,9 +5,10 @@ Batched residuals over the padded match set (mono 2-dof, virtual-stereo
 3-dof rows), analytic Jacobians, per-octave weighting, and the reference's
 two-round structure (Huber round, chi2 reclassification, plain round from the
 input pose again). ``fast=True`` runs fixed 4-iteration damped Gauss-Newton
-rounds with no host read-back: round 2 is always computed and selected with
-``torch.where`` when round 1 kept >= 10 inliers, which gives the same result
-as the JAX package's ``lax.cond``. The LM path (``fast=False``) is
+rounds (``utils.graphs.repeat``, the JAX package's ``lax.fori_loop``: one
+WHILE node in a step program) with no host read-back: round 2 is always
+computed and selected with ``torch.where`` when round 1 kept >= 10 inliers,
+which gives the same result as the JAX package's ``lax.cond``. The LM path (``fast=False``) is
 ``utils.graphs.while_capped``, the JAX package's ``lax.while_loop``: it exits
 early on convergence, reading one scalar back per iteration when eager and
 none in ``select`` mode or a captured graph.
@@ -130,15 +131,16 @@ def _solve_round_gn(T0, obs: PoseObs, active, fx, fy, cx, cy, bf, use_huber: boo
                     iters: int) -> torch.Tensor:
     """Fixed-iteration damped Gauss-Newton round (the tracking fast path)."""
     eye6 = torch.eye(6, dtype=T0.dtype, device=T0.device)
-    T = T0
-    for _ in range(iters):
+
+    def body(T):
         H, g, _, _ = _normal_equations(T, obs, active, fx, fy, cx, cy, bf, use_huber)
         Hd = H + 1e-4 * torch.diag(torch.diagonal(H)) + 1e-8 * eye6
         step = -torch.linalg.solve_ex(Hd, g)[0]
         # guard: a wild step (degenerate geometry) keeps the old pose
         ok = torch.all(torch.isfinite(step)) & (torch.max(torch.abs(step)) < 1.0)
-        T = torch.where(ok, lie.se3_exp(step) @ T, T)
-    return T
+        return torch.where(ok, lie.se3_exp(step) @ T, T)
+
+    return graphs.repeat(iters, body, T0)
 
 
 def _classify(T, obs: PoseObs, fx, fy, cx, cy, bf) -> Tuple[torch.Tensor, torch.Tensor]:

@@ -32,7 +32,8 @@ same structure, shapes and dtypes on both sides.
 
 ``while_capped`` is ``lax.while_loop`` with a trip cap, ``scan`` is
 ``lax.scan`` over a trip range with an optional early exit (``fori_loop`` the
-same without per-trip inputs or outputs); ``StepGraph`` owns a
+same without per-trip inputs or outputs, ``repeat`` the same for a body
+that reads no trip index); ``StepGraph`` owns a
 step's static inputs and carried state, warms it up, captures it and replays
 it; ``no_host_reads`` raises on every operation that reads a device value
 back to the host (or could not be captured for that reason).
@@ -704,6 +705,22 @@ def fori_loop(lower, upper: int, body: Callable, carry):
     carry`` for i in [lower, upper) (``upper`` a Python int, ``lower`` a
     host or device int), through ``scan``."""
     return scan(lambda i, c, _: (body(i, c), None), carry, length=upper, start=lower)[0]
+
+
+def repeat(n: int, body: Callable, carry):
+    """``lax.fori_loop(0, n, lambda _, c: body(c), carry)`` for a body that
+    does not read its trip index (``n`` a Python int): eager, ``n`` calls of
+    ``body`` (no trip index is made, so an eager trip launches only the
+    body's own work, as the unrolled loop did); in ``select`` and
+    ``capture``, one ``scan`` of ``n`` trips (one WHILE node in a capture).
+    With ``n`` 0 nothing runs in any mode."""
+    if n <= 0:
+        return carry
+    if _MODE[0] == "eager":
+        for _ in range(n):
+            carry = body(carry)
+        return carry
+    return scan(lambda i, c, _: (body(c), None), carry, length=n)[0]
 
 
 # ---------------------------------------------------------------------------
