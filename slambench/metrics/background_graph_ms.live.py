@@ -1,0 +1,9 @@
+"""Device milliseconds per frame in the background program's replays from the
+graph's first node to its last (its ``program`` span), summed over the
+window, over its frames."""
+
+from slambench import program_spans
+
+
+def read(trace):
+    return program_spans.span_ms(trace, "background", "program")

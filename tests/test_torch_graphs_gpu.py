@@ -1001,3 +1001,67 @@ def test_global_ba_mesh_program_replays_like_eager(cuda):
         assert bit_equal(owner.map, want), k
     assert prog.replays == 4 and prog.n_while == 2 and prog.name == "global_ba_mesh"
     assert not torch.equal(want.kf_pose, m.kf_pose)
+
+
+# ---------------------------------------------------------------------------
+# spans and counters inside the programs
+# ---------------------------------------------------------------------------
+
+
+def test_spans_add_no_node_outside_counting(room, monkeypatch):
+    """Outside ``counting()`` the spans capture nothing: both programs of a
+    system have the nodes, IF nodes and WHILE nodes of a capture with every
+    ``span`` a no-op."""
+    import contextlib
+
+    cfg, frames = room
+
+    def sizes():
+        graphs.clear_programs()
+        s = SlamSystem(cfg, graphs=True)
+        for f in frames[:4]:
+            s.track(*f)
+        s.results()
+        return [(p.n_nodes, p.n_if, p.n_while) for p in (s.track_graph, s.background_graph)]
+
+    with_spans = sizes()
+    monkeypatch.setattr(graphs, "span", lambda name: contextlib.nullcontext())
+    assert sizes() == with_spans and with_spans[0][0] > 0
+
+
+def test_spans_stamp_the_programs_on_one_clock(kidnap):
+    """``SlamSystem(vocabulary=...)`` over the kidnap inside ``counting()``:
+    each replay's stamps in order (first before last, after the previous
+    replay's last; both programs share one stream), each after its launch
+    call on the shared clock; the tracking program's five stages cover
+    90-100% of its ``program`` span and run once a tracked frame; the
+    calibration's error bound under 50 us; ``%globaltimer`` advances."""
+    from vo_slam_test_tpu_torch.slam_map.map_state import MapCaps
+
+    cfg, voc, frames, _ = kidnap
+    with graphs.counting():
+        s = SlamSystem(cfg, caps=MapCaps(max_kf=32, max_pt=8192), vocabulary=voc, graphs=True)
+        for f in frames:
+            s.track(*f)
+        s.results()
+    tr = s.trace()
+    spans = tr["spans"]
+    replays = [sp for sp in spans if sp["name"] in ("tracking_graph", "background_graph")]
+    assert len(replays) == s.track_graph.replays + s.background_graph.replays
+    order = sorted(replays, key=lambda sp: sp["start_ns"])
+    for a, b in zip(order, order[1:]):
+        assert a["start_ns"] <= a["end_ns"] <= b["start_ns"]
+    err = tr["clock"]["error_ns"]
+    assert 0 < err < 50_000
+    for sp in replays:
+        assert sp["start_ns"] >= spans[sp["parent"]]["start_ns"] - err
+    stages = tr["stages"]["tracking"]
+    tracked = s.track_graph.replays
+    names = ("extract", "bow", "attempts", "local_map", "keyframe")
+    assert all(stages[k][1] == tracked for k in names + ("program",))
+    share = sum(stages[k][0] for k in names) / stages["program"][0]
+    assert 0.90 <= share <= 1.0, share
+    bg = tr["stages"]["background"]
+    assert sum(v[0] for k, v in bg.items() if k not in ("program", "close_step")) \
+        <= bg["program"][0]
+    assert graphs.timer_resolution(torch.device("cuda"))["changes"] > 0

@@ -156,3 +156,78 @@ extern "C" int graph_stream_create(void** out) {
   *out = (void*)s;
   return (int)e;
 }
+
+// Spans (utils/graphs.py::span): stamps of the card's %globaltimer (ns) in
+// the same int64 buffer as the node counters. The open stamp writes the
+// time into counts[open]; the close stamp adds now - counts[open] to
+// counts[total] and 1 to counts[count], and with a ring (a StepGraph's
+// top-level span) also writes (open, now) into entry counts[count] mod
+// ring_len of it (the replay's number). Each is a one-thread kernel node, so
+// a span may sit inside IF and WHILE bodies.
+__device__ __forceinline__ long long global_ns() {
+  unsigned long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  return (long long)t;
+}
+
+__global__ void span_open_kernel(long long* counts, int open) { counts[open] = global_ns(); }
+
+__global__ void span_close_kernel(long long* counts, int open, int total, int count,
+                                  long long* ring, int ring_len) {
+  long long t = global_ns();
+  long long o = counts[open];
+  long long n = counts[count];
+  counts[total] += t - o;
+  counts[count] = n + 1;
+  if (ring != nullptr) {
+    int r = (int)(n % ring_len);
+    ring[2 * r] = o;
+    ring[2 * r + 1] = t;
+  }
+}
+
+extern "C" int graph_span_open(void* stream, void* counts, int open) {
+  span_open_kernel<<<1, 1, 0, (cudaStream_t)stream>>>((long long*)counts, open);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int graph_span_close(void* stream, void* counts, int open, int total, int count,
+                                void* ring, int ring_len) {
+  span_close_kernel<<<1, 1, 0, (cudaStream_t)stream>>>((long long*)counts, open, total, count,
+                                                       (long long*)ring, ring_len);
+  return (int)cudaGetLastError();
+}
+
+// The clock's calibration (utils/graphs.py::calibrate): %globaltimer into
+// out[0] by one thread, between two host clock reads around a synchronize.
+__global__ void clock_stamp_kernel(long long* out) { out[0] = global_ns(); }
+
+extern "C" int graph_clock_stamp(void* stream, void* out) {
+  clock_stamp_kernel<<<1, 1, 0, (cudaStream_t)stream>>>((long long*)out);
+  return (int)cudaGetLastError();
+}
+
+// %globaltimer's resolution: one thread reads it until it has changed `steps`
+// times (or `spins` reads went by) -> out[0] the smallest change seen (ns),
+// out[1] the changes seen, out[2] the reads made.
+__global__ void clock_step_kernel(long long* out, int steps, long long spins) {
+  long long last = global_ns(), best = -1, seen = 0, reads = 0;
+  while (seen < steps && reads < spins) {
+    long long t = global_ns();
+    ++reads;
+    if (t != last) {
+      long long d = t - last;
+      if (best < 0 || d < best) best = d;
+      last = t;
+      ++seen;
+    }
+  }
+  out[0] = best;
+  out[1] = seen;
+  out[2] = reads;
+}
+
+extern "C" int graph_clock_step(void* stream, void* out, int steps, long long spins) {
+  clock_step_kernel<<<1, 1, 0, (cudaStream_t)stream>>>((long long*)out, steps, spins);
+  return (int)cudaGetLastError();
+}

@@ -37,12 +37,10 @@ hypotheses once per confirmed candidate.
 
 from __future__ import annotations
 
-import contextlib
 import dataclasses
 from typing import Dict, List, Optional, Tuple
 
 import torch
-from torch.profiler import record_function
 
 from .. import lie
 from ..bow import retrieval as bow_ret
@@ -170,7 +168,8 @@ def detect_step(m: MapState, ls: LoopState, did_kf, kf_id, caps: MapCaps
         out_gens = torch.where(conf_mask, m.kf_gen[top_ids.long()], -1)
         return ls.replace(groups=groups, counts=counts, n_groups=n_groups), out_cands, out_gens
 
-    return graphs.cond(did_kf & (kf_id >= 0), detect, lambda ls: (ls, pad, pad), (ls,))
+    return graphs.cond(did_kf & (kf_id >= 0), detect, lambda ls: (ls, pad, pad), (ls,),
+                       name="detect")
 
 
 def _gates_and_group(m, ls, kf, cd, gen_ok, caps, cam, scale_factors, groups_curr, groups_cand):
@@ -465,8 +464,8 @@ def close_detected(m: MapState, ls: LoopState, go, kf_id, cand_kfs: torch.Tensor
     happened), under a cond on its best confirmed candidate (the JAX
     package's ``lax.cond(cand[0] >= 0)``, ``_background_one``) -> (map, loop
     state, CloseOut). Eager (host ``go``/``kf_id``) the candidates are read
-    back once, the close runs inside the ``close_step`` profiler range, and
-    a frame without a confirmed candidate returns None for the outcome."""
+    back once, and a frame without a confirmed candidate returns None for
+    the outcome. The close runs inside the span ``close_step``."""
     if not graphs.traced() and not graphs.host_bool(go):
         return m, ls, None
     cands = graphs.fetch(cand_kfs)
@@ -476,11 +475,11 @@ def close_detected(m: MapState, ls: LoopState, go, kf_id, cand_kfs: torch.Tensor
     none = CloseOut.none(m.device, cand_gens.shape[0])
 
     def close(m, ls):
-        with contextlib.nullcontext() if graphs.traced() else record_function("close_step"):
+        with graphs.span("close_step"):
             return _close_multi(m, ls, kf, row_at(m.kf_valid, kf), cand_kfs, cand_gens,
                                 group_div, caps, cam, scale_factors)
 
-    return graphs.cond(cands[0] >= 0, close, lambda m, ls: (m, ls, none), (m, ls))
+    return graphs.cond(cands[0] >= 0, close, lambda m, ls: (m, ls, none), (m, ls), name="close")
 
 
 def close_step_multi(m: MapState, ls: LoopState, kf_id: int, kf_gen_expect: int,

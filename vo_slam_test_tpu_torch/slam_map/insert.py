@@ -150,7 +150,7 @@ def insert_keyframe(
     go, kf_id = graphs.fetch(can, kf_id_t)
     m = graphs.cond(go, lambda m: _insert_keyframe(
         m, caps, feats, T_c_w, timestamp, frame_id, assign, create_mask, cam, scale_factors,
-        words, bow_word, bow_weight, kf_id), lambda m: m, (m,))
+        words, bow_word, bow_weight, kf_id), lambda m: m, (m,), name="kf_insert")
     return m, graphs.where(go, kf_id, -1)
 
 

@@ -319,7 +319,7 @@ def _lm_pass(poses0, points0, probs, cam5, active, use_huber: bool, iters: int, 
     not_done = torch.zeros((), dtype=torch.bool, device=dev)
     poses, points, _, it, _ = graphs.while_capped(
         lambda c: ~c[4], body, (poses0, list(points0), lam, it0, not_done), iters,
-        active=iters > 0)
+        active=iters > 0, name="local_ba_lm")
     return poses, points, it, wcs
 
 
@@ -399,7 +399,7 @@ def _local_ba_impl(m: MapState, center_kf: Index, caps: MapCaps, cam: Camera,
     zero = graphs.scalar(0, _I32, m.device)
     return graphs.cond(stop, lambda m: (m, zero, zero),
                        lambda m: _local_ba_run(m, center_kf, caps, cam, inv_level_sigma2, mesh),
-                       (m,))
+                       (m,), name="ba_interrupted")
 
 
 def _local_ba_run(m, center_kf, caps, cam, inv_level_sigma2, mesh: Optional[ObsMesh]):

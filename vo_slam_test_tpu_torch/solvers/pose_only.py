@@ -123,7 +123,7 @@ def _solve_round(T0, obs: PoseObs, active, fx, fy, cx, cy, bf, use_huber: bool,
     # the JAX package's lax.while_loop with its trip cap: a host read per
     # iteration when eager, a conditional node per iteration in a capture
     T, _, _ = graphs.while_capped(lambda c: ~c[2], body, (T0, lam, converged), max_iters,
-                                  active=max_iters > 0)
+                                  active=max_iters > 0, name="pose_lm")
     return T
 
 
@@ -140,7 +140,7 @@ def _solve_round_gn(T0, obs: PoseObs, active, fx, fy, cx, cy, bf, use_huber: boo
         ok = torch.all(torch.isfinite(step)) & (torch.max(torch.abs(step)) < 1.0)
         return torch.where(ok, lie.se3_exp(step) @ T, T)
 
-    return graphs.repeat(iters, body, T0)
+    return graphs.repeat(iters, body, T0, name="pose_round")
 
 
 def _classify(T, obs: PoseObs, fx, fy, cx, cy, bf) -> Tuple[torch.Tensor, torch.Tensor]:

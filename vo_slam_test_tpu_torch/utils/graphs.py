@@ -50,6 +50,23 @@ with an owner: before a replay for an owner that is not the resident one,
 the resident's tensors that are static buffers are cloned into tensors of
 its own, so no owner ever sees another's state).
 
+Spans and counters (``counting``; off by default, and then nothing of this
+is captured, so a graph is node for node the one without it): ``span(name)``
+around a stage of a step puts two one-thread stamp kernels of the card's
+``%globaltimer`` into the capture (``csrc/graph_if.cu``), and each
+conditional node gets a counter of its executions; both live in one int64
+buffer per StepGraph, split between its owners as the launches are.
+``cond``/``while_capped``/``scan``/``fori_loop``/``repeat`` take a ``name``
+for their node; an unnamed node is labelled by its innermost span and its
+ordinal there. The top-level ``program`` span also writes each replay's
+stamps into a ring (``RING`` replays), which ``calibrate``/``to_host`` put on
+the host's ``time.perf_counter_ns`` clock. On the CPU a program's run (select
+mode, the stand-in for a replay) records the same spans with the host's
+clock and counts the nodes its taken paths pass (``Tally``). Outside a
+program, ``span`` records into the host ``Recorder`` that ``recording`` names
+(a ``SlamSystem``'s spans). Whichever path, ``span`` opens a
+``torch.profiler.record_function`` of its name while a profiler records.
+
 Whether a value lives on the host or on the device is decided here and
 nowhere else: ``fetch`` reads the values a step branches on back when eager
 (one read) and leaves them on the device otherwise; ``where`` selects with a
@@ -69,6 +86,7 @@ from typing import Any, Callable, List, Optional, Sequence, Tuple
 
 import torch
 from torch.overrides import TorchFunctionMode
+from torch.profiler import record_function
 
 MODES = ("eager", "select", "capture")
 _MODE = ["eager"]
@@ -92,11 +110,20 @@ class _Capture:
     counts: Optional[torch.Tensor] = None
     nodes: list = dataclasses.field(default_factory=list)
     stack: list = dataclasses.field(default_factory=list)
+    # when counting: each node's label and its body's node count, by slot
+    # (slots 0..); each span's (total, count) slots and the open stamps'
+    # slots, taken from the top of ``counts`` down to ``top``
+    labels: list = dataclasses.field(default_factory=list)
+    body_n: list = dataclasses.field(default_factory=list)
+    span_slots: dict = dataclasses.field(default_factory=dict)
+    top: int = 0
+    names: Optional["_Labels"] = None
 
 
 _CAPTURING: List[Optional[_Capture]] = [None]
 _COUNTING = [False]
-MAX_COUNTED_NODES = 4096  # conditional nodes a counted StepGraph may hold
+MAX_COUNTED_NODES = 4096  # counter slots of a counted StepGraph: nodes and spans
+RING = 4096  # replays whose program-span stamps a counted StepGraph keeps
 _BODY_STREAMS: dict = {}  # (device, depth) -> stream for conditional-node body captures
 # device -> the stream every StepGraph captures on (one per device, as
 # torch.cuda.graph's default capture stream: cuBLAS keeps a workspace for each
@@ -299,8 +326,11 @@ def host_bool(pred) -> bool:
     return bool(pred)
 
 
-def cond(pred, true_fn: Callable, false_fn: Callable, operands: tuple = ()):
-    """``lax.cond(pred, true_fn, false_fn, *operands)`` (module docstring)."""
+def cond(pred, true_fn: Callable, false_fn: Callable, operands: tuple = (),
+         name: Optional[str] = None):
+    """``lax.cond(pred, true_fn, false_fn, *operands)`` (module docstring);
+    ``name`` labels its nodes when counting (the taken side's node; the
+    other's gets ``.else``)."""
     if not isinstance(pred, torch.Tensor):
         return true_fn(*operands) if pred else false_fn(*operands)
     m = _MODE[0]
@@ -308,20 +338,26 @@ def cond(pred, true_fn: Callable, false_fn: Callable, operands: tuple = ()):
         return true_fn(*operands) if bool(pred) else false_fn(*operands)
     pred = pred.reshape(()).to(torch.bool)
     if m == "select":
-        t_leaves, t_spec = flatten(true_fn(*operands))
-        f_leaves, f_spec = flatten(false_fn(*operands))
+        tally = _tally()
+        label = tally.names.label(name) if tally is not None else None
+        taken = tally is None or cpu_flag(pred)  # a tally runs on the CPU: read for free
+        with _tally_node(tally, label, taken):
+            t_leaves, t_spec = flatten(true_fn(*operands))
+        with _tally_node(tally, label and label + ".else", not taken):
+            f_leaves, f_spec = flatten(false_fn(*operands))
         _check_match(t_spec, f_spec, t_leaves, f_leaves)
         return unflatten(t_spec, [torch.where(pred, a, b) for a, b in zip(t_leaves, f_leaves)])
     cap = _CAPTURING[0]
     if cap is None:
         raise RuntimeError("cond in capture mode outside a StepGraph capture")
+    label = cap.names.label(name) if cap.counts is not None else None
     # two IF nodes, the second on the negated predicate (torch's
     # if_else_node); the taken side's results land in buffers made inside
     # the first body
-    with _if_body(cap, pred, negate=False):
+    with _if_body(cap, pred, negate=False, label=label):
         t_leaves, t_spec = flatten(true_fn(*operands))
         outs = [x.clone() for x in t_leaves]
-    with _if_body(cap, pred, negate=True):
+    with _if_body(cap, pred, negate=True, label=label and label + ".else"):
         f_leaves, f_spec = flatten(false_fn(*operands))
         _check_match(t_spec, f_spec, t_leaves, f_leaves)
         copy_into(outs, f_leaves)
@@ -346,6 +382,7 @@ def _graph_kernels() -> dict:
         U = ctypes.c_ulonglong
         N = ctypes.POINTER(U)
         L = ctypes.c_longlong
+        I = ctypes.c_int
         _GRAPH_KERNELS.update(
             if_begin=_build.Kernel("graph_if", "graph_if_begin", [P, P, P, ctypes.c_int]),
             if_end=_build.Kernel("graph_if", "graph_if_end", [P, N]),
@@ -353,22 +390,310 @@ def _graph_kernels() -> dict:
             while_end=_build.Kernel("graph_if", "graph_while_end", [P, U, P, P, L, N]),
             stream_create=_build.Kernel("graph_if", "graph_stream_create", [ctypes.POINTER(P)]),
             count=_build.Kernel("graph_if", "graph_if_count", [P, P, ctypes.c_int]),
-            capture_nodes=_build.Kernel("graph_if", "graph_capture_nodes", [P, N]))
+            capture_nodes=_build.Kernel("graph_if", "graph_capture_nodes", [P, N]),
+            span_open=_build.Kernel("graph_if", "graph_span_open", [P, P, I]),
+            span_close=_build.Kernel("graph_if", "graph_span_close", [P, P, I, I, I, P, I]),
+            clock_stamp=_build.Kernel("graph_if", "graph_clock_stamp", [P, P]),
+            clock_step=_build.Kernel("graph_if", "graph_clock_step", [P, P, I, L]))
     return _GRAPH_KERNELS
 
 
 @contextlib.contextmanager
 def counting():
     """StepGraphs captured inside count their kernels' launches
-    (``StepGraph.launches``): each conditional body gets a one-thread kernel
-    that counts the node's executions (a WHILE node's trips) on the device.
-    Off by default: it adds that kernel to every body."""
+    (``StepGraph.launches``) and their spans: each conditional body gets a
+    one-thread kernel that counts the node's executions (a WHILE node's
+    trips) on the device, each ``span`` two stamp kernels, and the capture a
+    ``program`` span around it all. Host ``Recorder`` spans and a CPU
+    program's ``Tally`` record only inside it. Off by default: it adds
+    those kernels to the graphs (and is part of a program's key)."""
     prev = _COUNTING[0]
     _COUNTING[0] = True
     try:
         yield
     finally:
         _COUNTING[0] = prev
+
+
+# ---------------------------------------------------------------------------
+# spans and node labels
+# ---------------------------------------------------------------------------
+
+
+_NULL = contextlib.nullcontext()
+_SINK: list = [None]  # where ``span`` records outside a capture: a Recorder or a Tally
+
+
+def _profiled(name: str):
+    """A ``record_function`` range of ``name`` while a torch profiler
+    records (what ``bench.py`` reads), else nothing."""
+    return record_function(name) if torch._C._autograd._profiler_enabled() else _NULL
+
+
+def span(name: str):
+    """A stage of a step, as a context manager (module docstring). Inside
+    ``counting()``: in a capture, two stamp kernels around the enclosed work
+    (the span's time and count in the StepGraph's counters); elsewhere a
+    host record in the current ``recording`` sink. Outside ``counting()``
+    nothing (a profiler range while a profiler records)."""
+    if _COUNTING[0]:
+        cap = _CAPTURING[0]
+        if cap is not None:
+            if cap.counts is not None:
+                return _device_span(cap, name)
+        elif _SINK[0] is not None:
+            return _SINK[0].span(name)
+    return _profiled(name)
+
+
+def recording(sink):
+    """Inside ``counting()``: the enclosed ``span``s outside a capture record
+    into ``sink`` (a ``Recorder``, a ``Tally``, or None: nowhere)."""
+    return _recording(sink) if _COUNTING[0] else _NULL
+
+
+@contextlib.contextmanager
+def _recording(sink):
+    prev = _SINK[0]
+    _SINK[0] = sink
+    try:
+        yield
+    finally:
+        _SINK[0] = prev
+
+
+class _Labels:
+    """The labels of one run's conditional nodes (``Program.node_runs``): a
+    named node keeps its name, an unnamed one is ``<innermost span>#<its
+    ordinal there>``, and a label met again in the run gets ``#<k>``. A
+    select-mode loop runs its body once a trip: ``mark``/``rewind`` label
+    every trip as the first (as a capture records the body once)."""
+
+    def __init__(self):
+        self.spans = [["program", 0]]  # [span name, nodes labelled in it]
+        self.seen: dict = {}
+
+    def label(self, name: Optional[str]) -> str:
+        if name is None:
+            top = self.spans[-1]
+            top[1] += 1
+            name = f"{top[0]}#{top[1]}"
+        n = self.seen.get(name, 0) + 1
+        self.seen[name] = n
+        return name if n == 1 else f"{name}#{n}"
+
+    def mark(self):
+        return [c for _, c in self.spans], dict(self.seen)
+
+    def rewind(self, mark) -> None:
+        counts, seen = mark
+        for sp, c in zip(self.spans, counts):
+            sp[1] = c
+        self.seen = dict(seen)
+
+
+def _take_slot(cap: _Capture) -> int:
+    """A counter slot for a span, from the top of the capture's buffer."""
+    cap.top -= 1
+    if cap.top < len(cap.nodes):
+        raise RuntimeError(f"more than {cap.counts.numel()} node counters and span slots")
+    return cap.top
+
+
+@contextlib.contextmanager
+def _device_span(cap: _Capture, name: str, ring: Optional[torch.Tensor] = None):
+    """Stamp kernels around the enclosed capture: the open stamp into a slot
+    of its own, the close adding the time and one run to the name's slots
+    (and, with ``ring``, the replay's stamps into it)."""
+    if name not in cap.span_slots:
+        cap.span_slots[name] = (_take_slot(cap), _take_slot(cap))
+    total, count = cap.span_slots[name]
+    opened = _take_slot(cap)
+    k = _graph_kernels()
+    ptr = cap.counts.data_ptr()
+    k["span_open"](torch.cuda.current_stream(cap.device).cuda_stream, ptr, opened)
+    cap.names.spans.append([name, 0])
+    try:
+        yield
+    finally:
+        cap.names.spans.pop()
+    k["span_close"](torch.cuda.current_stream(cap.device).cuda_stream, ptr, opened, total, count,
+                    None if ring is None else ring.data_ptr(), RING)
+
+
+class Tally:
+    """A program's spans and node runs recorded on the host, for a run that
+    is not a replay (the CPU's select mode, the stand-in for one): a span's
+    host nanoseconds and runs by name, and each node's runs by label,
+    counting only the paths taken (a predicate on the CPU is read for free;
+    select mode also runs the sides not taken, which count nothing)."""
+
+    def __init__(self):
+        self.spans: dict = {}      # name -> [ns, runs]
+        self.node_runs: dict = {}  # label -> runs
+        self.names = _Labels()
+        self._taken = [True]
+
+    def run(self, fn: Callable):
+        """``fn()`` as one program run: its spans and nodes recorded here,
+        the whole as ``program`` -> (result, start ns, end ns)."""
+        prev = _SINK[0]
+        _SINK[0] = self
+        self.names = _Labels()
+        t0 = time.perf_counter_ns()
+        try:
+            out = fn()
+        finally:
+            _SINK[0] = prev
+        t1 = time.perf_counter_ns()
+        self._add("program", t1 - t0)
+        return out, t0, t1
+
+    def _add(self, name: str, ns: int) -> None:
+        tot = self.spans.setdefault(name, [0, 0])
+        tot[0] += ns
+        tot[1] += 1
+
+    @contextlib.contextmanager
+    def span(self, name: str):
+        taken = self._taken[-1]
+        self.names.spans.append([name, 0])
+        t0 = time.perf_counter_ns()
+        try:
+            with _profiled(name):
+                yield
+        finally:
+            self.names.spans.pop()
+            if taken:
+                self._add(name, time.perf_counter_ns() - t0)
+
+    @contextlib.contextmanager
+    def node(self, label: str, taken: bool):
+        """The enclosed work is the body of node ``label``, run when
+        ``taken`` and every enclosing node ran."""
+        run = self._taken[-1] and bool(taken)
+        self.node_runs[label] = self.node_runs.get(label, 0) + int(run)
+        self._taken.append(run)
+        try:
+            yield
+        finally:
+            self._taken.pop()
+
+
+def _tally() -> Optional[Tally]:
+    sink = _SINK[0]
+    return sink if _COUNTING[0] and isinstance(sink, Tally) else None
+
+
+def _tally_node(tally: Optional[Tally], label, taken):
+    return _NULL if tally is None else tally.node(label, taken)
+
+
+class Recorder:
+    """Host spans (``SlamSystem``'s): [frame, name, start ns, end ns, parent
+    index or -1] per span, in the order opened, on ``time.perf_counter_ns``.
+    A span records only inside ``counting()`` (outside it costs one flag
+    check, and a profiler range while a profiler records); ``frame``
+    defaults to the enclosing span's."""
+
+    def __init__(self):
+        self.records: list = []
+        self._open: list = []
+
+    def span(self, name: str, frame: Optional[int] = None):
+        if not _COUNTING[0]:
+            return _profiled(name)
+        return self._span(name, frame)
+
+    def current(self) -> int:
+        """The innermost open span's index (-1: none)."""
+        return self._open[-1] if self._open else -1
+
+    @contextlib.contextmanager
+    def _span(self, name: str, frame: Optional[int]):
+        parent = self.current()
+        if frame is None:
+            frame = self.records[parent][0] if parent >= 0 else -1
+        rec = [frame, name, time.perf_counter_ns(), None, parent]
+        self._open.append(len(self.records))
+        self.records.append(rec)
+        try:
+            with _profiled(name):
+                yield
+        finally:
+            rec[3] = time.perf_counter_ns()
+            self._open.pop()
+
+
+# ---------------------------------------------------------------------------
+# one clock: the card's %globaltimer on the host's perf_counter_ns
+# ---------------------------------------------------------------------------
+
+
+_CLOCK: dict = {}  # device -> [(host ns, card ns, half the bracket ns)] per calibration
+
+
+def calibrate(device):
+    """One calibration point of the card's ``%globaltimer`` against
+    ``time.perf_counter_ns``: a stamp kernel on the idle device between two
+    host reads around its synchronize, the narrowest of five brackets
+    -> (host ns at the bracket's middle, card ns, half the bracket: the
+    error bound). None off the card. Synchronizes the device."""
+    dev = _device(device)
+    if dev.type != "cuda":
+        return None
+    k = _graph_kernels()
+    buf = torch.zeros(5, dtype=torch.int64, device=dev)
+    stream = torch.cuda.current_stream(dev)
+    brackets = []
+    for i in range(buf.numel()):
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter_ns()
+        k["clock_stamp"](stream.cuda_stream, buf.data_ptr() + 8 * i)
+        stream.synchronize()
+        brackets.append((t0, time.perf_counter_ns()))
+    card = buf.tolist()
+    i = min(range(len(brackets)), key=lambda j: brackets[j][1] - brackets[j][0])
+    t0, t1 = brackets[i]
+    point = ((t0 + t1) // 2, card[i], (t1 - t0) / 2)
+    _CLOCK.setdefault(dev, []).append(point)
+    return point
+
+
+def clock(device) -> Optional[dict]:
+    """The card's clock on the host's, from the first and the latest
+    calibration: ``offset_ns`` (card − host at the first), ``drift`` (the
+    offset's change per host ns between them), ``error_ns`` (the larger
+    half-bracket), ``points``. None before a calibration (the CPU's spans are
+    on the host's clock already)."""
+    pts = _CLOCK.get(_device(device))
+    if not pts:
+        return None
+    (h0, g0, e0), (h1, g1, e1) = pts[0], pts[-1]
+    drift = ((g1 - h1) - (g0 - h0)) / (h1 - h0) if h1 != h0 else 0.0
+    return dict(offset_ns=g0 - h0, drift=drift, error_ns=max(e0, e1), at_ns=h0, points=len(pts))
+
+
+def to_host(device, card_ns: int) -> float:
+    """A ``%globaltimer`` stamp on the host's ``perf_counter_ns`` clock
+    (``clock``); unchanged without a calibration."""
+    c = clock(device)
+    if c is None:
+        return card_ns
+    d = c["drift"]
+    return (card_ns - c["offset_ns"] + d * c["at_ns"]) / (1.0 + d)
+
+
+def timer_resolution(device) -> dict:
+    """``%globaltimer``'s resolution on the card: one thread reads it until
+    it changed 64 times (or 2^26 reads went by) -> {"step_ns": the smallest
+    change, "changes", "reads"}. Synchronizes the device."""
+    dev = _device(device)
+    out = torch.zeros(3, dtype=torch.int64, device=dev)
+    _graph_kernels()["clock_step"](torch.cuda.current_stream(dev).cuda_stream, out.data_ptr(),
+                                   64, 1 << 26)
+    step, changes, reads = out.tolist()
+    return dict(step_ns=step, changes=changes, reads=reads)
 
 
 def _wrapper_calls() -> dict:
@@ -402,11 +727,12 @@ def _body_stream(dev: torch.device, depth: int):
 
 
 @contextlib.contextmanager
-def _cond_body(cap: _Capture, begin: Callable, end: Callable):
+def _cond_body(cap: _Capture, begin: Callable, end: Callable, label: Optional[str] = None):
     """Capture the enclosed work into the body of the conditional node that
     ``begin(parent stream, body stream)`` adds; ``end(body stream, node
     count out)`` closes it. The body is captured on a stream of its own,
-    whose allocations go to the StepGraph's body pool."""
+    whose allocations go to the StepGraph's body pool. When counting, the
+    node's counter slot is its ``label``'s."""
     dev = cap.device
     parent = torch.cuda.current_stream(dev)
     body = _body_stream(dev, cap.depth)
@@ -415,9 +741,11 @@ def _cond_body(cap: _Capture, begin: Callable, end: Callable):
     slot = None
     if cap.counts is not None:
         slot = len(cap.nodes)
-        if slot >= cap.counts.numel():
-            raise RuntimeError(f"more than {cap.counts.numel()} conditional nodes to count")
+        if slot >= cap.top:
+            raise RuntimeError(f"more than {cap.counts.numel()} node counters and span slots")
         cap.nodes.append({})
+        cap.labels.append(label)
+        cap.body_n.append(0)
         _graph_kernels()["count"](body.cuda_stream, cap.counts.data_ptr(), slot)
         cap.stack.append((_wrapper_calls(), {}))
     try:
@@ -433,19 +761,22 @@ def _cond_body(cap: _Capture, begin: Callable, end: Callable):
         n = ctypes.c_ulonglong()
         end(body.cuda_stream, ctypes.byref(n))
         cap.body_nodes += n.value
+        if slot is not None:
+            cap.body_n[slot] = n.value
 
 
-def _if_body(cap: _Capture, pred: torch.Tensor, negate: bool):
+def _if_body(cap: _Capture, pred: torch.Tensor, negate: bool, label: Optional[str] = None):
     """Capture the enclosed work into an IF node on ``pred`` (negated when
     ``negate``)."""
     k = _graph_kernels()
     pred = pred.contiguous()
     cap.n_if += 1
     return _cond_body(cap, lambda s, b: k["if_begin"](s, b, pred.data_ptr(), int(negate)),
-                      k["if_end"])
+                      k["if_end"], label)
 
 
-def _while_body(cap: _Capture, flag: torch.Tensor, counter: torch.Tensor, max_trips: int):
+def _while_body(cap: _Capture, flag: torch.Tensor, counter: torch.Tensor, max_trips: int,
+                name: Optional[str] = None):
     """Capture the enclosed work, one trip, into a WHILE node: a trip runs
     while the bool ``flag`` is set and fewer than ``max_trips`` trips ran.
     ``counter`` (int64, 0-d) holds the trip's number from 0; the body must
@@ -454,9 +785,28 @@ def _while_body(cap: _Capture, flag: torch.Tensor, counter: torch.Tensor, max_tr
     handle = ctypes.c_ulonglong()
     args = (flag.data_ptr(), counter.data_ptr(), int(max_trips))
     cap.n_while += 1
+    label = cap.names.label(name) if cap.counts is not None else None
     return _cond_body(
         cap, lambda s, b: k["while_begin"](s, b, *args, ctypes.byref(handle)),
-        lambda b, n: k["while_end"](b, handle.value, *args, n))
+        lambda b, n: k["while_end"](b, handle.value, *args, n), label)
+
+
+class _Trips:
+    """A select-mode loop's trips on a ``Tally`` (None: nothing recorded):
+    each trip is the body of the loop's node, labelled as the first."""
+
+    def __init__(self, name: Optional[str]):
+        self.tally = _tally()
+        if self.tally is not None:
+            self.label = self.tally.names.label(name)
+            self.tally.node_runs.setdefault(self.label, 0)
+            self.mark = self.tally.names.mark()
+
+    def trip(self):
+        if self.tally is None:
+            return _NULL
+        self.tally.names.rewind(self.mark)
+        return self.tally.node(self.label, True)
 
 
 def _cpu_int(t: torch.Tensor) -> int:
@@ -467,7 +817,8 @@ def _cpu_int(t: torch.Tensor) -> int:
         return int(t)
 
 
-def while_capped(cond_fn: Callable, body_fn: Callable, state, max_iters: int, active=None):
+def while_capped(cond_fn: Callable, body_fn: Callable, state, max_iters: int, active=None,
+                 name: Optional[str] = None):
     """``lax.while_loop(cond_fn, body_fn, state)`` cut at ``max_iters`` trips:
     a trip runs while the device flag ``active`` is set, and ``cond_fn`` of
     the new state clears it. ``active`` is the first test (default
@@ -476,7 +827,8 @@ def while_capped(cond_fn: Callable, body_fn: Callable, state, max_iters: int, ac
     every trip and keeps the state of the active ones (on the CPU it stops
     at the first inactive trip, read for free: the trips left change
     nothing); ``capture`` records one WHILE node whose body, one trip, is
-    captured once, so a trip that does not run runs nothing."""
+    captured once, so a trip that does not run runs nothing. ``name``
+    labels its node when counting."""
     if active is None:
         active = cond_fn(state)
     m = _MODE[0]
@@ -495,10 +847,12 @@ def while_capped(cond_fn: Callable, body_fn: Callable, state, max_iters: int, ac
         active = torch.full((), bool(active), dtype=torch.bool, device=dev)
     active = active.reshape(()).to(torch.bool)
     if m == "select":
+        trips = _Trips(name)
         for _ in range(max_iters):
             if dev.type == "cpu" and not cpu_flag(active):
                 break  # as the WHILE node stops
-            new = body_fn(state)
+            with trips.trip():
+                new = body_fn(state)
             n_leaves, n_spec = flatten(new)
             _check_match(spec, n_spec, leaves, n_leaves)
             leaves = [torch.where(active, a, b) for a, b in zip(n_leaves, leaves)]
@@ -514,7 +868,7 @@ def while_capped(cond_fn: Callable, body_fn: Callable, state, max_iters: int, ac
     carry = [x.clone() for x in leaves]
     flag = active.clone()
     counter = torch.empty((), dtype=torch.int64, device=dev)
-    with _while_body(cap, flag, counter, max_iters):
+    with _while_body(cap, flag, counter, max_iters, name):
         new = body_fn(unflatten(spec, carry))
         n_leaves, n_spec = flatten(new)
         _check_match(spec, n_spec, carry, n_leaves)
@@ -566,7 +920,7 @@ def _check_rows(ys_spec, y_spec, bufs, y_leaves) -> None:
 
 
 def scan(body: Callable, carry, xs=None, length: Optional[int] = None, *, ys=None, start=0,
-         n=None, until: Optional[Callable] = None):
+         n=None, until: Optional[Callable] = None, name: Optional[str] = None):
     """``lax.scan(body, carry, xs)`` over the trips i = start, start+1, ...:
     ``body(i, carry, x) -> (carry, y)``, with ``i`` the trip index as a 0-d
     int64 device tensor in every mode (so every mode runs the same indexing
@@ -586,7 +940,7 @@ def scan(body: Callable, carry, xs=None, length: Optional[int] = None, *, ys=Non
     trips the exit skips (a device range runs ``length`` trips on the card;
     on the CPU the range and the exit are read for free, and the loop stops
     where a WHILE node stops); capture records one WHILE node whose body,
-    one trip, is captured once."""
+    one trip, is captured once. ``name`` labels its node when counting."""
     if length is None:
         if xs is None:
             raise ValueError("scan: give xs or length")
@@ -638,6 +992,7 @@ def scan(body: Callable, carry, xs=None, length: Optional[int] = None, *, ys=Non
         if isinstance(lim, torch.Tensor) and dev.type == "cpu":
             lim = _cpu_int(lim)
         exact = not isinstance(lim, torch.Tensor)
+        trips = _Trips(name)
         for t in range(lim if exact else length):
             go = None if exact else t < lim
             if until is not None:
@@ -646,7 +1001,8 @@ def scan(body: Callable, carry, xs=None, length: Optional[int] = None, *, ys=Non
                     break  # as the WHILE node stops
                 go = ~stop if go is None else go & ~stop
             i = start_d + t if exact else torch.clamp(start_d + t, max=length - 1)
-            new, y = body(i, carry, _trip_rows(xs, i))
+            with trips.trip():
+                new, y = body(i, carry, _trip_rows(xs, i))
             n_leaves, n_spec = flatten(new)
             _check_match(spec, n_spec, leaves, n_leaves)
             if go is not None:
@@ -677,7 +1033,7 @@ def scan(body: Callable, carry, xs=None, length: Optional[int] = None, *, ys=Non
         with torch.cuda.stream(parent):
             return torch.empty(shape, dtype=dtype, device=dev)
 
-    with _while_body(cap, flag, counter, length):
+    with _while_body(cap, flag, counter, length, name):
         i = start_d + counter
         new, y = body(i, unflatten(spec, own), _trip_rows(xs, i))
         n_leaves, n_spec = flatten(new)
@@ -700,14 +1056,15 @@ def scan(body: Callable, carry, xs=None, length: Optional[int] = None, *, ys=Non
     return unflatten(spec, own), outputs()
 
 
-def fori_loop(lower, upper: int, body: Callable, carry):
+def fori_loop(lower, upper: int, body: Callable, carry, name: Optional[str] = None):
     """``lax.fori_loop(lower, upper, body, carry)``: ``body(i, carry) ->
     carry`` for i in [lower, upper) (``upper`` a Python int, ``lower`` a
     host or device int), through ``scan``."""
-    return scan(lambda i, c, _: (body(i, c), None), carry, length=upper, start=lower)[0]
+    return scan(lambda i, c, _: (body(i, c), None), carry, length=upper, start=lower,
+                name=name)[0]
 
 
-def repeat(n: int, body: Callable, carry):
+def repeat(n: int, body: Callable, carry, name: Optional[str] = None):
     """``lax.fori_loop(0, n, lambda _, c: body(c), carry)`` for a body that
     does not read its trip index (``n`` a Python int): eager, ``n`` calls of
     ``body`` (no trip index is made, so an eager trip launches only the
@@ -720,7 +1077,7 @@ def repeat(n: int, body: Callable, carry):
         for _ in range(n):
             carry = body(carry)
         return carry
-    return scan(lambda i, c, _: (body(c), None), carry, length=n)[0]
+    return scan(lambda i, c, _: (body(c), None), carry, length=n, name=name)[0]
 
 
 # ---------------------------------------------------------------------------
@@ -865,6 +1222,14 @@ class StepGraph:
         self._top_calls: dict = {}
         self._node_calls: Optional[list] = None
         self._counts: Optional[torch.Tensor] = None
+        # and its spans: each node's label and body node count, each span's
+        # (total, count) slots, the top level's nodes, and the ring of each
+        # replay's program-span stamps (entry = the replay's number mod RING)
+        self._labels: list = []
+        self._body_n: list = []
+        self._span_slots: dict = {}
+        self.n_top = 0
+        self._ring: Optional[torch.Tensor] = None
         # the capture's size and cost: graph nodes (the top level plus every
         # conditional body's, each captured once), IF and WHILE nodes, and
         # the capture call's host wall seconds; the warm-up call's host wall
@@ -892,19 +1257,40 @@ class StepGraph:
         read). Launches made through the wrappers (the warm-up) are theirs."""
         if self._node_calls is None:
             raise RuntimeError(f"{self.name}: not captured inside graphs.counting()")
-        if owner is None:
-            runs, replays = self._counts, self.replays
-        else:
-            runs, replays = self._owner_runs.get(owner), self._owner_replays.get(owner, 0)
-            if self._resident_owner() is owner:
-                live = self._counts - self._mark
-                runs = live if runs is None else runs + live
+        runs, replays = self._runs(owner)
         n = len(self._node_calls)
         per_node = runs[:n].tolist() if n and runs is not None else [0] * n
         out = {k: v * replays for k, v in self._top_calls.items()}
         for calls, r in zip(self._node_calls, per_node):
             _add_into(out, {k: v * r for k, v in calls.items()})
         return out
+
+    def _runs(self, owner: Optional["Program"]) -> Tuple[Optional[torch.Tensor], int]:
+        """The counters of ``owner``'s replays (all replays without one): a
+        device tensor (None before any), and the replays."""
+        if owner is None:
+            return self._counts, self.replays
+        runs, replays = self._owner_runs.get(owner), self._owner_replays.get(owner, 0)
+        if self._resident_owner() is owner:
+            live = self._counts - self._mark
+            runs = live if runs is None else runs + live
+        return runs, replays
+
+    def counters(self, owner: Optional["Program"] = None) -> Optional[dict]:
+        """What a counted capture's replays for ``owner`` (all without one)
+        ran, in one host read: ``spans`` {name: (device ns, runs)},
+        ``node_runs`` {label: executions}, ``graph_nodes`` (the graph nodes
+        executed: the top level's per replay, each body's per execution of
+        its node). None without a counted capture."""
+        if self._node_calls is None:
+            return None
+        runs, replays = self._runs(owner)
+        runs = runs.tolist() if runs is not None else [0] * self._counts.numel()
+        nodes = runs[:len(self._labels)]
+        return dict(
+            spans={k: (runs[t], runs[c]) for k, (t, c) in self._span_slots.items()},
+            node_runs=dict(zip(self._labels, nodes)),
+            graph_nodes=self.n_top * replays + sum(b * r for b, r in zip(self._body_n, nodes)))
 
     def _select(self, inputs, state):
         with use("select"), no_host_reads():
@@ -915,7 +1301,13 @@ class StepGraph:
         if self.device.type != "cuda" or not self.warmed:
             first, self.warmed = not self.warmed, True
             t0 = time.perf_counter()
-            out = self._select(inputs, state)
+            if self.device.type != "cuda" and owner is not None and _COUNTING[0]:
+                # the CPU's stand-in for a replay: its spans and nodes on the host
+                out, a, b = owner.tally.run(lambda: self._select(inputs, state))
+                owner.replay_log.append((None, None, a, b, a, b))
+            else:
+                with recording(None):  # a warm-up on the card records nothing
+                    out = self._select(inputs, state)
             if first:
                 self.warm_s = time.perf_counter() - t0
                 if owner is not None:
@@ -931,7 +1323,15 @@ class StepGraph:
                 owner.capture_s, owner.capture_calls = self.capture_s, self.capture_calls
         else:
             self._load(inputs, state, owner)
-        self.graph.replay()
+        if self._ring is not None and owner is not None:
+            # a counted replay: the host's clock at the launch call and its
+            # return, beside the replay's number (its ring entry)
+            t0 = time.perf_counter_ns()
+            self.graph.replay()
+            owner.replay_log.append((weakref.ref(self), self.replays, t0, time.perf_counter_ns(),
+                                     None, None))
+        else:
+            self.graph.replay()
         self.replays += 1
         if owner is not None:
             owner.replays += 1
@@ -1004,9 +1404,12 @@ class StepGraph:
         side = _CAPTURE_STREAMS[dev]
         side.wait_stream(torch.cuda.current_stream(dev))
         cap = _Capture(dev)
+        ring = None
         if _COUNTING[0]:
             cap.counts = torch.zeros(MAX_COUNTED_NODES, dtype=torch.int64, device=dev)
+            cap.top, cap.names = MAX_COUNTED_NODES, _Labels()
             cap.stack.append((_wrapper_calls(), {}))
+            ring = torch.zeros(2 * RING, dtype=torch.int64, device=dev)
         _CAPTURING[0] = cap
         try:
             # capture_begin/end rather than torch.cuda.graph, whose entry
@@ -1020,7 +1423,8 @@ class StepGraph:
                 # first), released with the graph (_release_graph)
                 torch._C._cuda_beginAllocateToPool(dev.index, self._body_pool)
                 try:
-                    with use("capture"), no_host_reads():
+                    with use("capture"), no_host_reads(), (
+                            _NULL if ring is None else _device_span(cap, "program", ring)):
                         new_state, outs = self.fn(unflatten(self._in_spec, self._in),
                                                   unflatten(self._state_spec, self._state))
                         n_leaves, n_spec = flatten(new_state)
@@ -1033,6 +1437,7 @@ class StepGraph:
                         copy_into(self._state, n_leaves)
                     top = ctypes.c_ulonglong()
                     _graph_kernels()["capture_nodes"](side.cuda_stream, ctypes.byref(top))
+                    self.n_top = top.value
                     self.n_nodes = top.value + cap.body_nodes
                     self.n_if, self.n_while = cap.n_if, cap.n_while
                 finally:
@@ -1049,6 +1454,9 @@ class StepGraph:
             self.capture_calls = _minus(_wrapper_calls(), entry)
             self._top_calls = _minus(self.capture_calls, inner)
             self._node_calls, self._counts = cap.nodes, cap.counts
+            self._labels, self._body_n, self._span_slots = cap.labels, cap.body_n, cap.span_slots
+            self._ring = ring
+            calibrate(dev)  # the clock's first point, at the counted capture
 
 
 _DEFERRED: list = []  # releases that fell inside a capture
@@ -1117,9 +1525,10 @@ class Program:
     """One owner's share of the process's StepGraph for a key
     (``program``): ``run`` looks the StepGraph up (the key also holds
     whether ``counting()`` is on), building it on first use, and runs it as
-    this owner. ``replays``, ``warm_s``, ``capture_s``, ``capture_calls``
-    and ``launches()`` are this owner's: a program found built costs it no
-    warm-up and no capture (both 0). ``graph``, ``n_nodes``, ``n_if``,
+    this owner. ``replays``, ``warm_s``, ``capture_s``, ``capture_calls``,
+    ``launches()``, ``spans()``, ``node_runs()``, ``graph_nodes_run()`` and
+    ``replay_log`` / ``replay_times()`` are this owner's: a program found
+    built costs it no warm-up and no capture (both 0). ``graph``, ``n_nodes``, ``n_if``,
     ``n_while`` and ``hits`` are those of the StepGraph it last ran (else
     the table's entry for its key); ``step().warmed`` tells whether the
     next ``run`` warms the program up. ``owner`` (held weakly) and
@@ -1139,6 +1548,12 @@ class Program:
         self.warm_s = self.capture_s = 0.0
         self.capture_calls: dict = {}
         self._bound: Optional[weakref.ref] = None
+        # inside counting(): the CPU's runs recorded on the host, and per run
+        # (StepGraph or None, replay number or None, host ns at the launch
+        # call, at its return, the program span's open and close: host ns on
+        # the CPU, None on the card until read from the ring)
+        self.tally = Tally()
+        self.replay_log: list = []
 
     def step(self) -> StepGraph:
         """The process's StepGraph for this key now (built on first use)."""
@@ -1181,6 +1596,57 @@ class Program:
         if sg is None:
             raise RuntimeError(f"{self.name}: no program run")
         return sg.launches(self)
+
+    def _counters(self) -> Optional[dict]:
+        sg = self.last
+        return None if sg is None else sg.counters(self)
+
+    def spans(self) -> dict:
+        """This owner's spans of the program, {name: (ns, runs)}, in one
+        host read: device ns from a counted capture's replays (``program``
+        the whole replay, first node to last), host ns from the CPU's runs
+        (``Tally``); empty outside ``counting()``."""
+        out = {k: tuple(v) for k, v in self.tally.spans.items()}
+        got = self._counters()
+        if got is not None:
+            for k, (ns, n) in got["spans"].items():
+                a, b = out.get(k, (0, 0))
+                out[k] = (a + ns, b + n)
+        return out
+
+    def node_runs(self) -> dict:
+        """This owner's executions of each conditional node, {label: runs}
+        (a WHILE node's trips; ``cond``'s untaken side is ``<label>.else``),
+        counted on the device by a counted capture's replays, or on the host
+        along the taken paths of the CPU's runs."""
+        got = self._counters()
+        return dict(self.tally.node_runs) if got is None else got["node_runs"]
+
+    def graph_nodes_run(self) -> int:
+        """The graph nodes this owner's counted replays executed (0 without
+        a counted capture: the CPU runs no graph)."""
+        got = self._counters()
+        return 0 if got is None else got["graph_nodes"]
+
+    def replay_times(self) -> list:
+        """Per run of ``replay_log``: (host ns at the launch call, at its
+        return, the program span's first stamp, its last) on the host's
+        clock (``to_host``), in one read of the ring; None for a replay whose
+        ring entry was overwritten or whose StepGraph is gone."""
+        rings: dict = {}
+        out = []
+        for ref, k, call, ret, opened, closed in self.replay_log:
+            if ref is not None:
+                sg = ref()
+                if sg is None or sg._ring is None or sg.replays - k > RING:
+                    out.append(None)
+                    continue
+                if sg not in rings:
+                    rings[sg] = sg._ring.tolist()
+                r = 2 * (k % RING)
+                opened, closed = (to_host(self.device, v) for v in rings[sg][r:r + 2])
+            out.append((call, ret, opened, closed))
+        return out
 
     def evict(self, sg: StepGraph) -> None:
         """Clone the owner's tensors that are ``sg``'s static state buffers
