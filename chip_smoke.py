@@ -42,6 +42,11 @@
      calls XLA's ``eigh``/``svd``) on seeded batches at the vocabulary path's
      shapes and edge cases, equal to its plain version element by element
      (``SYMEIG_TOL_ABS``, a zero's sign aside), timed beside ``torch.linalg.eigh``;
+   - the port's own quad-tree kernel (``csrc/distribute.cu``, every pyramid
+     level in one launch; no TPU kernel: the JAX package leaves the device
+     quad-tree to XLA) on the FAST candidates of the benchmark's 39 distinct
+     fr1_xyz frames, every keep mask equal to its plain version bit for bit,
+     timed beside it; no path may run the plain version on CUDA tensors;
 4. main path 1: the port's FusedTracker over the synthetic corner sequence
    (30 frames, 1000 features, 8 levels: the fr1 extraction settings, as
    ``run_slam --synthetic`` uses): 30/30 tracked frames, ATE < 1 cm, every
@@ -1075,6 +1080,91 @@ def run_symeig_phase(dev) -> dict:
                 bound_by=by, library_ms=library_ms, instances=rows)
 
 
+# the quad-tree kernel's work a pair test: the xor, the two minima (one
+# predicated) and the response compare, each at the 64-lane rate; a
+# candidate's bytes: x, y, response and valid read, keep written
+DISTRIBUTE_PAIR_OPS = {"alu": 4}
+DISTRIBUTE_CANDIDATE_BYTES = 4 + 4 + 4 + 1 + 1
+# the benchmark's fr1_xyz recording: its textures' seed, its distinct frames
+DISTRIBUTE_SEED = 3000002025
+DISTRIBUTE_FRAMES = 39
+
+
+def distribute_instances(device) -> tuple:
+    """The quad-tree's inputs on the benchmark's fr1_xyz recording
+    (``slambench/configs/fr1_xyz.json``, textures from DISTRIBUTE_SEED):
+    each distinct frame's FAST candidates as ``select_keypoints`` takes them
+    at thresholds 20 and 7, [L, M] each (8 levels, M 2,520 at 640x480) ->
+    (a list of (xs, ys, resp, valid), the levels' ``quad_tree_levels``)."""
+    from slambench import run as bench_run
+    from vo_slam_test_tpu_torch.frontend.extractor import quad_tree_levels
+    from vo_slam_test_tpu_torch.ops import fast
+    from vo_slam_test_tpu_torch.ops.pyramid import PyramidSpec, build_pyramid, interior
+
+    inp = bench_run.make_inputs(bench_run.read_json("configs", "fr1_xyz"), DISTRIBUTE_SEED,
+                                device)
+    slam = inp.slam_cfg
+    spec = PyramidSpec(slam.camera_width, slam.camera_height, slam.level_pyramid,
+                       slam.scale_factor)
+    out = []
+    for i in range(DISTRIBUTE_FRAMES):
+        pyr = build_pyramid(inp.frame(i)[0], spec)
+        c = fast.detect_pyramid(interior(pyr.raw, spec), spec, 20.0, 7.0, 8)
+        out.append(tuple(t.reshape(spec.n_levels, -1) for t in (c.xs, c.ys, c.response,
+                                                                 c.valid)))
+    return out, quad_tree_levels(spec, spec.budget(slam.num_of_features))
+
+
+def run_distribute_phase(dev) -> dict:
+    """Phase distribute: the quad-tree kernel (``ops/distribute_cuda.py``, the
+    eight levels in one launch) against its plain version
+    (``ops/distribute_device.py::distribute_level``, a call a level), both on
+    the card, on ``distribute_instances``: every keep mask [L, M] equal bit
+    for bit. Times the kernel (graph replay) and the plain version (eager) on
+    the frame with the most pair tests (the valid candidates squared, summed
+    over the levels) -> the kernels line's row."""
+    from vo_slam_test_tpu_torch.ops import distribute_cuda
+    from vo_slam_test_tpu_torch.ops.distribute_device import distribute_level
+
+    def plain(a):
+        xs, ys, resp, valid = a
+        return torch.stack([distribute_level(xs[l], ys[l], resp[l], valid[l], lv.bounds,
+                                             lv.target, n_ini=lv.n_ini)
+                            for l, lv in enumerate(levels)])
+
+    insts, levels = distribute_instances(dev)
+    launches0 = distribute_cuda.KERNEL.launches
+    differ, most, a = [], -1, None
+    for i, inst in enumerate(insts):
+        if not torch.equal(distribute_cuda.distribute(*inst, levels), plain(inst)):
+            differ.append(i)
+        pairs = int((inst[3].sum(dim=1).to(torch.int64) ** 2).sum())
+        if pairs > most:
+            most, a = pairs, inst
+    if differ:
+        raise AssertionError(f"phase distribute: keep masks differ from the plain version on "
+                             f"frames {differ} of {len(insts)}")
+    ms = time_graph_ms(lambda: distribute_cuda.distribute(*a, levels))
+    plain_ms = time_eager_ms(lambda: plain(a), iters=3)
+    distribute_cuda.KERNEL.launches = launches0  # timing launches are no path's
+    L, M = a[0].shape
+    valid = a[3].sum(dim=1).tolist()
+    bound, by = bound_ms(L * M * DISTRIBUTE_CANDIDATE_BYTES,
+                         {k: v * most for k, v in DISTRIBUTE_PAIR_OPS.items()})
+    print(f"phase distribute (the port's own kernel: the quad-tree of every level in one "
+          f"launch): keep masks equal to the plain version bit for bit on all {len(insts)} "
+          f"distinct fr1_xyz frames; the frame with the most pair tests ({most}, valid {valid} "
+          f"a level of M {M}): kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+          f"{bound:.6f} ms ({by})")
+    return dict(name="distribute", shape=f"[{L},{M}] (fr1_xyz, valid {valid})", route="cuda",
+                source="vo_slam_test_tpu_torch/csrc/distribute.cu",
+                replaces="none (the port's own: the JAX package leaves the device quad-tree to "
+                         "XLA, vo_slam_test_tpu/ops/distribute_device.py::distribute_level)",
+                max_abs_err=0.0, ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by,
+                library_ms=None, counted=dict(pair_tests=most, valid=valid),
+                instances=dict(frames=len(insts), equal=len(insts)))
+
+
 # the FAST kernel's 3x3-NMS mode runs in its own phase only: no path calls it
 OFF_PATH = ("fast_nms",)
 # the small symmetric eigensolver runs only where a vocabulary is (Horn and
@@ -1084,19 +1174,21 @@ VOCAB_ONLY = ("symeig",)
 
 def kernel_counters() -> dict:
     """Every kernel's launch counter by its key in the kernels line."""
-    from vo_slam_test_tpu_torch.ops import ba_cuda, fast_cuda, match_cuda, orb_cuda, symeig_cuda
+    from vo_slam_test_tpu_torch.ops import (
+        ba_cuda, distribute_cuda, fast_cuda, match_cuda, orb_cuda, symeig_cuda)
 
     return {"fast": fast_cuda.KERNEL, "orb": orb_cuda.KERNEL, "top2": match_cuda.KERNEL,
             "top2_m4096": match_cuda.KERNEL_LOCAL, "top2_chi2": match_cuda.KERNEL_CHI2,
             "top2_nb": match_cuda.KERNEL_NB, "top1_epi": match_cuda.KERNEL_EPI,
             "ba_acc": ba_cuda.KERNEL_ACC, "ba_cost": ba_cuda.KERNEL_COST,
             "ba_backsub": ba_cuda.KERNEL_BACKSUB, "fast_nms": fast_cuda.KERNEL_NMS,
-            "symeig": symeig_cuda.KERNEL}
+            "symeig": symeig_cuda.KERNEL, "distribute": distribute_cuda.KERNEL}
 
 
 def plain_versions() -> list:
     """(module, name) of every kernel's plain version, for ``PlainGuard``."""
-    from vo_slam_test_tpu_torch.ops import ba_pallas, brief, fast, match_pallas, orientation
+    from vo_slam_test_tpu_torch.ops import (
+        ba_pallas, brief, distribute_cuda, distribute_device, fast, match_pallas, orientation)
     from vo_slam_test_tpu_torch.utils import linalg
 
     return [(fast, "fast_score"), (fast, "fast_score_nms"), (orientation, "ic_angle"),
@@ -1104,7 +1196,8 @@ def plain_versions() -> list:
             (match_pallas, "masked_top2_plain"), (match_pallas, "masked_top2_nb_plain"),
             (match_pallas, "masked_top1_epi_plain"), (ba_pallas, "ba_accumulate_plain"),
             (ba_pallas, "ba_cost_plain"), (ba_pallas, "ba_backsub_plain"),
-            (linalg, "symeig_jacobi")]
+            (linalg, "symeig_jacobi"), (distribute_device, "distribute_level"),
+            (distribute_cuda, "distribute_level")]
 
 
 class PlainGuard:
@@ -4031,6 +4124,21 @@ def main() -> int:
         prestage.wait()
 
 
+def calibration_outside_sync_check(calibrate):
+    """``graphs.calibrate`` run with sync debug mode ``default``: a counted
+    capture puts the card's clock on the host's there (``utils/graphs.py``),
+    one deliberate synchronize at the capture, not a host read of the step;
+    every other sync of a ``track`` call stays under the paths' checks."""
+    def run(device):
+        mode = torch.cuda.get_sync_debug_mode()
+        torch.cuda.set_sync_debug_mode("default")
+        try:
+            return calibrate(device)
+        finally:
+            torch.cuda.set_sync_debug_mode(mode)
+    return run
+
+
 def run_all(prestage: subprocess.Popen) -> int:
     """Every phase and main path, in order (module docstring)."""
     # detach CUPTI when each profiler window ends: left attached, every later
@@ -4050,7 +4158,9 @@ def run_all(prestage: subprocess.Popen) -> int:
     from vo_slam_test_tpu_torch.matching import matcher
     from vo_slam_test_tpu_torch.pipeline import system, tracking
     from vo_slam_test_tpu_torch.slam_map import triangulate
+    from vo_slam_test_tpu_torch.utils import graphs as graphs_mod
 
+    graphs_mod.calibrate = calibration_outside_sync_check(graphs_mod.calibrate)
     dev = torch.device("cuda")
     name = torch.cuda.get_device_name(0)
     smi = subprocess.run(
@@ -4354,6 +4464,9 @@ def run_all(prestage: subprocess.Popen) -> int:
 
     # -- phase symeig: the small symmetric eigensolver (Horn, EPnP) -----------
     kernels["symeig"] = run_symeig_phase(dev)
+
+    # -- phase distribute: the quad-tree of every level in one launch ----------
+    kernels["distribute"] = run_distribute_phase(dev)
 
     # -- main path 1: FusedTracker -------------------------------------------
     tracker = tracking.FusedTracker(cfg, graphs=False)
@@ -4907,7 +5020,7 @@ def run_all(prestage: subprocess.Popen) -> int:
         kernels[k]["dense_window"] = dense_rows[k]
     print(f"  main path 8 in {time.perf_counter() - t8:.1f} s")
 
-    for k in ("fast", "orb", "top2") + OFF_PATH:
+    for k in ("fast", "orb", "top2", "distribute") + OFF_PATH:
         kernels[k]["launches"] = launches1[k]
     for k in ("top2_m4096", "top2_chi2", "top2_nb", "top1_epi") + ba_keys:
         kernels[k]["launches"] = launches2[k]
@@ -4963,7 +5076,7 @@ def run_all(prestage: subprocess.Popen) -> int:
         "off_nominal_scenes": scenes7, "saturated_local_ba": saturated,
         "bench_configuration": bench8, "card": smi}}))
     order = ("fast", "orb", "top2", "top2_m4096", "top2_chi2", "top2_nb", "top1_epi") + ba_keys \
-        + OFF_PATH + VOCAB_ONLY
+        + ("distribute",) + OFF_PATH + VOCAB_ONLY
     print(json.dumps({"kernels": [{key: kernels[k][key] for key in keys if key in kernels[k]}
                                   for k in order]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

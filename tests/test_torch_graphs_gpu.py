@@ -1033,9 +1033,11 @@ def test_spans_stamp_the_programs_on_one_clock(kidnap):
     """``SlamSystem(vocabulary=...)`` over the kidnap inside ``counting()``:
     each replay's stamps in order (first before last, after the previous
     replay's last; both programs share one stream), each after its launch
-    call on the shared clock; the tracking program's five stages cover
-    90-100% of its ``program`` span and run once a tracked frame; the
-    calibration's error bound under 50 us; ``%globaltimer`` advances."""
+    call on the shared clock; the tracking program's five stages and its
+    ``carry`` (the scan's and the capture's own copying) cover 90-100% of
+    its ``program`` span, the five run once a tracked frame and ``carry`` at
+    least as often; the calibration's error bound under 50 us; ``%globaltimer``
+    advances."""
     from vo_slam_test_tpu_torch.slam_map.map_state import MapCaps
 
     cfg, voc, frames, _ = kidnap
@@ -1059,7 +1061,8 @@ def test_spans_stamp_the_programs_on_one_clock(kidnap):
     tracked = s.track_graph.replays
     names = ("extract", "bow", "attempts", "local_map", "keyframe")
     assert all(stages[k][1] == tracked for k in names + ("program",))
-    share = sum(stages[k][0] for k in names) / stages["program"][0]
+    assert stages["carry"][1] >= tracked
+    share = sum(stages[k][0] for k in names + ("carry",)) / stages["program"][0]
     assert 0.90 <= share <= 1.0, share
     bg = tr["stages"]["background"]
     assert sum(v[0] for k, v in bg.items() if k not in ("program", "close_step")) \

@@ -16,7 +16,7 @@ import torch
 
 from vo_slam_test_tpu_torch.config import SlamConfig
 from vo_slam_test_tpu_torch.datasets import SyntheticRGBD, ate_rmse
-from vo_slam_test_tpu_torch.frontend.extractor import select_keypoints
+from vo_slam_test_tpu_torch.frontend.extractor import quad_tree_levels, select_keypoints
 from vo_slam_test_tpu_torch.ops import (ba_cuda, ba_pallas, brief, fast, fast_cuda, match_cuda,
                                         match_pallas, orb_cuda)
 from vo_slam_test_tpu_torch.ops import orientation
@@ -1070,9 +1070,11 @@ def test_ba_rows_on_saturated_window(saturated_iteration, key):
 
 
 def test_distribute_level_cell_boundaries_on_card(cuda):
-    """The quad-tree's cell keys on the card round as on the CPU (one f32
-    multiply by XLA's folded constant): keep masks equal on candidates at
-    every integer position of a row and a column of each 640x480 level."""
+    """The quad-tree kernel's cell keys round as the plain version's on the
+    CPU (one f32 multiply by XLA's folded constant): keep masks equal on
+    candidates at every integer position of a row and a column of each
+    640x480 level, one launch a level."""
+    from vo_slam_test_tpu_torch.ops import distribute_cuda
     from vo_slam_test_tpu_torch.ops.distribute_device import distribute_level
 
     spec = PyramidSpec(640, 480, 8, 1.2)
@@ -1087,8 +1089,112 @@ def test_distribute_level_cell_boundaries_on_card(cuda):
         bounds = (float(b), float(w - b), float(b), float(h - b))
         n_ini = max(int(round((w - 2 * b) / (h - 2 * b))), 1)
         want = distribute_level(*args, bounds, 8, n_ini=n_ini)
-        got = distribute_level(*[a.to(cuda) for a in args], bounds, 8, n_ini=n_ini)
-        assert torch.equal(got.cpu(), want), lvl
+        before = distribute_cuda.KERNEL.launches
+        got = distribute_cuda.distribute(*[a[None].to(cuda) for a in args],
+                                         [distribute_cuda.Level(bounds, 8, n_ini)])
+        assert distribute_cuda.KERNEL.launches == before + 1
+        assert torch.equal(got[0].cpu(), want), lvl
+
+
+def _plain_keep(xs, ys, resp, valid, levels):
+    """The plain version, level by level on the CPU."""
+    from vo_slam_test_tpu_torch.ops import distribute_cuda
+
+    return distribute_cuda.distribute(xs.cpu(), ys.cpu(), resp.cpu(), valid.cpu(), levels)
+
+
+def test_distribute_kernel_matches_plain(frame_pyramid):
+    """Every level of the 640x480 frame's FAST candidates (M 2,520): the
+    kernel's [L, M] keep mask in one launch equals the plain version's."""
+    from vo_slam_test_tpu_torch.ops import distribute_cuda
+
+    spec, pyr = frame_pyramid
+    c = fast.detect_pyramid(interior(pyr.raw, spec), spec, 20.0, 7.0, 8)
+    L = spec.n_levels
+    xs, ys, resp, valid = (t.reshape(L, -1) for t in (c.xs, c.ys, c.response, c.valid))
+    assert xs.shape[1] == 2520
+    levels = quad_tree_levels(spec, spec.budget(1000))
+    before = distribute_cuda.KERNEL.launches
+    got = distribute_cuda.distribute(xs, ys, resp, valid, levels)
+    torch.cuda.synchronize()
+    assert distribute_cuda.KERNEL.launches == before + 1
+    want = _plain_keep(xs, ys, resp, valid, levels)
+    assert torch.equal(got.cpu(), want)
+    assert int(want[0].sum()) > 0
+
+
+@pytest.mark.parametrize("M,kind,width", [
+    (M, kind, 640) for M in (560, 2520, 6000) for kind in ("random", "clustered", "ties")
+] + [(2520, "random", 1280), (6000, "clustered", 1280)])
+def test_distribute_kernel_random(cuda, M, kind, width):
+    """Eight levels of random candidates with the bounds of a 640x480 pyramid
+    (one root cell a level) or a 1280x480 one (two or three): uniform, in
+    clusters (many in one cell) and with three responses (the index breaks
+    the ties); the share of valid ones from none to all by level; M 6,000 is
+    beyond the kernel's staged tile of 4,096 candidates."""
+    from vo_slam_test_tpu_torch.ops import distribute_cuda
+
+    spec = PyramidSpec(width, 480, 8, 1.2)
+    levels = quad_tree_levels(spec, spec.budget(1000))
+    rng = np.random.default_rng(M + len(kind))
+    rows = []
+    for lvl, lv in enumerate(levels):
+        lo_x, hi_x, lo_y, hi_y = (int(v) for v in lv.bounds)
+        if kind == "clustered":
+            centers = rng.uniform([lo_x, lo_y], [hi_x, hi_y], (4, 2))
+            p = centers[rng.integers(0, 4, M)] + rng.normal(0, 3, (M, 2))
+            xs = np.clip(np.rint(p[:, 0]), lo_x, hi_x - 1)
+            ys = np.clip(np.rint(p[:, 1]), lo_y, hi_y - 1)
+        else:
+            xs, ys = rng.integers(lo_x, hi_x, M), rng.integers(lo_y, hi_y, M)
+        resp = (rng.integers(1, 4, M) if kind == "ties" else rng.uniform(1, 200, M))
+        valid = rng.random(M) < (0.0, 0.02, 0.1, 0.3, 0.5, 0.8, 0.95, 1.0)[lvl]
+        rows.append((xs.astype(np.int32), ys.astype(np.int32), resp.astype(np.float32), valid))
+    args = [torch.as_tensor(np.stack(a)) for a in zip(*rows)]
+    got = distribute_cuda.distribute(*[a.to(cuda) for a in args], levels)
+    want = _plain_keep(*args, levels)
+    assert torch.equal(got.cpu(), want)
+
+
+def test_select_keypoints_launches_distribute_once(frame_pyramid):
+    """``select_keypoints`` on the card: one quad-tree launch for the whole
+    pyramid, and the selection equal to the same function's on the CPU."""
+    from vo_slam_test_tpu_torch.ops import distribute_cuda
+    from vo_slam_test_tpu_torch.ops.pyramid import Pyramid
+
+    spec, pyr = frame_pyramid
+    budgets = spec.budget(1000)
+    before = distribute_cuda.KERNEL.launches
+    got = select_keypoints(pyr, spec, budgets)
+    torch.cuda.synchronize()
+    assert distribute_cuda.KERNEL.launches == before + 1
+    want = select_keypoints(Pyramid(pyr.raw.cpu(), pyr.blur.cpu()), spec, budgets)
+    for name, g, w in zip(got._fields, got, want):
+        assert torch.equal(g.cpu(), w), name
+    assert int(want.valid.sum()) > 900
+
+
+def test_distribute_kernel_once_per_tracked_frame_in_program(cuda):
+    """Inside the tracking program, counted on the device
+    (``graphs.counting``): the quad-tree kernel launches once a tracked
+    frame, as many times as the ``extract`` span runs."""
+    from vo_slam_test_tpu_torch.ops import distribute_cuda
+    from vo_slam_test_tpu_torch.utils import graphs
+
+    seq = SyntheticRGBD(trajectory=room_orbit_trajectory(240, loops=1.5), scene="room", seed=7)
+    cfg = SlamConfig(camera_fx=seq.fx, camera_fy=seq.fy, camera_cx=seq.cx, camera_cy=seq.cy,
+                     camera_k1=0, camera_k2=0, camera_p1=0, camera_p2=0, camera_k3=0)
+    frames = [(torch.as_tensor(g).to(cuda), torch.as_tensor(d).to(cuda), t)
+              for g, d, t in (seq[i] for i in range(8))]
+    with graphs.counting():
+        s = SlamSystem(cfg, graphs=True)
+        for f in frames:
+            s.track(*f)
+        s.results()
+    tracked = s.track_graph.replays
+    assert tracked >= 5
+    assert s.track_graph.launches().get(distribute_cuda.KERNEL, 0) == tracked
+    assert s.trace()["stages"]["tracking"]["extract"][1] == tracked
 
 
 # ---------------------------------------------------------------------------

@@ -9,8 +9,8 @@ clock and its nodes along the taken paths:
 - a toy program's spans and node runs, labels unique and stable across a
   loop's trips;
 - a ``SlamSystem`` with a vocabulary through its programs over a window of
-  ``slambench.run``: every stage of both programs with its runs, node runs
-  by label, the host spans per frame and ``trace()``; each of the
+  ``slambench.run``: every stage of both programs with its runs, the
+  scans' ``carry`` spans, node runs by label, the host spans per frame and ``trace()``; each of the
   benchmark's span readers returns a number on that window;
 - the owner hand-over of spans and node counters on a StepGraph given its
   counters by hand (the card's split between systems sharing a program);
@@ -200,6 +200,18 @@ def test_the_stages_fit_inside_their_program(window):
                         ("background", MAPPING_STAGES + LOOP_STAGES)):
         got = tr["stages"][prog]
         assert sum(got[n][0] for n in names) <= got["program"][0], prog
+
+
+def test_the_carry_span_runs_each_trip_beside_the_stages(window):
+    """Both programs' scans name their own copying ``carry``: on the CPU one
+    span a trip (a tracked frame, a background event), beside the stages
+    inside the program."""
+    _, _, tr = window
+    for prog, names, trips in (("tracking", TRACKING_STAGES, FRAMES - 1),
+                               ("background", MAPPING_STAGES + LOOP_STAGES, FRAMES)):
+        got = tr["stages"][prog]
+        assert got["carry"][1] == trips and got["carry"][0] > 0, prog
+        assert sum(got[n][0] for n in names + ("carry",)) <= got["program"][0], prog
 
 
 def test_node_labels_are_unique_and_named_where_asked(window):

@@ -2,10 +2,10 @@
 
 ``extract_fused``, fully on the device: pyramid canvases (raw + u8 blur) ->
 FAST score (kernel ``csrc/fast.cu``) -> cell-local NMS, two-threshold retry,
-per-cell top-K -> per-level device quad-tree -> compaction into MAX_FEATURES
-slots -> IC angle + steered rBRIEF (kernel ``csrc/orb.cu``) -> level-0
-coordinates, undistortion, depth and virtual-stereo uRight. No host round
-trip.
+per-cell top-K -> the quad-tree of every level (kernel ``csrc/distribute.cu``)
+-> compaction into MAX_FEATURES slots -> IC angle + steered rBRIEF (kernel
+``csrc/orb.cu``) -> level-0 coordinates, undistortion, depth and
+virtual-stereo uRight. No host round trip.
 
 ``OrbExtractor``, the host path: the same stage A up to the per-cell top-K,
 one host read of the candidates, the per-level host quad-tree
@@ -15,14 +15,14 @@ one host read of the candidates, the per-level host quad-tree
 from __future__ import annotations
 
 import functools
-from typing import NamedTuple, Tuple, Union
+from typing import List, NamedTuple, Tuple, Union
 
 import numpy as np
 import torch
 
 from ..camera import Camera
 from ..ops import fast, orb_cuda, undistort
-from ..ops.distribute_device import distribute_level
+from ..ops.distribute_cuda import Level, distribute
 from ..ops.pyramid import Pyramid, PyramidSpec, build_pyramid, interior
 from .distribute import distribute_octtree
 from .frame import MAX_FEATURES, FrameFeatures
@@ -83,6 +83,15 @@ def _stage_b(
     )
 
 
+def quad_tree_levels(spec: PyramidSpec, budgets: Tuple[int, ...]) -> List[Level]:
+    """Each level's quad-tree: the detection area inside the FAST border, the
+    level's budget and its root-cell count (round(w / h), at least 1)."""
+    b = float(fast.DETECT_BORDER)
+    return [Level((b, w - b, b, h - b), budgets[lvl],
+                  max(int(round((w - 2 * b) / (h - 2 * b))), 1))
+            for lvl, (h, w) in enumerate(spec.sizes)]
+
+
 def select_keypoints(
     pyr: Pyramid,
     spec: PyramidSpec,
@@ -100,14 +109,7 @@ def select_keypoints(
     resp = cands.response.reshape(L, M)
     valid = cands.valid.reshape(L, M)
 
-    b = float(fast.DETECT_BORDER)
-    keeps = []
-    for lvl in range(L):
-        h, w = spec.sizes[lvl]
-        n_ini = max(int(round((w - 2 * b) / (h - 2 * b))), 1)
-        keeps.append(distribute_level(xs[lvl], ys[lvl], resp[lvl], valid[lvl],
-                                      (b, w - b, b, h - b), budgets[lvl], n_ini=n_ini))
-    flat_keep = torch.stack(keeps).reshape(-1)
+    flat_keep = distribute(xs, ys, resp, valid, quad_tree_levels(spec, budgets)).reshape(-1)
 
     # compact selected candidates into MAX_FEATURES slots; overflow and
     # unselected entries go to a dump slot that is cut off

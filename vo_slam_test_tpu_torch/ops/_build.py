@@ -22,7 +22,8 @@ from typing import Dict, Iterable, Sequence, Tuple
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-KERNEL_SOURCES = ("fast", "orb", "match", "epi", "ba", "noop", "graph_if", "symeig")
+KERNEL_SOURCES = ("fast", "orb", "match", "epi", "ba", "noop", "graph_if", "symeig",
+                  "distribute")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",

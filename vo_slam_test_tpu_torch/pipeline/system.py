@@ -880,7 +880,7 @@ def track_program(inputs, carry, *, caps: MapCaps, spec: PyramidSpec, budgets, f
     (SlamOut, new keyframe id, descriptors, their valid mask) stacked [K,
     ...]). The statics are bound by keyword: nothing here belongs to one
     system, so every system of one static configuration shares the
-    program."""
+    program. The scan's own copying is the span ``carry``."""
     (cam, voc, scale_factors, inv_level_sigma2), grays, depths, stamps, (start, n, _) = inputs
 
     def body(i, carry, frame):
@@ -890,7 +890,8 @@ def track_program(inputs, carry, *, caps: MapCaps, spec: PyramidSpec, budgets, f
             fast_hi, fast_lo, max_frame_gap, voc, reloc_parity)
         return (state, m), (out, new_kf, state.feats.desc, state.feats.valid)
 
-    return graphs_mod.scan(body, carry, (grays, depths, stamps), start=start, n=n, name="frames")
+    return graphs_mod.scan(body, carry, (grays, depths, stamps), start=start, n=n, name="frames",
+                          carry_span="carry")
 
 
 def background_program(inputs, carry, *, caps: MapCaps, with_loop: bool, bow_group_div: int,
@@ -916,7 +917,8 @@ def background_program(inputs, carry, *, caps: MapCaps, with_loop: bool, bow_gro
             return (m, ls), (bg.ba_n1, bg.ba_n2, bg.cands, bg.cand_gens, bg.close)
         return m, (bg.ba_n1, bg.ba_n2)
 
-    return graphs_mod.scan(body, carry, (did, kid, stops), start=start, n=n, name="events")
+    return graphs_mod.scan(body, carry, (did, kid, stops), start=start, n=n, name="events",
+                          carry_span="carry")
 
 
 def recover_frame_pose(

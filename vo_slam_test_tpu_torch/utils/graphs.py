@@ -58,14 +58,17 @@ conditional node gets a counter of its executions; both live in one int64
 buffer per StepGraph, split between its owners as the launches are.
 ``cond``/``while_capped``/``scan``/``fori_loop``/``repeat`` take a ``name``
 for their node; an unnamed node is labelled by its innermost span and its
-ordinal there. The top-level ``program`` span also writes each replay's
-stamps into a ring (``RING`` replays), which ``calibrate``/``to_host`` put on
-the host's ``time.perf_counter_ns`` clock. On the CPU a program's run (select
-mode, the stand-in for a replay) records the same spans with the host's
-clock and counts the nodes its taken paths pass (``Tally``). Outside a
-program, ``span`` records into the host ``Recorder`` that ``recording`` names
-(a ``SlamSystem``'s spans). Whichever path, ``span`` opens a
-``torch.profiler.record_function`` of its name while a profiler records.
+ordinal there. A counted capture's copy of its outputs and new state at its
+end is a ``carry`` span, as is a ``scan``'s own copying where its
+``carry_span`` names one. The top-level ``program`` span also writes each
+replay's stamps into a ring (``RING`` replays), which ``calibrate``/
+``to_host`` put on the host's ``time.perf_counter_ns`` clock. On the CPU a
+program's run (select mode, the stand-in for a replay) records the same
+spans with the host's clock and counts the nodes its taken paths pass
+(``Tally``). Outside a program, ``span`` records into the host ``Recorder``
+that ``recording`` names (a ``SlamSystem``'s spans). Whichever path,
+``span`` opens a ``torch.profiler.record_function`` of its name while a
+profiler records.
 
 Whether a value lives on the host or on the device is decided here and
 nowhere else: ``fetch`` reads the values a step branches on back when eager
@@ -444,6 +447,11 @@ def span(name: str):
         elif _SINK[0] is not None:
             return _SINK[0].span(name)
     return _profiled(name)
+
+
+def _named_span(name: Optional[str]):
+    """``span(name)``, or nothing for None."""
+    return _NULL if name is None else span(name)
 
 
 def recording(sink):
@@ -920,7 +928,8 @@ def _check_rows(ys_spec, y_spec, bufs, y_leaves) -> None:
 
 
 def scan(body: Callable, carry, xs=None, length: Optional[int] = None, *, ys=None, start=0,
-         n=None, until: Optional[Callable] = None, name: Optional[str] = None):
+         n=None, until: Optional[Callable] = None, name: Optional[str] = None,
+         carry_span: Optional[str] = None):
     """``lax.scan(body, carry, xs)`` over the trips i = start, start+1, ...:
     ``body(i, carry, x) -> (carry, y)``, with ``i`` the trip index as a 0-d
     int64 device tensor in every mode (so every mode runs the same indexing
@@ -940,7 +949,11 @@ def scan(body: Callable, carry, xs=None, length: Optional[int] = None, *, ys=Non
     trips the exit skips (a device range runs ``length`` trips on the card;
     on the CPU the range and the exit are read for free, and the loop stops
     where a WHILE node stops); capture records one WHILE node whose body,
-    one trip, is captured once. ``name`` labels its node when counting."""
+    one trip, is captured once. ``name`` labels its node when counting.
+    ``carry_span`` names a ``span`` around the loop's own copying outside
+    the body: the carry's copy before the first trip, each trip's output
+    rows and carry update, and the rows of the trips not run zeroed after
+    the last (select mode: each trip's part)."""
     if length is None:
         if xs is None:
             raise ValueError("scan: give xs or length")
@@ -1003,26 +1016,28 @@ def scan(body: Callable, carry, xs=None, length: Optional[int] = None, *, ys=Non
             i = start_d + t if exact else torch.clamp(start_d + t, max=length - 1)
             with trips.trip():
                 new, y = body(i, carry, _trip_rows(xs, i))
-            n_leaves, n_spec = flatten(new)
-            _check_match(spec, n_spec, leaves, n_leaves)
-            if go is not None:
-                n_leaves = [torch.where(go, a, b) for a, b in zip(n_leaves, leaves)]
-            leaves, carry = n_leaves, unflatten(spec, n_leaves)
-            y_leaves, y_spec = flatten(y)
-            if y_leaves:
-                rows_for(y_leaves, y_spec, zeros)
-                _write_rows(bufs, i, y_leaves, go)
+            with _named_span(carry_span):
+                n_leaves, n_spec = flatten(new)
+                _check_match(spec, n_spec, leaves, n_leaves)
+                if go is not None:
+                    n_leaves = [torch.where(go, a, b) for a, b in zip(n_leaves, leaves)]
+                leaves, carry = n_leaves, unflatten(spec, n_leaves)
+                y_leaves, y_spec = flatten(y)
+                if y_leaves:
+                    rows_for(y_leaves, y_spec, zeros)
+                    _write_rows(bufs, i, y_leaves, go)
         return carry, outputs()
     cap = _CAPTURING[0]
     if cap is None:
         raise RuntimeError("scan in capture mode outside a StepGraph capture")
-    lim_d = on_device(lim, torch.int64, dev)
-    flag = lim_d > 0
-    if until is not None:
-        flag = flag & ~until(carry).reshape(()).to(torch.bool)
-    flag = flag.clone()
-    counter = torch.empty((), dtype=torch.int64, device=dev)
-    own = [x.clone() for x in leaves]
+    with _named_span(carry_span):
+        lim_d = on_device(lim, torch.int64, dev)
+        flag = lim_d > 0
+        if until is not None:
+            flag = flag & ~until(carry).reshape(()).to(torch.bool)
+        flag = flag.clone()
+        counter = torch.empty((), dtype=torch.int64, device=dev)
+        own = [x.clone() for x in leaves]
     masked = bufs is None  # rows made in the body: those of trips not run are zeroed after
     parent = torch.cuda.current_stream(dev)
 
@@ -1036,23 +1051,25 @@ def scan(body: Callable, carry, xs=None, length: Optional[int] = None, *, ys=Non
     with _while_body(cap, flag, counter, length, name):
         i = start_d + counter
         new, y = body(i, unflatten(spec, own), _trip_rows(xs, i))
-        n_leaves, n_spec = flatten(new)
-        _check_match(spec, n_spec, own, n_leaves)
-        nxt = counter + 1 < lim_d
-        if until is not None:
-            nxt = nxt & ~until(new).reshape(()).to(torch.bool)
-        y_leaves, y_spec = flatten(y)
-        if y_leaves:
-            rows_for(y_leaves, y_spec, outside)
-            _write_rows(bufs, i, y_leaves)
-        copy_into(own, n_leaves)
-        flag.copy_(nxt)
+        with _named_span(carry_span):
+            n_leaves, n_spec = flatten(new)
+            _check_match(spec, n_spec, own, n_leaves)
+            nxt = counter + 1 < lim_d
+            if until is not None:
+                nxt = nxt & ~until(new).reshape(()).to(torch.bool)
+            y_leaves, y_spec = flatten(y)
+            if y_leaves:
+                rows_for(y_leaves, y_spec, outside)
+                _write_rows(bufs, i, y_leaves)
+            copy_into(own, n_leaves)
+            flag.copy_(nxt)
     if masked and bufs is not None:
         # the counter holds the number of trips run
-        r = torch.arange(length, device=dev)
-        ran = (r >= start_d) & (r < start_d + counter)
-        bufs = [torch.where(ran.reshape((length,) + (1,) * (b.dim() - 1)), b,
-                            torch.zeros((), dtype=b.dtype, device=dev)) for b in bufs]
+        with _named_span(carry_span):
+            r = torch.arange(length, device=dev)
+            ran = (r >= start_d) & (r < start_d + counter)
+            bufs = [torch.where(ran.reshape((length,) + (1,) * (b.dim() - 1)), b,
+                                torch.zeros((), dtype=b.dtype, device=dev)) for b in bufs]
     return unflatten(spec, own), outputs()
 
 
@@ -1433,8 +1450,9 @@ class StepGraph:
                                              f"state (a host value a graph would freeze)")
                         o_leaves, self._out_spec = flatten(outs)
                         # outputs first: the state copy may rewrite what they alias
-                        self._outs = [x.clone() for x in o_leaves]
-                        copy_into(self._state, n_leaves)
+                        with span("carry"):
+                            self._outs = [x.clone() for x in o_leaves]
+                            copy_into(self._state, n_leaves)
                     top = ctypes.c_ulonglong()
                     _graph_kernels()["capture_nodes"](side.cuda_stream, ctypes.byref(top))
                     self.n_top = top.value
